@@ -1,0 +1,64 @@
+"""The PyTorch port never imports jax or flax.
+
+The card machine has no jax. This file's tests run the port in a fresh
+interpreter (tests/conftest.py has already imported jax into this one):
+import every module of ``vilbert_tpu_torch``, run the eval CLI end to end on
+a tiny config on the CPU, and check that neither jax nor flax was loaded.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_TINY = dict(
+    vocab_size=99, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+    intermediate_size=64, max_position_embeddings=64, v_feature_size=2048,
+    v_hidden_size=24, v_num_hidden_layers=2, v_num_attention_heads=4,
+    v_intermediate_size=48, v_target_size=11, bi_hidden_size=32,
+    bi_num_attention_heads=4, v_biattention_id=[0, 1], t_biattention_id=[0, 1],
+)
+
+_SCRIPT = """
+import importlib, pkgutil, sys
+import vilbert_tpu_torch
+for m in pkgutil.walk_packages(vilbert_tpu_torch.__path__, "vilbert_tpu_torch."):
+    importlib.import_module(m.name)
+from vilbert_tpu_torch.cli.eval_tasks import main
+main(sys.argv[1:])
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+assert not leaked, leaked
+print("JAX_FREE_OK")
+"""
+
+
+def test_port_runs_without_jax(tmp_path):
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(_TINY))
+    out = tmp_path / "out"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, "--synthetic", "--tasks", "1",
+         "--config", str(cfg), "--device", "cpu", "--output_dir", str(out)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_FREE_OK" in proc.stdout
+    records = json.loads((out / "VQA_val_result.json").read_text())
+    assert len(records) == 16 and set(records[0]) == {"question_id", "answer"}
+    metrics = json.loads((out / "metrics_VQA_val.json").read_text())
+    assert metrics["num_samples"] == 16
+
+
+def test_no_jax_import_statement_in_port():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M)
+    offenders = [
+        str(p.relative_to(REPO))
+        for p in (REPO / "vilbert_tpu_torch").rglob("*.py")
+        if pattern.search(p.read_text())
+    ]
+    assert not offenders

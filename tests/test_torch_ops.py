@@ -1,0 +1,221 @@
+"""The PyTorch port's ops against the JAX package, on the CPU.
+
+The plain PyTorch versions (the CPU path of each op and the oracle of each
+CUDA kernel) are held to the Pallas TPU kernels run in interpret mode, as
+tests/test_pallas_ops.py runs them. The kernels' operand checks are pure
+shape logic and run here too; the kernels themselves run only on a card
+(chip_smoke.py compares them with the plain versions there).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+class TestAttention:
+    # (Sq, Sk, heads, d): self-attention, Sq < Sk with d=6, Sq > Sk
+    @pytest.mark.parametrize("sq,sk,h,d", [(5, 5, 4, 8), (5, 7, 4, 6), (7, 3, 2, 8)])
+    def test_ref_matches_pallas_kernel(self, sq, sk, h, d, rng_np):
+        from vilbert_tpu.ops.pallas_attention_train import fused_attention_train
+        from vilbert_tpu_torch.ops.attention import attention, attention_ref, make_additive_mask
+
+        B, H = 3, h * d
+        q = rng_np.randn(B, sq, H).astype(np.float32)
+        k = rng_np.randn(B, sk, H).astype(np.float32)
+        v = rng_np.randn(B, sk, H).astype(np.float32)
+        mask = np.ones((B, sk), np.int32)
+        mask[0, -2:] = 0   # padded keys
+        mask[2, :] = 0     # a fully padded row: uniform over -10000 biases
+        bias = make_additive_mask(_t(mask))
+
+        want = fused_attention_train(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias.numpy()),
+            num_heads=h, interpret=True,
+        )
+        got = attention_ref(_t(q), _t(k), _t(v), bias, num_heads=h)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+        # the entry point takes the plain version for CPU tensors, uncounted
+        before = attention.launches
+        assert torch.equal(attention(_t(q), _t(k), _t(v), bias, num_heads=h), got)
+        assert attention.launches == before
+
+    def test_make_additive_mask_matches_jax(self):
+        from vilbert_tpu.ops.attention import make_additive_mask as jax_mask
+        from vilbert_tpu_torch.ops.attention import make_additive_mask
+
+        mask = np.array([[1, 1, 0], [0, 1, 1]], np.int32)
+        got = make_additive_mask(_t(mask))
+        assert got.shape == (2, 1, 1, 3)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jax_mask(jnp.asarray(mask))))
+
+    def test_dropout_rate_is_refused(self):
+        from vilbert_tpu_torch.ops.attention import attention
+
+        x = torch.zeros(1, 2, 8)
+        with pytest.raises(NotImplementedError, match="dropout"):
+            attention(x, x, x, None, num_heads=1, dropout_rate=0.1)
+
+
+def _qkv(b=2, sq=23, sk=101, hd=1024, dtype=torch.bfloat16):
+    return (torch.zeros(b, sq, hd, dtype=dtype), torch.zeros(b, sk, hd, dtype=dtype),
+            torch.zeros(b, sk, hd, dtype=dtype), torch.zeros(b, sk))
+
+
+class TestAttentionKernelOperands:
+    """What the CUDA wrapper accepts and refuses, before any launch."""
+
+    @pytest.mark.parametrize("sq,sk,hd,heads", [(23, 23, 768, 12), (101, 101, 1024, 8),
+                                                (23, 101, 1024, 8), (101, 23, 1024, 8),
+                                                (7, 1, 1024, 8), (3, 512, 768, 12)])
+    def test_accepts_slice_shapes(self, sq, sk, hd, heads):
+        from vilbert_tpu_torch.ops.attention import kernel_geometry
+
+        q, k, v, bias = _qkv(sq=sq, sk=sk, hd=hd)
+        assert kernel_geometry(q, k, v, bias, heads) == (2, sq, sk, hd // heads)
+
+    def test_accepts_broadcast_batch(self):
+        """fast_mode broadcasts one text row over the batch: stride 0."""
+        from vilbert_tpu_torch.ops.attention import kernel_geometry
+
+        q, k, v, bias = _qkv(b=1)
+        q, k, v, bias = (t.expand(4, *t.shape[1:]) for t in (q, k, v, bias))
+        assert kernel_geometry(q, k, v, bias, 8) == (4, 23, 101, 128)
+
+    @pytest.mark.parametrize("case", ["head_dim", "too_many_keys", "fp16", "mixed_dtype",
+                                      "kv_shape", "h_stride", "bias_dtype"])
+    def test_refuses(self, case):
+        from vilbert_tpu_torch.ops.attention import kernel_geometry
+
+        q, k, v, bias = _qkv()
+        heads = 8
+        if case == "head_dim":
+            heads = 32  # d = 32
+        elif case == "too_many_keys":
+            q, k, v, bias = _qkv(sk=513)
+        elif case == "fp16":
+            q, k, v, bias = _qkv(dtype=torch.float16)
+        elif case == "mixed_dtype":
+            v = v.float()
+        elif case == "kv_shape":
+            k = k[:, :50]
+        elif case == "h_stride":
+            q = torch.zeros(2, 23, 2048, dtype=torch.bfloat16)[:, :, ::2]
+        elif case == "bias_dtype":
+            bias = bias.to(torch.bfloat16)
+        with pytest.raises(ValueError):
+            kernel_geometry(q, k, v, bias, heads)
+
+
+class TestLayerNorm:
+    @pytest.mark.parametrize("with_residual", [False, True])
+    def test_ref_matches_pallas_kernel(self, with_residual, rng_np):
+        from vilbert_tpu.ops.pallas_layernorm import fused_layer_norm
+        from vilbert_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
+
+        x = rng_np.randn(3, 7, 32).astype(np.float32) * 3 + 1
+        res = rng_np.randn(3, 7, 32).astype(np.float32) if with_residual else None
+        w = rng_np.randn(32).astype(np.float32)
+        b = rng_np.randn(32).astype(np.float32)
+        want = fused_layer_norm(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+            residual=None if res is None else jnp.asarray(res), interpret=True,
+        )
+        r = None if res is None else _t(res)
+        got = layer_norm_ref(_t(x), _t(w), _t(b), residual=r)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+        before = layer_norm.launches
+        assert torch.equal(layer_norm(_t(x), _t(w), _t(b), residual=r), got)
+        assert layer_norm.launches == before
+
+    def test_bf16_output_dtype_and_fp32_statistics(self, rng_np):
+        from vilbert_tpu.ops.layernorm import layer_norm as jax_ln
+        from vilbert_tpu_torch.ops.layernorm import layer_norm_ref
+
+        x = rng_np.randn(5, 32).astype(np.float32)
+        w, b = np.ones(32, np.float32), np.zeros(32, np.float32)
+        got = layer_norm_ref(_t(x).to(torch.bfloat16), _t(w), _t(b))
+        want = jax_ln(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(b))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   atol=1e-2, rtol=1e-2)
+
+
+class TestLayerNormKernelOperands:
+    @pytest.mark.parametrize("h", [768, 1024, 2048])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_accepts_slice_widths(self, h, dtype):
+        from vilbert_tpu_torch.ops.layernorm import kernel_rows
+
+        x = torch.zeros(811, h, dtype=dtype)
+        assert kernel_rows(x, torch.ones(h), torch.zeros(h), x.clone()) == 811
+
+    @pytest.mark.parametrize("case", ["h_96", "h_4096", "fp16", "residual_dtype",
+                                      "weight_dtype", "strided", "misaligned"])
+    def test_refuses(self, case):
+        from vilbert_tpu_torch.ops.layernorm import kernel_rows
+
+        h = {"h_96": 96, "h_4096": 4096}.get(case, 768)
+        x = torch.zeros(4, h, dtype=torch.float16 if case == "fp16" else torch.bfloat16)
+        w, b, res = torch.ones(h), torch.zeros(h), None
+        if case == "residual_dtype":
+            res = x.float()
+        elif case == "weight_dtype":
+            w = w.to(torch.bfloat16)
+        elif case == "strided":
+            x = torch.zeros(h, 4, dtype=torch.bfloat16).T
+        elif case == "misaligned":
+            x = torch.zeros(4 * h + 1, dtype=torch.bfloat16)[1:].view(4, h)
+        with pytest.raises(ValueError):
+            kernel_rows(x, w, b, res)
+
+
+class TestActivations:
+    def test_gelu_rational_matches_jax(self):
+        from vilbert_tpu.models.layers import gelu_rational as jax_gelu_rational
+        from vilbert_tpu_torch.models.layers import gelu_rational
+
+        x = np.linspace(-8, 8, 4001).astype(np.float32)
+        want = np.asarray(jax_gelu_rational(jnp.asarray(x)))
+        np.testing.assert_allclose(gelu_rational(_t(x)).numpy(), want, atol=1e-6, rtol=1e-6)
+        # bf16 in, bf16 out, computed in fp32: at most one bf16 rounding apart
+        xb = torch.from_numpy(x).to(torch.bfloat16)
+        got_b = gelu_rational(xb)
+        want_b = np.asarray(jax_gelu_rational(jnp.asarray(xb.float().numpy(), jnp.bfloat16)),
+                            np.float32)
+        assert got_b.dtype == torch.bfloat16
+        np.testing.assert_allclose(got_b.float().numpy(), want_b, atol=1e-2, rtol=2 ** -7)
+
+    def test_gelu_exact_matches_jax(self):
+        from vilbert_tpu.models.layers import gelu as jax_gelu
+        from vilbert_tpu_torch.models.layers import gelu
+
+        x = np.linspace(-6, 6, 1001).astype(np.float32)
+        np.testing.assert_allclose(gelu(_t(x)).numpy(), np.asarray(jax_gelu(jnp.asarray(x))),
+                                   atol=1e-6, rtol=1e-6)
+
+
+class TestBuild:
+    def test_library_is_named_by_source_hash(self):
+        from vilbert_tpu_torch.ops import _build
+
+        path = _build.library_path()
+        assert path == _build.library_path()
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith("libvilbert_kernels_") and path.suffix == ".so"
+        assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} == {"attention.cu", "layernorm.cu"}
+
+    def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
+        from vilbert_tpu_torch.ops import _build
+
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+        monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.build()
+        assert not (tmp_path / "build").exists()

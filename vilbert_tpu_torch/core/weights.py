@@ -1,0 +1,92 @@
+"""Weights in and out of the port: flax param trees, ``.npz`` and ``.bin``.
+
+Counterpart of ``vilbert_tpu/core/checkpoint.py::load_params`` /
+``load_pretrained_torch``. The port's parameter names ARE the reference
+torch ``state_dict`` names, so one mapping serves everything:
+``vilbert_tpu.core.importer._to_flax_key`` names the flax path of each port
+parameter and ``_needs_transpose`` says which are Linear weights ([out, in]
+in torch, [in, out] as a flax kernel). Embedding tables and LayerNorm
+parameters are not transposed. The reference's tied LM decoder and dead
+``q_dense`` weights have no port parameter: the importer skips them.
+
+- ``flax_from_state_dict`` / ``state_dict_from_flax``: exact round trip
+  between a port ``state_dict`` and a flax params tree of numpy arrays;
+- ``load_params_npz``: a flat ``.npz`` keyed by flax path, as
+  ``vilbert_tpu.core.checkpoint.save_params`` writes it;
+- ``load_weights``: ``.npz`` or a reference ``.bin`` checkpoint into a model
+  (the ``.bin`` path goes through the importer's key migration: ``module.``
+  and ``bert.`` prefixes, gamma/beta, weight-norm folding).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Dict, Iterable, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from vilbert_tpu.core.importer import (
+    _flatten,
+    _needs_transpose,
+    _to_flax_key,
+    _unflatten,
+    import_torch_state_dict,
+    load_torch_checkpoint,
+)
+
+logger = logging.getLogger(__name__)
+
+
+def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Port ``state_dict`` -> nested flax params tree of numpy arrays."""
+    flat = {}
+    for key, tensor in state_dict.items():
+        fkey = _to_flax_key(key)
+        if fkey is None:
+            continue
+        arr = tensor.detach().cpu().numpy().copy()
+        flat[fkey] = arr.T.copy() if _needs_transpose(key) else arr
+    return _unflatten(flat)
+
+
+def state_dict_from_flax(
+    params: Mapping[str, Any], keys: Iterable[str]
+) -> Dict[str, torch.Tensor]:
+    """Flax params tree -> ``state_dict`` over the port parameter names
+    ``keys`` (``model.state_dict().keys()``). Every key must be provided and
+    every flax leaf used: a mismatch raises ValueError naming the keys."""
+    flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
+    by_flax = {_to_flax_key(k): k for k in keys}
+    missing = sorted(set(by_flax) - set(flat))
+    unused = sorted(set(flat) - set(by_flax))
+    if missing or unused:
+        raise ValueError(
+            f"flax params do not match the model: missing {missing[:10]}, "
+            f"unused {unused[:10]}"
+        )
+    out = {}
+    for fkey, key in by_flax.items():
+        arr = flat[fkey].T if _needs_transpose(key) else flat[fkey]
+        out[key] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+def load_params_npz(path: str) -> Dict[str, Any]:
+    """Flat ``.npz`` keyed by dotted flax path -> nested params tree."""
+    with np.load(path) as z:
+        return _unflatten({k: z[k] for k in z.files})
+
+
+def load_weights(model: nn.Module, path: str) -> None:
+    """Load ``.npz`` (flax paths) or a reference torch ``.bin`` into ``model``."""
+    keys = list(model.state_dict().keys())
+    if path.endswith(".npz"):
+        params = load_params_npz(path)
+    else:
+        target = flax_from_state_dict(model.state_dict())
+        params, report = import_torch_state_dict(load_torch_checkpoint(path), target)
+        logger.info("loaded %d params from %s (%d kept at init, %d without destination)",
+                    len(report.loaded), path, len(report.missing), len(report.unexpected))
+    model.load_state_dict(state_dict_from_flax(params, keys))

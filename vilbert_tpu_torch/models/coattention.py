@@ -1,0 +1,110 @@
+"""Co-attentional transformer block (Co-TRM).
+
+Counterpart of ``vilbert_tpu/models/coattention.py`` (reference
+BertBiAttention, BertBiOutput, BertConnectionLayer). Stream 1 is vision,
+stream 2 text: text queries attend image keys/values (the text-side
+context), image queries attend text keys/values (the image-side context).
+
+Quirks kept: the two directions use swapped attention-dropout rates (the
+text-side context uses ``v_attention_probs_dropout_prob``), inert at eval
+but passed as the JAX package passes them; the reference's dead
+``biOutput.q_dense{1,2}`` weights are not created (the importer skips
+them); the co-attention mask never reaches the scores.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from vilbert_tpu.core.config import ModelConfig
+from vilbert_tpu_torch.models.layers import Dropout, Intermediate, LayerNorm, Linear, Output
+from vilbert_tpu_torch.ops.attention import attention, attention_ref
+
+
+class BiAttention(nn.Module):
+    """The two cross-attention directions, one projection set per stream."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        bi = cfg.bi_hidden_size
+        self.num_heads = cfg.bi_num_attention_heads
+        self.rate_t = cfg.v_attention_probs_dropout_prob  # text queries -> image keys
+        self.rate_v = cfg.attention_probs_dropout_prob    # image queries -> text keys
+        self.plain_ops = False
+        self.query1 = Linear(cfg, cfg.v_hidden_size, bi)
+        self.key1 = Linear(cfg, cfg.v_hidden_size, bi)
+        self.value1 = Linear(cfg, cfg.v_hidden_size, bi)
+        self.query2 = Linear(cfg, cfg.hidden_size, bi)
+        self.key2 = Linear(cfg, cfg.hidden_size, bi)
+        self.value2 = Linear(cfg, cfg.hidden_size, bi)
+
+    def forward(
+        self,
+        input_v: torch.Tensor,  # [B, R, v_hidden]
+        bias_v: torch.Tensor,   # [B, 1, 1, R]
+        input_t: torch.Tensor,  # [B, T, hidden]
+        bias_t: torch.Tensor,   # [B, 1, 1, T]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        fn = attention_ref if self.plain_ops else attention
+        train = self.training
+        context_t = fn(
+            self.query2(input_t), self.key1(input_v), self.value1(input_v), bias_v,
+            num_heads=self.num_heads, dropout_rate=self.rate_t if train else 0.0,
+        )
+        context_v = fn(
+            self.query1(input_v), self.key2(input_t), self.value2(input_t), bias_t,
+            num_heads=self.num_heads, dropout_rate=self.rate_v if train else 0.0,
+        )
+        return context_v, context_t
+
+
+class BiOutput(nn.Module):
+    """Project each context to its stream width, dropout + residual + LN."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        bi = cfg.bi_hidden_size
+        self.dense1 = Linear(cfg, bi, cfg.v_hidden_size)
+        self.LayerNorm1 = LayerNorm(cfg.v_hidden_size)
+        self.dropout1 = Dropout(cfg.v_hidden_dropout_prob)
+        self.dense2 = Linear(cfg, bi, cfg.hidden_size)
+        self.LayerNorm2 = LayerNorm(cfg.hidden_size)
+        self.dropout2 = Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, context_v, input_v, context_t, input_t):
+        out_v = self.LayerNorm1(self.dropout1(self.dense1(context_v)), input_v)
+        out_t = self.LayerNorm2(self.dropout2(self.dense2(context_t)), input_t)
+        return out_v, out_t
+
+
+class ConnectionLayer(nn.Module):
+    """BiAttention + BiOutput + one FFN per stream (reference
+    BertConnectionLayer; the FFNs reuse intermediate_size and
+    v_intermediate_size, bi_intermediate_size is unused as in the reference)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.biattention = BiAttention(cfg)
+        self.biOutput = BiOutput(cfg)
+        self.v_intermediate = Intermediate(
+            cfg, cfg.v_hidden_size, cfg.v_intermediate_size, cfg.v_hidden_act
+        )
+        self.v_output = Output(
+            cfg, cfg.v_intermediate_size, cfg.v_hidden_size, cfg.v_hidden_dropout_prob
+        )
+        self.t_intermediate = Intermediate(
+            cfg, cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act
+        )
+        self.t_output = Output(
+            cfg, cfg.intermediate_size, cfg.hidden_size, cfg.hidden_dropout_prob
+        )
+
+    def forward(self, input_v, bias_v, input_t, bias_t):
+        context_v, context_t = self.biattention(input_v, bias_v, input_t, bias_t)
+        attn_v, attn_t = self.biOutput(context_v, input_v, context_t, input_t)
+        out_v = self.v_output(self.v_intermediate(attn_v), attn_v)
+        out_t = self.t_output(self.t_intermediate(attn_t), attn_t)
+        return out_v, out_t

@@ -1,0 +1,296 @@
+"""Shared building blocks: activations, Linear/LayerNorm/Dropout modules and
+the transformer blocks of both streams.
+
+Counterpart of ``vilbert_tpu/models/layers.py``. Module and parameter names
+are the reference torch ``state_dict`` names (``attention.self.query``,
+``attention.output.LayerNorm``, ``intermediate.dense``, ``output.dense``),
+so ``vilbert_tpu.core.importer._to_flax_key`` maps every parameter of the
+port onto its flax path. The JAX ``FeedForward`` is split as the reference
+splits it: ``Intermediate`` (dense + activation) then ``Output`` (dense,
+dropout, LN with residual).
+
+Dtype policy (as the JAX package): params fp32; every ``Linear`` casts its
+input, weight and bias to ``cfg.compute_dtype`` and returns that dtype, like
+``flax.linen.Dense(dtype=compute_dtype)``; LayerNorm statistics are fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vilbert_tpu.core.config import ModelConfig
+from vilbert_tpu_torch.ops.attention import attention, attention_ref
+from vilbert_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) gelu — the reference's non-approximate form."""
+    return F.gelu(x)
+
+
+# Minimax rational erf(z) ~ z P(z^2) / Q(z^2) on |z| <= 3.2: the coefficients
+# of vilbert_tpu.models.layers (max abs error 9.7e-6; erf(3.2) rounds to 1.0
+# in bf16, so the clamp is exact at bf16 precision).
+_ERF_P = (1.1283621227654328, 0.15780611964408517,
+          0.043127602475218844, 0.0007360894735171213)
+_ERF_Q = (1.0, 0.47307127867236537,
+          0.09602493287758253, 0.009191308867243501)
+
+
+def _horner(coeffs, u: torch.Tensor) -> torch.Tensor:
+    acc = coeffs[-1]
+    for c in coeffs[-2::-1]:
+        acc = acc * u + c
+    return acc
+
+
+def gelu_rational(x: torch.Tensor) -> torch.Tensor:
+    """gelu with erf from the short P3/Q3 rational above, in fp32, returned in
+    x's dtype (forward of ``vilbert_tpu.models.layers.gelu_rational``)."""
+    x32 = x.float()
+    z = torch.clamp(x32 * 0.7071067811865476, -3.2, 3.2)
+    u = z * z
+    erf = z * _horner(_ERF_P, u) / _horner(_ERF_Q, u)
+    return (0.5 * x32 * (1.0 + erf)).to(x.dtype)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+ACT2FN: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "gelu": gelu,
+    "gelu_rational": gelu_rational,
+    "relu": F.relu,
+    "swish": swish,
+}
+
+
+def resolve_act(name: str, cfg: ModelConfig) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Activation by name under the config's gelu_impl policy ("auto": the
+    rational erf under bf16 compute, the exact erf under fp32)."""
+    if name == "gelu" and cfg.resolved_gelu_impl == "rational":
+        return gelu_rational
+    return ACT2FN[name]
+
+
+class Linear(nn.Module):
+    """y = x W^T + b in the compute dtype; W [out, in] and b fp32 params."""
+
+    def __init__(self, cfg: ModelConfig, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        self.compute_dtype = compute_dtype(cfg)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.Module):
+    """TF-style LayerNorm (eps 1e-12) with an optional fused residual add.
+
+    Runs ``ops.layernorm.layer_norm`` (the kernel on CUDA); ``plain_ops``
+    switches it to the plain version (see ``use_plain_ops``)."""
+
+    def __init__(self, hidden_size: int, eps: float = 1e-12):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(hidden_size))
+        self.bias = nn.Parameter(torch.zeros(hidden_size))
+        self.eps = eps
+        self.plain_ops = False
+
+    def forward(
+        self, x: torch.Tensor, residual: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        fn = layer_norm_ref if self.plain_ops else layer_norm
+        return fn(x, self.weight, self.bias, eps=self.eps, residual=residual)
+
+
+class Dropout(nn.Module):
+    """Identity in eval mode. Training-mode dropout (counter-hash dropout,
+    bit-exact with ``vilbert_tpu/ops/dropout.py::hash_keep_mask``) comes
+    with the training slice; until then a rate above 0 in train mode raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError(
+                f"dropout (rate {self.rate}) in train mode is not ported yet "
+                f"(ROADMAP: slice 2); call model.eval()"
+            )
+        return x
+
+
+class GeLU(nn.Module):
+    """Exact gelu as a module (reference ``GeLU`` inside SimpleClassifier)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu(x)
+
+
+def use_plain_ops(model: nn.Module, plain: bool = True) -> nn.Module:
+    """Route every attention and LayerNorm of ``model`` through the plain
+    PyTorch versions (``plain=True``) or the kernels' entry points.
+
+    The plain versions exist to check the kernels against; the main path
+    never sets this."""
+    for m in model.modules():
+        if hasattr(m, "plain_ops"):
+            m.plain_ops = plain
+    return model
+
+
+class SelfAttention(nn.Module):
+    """Q/K/V projections + attention core; serves both streams. With
+    ``dynamic`` (image stream), Q and K are gated by 1 + sigmoid of a
+    projection of the mean-pooled text embedding (reference dynamic
+    attention, vilbert.py:577-586)."""
+
+    def __init__(self, cfg: ModelConfig, hidden_size: int, num_heads: int,
+                 dropout_rate: float, dynamic: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.dynamic = dynamic
+        self.plain_ops = False
+        self.query = Linear(cfg, hidden_size, hidden_size)
+        self.key = Linear(cfg, hidden_size, hidden_size)
+        self.value = Linear(cfg, hidden_size, hidden_size)
+        if dynamic:
+            self.dyLinear_q = Linear(cfg, cfg.hidden_size, hidden_size)
+            self.dyLinear_k = Linear(cfg, cfg.hidden_size, hidden_size)
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        attention_bias: torch.Tensor,
+        txt_embedding: Optional[torch.Tensor] = None,
+        txt_mask2: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        q = self.query(hidden_states)
+        k = self.key(hidden_states)
+        v = self.value(hidden_states)
+        if self.dynamic:
+            pooled = (txt_embedding * txt_mask2).sum(1) / txt_mask2.sum(1)
+            q = q * (1.0 + torch.sigmoid(self.dyLinear_q(pooled)))[:, None, :]
+            k = k * (1.0 + torch.sigmoid(self.dyLinear_k(pooled)))[:, None, :]
+        fn = attention_ref if self.plain_ops else attention
+        return fn(
+            q, k, v, attention_bias, num_heads=self.num_heads,
+            dropout_rate=self.dropout_rate if self.training else 0.0,
+        )
+
+
+class AttentionOutput(nn.Module):
+    """dense -> dropout -> LN(x + input) (reference BertSelfOutput)."""
+
+    def __init__(self, cfg: ModelConfig, hidden_size: int, dropout_rate: float):
+        super().__init__()
+        self.dense = Linear(cfg, hidden_size, hidden_size)
+        self.LayerNorm = LayerNorm(hidden_size)
+        self.dropout = Dropout(dropout_rate)
+
+    def forward(self, hidden_states: torch.Tensor, input_tensor: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(self.dropout(self.dense(hidden_states)), input_tensor)
+
+
+class Attention(nn.Module):
+    """SelfAttention + AttentionOutput (reference BertAttention)."""
+
+    def __init__(self, cfg: ModelConfig, hidden_size: int, num_heads: int,
+                 attn_dropout: float, hidden_dropout: float, dynamic: bool = False):
+        super().__init__()
+        self.self = SelfAttention(cfg, hidden_size, num_heads, attn_dropout, dynamic)
+        self.output = AttentionOutput(cfg, hidden_size, hidden_dropout)
+
+    def forward(self, hidden_states, attention_bias, txt_embedding=None, txt_mask2=None):
+        ctx = self.self(hidden_states, attention_bias, txt_embedding, txt_mask2)
+        return self.output(ctx, hidden_states)
+
+
+class Intermediate(nn.Module):
+    """First half of the JAX FeedForward: dense -> activation."""
+
+    def __init__(self, cfg: ModelConfig, hidden_size: int, intermediate_size: int, act: str):
+        super().__init__()
+        self.dense = Linear(cfg, hidden_size, intermediate_size)
+        self.act = resolve_act(act, cfg)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.dense(x))
+
+
+class Output(nn.Module):
+    """Second half of the JAX FeedForward: dense -> dropout -> LN(+ residual)."""
+
+    def __init__(self, cfg: ModelConfig, intermediate_size: int, hidden_size: int,
+                 dropout_rate: float):
+        super().__init__()
+        self.dense = Linear(cfg, intermediate_size, hidden_size)
+        self.LayerNorm = LayerNorm(hidden_size)
+        self.dropout = Dropout(dropout_rate)
+
+    def forward(self, h: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(self.dropout(self.dense(h)), residual)
+
+
+class TextLayer(nn.Module):
+    """One text-stream transformer block (reference BertLayer)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.attention = Attention(
+            cfg, cfg.hidden_size, cfg.num_attention_heads,
+            cfg.attention_probs_dropout_prob, cfg.hidden_dropout_prob,
+        )
+        self.intermediate = Intermediate(
+            cfg, cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act
+        )
+        self.output = Output(
+            cfg, cfg.intermediate_size, cfg.hidden_size, cfg.hidden_dropout_prob
+        )
+
+    def forward(self, hidden_states: torch.Tensor, attention_bias: torch.Tensor) -> torch.Tensor:
+        attn = self.attention(hidden_states, attention_bias)
+        return self.output(self.intermediate(attn), attn)
+
+
+class ImageLayer(nn.Module):
+    """One image-stream block (reference BertImageLayer)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.attention = Attention(
+            cfg, cfg.v_hidden_size, cfg.v_num_attention_heads,
+            cfg.v_attention_probs_dropout_prob, cfg.v_hidden_dropout_prob,
+            dynamic=cfg.dynamic_attention,
+        )
+        self.intermediate = Intermediate(
+            cfg, cfg.v_hidden_size, cfg.v_intermediate_size, cfg.v_hidden_act
+        )
+        self.output = Output(
+            cfg, cfg.v_intermediate_size, cfg.v_hidden_size, cfg.v_hidden_dropout_prob
+        )
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        attention_bias: torch.Tensor,
+        txt_embedding: torch.Tensor,
+        txt_mask2: torch.Tensor,
+    ) -> torch.Tensor:
+        attn = self.attention(hidden_states, attention_bias, txt_embedding, txt_mask2)
+        return self.output(self.intermediate(attn), attn)

@@ -1,0 +1,425 @@
+"""The two-stream ViLBERT model and its task heads, in PyTorch.
+
+Counterpart of ``vilbert_tpu/models/vilbert.py`` (reference
+vilbert/vilbert.py). Parity quirks kept: the task token is spliced in after
+the position embeddings; masks are -10000 additive biases; the image-pad
+mask of ``vision_logit``; the tied LM decoder (the LM head reads the word
+embedding table, so there is no ``cls.predictions.decoder`` parameter); the
+co-attention mask is accepted and inert; heads are computed selectively
+(``heads=``), ``None`` computes all of them.
+
+Knobs this slice does not carry are refused at construction: int8 matmuls,
+``visualization`` and ``in_batch_pairs``. The pure-layout knobs
+(``head_major_attention``, ``fused_qkv``, ``proj_impl``, ``remat``) and the
+kernel switches (``use_pallas_*``: the CUDA path always runs the kernels)
+change no parameter and no arithmetic and are ignored.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vilbert_tpu.core.config import ModelConfig
+from vilbert_tpu_torch.models.coattention import ConnectionLayer
+from vilbert_tpu_torch.models.layers import (
+    Dropout,
+    GeLU,
+    ImageLayer,
+    LayerNorm,
+    Linear,
+    TextLayer,
+    compute_dtype,
+    resolve_act,
+)
+from vilbert_tpu_torch.ops.attention import make_additive_mask
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Refuse the knobs the port does not carry yet."""
+    if cfg.int8_enabled:
+        raise NotImplementedError(
+            "int8_matmul/int8_static are not ported yet (ROADMAP A13, int8)"
+        )
+    if cfg.visualization:
+        raise NotImplementedError(
+            "visualization (attention maps) is not ported yet (ROADMAP A13)"
+        )
+    if cfg.in_batch_pairs:
+        raise NotImplementedError(
+            "in_batch_pairs is training-only and not ported yet (ROADMAP slice 2)"
+        )
+
+
+class TextEmbeddings(nn.Module):
+    """Word + position + type embeddings, optional task token, LN — in fp32,
+    cast to the compute dtype at the end (reference BertEmbeddings)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
+        if cfg.task_specific_tokens:
+            self.task_embeddings = nn.Embedding(cfg.num_task_tokens, cfg.hidden_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, input_ids, token_type_ids, task_ids=None) -> torch.Tensor:
+        # positions from arange for both model types (the reference's RoBERTa
+        # offset is dead code, see the JAX TextEmbeddings)
+        positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+        emb = (
+            self.word_embeddings(input_ids.long())
+            + self.position_embeddings(positions)[None]
+            + self.token_type_embeddings(token_type_ids.long())
+        )
+        if self.cfg.task_specific_tokens:
+            if task_ids is None:
+                raise ValueError("task_ids required with task_specific_tokens")
+            task_emb = self.task_embeddings(task_ids.long())  # [B, 1, H]
+            emb = torch.cat([emb[:, :1], task_emb, emb[:, 1:]], dim=1)
+        emb = self.dropout(self.LayerNorm(emb))
+        return emb.to(compute_dtype(self.cfg))
+
+
+class ImageEmbeddings(nn.Module):
+    """Region feature + box geometry embeddings, LN (reference
+    BertImageEmbeddings); the projections run in the compute dtype."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.image_embeddings = Linear(cfg, cfg.v_feature_size, cfg.v_hidden_size)
+        self.image_location_embeddings = Linear(cfg, cfg.num_locs, cfg.v_hidden_size)
+        self.LayerNorm = LayerNorm(cfg.v_hidden_size)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, features, locations) -> torch.Tensor:
+        emb = self.image_embeddings(features) + self.image_location_embeddings(locations)
+        return self.dropout(self.LayerNorm(emb)).to(compute_dtype(self.cfg))
+
+
+class TwoStreamEncoder(nn.Module):
+    """Interleaved text / image / co-attention layers driven by
+    ``cfg.encoder_schedule()`` (reference BertEncoder)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.layer = nn.ModuleList(TextLayer(cfg) for _ in range(cfg.num_hidden_layers))
+        self.v_layer = nn.ModuleList(ImageLayer(cfg) for _ in range(cfg.v_num_hidden_layers))
+        self.c_layer = nn.ModuleList(
+            ConnectionLayer(cfg) for _ in range(cfg.num_connection_layers)
+        )
+
+    def forward(self, txt, img, bias_t, txt_mask2, bias_v) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        expanded = False
+        for kind, idx in cfg.encoder_schedule():
+            if kind == "t":
+                txt = self.layer[idx](txt, bias_t)
+                if idx < cfg.fixed_t_layer:
+                    txt = txt.detach()
+            elif kind == "v":
+                img = self.v_layer[idx](img, bias_v, txt, txt_mask2)
+                if idx < cfg.fixed_v_layer:
+                    img = img.detach()
+            else:
+                if cfg.fast_mode and not expanded:
+                    # one text row per image, broadcast once before the first
+                    # connection layer (reference FAST_MODE); the text stream
+                    # is materialised because LN kernels take contiguous rows
+                    bv = img.shape[0]
+                    txt = txt.expand(bv, -1, -1).contiguous()
+                    bias_t = bias_t.expand(bv, -1, -1, -1)
+                    txt_mask2 = txt_mask2.expand(bv, -1, -1)
+                expanded = True
+                img, txt = self.c_layer[idx](img, bias_v, txt, bias_t)
+        return txt, img
+
+
+class Pooler(nn.Module):
+    """First-token pooling: dense -> ReLU (reference BertTextPooler /
+    BertImagePooler)."""
+
+    def __init__(self, cfg: ModelConfig, hidden_size: int):
+        super().__init__()
+        self.dense = Linear(cfg, hidden_size, cfg.bi_hidden_size)
+
+    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.dense(hidden_states[:, 0]))
+
+
+class BertModelOutput(NamedTuple):
+    sequence_t: torch.Tensor
+    sequence_v: torch.Tensor
+    pooled_t: torch.Tensor
+    pooled_v: torch.Tensor
+
+
+class BertModel(nn.Module):
+    """Full two-stream encoder (reference BertModel)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.embeddings = TextEmbeddings(cfg)
+        self.v_embeddings = ImageEmbeddings(cfg)
+        self.encoder = TwoStreamEncoder(cfg)
+        self.t_pooler = Pooler(cfg, cfg.hidden_size)
+        self.v_pooler = Pooler(cfg, cfg.v_hidden_size)
+
+    def forward(
+        self,
+        input_txt: torch.Tensor,              # [B, T] token ids
+        input_imgs: torch.Tensor,             # [B, R, v_feature_size]
+        image_loc: torch.Tensor,              # [B, R, num_locs]
+        token_type_ids: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,        # [B, T] {0,1}
+        image_attention_mask: Optional[torch.Tensor] = None,  # [B, R] {0,1}
+        co_attention_mask: Optional[torch.Tensor] = None,     # accepted, inert
+        task_ids: Optional[torch.Tensor] = None,              # [B, 1]
+    ) -> BertModelOutput:
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_txt)
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_txt)
+        if image_attention_mask is None:
+            image_attention_mask = torch.ones(
+                input_imgs.shape[:2], dtype=input_txt.dtype, device=input_txt.device
+            )
+        if self.cfg.task_specific_tokens:
+            # one always-valid key position for the task token
+            ones = attention_mask.new_ones(attention_mask.shape[0], 1)
+            attention_mask = torch.cat([ones, attention_mask], dim=1)
+
+        bias_t = make_additive_mask(attention_mask)
+        bias_v = make_additive_mask(image_attention_mask)
+        txt_mask2 = attention_mask.to(torch.float32)[:, :, None]
+
+        emb_t = self.embeddings(input_txt, token_type_ids, task_ids)
+        emb_v = self.v_embeddings(input_imgs, image_loc)
+        seq_t, seq_v = self.encoder(emb_t, emb_v, bias_t, txt_mask2, bias_v)
+        return BertModelOutput(seq_t, seq_v, self.t_pooler(seq_t), self.v_pooler(seq_v))
+
+
+# ---------------------------------------------------------------------------
+# Heads
+# ---------------------------------------------------------------------------
+
+
+class PredictionHeadTransform(nn.Module):
+    """dense -> act -> LN (reference BertPredictionHeadTransform)."""
+
+    def __init__(self, cfg: ModelConfig, hidden_size: int):
+        super().__init__()
+        self.dense = Linear(cfg, hidden_size, hidden_size)
+        self.act = resolve_act(cfg.hidden_act, cfg)
+        self.LayerNorm = LayerNorm(hidden_size)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(self.act(self.dense(h)))
+
+
+class LMPredictionHead(nn.Module):
+    """Transform + tied decoder (the word-embedding table, passed in) + bias."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.transform = PredictionHeadTransform(cfg, cfg.hidden_size)
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+
+    def forward(self, h: torch.Tensor, embedding_table: torch.Tensor) -> torch.Tensor:
+        h = self.transform(h)
+        out = compute_dtype(self.cfg)
+        logits = (h @ embedding_table.to(h.dtype).T).to(out)
+        return logits + self.bias.to(out)
+
+
+class ImagePredictionHead(nn.Module):
+    """Transform + decoder to v_target_size (reference BertImagePredictionHead)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.transform = PredictionHeadTransform(cfg, cfg.v_hidden_size)
+        self.decoder = Linear(cfg, cfg.v_hidden_size, cfg.v_target_size)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.transform(h))
+
+
+class PreTrainingHeads(nn.Module):
+    """MLM + alignment + masked-region heads; pooled outputs fuse by sum or
+    product (reference BertPreTrainingHeads)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.predictions = LMPredictionHead(cfg)
+        self.bi_seq_relationship = Linear(cfg, cfg.bi_hidden_size, 2)
+        self.imagePredictions = ImagePredictionHead(cfg)
+        self.dropout = Dropout(0.1)
+
+    def fuse(self, pooled_t: torch.Tensor, pooled_v: torch.Tensor) -> torch.Tensor:
+        if self.cfg.fusion_method == "sum":
+            return self.dropout(pooled_t + pooled_v)
+        return self.dropout(pooled_t * pooled_v)
+
+    def forward(self, sequence_t, sequence_v, pooled_t, pooled_v, embedding_table):
+        pooled = self.fuse(pooled_t, pooled_v)
+        scores_t = self.predictions(sequence_t, embedding_table)
+        scores_v = self.imagePredictions(sequence_v)
+        return scores_t, scores_v, self.bi_seq_relationship(pooled).float()
+
+
+class SimpleClassifier(nn.Module):
+    """Linear -> GeLU (exact) -> LN -> Linear, fp32 logits (reference
+    SimpleClassifier; ``logit_fc`` indices are the reference's)."""
+
+    def __init__(self, cfg: ModelConfig, in_dim: int, hid_dim: int, out_dim: int):
+        super().__init__()
+        self.logit_fc = nn.Sequential(
+            Linear(cfg, in_dim, hid_dim), GeLU(), LayerNorm(hid_dim),
+            Linear(cfg, hid_dim, out_dim),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.logit_fc(x).float()
+
+
+# ---------------------------------------------------------------------------
+# Top-level model
+# ---------------------------------------------------------------------------
+
+#: All head names of the VL-tasks model, reference order.
+ALL_HEADS = (
+    "vil_prediction",
+    "vil_prediction_gqa",
+    "vil_logit",
+    "vil_binary_prediction",
+    "vil_tri_prediction",
+    "vision_prediction",
+    "vision_logit",
+    "linguisic_prediction",
+    "linguisic_logit",
+)
+
+
+class VLTaskOutput(NamedTuple):
+    vil_prediction: Any = None
+    vil_prediction_gqa: Any = None
+    vil_logit: Any = None
+    vil_binary_prediction: Any = None
+    vil_tri_prediction: Any = None
+    vision_prediction: Any = None
+    vision_logit: Any = None
+    linguisic_prediction: Any = None
+    linguisic_logit: Any = None
+
+
+def init_weights(model: nn.Module, cfg: ModelConfig, generator: torch.Generator) -> None:
+    """The JAX package's initialisation: Linear weights and embedding tables
+    ~ N(0, initializer_range), biases 0, LayerNorm (1, 0). Draws in module
+    order from ``generator``, so one seed gives one model on every device."""
+    std = cfg.initializer_range
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (Linear, nn.Embedding)):
+                m.weight.normal_(0.0, std, generator=generator)
+            if isinstance(m, Linear):
+                m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, LMPredictionHead):
+                m.bias.zero_()
+
+
+class ViLBERTForVLTasks(nn.Module):
+    """Fine-tuning model with the task heads (reference VILBertForVLTasks).
+
+    ``generator`` seeds the initialisation (CPU draws; move the model with
+    ``.to(device)``). ``heads=`` in ``forward`` selects the heads to compute.
+    """
+
+    def __init__(self, cfg: ModelConfig, num_labels: int = 3129,
+                 num_labels_gqa: int = 1533, dropout_prob: float = 0.1, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        bi = cfg.bi_hidden_size
+        self.bert = BertModel(cfg)
+        self.cls = PreTrainingHeads(cfg)
+        self.dropout = Dropout(dropout_prob)
+        self.vil_prediction = SimpleClassifier(cfg, bi, bi * 2, num_labels)
+        self.vil_prediction_gqa = SimpleClassifier(cfg, bi, bi * 2, num_labels_gqa)
+        self.vil_binary_prediction = SimpleClassifier(cfg, bi * 2, bi * 2, 2)
+        self.vil_logit = Linear(cfg, bi, 1)
+        self.vil_tri_prediction = Linear(cfg, bi, 3)
+        self.vision_logit = Linear(cfg, cfg.v_hidden_size, 1)
+        self.linguisic_logit = Linear(cfg, cfg.hidden_size, 1)
+        init_weights(self, cfg, generator or torch.Generator().manual_seed(0))
+
+    def forward(
+        self,
+        input_txt: torch.Tensor,
+        input_imgs: torch.Tensor,
+        image_loc: torch.Tensor,
+        token_type_ids: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,
+        image_attention_mask: Optional[torch.Tensor] = None,
+        co_attention_mask: Optional[torch.Tensor] = None,
+        task_ids: Optional[torch.Tensor] = None,
+        *,
+        heads: Optional[Sequence[str]] = None,
+    ) -> VLTaskOutput:
+        heads = set(ALL_HEADS if heads is None else heads)
+        out = self.bert(
+            input_txt, input_imgs, image_loc, token_type_ids, attention_mask,
+            image_attention_mask, co_attention_mask, task_ids,
+        )
+        results: Dict[str, Any] = {}
+        if {"vision_prediction", "linguisic_prediction", "vil_binary_prediction"} & heads:
+            scores_t, scores_v, _ = self.cls(
+                out.sequence_t, out.sequence_v, out.pooled_t, out.pooled_v,
+                self.bert.embeddings.word_embeddings.weight,
+            )
+            results["linguisic_prediction"] = scores_t
+            results["vision_prediction"] = scores_v
+
+        pooled = self.cls.fuse(out.pooled_t, out.pooled_v).to(compute_dtype(self.cfg))
+        if "vil_prediction" in heads:
+            results["vil_prediction"] = self.vil_prediction(pooled)
+        if "vil_prediction_gqa" in heads:
+            results["vil_prediction_gqa"] = self.vil_prediction_gqa(pooled)
+        if "vil_binary_prediction" in heads and pooled.shape[0] % 2 == 0:
+            # consecutive rows are pairs (NLVR2's two images); odd batches
+            # skip the head like the reference
+            b, h = pooled.shape
+            results["vil_binary_prediction"] = self.vil_binary_prediction(
+                pooled.reshape(b // 2, h * 2)
+            )
+        if "vil_logit" in heads:
+            results["vil_logit"] = self.vil_logit(pooled).float()
+        if "vil_tri_prediction" in heads:
+            results["vil_tri_prediction"] = self.vil_tri_prediction(pooled).float()
+        if "vision_logit" in heads:
+            if image_attention_mask is None:
+                image_attention_mask = torch.ones(
+                    input_imgs.shape[:2], dtype=input_txt.dtype, device=input_txt.device
+                )
+            logit = self.vision_logit(self.dropout(out.sequence_v)).float()
+            pad = (1.0 - image_attention_mask.to(torch.float32)) * -10000.0
+            results["vision_logit"] = logit + pad[:, :, None]
+        if "linguisic_logit" in heads:
+            results["linguisic_logit"] = self.linguisic_logit(
+                self.dropout(out.sequence_t)
+            ).float()
+        return VLTaskOutput(**results)
