@@ -6,21 +6,35 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from vilbert_tpu_torch/csrc and drives the
-port's VQA evaluation path (TASK1 of configs/tasks.yml) at the full width of
-configs/bert_base_6layer_6conect.json, weights drawn from a seed:
+port's two paths at the full width of configs/bert_base_6layer_6conect.json,
+weights drawn from a seed: VQA evaluation (TASK1 of configs/tasks.yml) and
+the Conceptual Captions pretraining step.
 
 1. device: the card's name and power limit; TF32 off for fp32 comparisons;
-2. build: nvcc for sm_90a, timed;
+2. build: nvcc for sm_90a, one process per source, timed;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card, at the slice's shapes and the edges of its range (fp32 bound 1e-4
-   absolute; bf16 bound 2^-7 * max|ref| plus one bf16 ulp);
-4. slice: ``run_eval`` (the CLI's function) on synthetic TASK1 at T=23,
-   R=101, with the kernels' launch counters reset just before and read just
-   after; then a batch of 256 through the kernels and through the plain ops,
-   fp32 logits within 1e-3 and bf16 logits finite and within 5e-2;
-5. timing: eval questions/s of the forward at B=1024 in bf16 (kernels and
-   plain ops), and each kernel against its plain version at the slice's
-   shapes.
+   card, at the paths' shapes and the edges of its range. Forward (K1 at
+   rate 0 and 0.1, K4): fp32 1e-4 absolute (1e-3 on a row whose keys are
+   all padded), bf16 2^-7 * max|ref| plus one bf16 ulp. Backward (K2 at
+   rate 0 and 0.1): fp32 1e-4 * max|ref|, bf16 as the forward. The K3
+   entry (``fused_attention``, served by K1 and K2 at rate 0) likewise;
+4. VQA slice: ``run_eval`` (the eval CLI's function) on synthetic TASK1 at
+   T=23, R=101, with the launch counters reset just before and read just
+   after; then a batch of 256 through the kernels and through the plain
+   ops, fp32 logits within 1e-3 and bf16 logits finite and within 5e-2;
+5. VQA timing: eval questions/s of the forward at B=1024 in bf16 (kernels
+   and plain ops), and each kernel against its plain version;
+6. training slice: ``train`` (the train CLI's function) on the synthetic CC
+   loader at B=256, T=36, R=37, bf16, dropout 0.1 at every site, for a few
+   steps, with the counters reset just before and read just after: finite
+   losses, and K1, K2 and K4 launched as often as the config says; then one
+   fp32 step at B=32 with dropout on through the kernels and through the
+   plain ops, from the same weights with the same masks;
+7. training timing: samples/s of the bf16 step at B=256 (kernels and plain
+   ops, one batch held on the card, constant schedule), and K1 and K2 at
+   rates 0 and 0.1 against their plain versions at the CC shapes and
+   B=256, each output also checked against its plain twin's with phase 3's
+   bounds.
 
 The last three lines are the card line, a JSON object of the kernels and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -43,6 +57,11 @@ T, R = 23, 101  # reference eval geometry of TASK1 (configs/tasks.yml)
 DEVICE = "cuda"
 CHECK_BATCH = 256  # kernels vs plain ops, whole model
 TIME_BATCH = 1024  # TASK1's eval batch size
+TRAIN_BATCH, TRAIN_T, TRAIN_R = 256, 36, 37  # the CC step of bench.py:30-32
+TRAIN_STEPS = 3
+TRAIN_CHECK_BATCH = 32  # fp32 step, kernels vs plain ops
+LM_GATHER = TRAIN_T // 3
+DROPOUT_SEED = 3_000_000_001  # >= 2^31: the uint32 seed path
 
 
 def log(msg: str) -> None:
@@ -111,8 +130,103 @@ ATTENTION_CASES = [
     (8, 128, 101, 23), (8, 128, 24, 101), (8, 128, 101, 24), (8, 128, 23, 1),
     (8, 128, 101, 512), (12, 64, 23, 512),
 ]
+#: the CC step's four attentions (text self, image self, text->image,
+#: image->text), Sk=1, and Sq=Sk=128 (the backward kernel's limit) at both
+#: head widths
+CC_ATTENTION_CASES = [
+    (12, 64, 36, 36), (8, 128, 37, 37), (8, 128, 36, 37), (8, 128, 37, 36),
+    (8, 128, 36, 1), (8, 128, 128, 128), (12, 64, 128, 128),
+]
 LN_WIDTHS = (768, 1024, 2048)
 LN_ROWS = 8 * 101 + 3  # not a multiple of any block
+
+
+def _attention_operands(g, B, heads, d, sq, sk, dtype):
+    """q, k, v, the cotangent g and an additive bias with padded keys and a
+    fully padded last row."""
+    import torch
+
+    from vilbert_tpu_torch.ops.attention import make_additive_mask
+
+    lengths = torch.randint(1, sk + 1, (B,), generator=g, device=DEVICE)
+    lengths[0] = sk
+    mask = (torch.arange(sk, device=DEVICE)[None] < lengths[:, None]).int()
+    mask[B - 1] = 0
+    q, k, v, cot = (torch.randn(B, s, heads * d, generator=g, device=DEVICE).to(dtype)
+                    for s in (sq, sk, sk, sq))
+    return q, k, v, cot, make_additive_mask(mask)
+
+
+def _fwd_error(got, want, dtype) -> tuple:
+    """(max|err|, bound, ok): fp32 1e-4 on rows with a valid key and 1e-3 on
+    the fully padded last row, whose scores sit at -10000 where fp32 spacing
+    is 2^-10 (the kernel's fused multiply-add rounds them once, the plain
+    path twice); bf16 one rounding of the largest output."""
+    diff = (got.float() - want.float()).abs()
+    e = float(diff.max())
+    if dtype != "float32":
+        bound = bf16_bound(want.float())
+        return e, bound, e <= bound
+    return e, 1e-4, float(diff[:-1].max()) <= 1e-4 and float(diff[-1].max()) <= 1e-3
+
+
+def _bwd_errors(got, want, dtype) -> tuple:
+    """(max|err| over dq, dk, dv, ok): fp32 within 1e-4 * max|ref|, bf16
+    within one bf16 rounding of max|ref|, each gradient on its own."""
+    worst, ok = 0.0, True
+    for a, b in zip(got, want):
+        e = float((a.float() - b.float()).abs().max())
+        m = float(b.float().abs().max())
+        bound = 1e-4 * m if dtype == "float32" else bf16_bound(b.float())
+        worst, ok = max(worst, e), ok and e <= bound
+    return worst, ok
+
+
+def phase_training_kernels(checks: Checks, g, err: dict) -> None:
+    """K1 at rate 0.1 and K2 at rates 0 and 0.1 against their plain twins,
+    and the K3 entry at rate 0 (forward and backward), at the CC shapes."""
+    import torch
+
+    from vilbert_tpu_torch.ops.attention import (
+        attention,
+        attention_bwd,
+        attention_bwd_ref,
+        attention_ref,
+        fused_attention,
+    )
+
+    B = 8
+    for heads, d, sq, sk in CC_ATTENTION_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            q, k, v, cot, bias = _attention_operands(g, B, heads, d, sq, sk, dtype)
+            shape = f"h={heads} d={d} Sq={sq} Sk={sk} {name}"
+            kw = dict(num_heads=heads, dropout_rate=0.1, seed=DROPOUT_SEED)
+            got, want = attention(q, k, v, bias, **kw), attention_ref(q, k, v, bias, **kw)
+            torch.cuda.synchronize()
+            e, bound, ok = _fwd_error(got, want, name)
+            err["attention_fwd"] = max(err["attention_fwd"], e)
+            checks.expect(ok, f"attention fwd rate 0.1 {shape}: max|err| {e:.3e} (<= {bound:.3e})")
+            for rate in (0.0, 0.1):
+                kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
+                got = attention_bwd(q, k, v, bias, cot, **kw)
+                want = attention_bwd_ref(q, k, v, bias, cot, **kw)
+                torch.cuda.synchronize()
+                e, ok = _bwd_errors(got, want, name)
+                err["attention_bwd"] = max(err["attention_bwd"], e)
+                checks.expect(ok, f"attention bwd rate {rate} {shape}: max|err| {e:.3e}")
+            # the K3 entry: K1 and K2 at rate 0 through autograd
+            qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
+            out = fused_attention(qt, kt, vt, bias, num_heads=heads)
+            out.backward(cot)
+            torch.cuda.synchronize()
+            e, bound, ok = _fwd_error(out.detach(), attention_ref(q, k, v, bias, num_heads=heads),
+                                      name)
+            eb, okb = _bwd_errors((qt.grad, kt.grad, vt.grad),
+                                  attention_bwd_ref(q, k, v, bias, cot, num_heads=heads), name)
+            err["fused_attention"] = max(err["fused_attention"], e, eb)
+            checks.expect(ok and okb, f"fused_attention fwd+bwd {shape}: max|err| {e:.3e}, "
+                                      f"grads {eb:.3e}")
 
 
 def phase_kernels(checks: Checks) -> dict:
@@ -123,7 +237,8 @@ def phase_kernels(checks: Checks) -> dict:
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     dev = DEVICE
-    err = {"attention": 0.0, "layer_norm": 0.0}
+    err = {"attention_fwd": 0.0, "attention_bwd": 0.0, "fused_attention": 0.0,
+           "layer_norm": 0.0}
     B = 8
     for heads, d, sq, sk in ATTENTION_CASES:
         hd = heads * d
@@ -140,7 +255,7 @@ def phase_kernels(checks: Checks) -> dict:
             torch.cuda.synchronize()
             e = float((got.float() - want.float()).abs().max())
             bound = 1e-4 if dtype == torch.float32 else bf16_bound(want.float())
-            err["attention"] = max(err["attention"], e)
+            err["attention_fwd"] = max(err["attention_fwd"], e)
             checks.expect(e <= bound, f"attention h={heads} d={d} Sq={sq} Sk={sk} "
                                       f"{str(dtype)[6:]}: max|err| {e:.3e} <= {bound:.3e}")
     for h in LN_WIDTHS:
@@ -159,6 +274,7 @@ def phase_kernels(checks: Checks) -> dict:
                 checks.expect(e <= bound, f"layer_norm H={h} rows={LN_ROWS} "
                                           f"residual={r is not None} {str(dtype)[6:]}: "
                                           f"max|err| {e:.3e} <= {bound:.3e}")
+    phase_training_kernels(checks, g, err)
     checks.end_phase("kernels")
     return err
 
@@ -167,25 +283,12 @@ def phase_kernels(checks: Checks) -> dict:
 
 def task1():
     """TASK1 of configs/tasks.yml (built here: the card has no PyYAML)."""
-    from vilbert_tpu.core.config import TaskConfig
+    from vilbert_tpu_torch.core.config import TaskConfig
 
     return TaskConfig(task_id=1, name="VQA", type="VL-classifier", loss="BCEWithLogitLoss",
                       dataroot="datasets/VQA/", max_seq_length=T, max_region_num=R,
                       batch_size=128, eval_batch_size=1024, train_split="trainval",
                       val_split="minval", lr=4e-5, num_epoch=20)
-
-
-def synthetic_task1_loader(cfg, task, num=96, batch_size=64):
-    """Synthetic VQA questions over images of 100 boxes + the global row."""
-    from vilbert_tpu.data import synthetic as syn
-    from vilbert_tpu.data.tasks import DataLoader, VQADataset
-    from vilbert_tpu.data.tokenization import HashTokenizer
-
-    store = syn.synthetic_store(num_images=16, num_boxes=R - 1, feature_dim=cfg.v_feature_size)
-    ds = VQADataset(syn.vqa_annotations(num=num, num_labels=3129), store, num_labels=3129,
-                    tokenizer=HashTokenizer(cfg.vocab_size),
-                    max_seq_length=task.max_seq_length, max_region_num=task.max_region_num)
-    return DataLoader(ds, batch_size=batch_size, shuffle=False, drop_last=False)
 
 
 def random_batch(cfg, batch: int, seed: int) -> dict:
@@ -205,6 +308,22 @@ def random_batch(cfg, batch: int, seed: int) -> dict:
     )
 
 
+def reset_launches() -> None:
+    from vilbert_tpu_torch.ops.attention import attention, attention_bwd
+    from vilbert_tpu_torch.ops.layernorm import layer_norm
+
+    for wrapper in (attention, attention_bwd, layer_norm):
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    from vilbert_tpu_torch.ops.attention import attention, attention_bwd
+    from vilbert_tpu_torch.ops.layernorm import layer_norm
+
+    return {"attention": attention.launches, "attention_bwd": attention_bwd.launches,
+            "layer_norm": layer_norm.launches}
+
+
 def kernel_calls_per_forward(cfg) -> tuple:
     """(attention, layer_norm) launches of one VL-classifier forward."""
     n_c = cfg.num_connection_layers
@@ -218,12 +337,10 @@ def kernel_calls_per_forward(cfg) -> tuple:
 def phase_slice(checks: Checks) -> tuple:
     import torch
 
-    from vilbert_tpu.core.config import ModelConfig
-    from vilbert_tpu_torch.cli.eval_tasks import build_model, run_eval
+    from vilbert_tpu_torch.cli.eval_tasks import build_model, run_eval, synthetic_vqa_loader
+    from vilbert_tpu_torch.core.config import ModelConfig
     from vilbert_tpu_torch.models.layers import use_plain_ops
     from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks
-    from vilbert_tpu_torch.ops.attention import attention
-    from vilbert_tpu_torch.ops.layernorm import layer_norm
 
     cfg = ModelConfig.from_json_file(CONFIG)  # bf16 compute, as the CLI runs it
     task = task1()
@@ -233,15 +350,15 @@ def phase_slice(checks: Checks) -> tuple:
     log(f"  model {CONFIG}: {n_params} params, compute {cfg.compute_dtype}, "
         f"built in {time.time() - t0:.1f} s")
 
-    loader = synthetic_task1_loader(cfg, task)
+    loader = synthetic_vqa_loader(cfg, task)
     n_batches = len(loader)
     with tempfile.TemporaryDirectory() as out_dir:
-        attention.launches = layer_norm.launches = 0
+        reset_launches()
         t0 = time.time()
         metrics, records = run_eval(model, cfg, {"TASK1": task}, {"TASK1": loader},
                                     output_dir=out_dir, split=task.val_split)["TASK1"]
         torch.cuda.synchronize()
-        launches = {"attention": attention.launches, "layer_norm": layer_norm.launches}
+        launches = read_launches()
         files = sorted(os.listdir(out_dir))
     log(f"  run_eval TASK1: loss {metrics['loss']:.6f} score {metrics['score']:.6f} "
         f"records {len(records)} samples {metrics['num_samples']} in {time.time() - t0:.1f} s; "
@@ -251,6 +368,8 @@ def phase_slice(checks: Checks) -> tuple:
                   f"attention launches {launches['attention']} == {n_batches} x {want_attn}")
     checks.expect(launches["layer_norm"] == n_batches * want_ln,
                   f"layer_norm launches {launches['layer_norm']} == {n_batches} x {want_ln}")
+    checks.expect(launches["attention_bwd"] == 0,
+                  f"attention_bwd launches {launches['attention_bwd']} == 0")
     checks.expect(math.isfinite(metrics["loss"]) and 0 <= metrics["score"] <= 1,
                   "loss finite, score in [0, 1]")
     checks.expect(len(records) == metrics["num_samples"] == len(loader.dataset)
@@ -285,7 +404,7 @@ def phase_slice(checks: Checks) -> tuple:
             f"{float((kern - ref).abs().max()):.3e}, plain {float((plain - ref).abs().max()):.3e})",
         )
     checks.end_phase("slice")
-    return model, cfg, launches
+    return model, cfg
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -339,6 +458,195 @@ def phase_timing(model, cfg, card: str) -> dict:
     return times
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+def kernel_calls_per_step(cfg) -> dict:
+    """Launches of one pretraining step: K1 and K2 once per attention (text
+    and image layers, two directions per connection layer); K4 twice per
+    text and image layer, four times per connection layer, at the two
+    embeddings and in the two head transforms."""
+    n_c = cfg.num_connection_layers
+    attn = cfg.num_hidden_layers + cfg.v_num_hidden_layers + 2 * n_c
+    ln = 2 * cfg.num_hidden_layers + 2 * cfg.v_num_hidden_layers + 4 * n_c + 2 + 2
+    return {"attention": attn, "attention_bwd": attn, "layer_norm": ln}
+
+
+def bench_batch(cfg, batch: int, seed: int) -> dict:
+    """A CC batch from a numpy seed, as bench.py:286-309 builds it."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = {
+        "input_ids": rng.randint(1, cfg.vocab_size, (batch, TRAIN_T)).astype(np.int32),
+        "image_feat": rng.randn(batch, TRAIN_R, cfg.v_feature_size).astype(np.float32),
+        "image_loc": rng.rand(batch, TRAIN_R, 5).astype(np.float32),
+        "segment_ids": np.zeros((batch, TRAIN_T), np.int32),
+        "input_mask": np.ones((batch, TRAIN_T), np.int32),
+        "image_mask": np.ones((batch, TRAIN_R), np.int32),
+        "lm_label_ids": np.where(rng.rand(batch, TRAIN_T) < 0.15,
+                                 rng.randint(0, cfg.vocab_size, (batch, TRAIN_T)),
+                                 -1).astype(np.int32),
+        "image_label": np.where(rng.rand(batch, TRAIN_R - 1) < 0.15, 1, -1).astype(np.int32),
+        "image_target": rng.rand(batch, TRAIN_R - 1, cfg.v_target_size).astype(np.float32),
+        "is_next": rng.randint(0, 2, (batch,)).astype(np.int32),
+    }
+    out["image_target"] /= out["image_target"].sum(-1, keepdims=True)
+    return out
+
+
+def phase_train(checks: Checks) -> tuple:
+    import torch
+
+    from vilbert_tpu_torch.cli.train_concap import build_parser, train
+    from vilbert_tpu_torch.data.prefetch import to_device
+    from vilbert_tpu_torch.models.layers import set_dropout_generator, use_plain_ops
+    from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
+    from vilbert_tpu_torch.train.pretrain import host_batch, make_pretrain_loss_fn
+
+    args = build_parser().parse_args([
+        "--synthetic", "--config", CONFIG, "--batch_size", str(TRAIN_BATCH),
+        "--num_steps", str(TRAIN_STEPS), "--seed", str(SEED), "--device", DEVICE,
+    ])
+    losses = []
+    reset_launches()
+    t0 = time.time()
+    state = train(args, hooks=[lambda step, st, m: losses.append(
+        {k: float(v) for k, v in m.items()})])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    model = state.model
+    cfg = model.cfg
+    log(f"  train {CONFIG}: {sum(p.numel() for p in model.parameters())} params, "
+        f"{cfg.compute_dtype}, B={TRAIN_BATCH} T={args.seq_len} R={args.region_len + 1}, "
+        f"dropout {cfg.hidden_dropout_prob}/{cfg.attention_probs_dropout_prob}, "
+        f"{TRAIN_STEPS} steps in {time.time() - t0:.1f} s (set-up and host loader included); "
+        f"launches {launches}")
+    for i, m in enumerate(losses):
+        log(f"  step {i + 1}: loss {m['loss']:.6f} (t {m['masked_loss_t']:.4f} "
+            f"v {m['masked_loss_v']:.4f} nsp {m['next_sentence_loss']:.4f}) "
+            f"grad_norm {m['grad_norm']:.4f}")
+    checks.expect(cfg.compute_dtype == "bfloat16" and min(
+        cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob, cfg.v_hidden_dropout_prob,
+        cfg.v_attention_probs_dropout_prob) == 0.1, "bf16 compute, dropout 0.1 at every site")
+    checks.expect(len(losses) == TRAIN_STEPS and all(
+        math.isfinite(v) for m in losses for v in m.values()), "losses and grad norms finite")
+    for name, per_step in kernel_calls_per_step(cfg).items():
+        checks.expect(launches[name] == TRAIN_STEPS * per_step,
+                      f"{name} launches {launches[name]} == {TRAIN_STEPS} x {per_step}")
+
+    # one fp32 step with dropout on, through the kernels and the plain ops
+    cfg32 = cfg.replace(compute_dtype="float32")
+    m32 = ViLBERTForPretraining(cfg32)
+    m32.load_state_dict(model.state_dict())
+    m32 = m32.to(DEVICE)
+    batch = to_device(host_batch(bench_batch(cfg32, TRAIN_CHECK_BATCH, SEED + 5), cfg32), DEVICE)
+    loss_fn = make_pretrain_loss_fn(cfg32, lm_gather=LM_GATHER)
+    result = {}
+    for plain in (False, True):
+        use_plain_ops(m32, plain)
+        set_dropout_generator(m32, torch.Generator().manual_seed(SEED + 7))  # same masks
+        m32.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(m32, batch)
+        loss.backward()
+        result[plain] = (loss.item(), {n: p.grad.clone() for n, p in m32.named_parameters()})
+    (lk, gk), (lp, gp) = result[False], result[True]
+    loss_err = abs(lk - lp) / abs(lp)
+    # each gradient within 1e-3 of its own max|grad| plus 1e-6 of the largest
+    # gradient of the model: fp32 products summed in another order through 30
+    # attentions and 64 LayerNorms forward and backward, with the same dropout
+    # masks; the floor covers gradients that are zero but for rounding (the
+    # key biases': softmax is shift-invariant)
+    top = max(float(g.abs().max()) for g in gp.values())
+    worst = max(float((gk[n] - gp[n]).abs().max())
+                / (1e-3 * float(gp[n].abs().max()) + 1e-6 * top) for n in gp)
+    checks.expect(math.isfinite(lk) and loss_err <= 1e-5 and worst <= 1.0,
+                  f"B={TRAIN_CHECK_BATCH} fp32 step with dropout, kernels vs plain ops: loss "
+                  f"{lk:.6f} vs {lp:.6f} (rel {loss_err:.3e} <= 1e-5), worst gradient at "
+                  f"{worst:.3e} of its bound (<= 1)")
+    del m32, result, gk, gp
+    checks.end_phase("train")
+    return state, args, launches
+
+
+# -- phase 7 -----------------------------------------------------------------
+
+def phase_train_timing(checks: Checks, state, args, card: str, err: dict) -> dict:
+    import torch
+
+    from vilbert_tpu_torch.cli.train_concap import optimizer_config
+    from vilbert_tpu_torch.data.prefetch import to_device
+    from vilbert_tpu_torch.models.layers import set_dropout_generator, use_plain_ops
+    from vilbert_tpu_torch.ops.attention import (
+        attention,
+        attention_bwd,
+        attention_bwd_ref,
+        attention_ref,
+    )
+    from vilbert_tpu_torch.parallel.train_step import make_train_step
+    from vilbert_tpu_torch.train.optim import build_optimizer
+    from vilbert_tpu_torch.train.pretrain import host_batch, make_pretrain_loss_fn
+
+    model, cfg = state.model, state.model.cfg
+    del state  # frees the run's Adam moments
+    opt, _ = build_optimizer(optimizer_config(args, schedule="constant"),
+                             dict(model.named_parameters()), 1000)
+    step = make_train_step(make_pretrain_loss_fn(cfg, lm_gather=LM_GATHER), opt)
+    batch = to_device(host_batch(bench_batch(cfg, TRAIN_BATCH, SEED + 6), cfg), DEVICE)
+    set_dropout_generator(model, torch.Generator().manual_seed(SEED))
+    warmup, timed = 2, 6
+    times = {}
+    for plain in (True, False, False, True):
+        use_plain_ops(model, plain)
+        for _ in range(warmup):
+            step(model, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            metrics = step(model, batch)
+        loss = float(metrics["loss"])  # ends the timed steps
+        dt = time.perf_counter() - t0
+        label = "plain ops" if plain else "kernels"
+        times.setdefault(("train", label), []).append(TRAIN_BATCH * timed / dt)
+        log(f"  train step B={TRAIN_BATCH} T={TRAIN_T} R={TRAIN_R} bf16 {label}: "
+            f"{dt / timed * 1e3:.2f} ms/step = {TRAIN_BATCH * timed / dt:.1f} samples/s "
+            f"(loss {loss:.4f}) [{card}]")
+    use_plain_ops(model, False)
+    del model, opt, batch
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    bias = torch.zeros(TRAIN_BATCH, 1, 1, TRAIN_R, device=DEVICE)
+    for label, heads, d, sq, sk in (("text self", 12, 64, TRAIN_T, TRAIN_T),
+                                    ("image self", 8, 128, TRAIN_R, TRAIN_R),
+                                    ("text->image", 8, 128, TRAIN_T, TRAIN_R),
+                                    ("image->text", 8, 128, TRAIN_R, TRAIN_T)):
+        q, k, v, cot = (torch.randn(TRAIN_BATCH, s, heads * d, generator=g, device=DEVICE)
+                        .bfloat16() for s in (sq, sk, sk, sq))
+        b = bias[..., :sk]
+        for rate in (0.0, 0.1):
+            kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
+            with torch.inference_mode():
+                e, bound, ok = _fwd_error(attention(q, k, v, b, **kw),
+                                          attention_ref(q, k, v, b, **kw), "bfloat16")
+                eb, okb = _bwd_errors(attention_bwd(q, k, v, b, cot, **kw),
+                                      attention_bwd_ref(q, k, v, b, cot, **kw), "bfloat16")
+                err["attention_fwd"] = max(err["attention_fwd"], e)
+                err["attention_bwd"] = max(err["attention_bwd"], eb)
+                checks.expect(ok and okb, f"CC attention {label} B={TRAIN_BATCH} bf16 rate "
+                                          f"{rate}: fwd max|err| {e:.3e} (<= {bound:.3e}), "
+                                          f"bwd max|err| {eb:.3e}")
+                fwd = alternate(lambda: attention(q, k, v, b, **kw),
+                                lambda: attention_ref(q, k, v, b, **kw))
+                bwd = alternate(lambda: attention_bwd(q, k, v, b, cot, **kw),
+                                lambda: attention_bwd_ref(q, k, v, b, cot, **kw))
+            times[("attention_fwd", label, rate)] = fwd
+            times[("attention_bwd", label, rate)] = bwd
+            log(f"  CC attention {label} B={TRAIN_BATCH} h={heads} d={d} {sq}x{sk} bf16 rate "
+                f"{rate}: fwd kernel {fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms; bwd kernel "
+                f"{bwd[0]:.4f} ms, plain {bwd[1]:.4f} ms [{card}]")
+    checks.end_phase("train timing")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -362,21 +670,42 @@ def main() -> int:
     log("[3 kernels vs plain]")
     err = phase_kernels(checks)
     log("[4 slice]")
-    model, cfg, launches = phase_slice(checks)
+    model, cfg = phase_slice(checks)
     log("[5 timing]")
     times = phase_timing(model, cfg, card)
+    del model
+    log("[6 train slice]")
+    state, args, train_launches = phase_train(checks)
+    log("[7 train timing]")
+    times.update(phase_train_timing(checks, state, args, card, err))
+    del state
 
+    # launches: each kernel's count in the training step. The K3 entry has no
+    # kernel of its own: its row carries phase 3's check of the entry and the
+    # times of K1 + K2 at rate 0
+    fwd1, fwd0 = times[("attention_fwd", "image self", 0.1)], times[("attention_fwd", "image self", 0.0)]
+    bwd1, bwd0 = times[("attention_bwd", "image self", 0.1)], times[("attention_bwd", "image self", 0.0)]
     kernels = [
         {"name": "attention_fwd", "route": "cuda", "source": "vilbert_tpu_torch/csrc/attention.cu",
          "replaces": "vilbert_tpu/ops/pallas_attention_train.py:69",
-         "launches": launches["attention"], "max_abs_err": err["attention"],
-         "ms": times[("attention", "image self")][0],
-         "plain_ms": times[("attention", "image self")][1]},
+         "launches": train_launches["attention"], "max_abs_err": err["attention_fwd"],
+         "ms": fwd1[0], "plain_ms": fwd1[1], "ms_rate0": fwd0[0], "plain_ms_rate0": fwd0[1]},
+        {"name": "attention_bwd", "route": "cuda",
+         "source": "vilbert_tpu_torch/csrc/attention_bwd.cu",
+         "replaces": "vilbert_tpu/ops/pallas_attention_train.py:81",
+         "launches": train_launches["attention_bwd"], "max_abs_err": err["attention_bwd"],
+         "ms": bwd1[0], "plain_ms": bwd1[1]},
         {"name": "layer_norm_fwd", "route": "cuda", "source": "vilbert_tpu_torch/csrc/layernorm.cu",
          "replaces": "vilbert_tpu/ops/pallas_layernorm.py:28",
-         "launches": launches["layer_norm"], "max_abs_err": err["layer_norm"],
+         "launches": train_launches["layer_norm"], "max_abs_err": err["layer_norm"],
          "ms": times[("layer_norm", "image")][0],
          "plain_ms": times[("layer_norm", "image")][1]},
+        {"name": "fused_attention", "route": "cuda",
+         "source": "vilbert_tpu_torch/ops/attention.py",
+         "replaces": "vilbert_tpu/ops/pallas_attention.py:33",
+         "served_by": "attention_fwd + attention_bwd at rate 0", "launches": 0,
+         "max_abs_err": err["fused_attention"],
+         "ms": fwd0[0] + bwd0[0], "plain_ms": fwd0[1] + bwd0[1]},
     ]
     print(card_line())
     print(json.dumps({"kernels": kernels}))

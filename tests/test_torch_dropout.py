@@ -1,0 +1,249 @@
+"""The port's training ops against the JAX package, on the CPU.
+
+Dropout masks bit for bit (``vilbert_tpu/ops/dropout.py`` and the Pallas
+kernels' ``_keep_mask``); the plain twins of the attention forward (K1, with
+dropout) and backward (K2) against ``fused_attention_train`` in interpret
+mode, given the seed JAX draws from its rng; the K3 entry against
+``pallas_attention.fused_attention``; the gradients of ``layer_norm`` and
+``gelu_rational`` against ``jax.vjp``. Inputs come from numpy seeds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _jax_seed(rng):
+    """The uint32 seed ``fused_attention_train`` draws from ``rng``."""
+    return int(np.asarray(jax.random.bits(rng, (1,), jnp.uint32))[0])
+
+
+class TestMasks:
+    @pytest.mark.parametrize("shape,seed,rate", [
+        ((2, 3, 5), 12345, 0.1), ((7, 11), 2 ** 32 - 5, 0.3), ((4, 36, 768), 2 ** 31 + 7, 0.1),
+        ((1000,), 0, 0.5), ((3, 37, 1024), 2 ** 31 - 1, 0.9),
+    ])
+    def test_hash_keep_mask_is_bit_exact(self, shape, seed, rate):
+        from vilbert_tpu.ops.dropout import hash_keep_mask as jax_mask
+        from vilbert_tpu_torch.ops.dropout import hash_keep_mask
+
+        want = np.asarray(jax_mask(shape, rate, jnp.uint32(seed)))
+        np.testing.assert_array_equal(hash_keep_mask(shape, rate, seed).numpy(), want)
+
+    @pytest.mark.parametrize("sq,sk", [(36, 36), (37, 36), (5, 1)])
+    @pytest.mark.parametrize("seed", [0, 123456789, 2 ** 31 - 3, 2 ** 31, 2 ** 32 - 1])
+    def test_tile_keep_mask_is_bit_exact(self, sq, sk, seed):
+        from vilbert_tpu.ops.pallas_attention_train import _keep_mask
+        from vilbert_tpu_torch.ops.dropout import tile_keep_mask
+
+        as_int32 = np.array(seed, np.uint32).view(np.int32)
+        want = np.asarray(_keep_mask((sq, sk), 0.1, jnp.asarray(as_int32)))
+        got = tile_keep_mask(sq, sk, 0.1, torch.tensor([seed]))[0]
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    def test_tile_seeds_wrap_as_the_kernel_does(self):
+        """seed + program_id * 7919 in int32 wraps past 2^31 (and 2^32 as
+        uint32) exactly as the port's tile seeds do."""
+        from vilbert_tpu.ops.pallas_attention_train import _keep_mask
+        from vilbert_tpu_torch.ops.dropout import attention_keep_mask
+
+        B, h, sq, sk = 3, 4, 6, 7
+        for seed in (2 ** 31 - 8000, 2 ** 32 - 20000):
+            got = attention_keep_mask(B, h, sq, sk, 0.2, seed).numpy()
+            s32 = jnp.asarray(np.array(seed, np.uint32).view(np.int32))
+            for bh in range(B * h):
+                tile = s32 + jnp.int32(bh) * jnp.int32(7919)
+                want = np.asarray(_keep_mask((sq, sk), 0.2, tile))
+                np.testing.assert_array_equal(got[bh // h, bh % h], want)
+
+    @pytest.mark.parametrize("jdt,tdt", [(jnp.float32, torch.float32),
+                                         (jnp.bfloat16, torch.bfloat16)])
+    def test_hash_dropout_is_bit_equal(self, jdt, tdt):
+        from vilbert_tpu.ops.dropout import hash_dropout as jax_dropout
+        from vilbert_tpu_torch.ops.dropout import hash_dropout
+
+        x = np.random.RandomState(0).randn(4, 9, 48).astype(np.float32) * 3
+        for k in range(3):
+            rng = jax.random.PRNGKey(k)
+            seed = int(np.asarray(jax.random.bits(rng, (), jnp.uint32)))
+            want = np.asarray(jax_dropout(jnp.asarray(x, jdt), 0.1, rng), np.float32)
+            got = hash_dropout(_t(x).to(tdt), 0.1, seed)
+            assert got.dtype == tdt
+            np.testing.assert_array_equal(got.float().numpy(), want)
+
+    def test_keep_rate(self):
+        from vilbert_tpu_torch.ops.dropout import attention_keep_mask, hash_keep_mask
+
+        assert abs(hash_keep_mask((1000, 1000), 0.1, 7).float().mean().item() - 0.9) < 0.005
+        m = attention_keep_mask(64, 12, 36, 36, 0.1, 2 ** 32 - 1)  # ~1e6 elements
+        assert abs(m.float().mean().item() - 0.9) < 0.005
+
+
+def _attention_inputs(B, sq, sk, H, seed=0):
+    rng = np.random.RandomState(seed)
+    q, g = (rng.randn(B, sq, H).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, sk, H).astype(np.float32) for _ in range(2))
+    mask = np.ones((B, sk), np.int32)
+    mask[0, -2:] = 0   # padded keys
+    mask[-1, :] = 0    # a fully padded row: uniform over -10000 biases
+    return q, k, v, g, mask
+
+
+class TestAttentionTwins:
+    """The plain twins (and the autograd entry on the CPU) within 1e-5 of
+    ``fused_attention_train`` and its ``jax.vjp``, at fp32."""
+
+    @pytest.mark.parametrize("rate", [0.0, 0.1])
+    @pytest.mark.parametrize("sq,sk,h,d", [(5, 5, 4, 8), (6, 9, 2, 8), (9, 4, 2, 16)])
+    def test_forward_and_vjp_match_pallas(self, rate, sq, sk, h, d):
+        from vilbert_tpu.ops.pallas_attention_train import fused_attention_train
+        from vilbert_tpu_torch.ops.attention import (
+            attention,
+            attention_bwd_ref,
+            attention_ref,
+            make_additive_mask,
+        )
+
+        B = 3
+        q, k, v, g, mask = _attention_inputs(B, sq, sk, h * d)
+        bias = make_additive_mask(_t(mask))
+        rng = jax.random.PRNGKey(sq * 100 + sk)
+        seed = _jax_seed(rng) if rate else None
+
+        def jax_fn(q_, k_, v_):
+            return fused_attention_train(q_, k_, v_, jnp.asarray(bias.numpy()), num_heads=h,
+                                         dropout_rate=rate, dropout_rng=rng, interpret=True)
+
+        want, vjp = jax.vjp(jax_fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want_grads = vjp(jnp.asarray(g))
+        kw = dict(num_heads=h, dropout_rate=rate, seed=seed)
+        np.testing.assert_allclose(attention_ref(_t(q), _t(k), _t(v), bias, **kw).numpy(),
+                                   np.asarray(want), atol=1e-5, rtol=1e-5)
+        got_grads = attention_bwd_ref(_t(q), _t(k), _t(v), bias, _t(g), **kw)
+        for name, got, w in zip("qkv", got_grads, want_grads):
+            np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5,
+                                       err_msg=f"d{name}")
+        # the differentiable entry runs the same twins on the CPU
+        qt, kt, vt = (_t(a).requires_grad_() for a in (q, k, v))
+        out = attention(qt, kt, vt, bias, **kw)
+        out.backward(_t(g))
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+        for t, w in zip((qt, kt, vt), got_grads):
+            assert torch.equal(t.grad, w)
+
+    def test_dropout_changes_the_output_and_seeds_differ(self):
+        from vilbert_tpu_torch.ops.attention import attention_ref
+
+        q, k, v, _, _ = _attention_inputs(2, 8, 8, 32)
+        a = attention_ref(_t(q), _t(k), _t(v), None, num_heads=4)
+        b = attention_ref(_t(q), _t(k), _t(v), None, num_heads=4, dropout_rate=0.1, seed=1)
+        c = attention_ref(_t(q), _t(k), _t(v), None, num_heads=4, dropout_rate=0.1, seed=2)
+        assert not torch.equal(a, b) and not torch.equal(b, c)
+
+    @pytest.mark.parametrize("sq,sk,h,d,masked", [(9, 9, 4, 8, True), (12, 7, 2, 16, True),
+                                                  (8, 8, 2, 8, False)])
+    def test_fused_attention_matches_k3(self, sq, sk, h, d, masked):
+        """The K3 entry against ``pallas_attention.fused_attention`` (the
+        cases of tests/test_pallas_ops.py): forward and ``jax.vjp``."""
+        from vilbert_tpu.ops.pallas_attention import fused_attention as jax_fused
+        from vilbert_tpu_torch.ops.attention import fused_attention, make_additive_mask
+
+        B = 3
+        q, k, v, g, mask = _attention_inputs(B, sq, sk, h * d, seed=1)
+        mask[:, -2:] = 0
+        bias = make_additive_mask(_t(mask)) if masked else None
+        jbias = None if bias is None else jnp.asarray(bias.numpy())
+        want, vjp = jax.vjp(lambda a, b, c: jax_fused(a, b, c, jbias, num_heads=h, interpret=True),
+                            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        qt, kt, vt = (_t(a).requires_grad_() for a in (q, k, v))
+        out = fused_attention(qt, kt, vt, bias, num_heads=h)
+        out.backward(_t(g))
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+        for name, t, w in zip("qkv", (qt, kt, vt), vjp(jnp.asarray(g))):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5,
+                                       err_msg=f"d{name}")
+
+
+def _bf16_close(got, want):
+    """Within one bf16 rounding (2^-7 relative) of the larger magnitude."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, atol=2 ** -7 * np.abs(want).max(), rtol=2 ** -7)
+
+
+class TestGradients:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("with_residual", [False, True])
+    def test_layer_norm_vjp(self, dtype, with_residual, rng_np):
+        """fp32: within 1e-5; bf16: within one bf16 rounding (both sides
+        compute in fp32 and round the results to bf16)."""
+        from vilbert_tpu.ops.pallas_layernorm import fused_layer_norm
+        from vilbert_tpu_torch.ops.layernorm import layer_norm
+
+        jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+        x = rng_np.randn(3, 7, 32).astype(np.float32) * 3 + 1
+        res = rng_np.randn(3, 7, 32).astype(np.float32)
+        w = rng_np.randn(32).astype(np.float32)
+        b = rng_np.randn(32).astype(np.float32)
+        g = rng_np.randn(3, 7, 32).astype(np.float32)
+
+        def jax_fn(x_, r_, w_, b_):
+            return fused_layer_norm(x_, w_, b_, residual=r_ if with_residual else None,
+                                    interpret=True)
+
+        primals = (jnp.asarray(x, jdt), jnp.asarray(res, jdt), jnp.asarray(w), jnp.asarray(b))
+        want, vjp = jax.vjp(jax_fn, *primals)
+        want_grads = vjp(jnp.asarray(g, jdt))
+        xt = _t(x).to(tdt).requires_grad_()
+        rt = _t(res).to(tdt).requires_grad_()
+        wt, bt = _t(w).requires_grad_(), _t(b).requires_grad_()
+        out = layer_norm(xt, wt, bt, residual=rt if with_residual else None)
+        out.backward(_t(g).to(tdt))
+        names = ("x", "residual", "weight", "bias")
+        pairs = [(out, want)] + [(t.grad, wg) for t, wg in zip((xt, rt, wt, bt), want_grads)]
+        if not with_residual:
+            assert rt.grad is None
+            pairs.pop(2)
+            names = ("x", "weight", "bias")
+        for name, (got, w_) in zip(("out",) + names, pairs):
+            got = got.detach().float().numpy()
+            if dtype == "float32":
+                np.testing.assert_allclose(got, np.asarray(w_), atol=1e-5, rtol=1e-5,
+                                           err_msg=name)
+            else:
+                _bf16_close(got, w_)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_gelu_rational_vjp(self, dtype):
+        """The custom derivative: fp32 within 1e-6; bf16 within one bf16
+        rounding (``dgelu.astype(x.dtype) * dx`` rounds twice in bf16)."""
+        from vilbert_tpu.models.layers import gelu_rational as jax_gelu
+        from vilbert_tpu_torch.models.layers import gelu_rational
+
+        jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+        x = np.linspace(-7, 7, 2001).astype(np.float32)
+        g = np.random.RandomState(0).randn(2001).astype(np.float32)
+        want, vjp = jax.vjp(jax_gelu, jnp.asarray(x, jdt))
+        (want_dx,) = vjp(jnp.asarray(g, jdt))
+        xt = _t(x).to(tdt).requires_grad_()
+        out = gelu_rational(xt)
+        out.backward(_t(g).to(tdt))
+        assert xt.grad.dtype == tdt
+        if dtype == "float32":
+            np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx), atol=1e-6, rtol=1e-6)
+        else:
+            _bf16_close(xt.grad.float().numpy(), want_dx)
+            _bf16_close(out.detach().float().numpy(), want)
+
+    def test_gelu_constants_are_the_jax_modules(self):
+        import vilbert_tpu.models.layers as jax_layers
+        import vilbert_tpu_torch.models.layers as port_layers
+
+        for name in ("_ERF_P", "_ERF_Q", "_DGELU_P", "_DGELU_Q"):
+            assert getattr(port_layers, name) == getattr(jax_layers, name), name

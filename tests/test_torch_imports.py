@@ -2,8 +2,9 @@
 
 The card machine has no jax. This file's tests run the port in a fresh
 interpreter (tests/conftest.py has already imported jax into this one):
-import every module of ``vilbert_tpu_torch``, run the eval CLI end to end on
-a tiny config on the CPU, and check that neither jax nor flax was loaded.
+import every module of ``vilbert_tpu_torch``, run the eval CLI and the
+training CLI end to end on a tiny config on the CPU, and check that neither
+jax nor flax was loaded.
 """
 
 import json
@@ -54,6 +55,38 @@ def test_port_runs_without_jax(tmp_path):
     assert metrics["num_samples"] == 16
 
 
+_TRAIN_SCRIPT = """
+import sys
+from vilbert_tpu_torch.cli.train_concap import main
+main(sys.argv[1:])
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+print("JAX_FREE_OK")
+"""
+
+
+def test_train_cli_runs_without_jax(tmp_path):
+    """The training slice (model, dropout, losses, optimizer, step, data,
+    checkpoint writer) on the CPU, with no jax, flax or optax loaded."""
+    import numpy as np
+
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(dict(_TINY, v_target_size=1601)))  # the synthetic CC targets
+    out = tmp_path / "out"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_SCRIPT, "--synthetic", "--device", "cpu",
+         "--num_steps", "2", "--batch_size", "8", "--config", str(cfg),
+         "--output_dir", str(out)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_FREE_OK" in proc.stdout
+    with np.load(out / "params_final.npz") as z:
+        assert "bert.embeddings.word_embeddings.embedding" in z.files
+        assert "cls.predictions.bias" in z.files
+
+
 def test_no_jax_import_statement_in_port():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M)
     offenders = [
@@ -62,3 +95,16 @@ def test_no_jax_import_statement_in_port():
         if pattern.search(p.read_text())
     ]
     assert not offenders
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py drives the port alone: no statement of it imports jax,
+    flax or the JAX package; what it needs of the shared configuration it
+    takes through ``vilbert_tpu_torch``."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|vilbert_tpu)\b", re.M)
+    assert not pattern.findall((REPO / "chip_smoke.py").read_text())
+    from vilbert_tpu import core
+    from vilbert_tpu_torch.core import config
+
+    for name in ("ModelConfig", "OptimizerConfig", "TaskConfig"):
+        assert getattr(config, name) is getattr(core.config, name)

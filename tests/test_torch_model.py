@@ -226,6 +226,22 @@ class TestSlice:
         with open(tmp_path / "metrics_VQA_minval.json") as f:
             assert json.load(f)["num_samples"] == 16
 
+    def test_synthetic_vqa_loader_has_the_tasks_geometry(self, tiny_config):
+        """TASK1's geometry, unclipped: 23 tokens, 100 boxes plus the global
+        row, 3129 answer labels, the last batch short."""
+        from vilbert_tpu.core.config import load_task_configs
+        from vilbert_tpu_torch.cli.eval_tasks import synthetic_vqa_loader
+
+        task = load_task_configs(str(REPO / "configs" / "tasks.yml"))["TASK1"]
+        loader = synthetic_vqa_loader(tiny_config, task, num=10, batch_size=4)
+        batches = list(loader)
+        assert len(batches) == len(loader) == 3 and len(loader.dataset) == 10
+        b = batches[0]
+        assert b["features"].shape == (4, task.max_region_num, tiny_config.v_feature_size)
+        assert b["question"].shape == (4, task.max_seq_length)
+        assert b["image_mask"].sum(1).min() == task.max_region_num
+        assert b["target"].shape == (4, 3129)
+
 
 class TestTaskLosses:
     @pytest.mark.parametrize("task_type", [
@@ -291,13 +307,30 @@ class TestRefusedKnobs:
             _port_model(tiny_config.replace(**{knob: True}))
 
     def test_train_mode_with_dropout_raises(self, tiny_config, port_and_params):
-        cfg = tiny_config.replace(hidden_dropout_prob=0.1)
+        """Train-mode dropout draws its seeds from a generator the trainer
+        hands over: without one it raises; with one it runs, one seed gives
+        the same logits, another seed others, and eval mode drops nothing."""
+        from vilbert_tpu_torch.models.layers import set_dropout_generator
+
+        cfg = tiny_config.replace(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                                  v_hidden_dropout_prob=0.1,
+                                  v_attention_probs_dropout_prob=0.1)
         model = _port_model(cfg).train()
         x = {k: torch.from_numpy(v) for k, v in _inputs(cfg).items()}
-        with pytest.raises(NotImplementedError, match="dropout"):
+        with pytest.raises(ValueError, match="set_dropout_generator"):
             model(**x)
+
+        def logits(seed):
+            set_dropout_generator(model, torch.Generator().manual_seed(seed))
+            with torch.no_grad():
+                return model(**x, heads=("vil_prediction",)).vil_prediction
+
+        a, b, c = logits(3), logits(3), logits(4)
+        assert torch.isfinite(a).all() and torch.equal(a, b) and not torch.equal(a, c)
         with torch.inference_mode():
-            model.eval()(**x)  # eval mode runs
+            e1 = model.eval()(**x, heads=("vil_prediction",)).vil_prediction
+            e2 = _port_model(cfg).eval()(**x, heads=("vil_prediction",)).vil_prediction
+        assert torch.equal(e1, e2) and not torch.equal(e1, a)
 
     def test_layout_knobs_are_ignored(self, tiny_config, port_and_params):
         model, _ = port_and_params

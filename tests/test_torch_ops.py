@@ -55,11 +55,13 @@ class TestAttention:
         np.testing.assert_array_equal(got.numpy(), np.asarray(jax_mask(jnp.asarray(mask))))
 
     def test_dropout_rate_is_refused(self):
+        """A dropout rate without a uint32 seed, or outside [0, 1), is refused."""
         from vilbert_tpu_torch.ops.attention import attention
 
         x = torch.zeros(1, 2, 8)
-        with pytest.raises(NotImplementedError, match="dropout"):
-            attention(x, x, x, None, num_heads=1, dropout_rate=0.1)
+        for rate, seed in ((0.1, None), (0.1, -1), (0.1, 2 ** 32), (1.0, 3), (-0.1, 3)):
+            with pytest.raises(ValueError, match="dropout"):
+                attention(x, x, x, None, num_heads=1, dropout_rate=rate, seed=seed)
 
 
 def _qkv(b=2, sq=23, sk=101, hd=1024, dtype=torch.bfloat16):
@@ -208,7 +210,9 @@ class TestBuild:
         assert path == _build.library_path()
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith("libvilbert_kernels_") and path.suffix == ".so"
-        assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} == {"attention.cu", "layernorm.cu"}
+        assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} == {
+            "attention.cu", "attention_bwd.cu", "layernorm.cu"}
+        assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {"keep_mask.cuh"}
 
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         from vilbert_tpu_torch.ops import _build

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
-from vilbert_tpu.core.config import ModelConfig, TaskConfig
+from vilbert_tpu_torch.core.config import ModelConfig, TaskConfig
 from vilbert_tpu_torch.core.weights import load_weights
 from vilbert_tpu_torch.eval.evaluators import evaluate_task, save_results
 from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks
@@ -103,6 +103,23 @@ def run_eval(
     return out
 
 
+def synthetic_vqa_loader(model_cfg: ModelConfig, task: TaskConfig, *, num: int = 96,
+                         batch_size: int = 64):
+    """Synthetic VQA questions at the task's full geometry: images of
+    ``max_region_num - 1`` boxes plus the global row, questions of
+    ``max_seq_length`` tokens, 3129 answer labels."""
+    from vilbert_tpu.data import synthetic as syn
+    from vilbert_tpu.data.tasks import DataLoader, VQADataset
+    from vilbert_tpu.data.tokenization import HashTokenizer
+
+    store = syn.synthetic_store(num_images=16, num_boxes=task.max_region_num - 1,
+                                feature_dim=model_cfg.v_feature_size)
+    ds = VQADataset(syn.vqa_annotations(num=num, num_labels=3129), store, num_labels=3129,
+                    tokenizer=HashTokenizer(model_cfg.vocab_size),
+                    max_seq_length=task.max_seq_length, max_region_num=task.max_region_num)
+    return DataLoader(ds, batch_size=batch_size, shuffle=False, drop_last=False)
+
+
 def _label2ans(task: TaskConfig) -> Optional[List[str]]:
     """Answer vocabulary for VQA/GQA submission records, if on disk."""
     if task.type not in ("VL-classifier", "VL-classifier-GQA"):
@@ -126,7 +143,7 @@ def main(argv=None) -> None:
     if args.int8:
         raise NotImplementedError("--int8: int8 inference is not ported yet (ROADMAP A13)")
 
-    from vilbert_tpu.core.config import load_task_configs
+    from vilbert_tpu_torch.core.config import load_task_configs
 
     model_cfg = ModelConfig.from_json_file(
         args.config,

@@ -1,0 +1,243 @@
+"""CLI: Conceptual Captions pretraining on PyTorch (mirrors the reference
+train_concap.py and ``vilbert_tpu.cli.train_concap``).
+
+  python -m vilbert_tpu_torch.cli.train_concap \\
+      --config configs/bert_base_6layer_6conect.json \\
+      --train_store data/cc_train.vfr --captions data/caption_train.json \\
+      --vocab data/vocab.txt --batch_size 256 --num_epochs 10
+
+  # smoke test without data artifacts, on the CPU:
+  python -m vilbert_tpu_torch.cli.train_concap --synthetic --device cpu --num_steps 3
+
+Writes ``params_final.npz`` (flat, keyed by flax path) into
+``--output_dir``; ``vilbert_tpu.core.checkpoint.load_params`` reads it. On a
+CUDA device the model runs the port's attention (forward with dropout,
+backward) and LayerNorm kernels, built from ``vilbert_tpu_torch/csrc`` at
+first use.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+from typing import Optional, Sequence
+
+from vilbert_tpu_torch.core.config import ModelConfig, OptimizerConfig
+
+#: flags of the JAX CLI that the port refuses, and the ROADMAP item of each
+_REFUSED = {
+    "baseline": "the single-stream baseline (ROADMAP A11)",
+    "bf16_grads": "bf16 gradients (ROADMAP A5)",
+    "bf16_adam_state": "bf16 Adam moments (ROADMAP A5)",
+    "resume_file": "full-state resume (ROADMAP A6)",
+    "checkpoint_every": "full-state checkpoints (ROADMAP A6)",
+    "coordinator": "multi-GPU training (ROADMAP A12)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", default="configs/bert_base_6layer_6conect.json")
+    p.add_argument("--train_store", default="", help=".vfr/.lmdb region features")
+    p.add_argument("--captions", default="", help="caption json {image_id: text}")
+    p.add_argument("--val_store", default="", help="validation region features")
+    p.add_argument("--val_captions", default="", help="validation caption json")
+    p.add_argument("--val_every", type=int, default=0,
+                   help="steps between validation passes (0: once at end; "
+                        "with --num_epochs, once per epoch)")
+    p.add_argument("--vocab", default="", help="WordPiece vocab.txt")
+    p.add_argument("--from_pretrained", default="", help="torch .bin or .npz params")
+    p.add_argument("--output_dir", default="checkpoints/concap")
+    p.add_argument("--batch_size", type=int, default=512)
+    p.add_argument("--num_epochs", type=int, default=10)
+    p.add_argument("--num_steps", type=int, default=0, help="override step count")
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--warmup_proportion", type=float, default=0.1)
+    p.add_argument("--seq_len", type=int, default=36)
+    p.add_argument("--region_len", type=int, default=36)
+    p.add_argument("--img_weight", type=float, default=1.0)
+    p.add_argument("--objective", type=int, default=0)
+    p.add_argument("--visual_target", type=int, default=0)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--pretrained_lr_scale", type=float, default=1.0)
+    p.add_argument("--baseline", action="store_true", help="not ported yet")
+    p.add_argument("--adam_epsilon", type=float, default=1e-8)
+    p.add_argument("--bf16_adam_state", action="store_true", help="not ported yet")
+    p.add_argument("--bf16_grads", action="store_true", help="not ported yet")
+    p.add_argument("--num_negative", type=int, default=128)
+    p.add_argument("--freeze", type=int, default=-1,
+                   help="freeze text embeddings + text layers 0..N (-1 = nothing)")
+    p.add_argument("--dynamic_attention", action="store_true")
+    p.add_argument("--bert_model", default="bert-base-uncased")
+    p.add_argument("--without_coattention", action="store_true")
+    p.add_argument("--save_name", default="")
+    p.add_argument("--resume_file", default="", help="not ported yet")
+    p.add_argument("--start_step", type=int, default=-1, help="not ported yet")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seeds the initial weights and every dropout mask")
+    p.add_argument("--shard_id", type=int, default=-1, help="-1: 0 (one process)")
+    p.add_argument("--num_shards", type=int, default=0, help="0: 1 (one process)")
+    p.add_argument("--coordinator", default="", help="not ported yet")
+    p.add_argument("--num_processes", type=int, default=0)
+    p.add_argument("--process_id", type=int, default=-1)
+    p.add_argument("--lm_gather", type=int, default=-1,
+                   help="project only K masked positions through the LM head "
+                        "(-1: seq_len//3, 0: the full sequence)")
+    p.add_argument("--img_gather", type=int, default=0,
+                   help="project only K masked regions through the image head")
+    p.add_argument("--use_pallas", action="store_true",
+                   help="accepted for flag parity; on CUDA the port always runs its kernels")
+    p.add_argument("--remat", action="store_true",
+                   help="accepted for flag parity; ignored (ROADMAP A13)")
+    p.add_argument("--num_workers", type=int, default=0,
+                   help=">1: thread-pool host batch building (deterministic)")
+    p.add_argument("--synthetic", action="store_true", help="synthetic data smoke run")
+    p.add_argument("--checkpoint_every", type=int, default=0, help="not ported yet")
+    p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    return p
+
+
+def check_flags(args: argparse.Namespace) -> None:
+    """Raise for the flags the port does not carry yet."""
+    for flag, what in _REFUSED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag}: {what} is not ported yet")
+    if args.start_step >= 0:
+        raise NotImplementedError(f"--start_step: {_REFUSED['resume_file']} is not ported yet")
+    if args.num_processes > 1 or args.num_shards > 1:
+        raise NotImplementedError(f"--num_processes/--num_shards: {_REFUSED['coordinator']}")
+    if args.visual_target == 2:
+        raise NotImplementedError("--visual_target 2 (NCE) is not ported yet (ROADMAP A4)")
+
+
+def synthetic_stores(batch_size: int):
+    """The JAX CLI's synthetic CC world: 256 training images (or one batch,
+    if larger: the JAX CLI's loader yields nothing there) and 64 validation
+    images of 36 boxes, with captions."""
+    from vilbert_tpu.data.feature_store import InMemoryFeatureStore
+
+    store = InMemoryFeatureStore.synthetic(num_images=max(256, batch_size), num_boxes=36)
+    captions = {k: f"a synthetic caption about image {k}" for k in store.keys()}
+    val_store = InMemoryFeatureStore.synthetic(num_images=64, num_boxes=36)
+    val_captions = {k: f"a synthetic validation caption {k}" for k in val_store.keys()}
+    return store, captions, val_store, val_captions
+
+
+def concap_loader(store, captions, tokenizer, model_cfg: ModelConfig, args, *, seed: int,
+                  num_workers: int = 0):
+    from vilbert_tpu.data.concap import ConceptCapLoader, ConceptCapSampleConfig
+
+    return ConceptCapLoader(
+        store, captions, tokenizer, batch_size=args.batch_size,
+        cfg=ConceptCapSampleConfig(
+            seq_len=args.seq_len, region_len=args.region_len,
+            feature_dim=model_cfg.v_feature_size, target_dim=model_cfg.v_target_size,
+            visual_target=args.visual_target, objective=args.objective,
+        ),
+        seed=seed, shard_id=0, num_shards=1, num_workers=num_workers,
+    )
+
+
+def optimizer_config(args: argparse.Namespace, schedule: str = "warmup_linear") -> OptimizerConfig:
+    """The CLI's AdamW settings; ``schedule="constant"`` holds the learning
+    rate, for timing steps at any step count."""
+    return OptimizerConfig(
+        learning_rate=args.learning_rate,
+        warmup_proportion=args.warmup_proportion,
+        schedule=schedule,
+        beta2=0.98,  # reference AdamW betas for concap (train_concap.py:467)
+        eps=args.adam_epsilon,
+        pretrained_lr_scale=args.pretrained_lr_scale,
+    )
+
+
+def train(args: argparse.Namespace, hooks: Optional[list] = None):
+    """The CLI's body without the final save: data, model and
+    ``run_pretraining`` for parsed flags; returns the final ``TrainState``."""
+    check_flags(args)
+
+    from vilbert_tpu.cli.train_tasks import freeze_prefixes
+    from vilbert_tpu.data.tokenization import load_tokenizer
+    from vilbert_tpu_torch.train.pretrain import run_pretraining
+
+    model_cfg = ModelConfig.from_json_file(
+        args.config,
+        objective=args.objective,
+        visual_target=args.visual_target,
+        num_negative=args.num_negative,
+        dynamic_attention=args.dynamic_attention,
+        with_coattention=not args.without_coattention,
+        model="roberta" if "roberta" in args.bert_model else "bert",
+    )
+    if args.save_name:
+        args.output_dir = os.path.join(args.output_dir, args.save_name)
+    tokenizer = load_tokenizer(args.vocab or None, model_cfg.vocab_size)
+
+    val_store = val_captions = None
+    if args.synthetic:
+        store, captions, val_store, val_captions = synthetic_stores(args.batch_size)
+    else:
+        from vilbert_tpu.data.feature_store import open_feature_store
+
+        if not (args.train_store and args.captions):
+            raise SystemExit("--train_store and --captions are required without --synthetic")
+        store = open_feature_store(args.train_store)
+        with open(args.captions) as f:
+            captions = json.load(f)
+        if args.val_store:
+            if not args.val_captions:
+                raise SystemExit("--val_captions is required with --val_store")
+            val_store = open_feature_store(args.val_store)
+            with open(args.val_captions) as f:
+                val_captions = json.load(f)
+    loader = concap_loader(store, captions, tokenizer, model_cfg, args, seed=args.seed,
+                           num_workers=args.num_workers)
+    val_loader = None
+    if val_store is not None:
+        val_loader = concap_loader(val_store, val_captions, tokenizer, model_cfg, args,
+                                   seed=args.seed + 1)
+
+    steps_per_epoch = max(len(store.keys()) // args.batch_size, 1)
+    num_steps = args.num_steps or steps_per_epoch * args.num_epochs
+    val_every = args.val_every or (0 if args.num_steps else steps_per_epoch)
+    model = None
+    if args.from_pretrained:
+        import torch
+
+        from vilbert_tpu_torch.core.weights import load_weights
+        from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
+
+        model = ViLBERTForPretraining(model_cfg, generator=torch.Generator().manual_seed(args.seed))
+        load_weights(model, args.from_pretrained)
+
+    return run_pretraining(
+        model_cfg, optimizer_config(args), loader, num_steps=num_steps, seed=args.seed,
+        img_weight=args.img_weight, grad_accum=args.gradient_accumulation_steps,
+        lm_gather=args.seq_len // 3 if args.lm_gather == -1 else args.lm_gather,
+        img_gather=args.img_gather, model=model, device=args.device,
+        val_loader=val_loader, val_every=val_every, hooks=hooks,
+        freeze_prefix=freeze_prefixes(str(args.freeze)),
+    )
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Parse the flags, train, write ``params_final.npz``; returns the final
+    ``TrainState``."""
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
+    check_flags(args)
+    state = train(args)
+
+    from vilbert_tpu_torch.core.weights import save_params_npz
+
+    path = os.path.join(args.output_dir, "params_final.npz")
+    save_params_npz(path, state.model.state_dict())
+    logging.info("saved %s", path)
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -11,8 +11,9 @@ parameters are not transposed. The reference's tied LM decoder and dead
 
 - ``flax_from_state_dict`` / ``state_dict_from_flax``: exact round trip
   between a port ``state_dict`` and a flax params tree of numpy arrays;
-- ``load_params_npz``: a flat ``.npz`` keyed by flax path, as
-  ``vilbert_tpu.core.checkpoint.save_params`` writes it;
+- ``load_params_npz`` / ``save_params_npz``: a flat ``.npz`` keyed by flax
+  path, as ``vilbert_tpu.core.checkpoint.save_params`` writes it and
+  ``load_params`` reads it, so a checkpoint moves between the packages;
 - ``load_weights``: ``.npz`` or a reference ``.bin`` checkpoint into a model
   (the ``.bin`` path goes through the importer's key migration: ``module.``
   and ``bert.`` prefixes, gamma/beta, weight-norm folding).
@@ -21,6 +22,7 @@ parameters are not transposed. The reference's tied LM decoder and dead
 from __future__ import annotations
 
 import logging
+import os
 from typing import Any, Dict, Iterable, Mapping
 
 import numpy as np
@@ -77,6 +79,12 @@ def load_params_npz(path: str) -> Dict[str, Any]:
     """Flat ``.npz`` keyed by dotted flax path -> nested params tree."""
     with np.load(path) as z:
         return _unflatten({k: z[k] for k in z.files})
+
+
+def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Port ``state_dict`` -> flat ``.npz`` keyed by dotted flax path."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **_flatten(flax_from_state_dict(state_dict)))
 
 
 def load_weights(model: nn.Module, path: str) -> None:

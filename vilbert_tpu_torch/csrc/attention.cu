@@ -2,9 +2,14 @@
 // key bias) v, one block per (batch, head, tile of query rows).
 //
 // Replaces the TPU kernel vilbert_tpu/ops/pallas_attention_train.py::_fwd_kernel
-// at dropout rate 0, the rate evaluation runs. Same arithmetic: scores and
-// softmax in fp32, P normalised and then rounded to v's dtype before the PV
-// product, PV accumulated in fp32, output in q's dtype.
+// (K1), with its in-kernel attention-probability dropout, and serves
+// vilbert_tpu/ops/pallas_attention.py::_attn_kernel (K3, K1 at rate 0). Same
+// arithmetic: scores and softmax in fp32; with dropout, P times the fp32
+// 1/(1 - rate) where _keep_mask keeps (keep_mask.cuh, hashed from the GLOBAL
+// query row, the key column and the tile seed of (batch, head)) and 0
+// elsewhere; P then rounded to v's dtype before the PV product, PV
+// accumulated in fp32, output in q's dtype. Rate 0 compiles the mask out
+// (kDrop = false), so evaluation runs the code it ran before dropout existed.
 //
 // What bounds it on the H100: at the shapes of ViLBERT (S <= 101, d = 64 or
 // 128) each (batch, head) moves 3 S d elements in and S d out and does 4 S^2 d
@@ -27,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "keep_mask.cuh"
 
 namespace {
 
@@ -71,13 +78,14 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ x, i
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const float* __restrict__ bias, T* __restrict__ out, int num_heads, int sq,
                      int sk, int q_tiles, int64_t q_bstride, int64_t q_rstride,
                      int64_t k_bstride, int64_t k_rstride, int64_t v_bstride,
-                     int64_t v_rstride, int64_t bias_bstride, float scale) {
+                     int64_t v_rstride, int64_t bias_bstride, float scale,
+                     uint32_t seed, uint32_t threshold, float keep_scale) {
   constexpr int kCols = D / kTx;  // output columns per thread
   extern __shared__ float smem[];
   const int p_stride = (sk + kBlockK - 1) / kBlockK * kBlockK + 1;
@@ -131,8 +139,10 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
   __syncthreads();
 
-  // softmax over the sk valid columns of each row, one warp per row
+  // softmax over the sk valid columns of each row, one warp per row, then
+  // the dropout mask of the row's global query index
   const int warp = tid / 32, lane = tid % 32;
+  const uint32_t tseed = vt::tile_seed(seed, bh);
   for (int r = warp; r < kBlockQ; r += kThreads / 32) {
     float* row = p_s + r * p_stride;
     float m = -INFINITY;
@@ -145,7 +155,11 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       l += e;
     }
     l = warp_sum(l);
-    for (int j = lane; j < sk; j += 32) row[j] = to_float(from_float<T>(row[j] / l));
+    for (int j = lane; j < sk; j += 32) {
+      float p = row[j] / l;
+      if (kDrop) p = vt::keep(q0 + r, j, tseed, threshold) ? p * keep_scale : 0.f;
+      row[j] = to_float(from_float<T>(p));
+    }
   }
 
   // PV: thread -> rows 4 ty + i, output columns tx + 16 m
@@ -185,42 +199,54 @@ size_t smem_bytes(int d, int sk) {
   return sizeof(float) * ((size_t)(kBlockQ + kBlockK) * (d + 1) + (size_t)kBlockQ * p_stride);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
                    int batch, int num_heads, int sq, int sk, long long q_bs, long long q_rs,
                    long long k_bs, long long k_rs, long long v_bs, long long v_rs,
-                   long long bias_bs, float scale, cudaStream_t stream) {
+                   long long bias_bs, float scale, uint32_t seed, uint32_t threshold,
+                   float keep_scale, cudaStream_t stream) {
   const int q_tiles = (sq + kBlockQ - 1) / kBlockQ;
   const long long blocks = (long long)batch * num_heads * q_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   // per call, so the cap holds on whichever device is current
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, D, kDrop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_bytes(D, kMaxKeys));
   if (err != cudaSuccess) return err;
-  attention_fwd_kernel<T, D><<<(unsigned)blocks, kThreads, smem_bytes(D, sk), stream>>>(
+  attention_fwd_kernel<T, D, kDrop><<<(unsigned)blocks, kThreads, smem_bytes(D, sk), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<T*>(out), num_heads, sq, sk, q_tiles, q_bs,
-      q_rs, k_bs, k_rs, v_bs, v_rs, bias_bs, scale);
+      q_rs, k_bs, k_rs, v_bs, v_rs, bias_bs, scale, seed, threshold, keep_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns a
-// cudaError_t; cudaErrorInvalidValue for a dtype, head_dim or key count the
-// kernel does not take (the Python wrapper checks these first).
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Dropout:
+// the call's uint32 seed, the uint32 keep threshold and the fp32 keep scale
+// 1/(1 - rate), all computed by the caller; threshold 0 and scale 1 mean
+// rate 0. Returns a cudaError_t; cudaErrorInvalidValue for a dtype, head_dim
+// or key count the kernel does not take (the Python wrapper checks these
+// first).
 extern "C" int vt_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
                                 void* out, int dtype, int batch, int num_heads, int head_dim,
                                 int sq, int sk, long long q_bstride, long long q_rstride,
                                 long long k_bstride, long long k_rstride, long long v_bstride,
                                 long long v_rstride, long long bias_bstride, float scale,
+                                unsigned int seed, unsigned int threshold, float keep_scale,
                                 void* stream) {
   if (sk < 1 || sk > kMaxKeys || sq < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VT_LAUNCH(T, D)                                                                      \
-  return (int)launch<T, D>(q, k, v, bias, out, batch, num_heads, sq, sk, q_bstride, q_rstride, \
-                           k_bstride, k_rstride, v_bstride, v_rstride, bias_bstride, scale, s)
+  const bool drop = threshold != 0u || keep_scale != 1.f;
+#define VT_LAUNCH(T, D)                                                                        \
+  return (int)(drop ? launch<T, D, true>(q, k, v, bias, out, batch, num_heads, sq, sk,         \
+                                         q_bstride, q_rstride, k_bstride, k_rstride,           \
+                                         v_bstride, v_rstride, bias_bstride, scale, seed,      \
+                                         threshold, keep_scale, s)                             \
+                    : launch<T, D, false>(q, k, v, bias, out, batch, num_heads, sq, sk,        \
+                                          q_bstride, q_rstride, k_bstride, k_rstride,          \
+                                          v_bstride, v_rstride, bias_bstride, scale, seed,     \
+                                          threshold, keep_scale, s))
   if (dtype == 0 && head_dim == 64) VT_LAUNCH(float, 64);
   if (dtype == 0 && head_dim == 128) VT_LAUNCH(float, 128);
   if (dtype == 1 && head_dim == 64) VT_LAUNCH(__nv_bfloat16, 64);

@@ -1,0 +1,327 @@
+// Multi-head attention backward for Hopper (sm_90a): dq, dk, dv of
+// softmax(q k^T / sqrt(d) + key bias) [dropout] v, one block per (batch, head).
+//
+// Replaces the TPU kernel vilbert_tpu/ops/pallas_attention_train.py::_bwd_kernel
+// (K2), and at rate 0 the XLA backward of vilbert_tpu/ops/pallas_attention.py
+// (_folded_bwd, the same math). It saves nothing from the forward: it
+// recomputes P in fp32 from q, k and the bias, regenerates the forward's
+// dropout mask from the seed (keep_mask.cuh), and follows _bwd_kernel:
+//   P_drop = keep ? P / (1 - rate) : 0          (fp32, NOT rounded, for dv)
+//   dv = P_drop^T g
+//   dp = keep ? (g v^T) / (1 - rate) : 0
+//   ds = P (dp - rowsum(dp P))                  (the undropped P)
+//   dq = ds k / sqrt(d),  dk = ds^T q / sqrt(d)
+// All products accumulate in fp32; the outputs are in the inputs' dtype.
+//
+// What bounds it on the H100: at ViLBERT's shapes (S <= 101, d = 64 or 128)
+// a (batch, head) reads 4 S d elements and writes 3 S d, and does 10 S^2 d
+// flops: far below the card's ridge point, like the forward. The design
+// keeps device-memory traffic at that floor: q, k, v and g are read through
+// the strides of the [B, S, H] projections (no head transposes), the
+// [Sq, Sk] tiles P and ds live only in shared memory, and dq, dk and dv are
+// written once each as [B, S, H]. The whole key range of the head stays in
+// the block, so dk and dv need no atomics and the result is deterministic.
+// The products run on the CUDA cores: each thread keeps a register tile
+// (R x R of P, R x 2 of each output) so every shared-memory load feeds
+// several FMAs. Operand columns are staged 32 at a time as fp32, so at
+// Sq = Sk = 128 and d = 128 shared memory holds P and ds (2 x 66 KB) plus
+// three 17 KB staging tiles: 192 KB, under the 227 KB a block may take.
+// Tensor cores (wgmma) are work for a later, faster version.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "keep_mask.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kT = 16;          // threads per side of the 16 x 16 thread grid
+constexpr int kChunk = 32;      // operand columns staged at a time
+constexpr int kCS = kChunk + 1; // staged row stride: a column spreads over banks
+constexpr int kMaxSeq = 128;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// columns [c0, c0 + kChunk) of rows [0, rows) of one head of x ([B, S, H]
+// through strides, already offset to the head) into dst as fp32; rows
+// [rows, S) are zero
+template <typename T, int S>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ x, int rows,
+                                      int64_t rstride, int c0) {
+  for (int i = threadIdx.x; i < S * kChunk; i += kThreads) {
+    const int r = i / kChunk, c = i % kChunk;
+    dst[r * kCS + c] = r < rows ? to_float(x[r * rstride + c0 + c]) : 0.f;
+  }
+}
+
+// acc[i][j] = sum_c a[row_i][c] b[col_j][c] over the head's D columns, for
+// rows ty + kT i and columns tx + kT j; a and b are one head of [B, S, H]
+template <typename T, int D, int S>
+__device__ __forceinline__ void row_products(float (&acc)[S / kT][S / kT], float* a_s,
+                                             float* b_s, const T* a, int a_rows,
+                                             int64_t a_rstride, const T* b, int b_rows,
+                                             int64_t b_rstride, int ty, int tx) {
+  constexpr int R = S / kT;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
+  for (int c0 = 0; c0 < D; c0 += kChunk) {
+    __syncthreads();  // the previous chunk is consumed
+    stage<T, S>(a_s, a, a_rows, a_rstride, c0);
+    stage<T, S>(b_s, b, b_rows, b_rstride, c0);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < kChunk; ++c) {
+      float av[R], bv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) av[i] = a_s[(ty + kT * i) * kCS + c];
+#pragma unroll
+      for (int j = 0; j < R; ++j) bv[j] = b_s[(tx + kT * j) * kCS + c];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[i][j] += av[i] * bv[j];
+    }
+  }
+}
+
+template <typename T, int D, int S>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ bias, const T* __restrict__ g,
+                     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int num_heads,
+                     int sq, int sk, int64_t q_bstride, int64_t q_rstride, int64_t k_bstride,
+                     int64_t k_rstride, int64_t v_bstride, int64_t v_rstride, int64_t g_bstride,
+                     int64_t g_rstride, int64_t bias_bstride, float scale, bool drop,
+                     uint32_t seed, uint32_t threshold, float keep_scale) {
+  constexpr int R = S / kT;
+  constexpr int PS = S + 1;  // row stride of the [Sq, Sk] tiles
+  extern __shared__ float smem[];
+  float* p_s = smem;                 // [sq][PS]: P, then P_drop
+  float* ds_s = p_s + sq * PS;       // [sq][PS]: ds
+  float* a_s = ds_s + sq * PS;       // [S][kCS] staging
+  float* b_s = a_s + S * kCS;        // [S][kCS]
+  float* c_s = b_s + S * kCS;        // [S][kCS]
+  float* part_s = c_s + S * kCS;     // [S][kT + 1] partial row sums
+  float* rs_s = part_s + S * (kT + 1);  // [S] row sums of dp P
+
+  const int bh = blockIdx.x;
+  const int h = bh % num_heads;
+  const int64_t b = bh / num_heads;
+  const int tid = threadIdx.x;
+  const int tx = tid % kT, ty = tid / kT;
+  const T* qb = q + b * q_bstride + h * D;
+  const T* kb = k + b * k_bstride + h * D;
+  const T* vb = v + b * v_bstride + h * D;
+  const T* gb = g + b * g_bstride + h * D;
+  const float* bias_b = bias + b * bias_bstride;
+
+  // 1. P = softmax(q k^T * scale + bias), fp32, rows in p_s
+  float acc[R][R];
+  row_products<T, D, S>(acc, a_s, b_s, qb, sq, q_rstride, kb, sk, k_rstride, ty, tx);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = ty + kT * i;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int col = tx + kT * j;
+      if (row < sq && col < sk) p_s[row * PS + col] = acc[i][j] * scale + bias_b[col];
+    }
+  }
+  __syncthreads();
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < sq; r += kThreads / 32) {
+    float* prow = p_s + r * PS;
+    float m = -INFINITY;
+    for (int j = lane; j < sk; j += 32) m = fmaxf(m, prow[j]);
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.f;
+    for (int j = lane; j < sk; j += 32) {
+      const float e = expf(prow[j] - m);
+      prow[j] = e;
+      l += e;
+    }
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    for (int j = lane; j < sk; j += 32) prow[j] = prow[j] / l;
+  }
+
+  // 2. dp = mask(g v^T), kept in registers; row sums of dp P (the syncs
+  // inside row_products also complete P)
+  row_products<T, D, S>(acc, a_s, b_s, gb, sq, g_rstride, vb, sk, v_rstride, ty, tx);
+  const uint32_t tseed = vt::tile_seed(seed, bh);
+  uint64_t kept = 0;  // bit i R + j: element (i, j) of this thread is kept
+  float part[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = ty + kT * i;
+    part[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int col = tx + kT * j;
+      if (row < sq && col < sk) {
+        float dp = acc[i][j];
+        if (drop) {
+          const bool kp = vt::keep(row, col, tseed, threshold);
+          kept |= (uint64_t)kp << (i * R + j);
+          dp = kp ? dp * keep_scale : 0.f;
+        }
+        acc[i][j] = dp;
+        part[i] += dp * p_s[row * PS + col];
+      }
+    }
+    if (row < sq) part_s[row * (kT + 1) + tx] = part[i];
+  }
+  __syncthreads();
+  if (tid < sq) {
+    float s = 0.f;
+    for (int t = 0; t < kT; ++t) s += part_s[tid * (kT + 1) + t];
+    rs_s[tid] = s;
+  }
+  __syncthreads();
+  // 3. ds = P (dp - rowsum); P becomes P_drop
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = ty + kT * i;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int col = tx + kT * j;
+      if (row < sq && col < sk) {
+        const float p = p_s[row * PS + col];
+        ds_s[row * PS + col] = p * (acc[i][j] - rs_s[row]);
+        if (drop) p_s[row * PS + col] = (kept >> (i * R + j)) & 1u ? p * keep_scale : 0.f;
+      }
+    }
+  }
+
+  // 4. dv = P_drop^T g, dk = ds^T q scale, dq = ds k scale, 32 columns at a
+  // time: thread -> key / query rows ty + kT i, columns c0 + tx + kT m
+  const int64_t hidden = (int64_t)num_heads * D;
+  for (int c0 = 0; c0 < D; c0 += kChunk) {
+    __syncthreads();  // ds / P_drop written; the previous chunk is consumed
+    stage<T, S>(a_s, gb, sq, g_rstride, c0);
+    stage<T, S>(b_s, qb, sq, q_rstride, c0);
+    stage<T, S>(c_s, kb, sk, k_rstride, c0);
+    __syncthreads();
+    float dv_acc[R][2] = {}, dk_acc[R][2] = {}, dq_acc[R][2] = {};
+    for (int r = 0; r < sq; ++r) {
+      float gv[2], qv[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        gv[m] = a_s[r * kCS + tx + kT * m];
+        qv[m] = b_s[r * kCS + tx + kT * m];
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int key = min(ty + kT * i, sk - 1);  // rows past sk are discarded
+        const float pd = p_s[r * PS + key], d = ds_s[r * PS + key];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          dv_acc[i][m] += pd * gv[m];
+          dk_acc[i][m] += d * qv[m];
+        }
+      }
+    }
+    for (int key = 0; key < sk; ++key) {
+      float kv[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) kv[m] = c_s[key * kCS + tx + kT * m];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float d = ds_s[min(ty + kT * i, sq - 1) * PS + key];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) dq_acc[i][m] += d * kv[m];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = ty + kT * i;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int64_t col = h * D + c0 + tx + kT * m;
+        if (row < sk) {
+          dv[(b * sk + row) * hidden + col] = from_float<T>(dv_acc[i][m]);
+          dk[(b * sk + row) * hidden + col] = from_float<T>(dk_acc[i][m] * scale);
+        }
+        if (row < sq) dq[(b * sq + row) * hidden + col] = from_float<T>(dq_acc[i][m] * scale);
+      }
+    }
+  }
+}
+
+size_t smem_bytes(int s, int sq) {
+  return sizeof(float) *
+         ((size_t)2 * sq * (s + 1) + (size_t)3 * s * kCS + (size_t)s * (kT + 1) + s);
+}
+
+template <typename T, int D, int S>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, const void* g,
+                   void* dq, void* dk, void* dv, int batch, int num_heads, int sq, int sk,
+                   long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+                   long long v_bs, long long v_rs, long long g_bs, long long g_rs,
+                   long long bias_bs, float scale, bool drop, uint32_t seed, uint32_t threshold,
+                   float keep_scale, cudaStream_t stream) {
+  const long long blocks = (long long)batch * num_heads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  // per call, so the cap holds on whichever device is current
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<T, D, S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes(S, S));
+  if (err != cudaSuccess) return err;
+  attention_bwd_kernel<T, D, S><<<(unsigned)blocks, kThreads, smem_bytes(S, sq), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<const T*>(g), static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), num_heads, sq, sk, q_bs, q_rs, k_bs, k_rs, v_bs,
+      v_rs, g_bs, g_rs, bias_bs, scale, drop, seed, threshold, keep_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, g are read through their batch
+// and row strides (in elements, unit stride along H); dq [B, Sq, H] and dk,
+// dv [B, Sk, H] are written contiguous. seed, threshold and keep_scale as
+// for vt_attention_fwd (threshold 0 and scale 1: rate 0). Returns a
+// cudaError_t; cudaErrorInvalidValue for a dtype, head_dim or length the
+// kernel does not take (the Python wrapper checks these first).
+extern "C" int vt_attention_bwd(const void* q, const void* k, const void* v, const void* bias,
+                                const void* g, void* dq, void* dk, void* dv, int dtype,
+                                int batch, int num_heads, int head_dim, int sq, int sk,
+                                long long q_bstride, long long q_rstride, long long k_bstride,
+                                long long k_rstride, long long v_bstride, long long v_rstride,
+                                long long g_bstride, long long g_rstride,
+                                long long bias_bstride, float scale, unsigned int seed,
+                                unsigned int threshold, float keep_scale, void* stream) {
+  if (sq < 1 || sk < 1 || sq > kMaxSeq || sk > kMaxSeq || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool drop = threshold != 0u || keep_scale != 1.f;
+  const bool small = sq <= 64 && sk <= 64;
+#define VT_LAUNCH(T, D)                                                                        \
+  return (int)(small ? launch<T, D, 64>(q, k, v, bias, g, dq, dk, dv, batch, num_heads, sq,    \
+                                        sk, q_bstride, q_rstride, k_bstride, k_rstride,        \
+                                        v_bstride, v_rstride, g_bstride, g_rstride,            \
+                                        bias_bstride, scale, drop, seed, threshold,            \
+                                        keep_scale, s)                                         \
+                     : launch<T, D, 128>(q, k, v, bias, g, dq, dk, dv, batch, num_heads, sq,   \
+                                         sk, q_bstride, q_rstride, k_bstride, k_rstride,       \
+                                         v_bstride, v_rstride, g_bstride, g_rstride,           \
+                                         bias_bstride, scale, drop, seed, threshold,           \
+                                         keep_scale, s))
+  if (dtype == 0 && head_dim == 64) VT_LAUNCH(float, 64);
+  if (dtype == 0 && head_dim == 128) VT_LAUNCH(float, 128);
+  if (dtype == 1 && head_dim == 64) VT_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == 1 && head_dim == 128) VT_LAUNCH(__nv_bfloat16, 128);
+#undef VT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}

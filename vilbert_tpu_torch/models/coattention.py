@@ -6,22 +6,28 @@ stream 2 text: text queries attend image keys/values (the text-side
 context), image queries attend text keys/values (the image-side context).
 
 Quirks kept: the two directions use swapped attention-dropout rates (the
-text-side context uses ``v_attention_probs_dropout_prob``), inert at eval
-but passed as the JAX package passes them; the reference's dead
+text-side context uses ``v_attention_probs_dropout_prob``), each direction
+with its own seed; the reference's dead
 ``biOutput.q_dense{1,2}`` weights are not created (the importer skips
 them); the co-attention mask never reaches the scores.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from vilbert_tpu.core.config import ModelConfig
-from vilbert_tpu_torch.models.layers import Dropout, Intermediate, LayerNorm, Linear, Output
-from vilbert_tpu_torch.ops.attention import attention, attention_ref
+from vilbert_tpu_torch.core.config import ModelConfig
+from vilbert_tpu_torch.models.layers import (
+    Dropout,
+    Intermediate,
+    LayerNorm,
+    Linear,
+    Output,
+    attend,
+)
 
 
 class BiAttention(nn.Module):
@@ -34,6 +40,7 @@ class BiAttention(nn.Module):
         self.rate_t = cfg.v_attention_probs_dropout_prob  # text queries -> image keys
         self.rate_v = cfg.attention_probs_dropout_prob    # image queries -> text keys
         self.plain_ops = False
+        self.dropout_generator: Optional[torch.Generator] = None
         self.query1 = Linear(cfg, cfg.v_hidden_size, bi)
         self.key1 = Linear(cfg, cfg.v_hidden_size, bi)
         self.value1 = Linear(cfg, cfg.v_hidden_size, bi)
@@ -48,15 +55,13 @@ class BiAttention(nn.Module):
         input_t: torch.Tensor,  # [B, T, hidden]
         bias_t: torch.Tensor,   # [B, 1, 1, T]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        fn = attention_ref if self.plain_ops else attention
-        train = self.training
-        context_t = fn(
-            self.query2(input_t), self.key1(input_v), self.value1(input_v), bias_v,
-            num_heads=self.num_heads, dropout_rate=self.rate_t if train else 0.0,
+        context_t = attend(
+            self, self.query2(input_t), self.key1(input_v), self.value1(input_v), bias_v,
+            self.num_heads, self.rate_t,
         )
-        context_v = fn(
-            self.query1(input_v), self.key2(input_t), self.value2(input_t), bias_t,
-            num_heads=self.num_heads, dropout_rate=self.rate_v if train else 0.0,
+        context_v = attend(
+            self, self.query1(input_v), self.key2(input_t), self.value2(input_t), bias_t,
+            self.num_heads, self.rate_v,
         )
         return context_v, context_t
 

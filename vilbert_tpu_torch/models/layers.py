@@ -12,6 +12,12 @@ dropout, LN with residual).
 Dtype policy (as the JAX package): params fp32; every ``Linear`` casts its
 input, weight and bias to ``cfg.compute_dtype`` and returns that dtype, like
 ``flax.linen.Dense(dtype=compute_dtype)``; LayerNorm statistics are fp32.
+
+Dropout (train mode, rate > 0) is the JAX package's counter-hash dropout:
+``hash_dropout`` at the hidden-state sites, the kernels' ``_keep_mask`` in
+the attention. Each site draws one uint32 seed per call from the CPU
+``torch.Generator`` that ``set_dropout_generator`` hands to every site; the
+trainer owns it. In eval mode the attention runs at rate 0.
 """
 
 from __future__ import annotations
@@ -22,8 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vilbert_tpu.core.config import ModelConfig
+from vilbert_tpu_torch.core.config import ModelConfig
 from vilbert_tpu_torch.ops.attention import attention, attention_ref
+from vilbert_tpu_torch.ops.dropout import draw_seed, hash_dropout
 from vilbert_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
 
 
@@ -45,6 +52,14 @@ _ERF_Q = (1.0, 0.47307127867236537,
           0.09602493287758253, 0.009191308867243501)
 
 
+# gelu'(x) ~ 0.5 + x DP(x^2) / DQ(x^2) on |x| <= 5: the custom derivative of
+# vilbert_tpu.models.layers.gelu_rational (max abs err 5.0e-4)
+_DGELU_P = (0.7986929677932244, -0.03807846651247695,
+            0.015090213881573151, 0.00019122776191594145)
+_DGELU_Q = (1.0, 0.2926936920714664,
+            0.03245537653061185, 0.006019591148099333)
+
+
 def _horner(coeffs, u: torch.Tensor) -> torch.Tensor:
     acc = coeffs[-1]
     for c in coeffs[-2::-1]:
@@ -52,14 +67,30 @@ def _horner(coeffs, u: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+class _GeluRational(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        x32 = x.float()
+        z = torch.clamp(x32 * 0.7071067811865476, -3.2, 3.2)
+        u = z * z
+        erf = z * _horner(_ERF_P, u) / _horner(_ERF_Q, u)
+        return (0.5 * x32 * (1.0 + erf)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        s = torch.clamp(x.float(), -5.0, 5.0)
+        u = s * s
+        dgelu = 0.5 + s * _horner(_DGELU_P, u) / _horner(_DGELU_Q, u)
+        return (dgelu.to(x.dtype) * dy).to(x.dtype)  # rounds in x's dtype, as JAX does
+
+
 def gelu_rational(x: torch.Tensor) -> torch.Tensor:
     """gelu with erf from the short P3/Q3 rational above, in fp32, returned in
-    x's dtype (forward of ``vilbert_tpu.models.layers.gelu_rational``)."""
-    x32 = x.float()
-    z = torch.clamp(x32 * 0.7071067811865476, -3.2, 3.2)
-    u = z * z
-    erf = z * _horner(_ERF_P, u) / _horner(_ERF_Q, u)
-    return (0.5 * x32 * (1.0 + erf)).to(x.dtype)
+    x's dtype, with the rational custom derivative: the forward and the
+    custom JVP of ``vilbert_tpu.models.layers.gelu_rational``."""
+    return _GeluRational.apply(x)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -116,22 +147,41 @@ class LayerNorm(nn.Module):
         return fn(x, self.weight, self.bias, eps=self.eps, residual=residual)
 
 
+def site_seed(site: nn.Module) -> int:
+    """The next uint32 dropout seed of a dropout site (a module with a
+    ``dropout_generator``); raises if no generator was set."""
+    if site.dropout_generator is None:
+        raise ValueError(
+            f"{type(site).__name__}: dropout in train mode draws its seeds from a "
+            f"torch.Generator; call set_dropout_generator(model, generator) first"
+        )
+    return draw_seed(site.dropout_generator)
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> nn.Module:
+    """Hand the CPU generator that train-mode dropout draws its seeds from to
+    every dropout site of ``model`` (None removes it)."""
+    for m in model.modules():
+        if hasattr(m, "dropout_generator"):
+            m.dropout_generator = generator
+    return model
+
+
 class Dropout(nn.Module):
-    """Identity in eval mode. Training-mode dropout (counter-hash dropout,
-    bit-exact with ``vilbert_tpu/ops/dropout.py::hash_keep_mask``) comes
-    with the training slice; until then a rate above 0 in train mode raises."""
+    """Identity in eval mode or at rate 0. In train mode, counter-hash
+    dropout (``hash_dropout``, bit-exact with
+    ``vilbert_tpu/ops/dropout.py::hash_dropout`` for the same seed) with one
+    seed per call from the site's generator."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.dropout_generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(
-                f"dropout (rate {self.rate}) in train mode is not ported yet "
-                f"(ROADMAP: slice 2); call model.eval()"
-            )
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        return hash_dropout(x, self.rate, site_seed(self))
 
 
 class GeLU(nn.Module):
@@ -139,6 +189,18 @@ class GeLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return gelu(x)
+
+
+def attend(site: nn.Module, q, k, v, bias, num_heads: int, rate: float) -> torch.Tensor:
+    """The attention of a site (a module with ``plain_ops`` and a
+    ``dropout_generator``): ``attention`` at ``rate`` with a drawn seed in
+    train mode, at rate 0 in eval mode; the plain version under
+    ``plain_ops``."""
+    if not site.training:
+        rate = 0.0
+    seed = site_seed(site) if rate > 0.0 else None
+    fn = attention_ref if site.plain_ops else attention
+    return fn(q, k, v, bias, num_heads=num_heads, dropout_rate=rate, seed=seed)
 
 
 def use_plain_ops(model: nn.Module, plain: bool = True) -> nn.Module:
@@ -166,6 +228,7 @@ class SelfAttention(nn.Module):
         self.dropout_rate = dropout_rate
         self.dynamic = dynamic
         self.plain_ops = False
+        self.dropout_generator: Optional[torch.Generator] = None
         self.query = Linear(cfg, hidden_size, hidden_size)
         self.key = Linear(cfg, hidden_size, hidden_size)
         self.value = Linear(cfg, hidden_size, hidden_size)
@@ -187,11 +250,7 @@ class SelfAttention(nn.Module):
             pooled = (txt_embedding * txt_mask2).sum(1) / txt_mask2.sum(1)
             q = q * (1.0 + torch.sigmoid(self.dyLinear_q(pooled)))[:, None, :]
             k = k * (1.0 + torch.sigmoid(self.dyLinear_k(pooled)))[:, None, :]
-        fn = attention_ref if self.plain_ops else attention
-        return fn(
-            q, k, v, attention_bias, num_heads=self.num_heads,
-            dropout_rate=self.dropout_rate if self.training else 0.0,
-        )
+        return attend(self, q, k, v, attention_bias, self.num_heads, self.dropout_rate)
 
 
 class AttentionOutput(nn.Module):

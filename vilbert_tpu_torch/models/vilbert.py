@@ -1,4 +1,4 @@
-"""The two-stream ViLBERT model and its task heads, in PyTorch.
+"""The two-stream ViLBERT model, its pretraining model and task heads, in PyTorch.
 
 Counterpart of ``vilbert_tpu/models/vilbert.py`` (reference
 vilbert/vilbert.py). Parity quirks kept: the task token is spliced in after
@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vilbert_tpu.core.config import ModelConfig
+from vilbert_tpu_torch.core.config import ModelConfig
 from vilbert_tpu_torch.models.coattention import ConnectionLayer
 from vilbert_tpu_torch.models.layers import (
     Dropout,
@@ -50,7 +50,7 @@ def check_supported(cfg: ModelConfig) -> None:
         )
     if cfg.in_batch_pairs:
         raise NotImplementedError(
-            "in_batch_pairs is training-only and not ported yet (ROADMAP slice 2)"
+            "in_batch_pairs is training-only and not ported yet (ROADMAP A5)"
         )
 
 
@@ -340,6 +340,57 @@ def init_weights(model: nn.Module, cfg: ModelConfig, generator: torch.Generator)
                 m.bias.zero_()
             elif isinstance(m, LMPredictionHead):
                 m.bias.zero_()
+
+
+class PretrainOutput(NamedTuple):
+    prediction_scores_t: torch.Tensor   # [B, T, vocab] (or [B, K, vocab] gathered)
+    prediction_scores_v: torch.Tensor   # [B, R, v_target_size] (or [B, K, ...])
+    seq_relationship_score: torch.Tensor  # [B, 2] fp32
+    pooled_t: torch.Tensor
+    pooled_v: torch.Tensor
+
+
+class ViLBERTForPretraining(nn.Module):
+    """Masked multimodal pretraining model (``vilbert_tpu/models/vilbert.py::
+    ViLBERTForPretraining``, reference BertForMultiModalPreTraining). Returns
+    logits; the three losses are ``train.losses.pretrain_losses``.
+
+    ``lm_positions`` [B, K] projects only those text rows through the LM head
+    (tied to the word-embedding table) and ``img_positions`` [B, K] only
+    those image rows through the image head, as the JAX model gathers them.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.bert = BertModel(cfg)
+        self.cls = PreTrainingHeads(cfg)
+        init_weights(self, cfg, generator or torch.Generator().manual_seed(0))
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        image_feat: torch.Tensor,
+        image_loc: torch.Tensor,
+        token_type_ids: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,
+        image_attention_mask: Optional[torch.Tensor] = None,
+        *,
+        lm_positions: Optional[torch.Tensor] = None,
+        img_positions: Optional[torch.Tensor] = None,
+    ) -> PretrainOutput:
+        out = self.bert(input_ids, image_feat, image_loc, token_type_ids,
+                        attention_mask, image_attention_mask)
+        sequence_t, sequence_v = out.sequence_t, out.sequence_v
+        if lm_positions is not None:
+            sequence_t = torch.take_along_dim(sequence_t, lm_positions.long()[:, :, None], dim=1)
+        if img_positions is not None:
+            sequence_v = torch.take_along_dim(sequence_v, img_positions.long()[:, :, None], dim=1)
+        scores_t, scores_v, seq_rel = self.cls(
+            sequence_t, sequence_v, out.pooled_t, out.pooled_v,
+            self.bert.embeddings.word_embeddings.weight,
+        )
+        return PretrainOutput(scores_t, scores_v, seq_rel, out.pooled_t, out.pooled_v)
 
 
 class ViLBERTForVLTasks(nn.Module):

@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
 Every ``vilbert_tpu_torch/csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
-into ONE shared library with a plain C interface. No source includes
-PyTorch's headers, so the build takes seconds, not the minutes that
+(one ``nvcc`` per source, all started together) and links into ONE shared
+library with a plain C interface. No source includes PyTorch's headers, so
+the build takes seconds, not the minutes that
 ``torch.utils.cpp_extension.load`` spends. The library lands in
 ``build/vilbert_tpu_torch/`` at the root of the checkout, named by a hash of
-the sources and flags: an edited source builds a new library, an unchanged
-one loads the library built before.
+the sources (``*.cu`` and the ``*.cuh`` they include) and flags: an edited
+source builds a new library, an unchanged one loads the library built
+before.
 
 The build runs at first use (``load_library()``), never at import: the CPU
 tests import every module of the package on machines without ``nvcc``.
@@ -34,15 +36,21 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "vilbert_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U32 = ctypes.c_uint32  # a dropout seed may be >= 2^31
 #: entry point -> argtypes (all return a cudaError_t as int)
 _SIGNATURES = {
     # q, k, v, bias, out, dtype, batch, heads, head_dim, sq, sk,
-    # q/k/v batch and row strides, bias batch stride, scale, stream
-    "vt_attention_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 7 + [_F, _P],
+    # q/k/v batch and row strides, bias batch stride, scale,
+    # dropout seed, keep threshold, keep scale, stream
+    "vt_attention_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 7 + [_F, _U32, _U32, _F, _P],
+    # q, k, v, bias, g, dq, dk, dv, dtype, batch, heads, head_dim, sq, sk,
+    # q/k/v/g batch and row strides, bias batch stride, scale,
+    # dropout seed, keep threshold, keep scale, stream
+    "vt_attention_bwd": [_P] * 8 + [_I] * 6 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # x, residual, weight, bias, out, dtype, rows, h, eps, stream
     "vt_layer_norm_fwd": [_P] * 5 + [_I] * 3 + [_F, _P],
 }
@@ -64,7 +72,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libvilbert_kernels_{digest.hexdigest()[:16]}.so"
@@ -78,16 +86,35 @@ def build() -> Path:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    sources = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    objs, procs = [], []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    try:
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            _check_nvcc(cmd, proc.returncode, out)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _check_nvcc(cmd, proc.returncode, proc.stdout)
+        os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    finally:
+        for _, proc in procs:  # a failed source stops the others
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return lib
+
+
+def _check_nvcc(cmd, returncode: int, output: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {returncode}:\n{' '.join(cmd)}\n{output}")
 
 
 @functools.lru_cache(maxsize=None)

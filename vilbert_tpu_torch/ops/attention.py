@@ -1,34 +1,43 @@
-"""Multi-head attention core: plain PyTorch version and the Hopper kernel.
+"""Multi-head attention core: plain PyTorch versions and the Hopper kernels.
 
 Counterpart of ``vilbert_tpu/ops/attention.py`` (``attention_core`` over
-[B, S, H] projections, ``make_additive_mask``) and of the forward of the TPU
-kernel ``vilbert_tpu/ops/pallas_attention_train.py::_fwd_kernel`` at dropout
-rate 0, the rate evaluation runs. One entry point serves the text and image
+[B, S, H] projections, ``make_additive_mask``) and of the TPU kernels of
+``vilbert_tpu/ops/pallas_attention_train.py``: ``_fwd_kernel`` (K1, with
+its in-kernel attention-probability dropout) and ``_bwd_kernel`` (K2), and
+of ``vilbert_tpu/ops/pallas_attention.py::fused_attention`` (K3, K1's rate-0
+function with the same backward). One entry point serves the text and image
 self-attention and both co-attention directions (Sq != Sk).
 
-Arithmetic, as in the Pallas kernel: scores q.k^T * (1/sqrt(d)) + key bias in
-fp32, fp32 softmax, P rounded to v's dtype, then P.V accumulated in fp32 and
-returned in q's dtype. The JAX XLA path would run a bf16 softmax under
-``softmax_dtype="auto"``; the port follows the kernel.
+Arithmetic, as in the Pallas kernels: scores q.k^T * (1/sqrt(d)) + key bias
+in fp32, fp32 softmax; with dropout, P is multiplied by the fp32
+1/(1 - rate) where ``_keep_mask`` keeps and zeroed elsewhere; P rounded to
+v's dtype, then P.V accumulated in fp32 and returned in q's dtype. The
+backward recomputes P and the mask from (q, k, v, bias, seed) and follows
+``_bwd_kernel`` (P_drop stays fp32 for dv; the rowsum uses the undropped P).
+The JAX XLA path would run a bf16 softmax under ``softmax_dtype="auto"``;
+the port follows the kernels.
 
-``attention`` is the entry point. On CPU tensors it runs ``attention_ref``;
-on CUDA tensors it launches ``csrc/attention.cu`` or raises. Attention-
-probability dropout is a training feature and is not ported yet: a rate
-above 0 raises.
+``attention`` is the entry point of the model, differentiable through one
+``autograd.Function``; ``fused_attention`` is K3's API counterpart over it. On CPU tensors
+they run ``attention_ref`` and ``attention_bwd_ref``; on CUDA tensors they
+launch ``csrc/attention.cu`` and ``csrc/attention_bwd.cu`` or raise.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from vilbert_tpu_torch.ops import _build
+from vilbert_tpu_torch.ops.dropout import attention_keep_mask, keep_threshold
 
-#: shapes the kernel takes
+#: shapes the forward kernel takes
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_KEYS = 512
+#: the backward kernel keeps a whole (batch, head) in shared memory
+BWD_KERNEL_MAX_SEQ = 128
 
 
 def make_additive_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -46,12 +55,37 @@ def _bias_rows(bias: Optional[torch.Tensor], q: torch.Tensor, sk: int) -> torch.
     return bias.reshape(bias.shape[0], sk).to(torch.float32)
 
 
-def _check_rate(dropout_rate: float) -> None:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention-probability dropout is training-only and not ported "
-            "yet (ROADMAP: slice 2, in-kernel hash dropout)"
-        )
+def _check_rate(dropout_rate: float, seed: Optional[int]) -> None:
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"attention dropout rate must be in [0, 1), got {dropout_rate}")
+    if dropout_rate > 0.0 and (seed is None or not 0 <= seed < 2 ** 32):
+        raise ValueError(
+            f"attention dropout at rate {dropout_rate} needs a uint32 seed, got {seed}")
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, H] -> fp32 [B, h, S, d]."""
+    b, s, hd = x.shape
+    return x.reshape(b, s, num_heads, hd // num_heads).transpose(1, 2).float()
+
+
+def _merge(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[B, h, S, d] -> [B, S, H] in ``dtype``."""
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d).to(dtype)
+
+
+def _probs(q, k, bias_rows, num_heads):
+    """fp32 softmax(q k^T / sqrt(d) + bias) [B, h, Sq, Sk] (``_probs``)."""
+    d = q.shape[-1] // num_heads
+    scores = _heads(q, num_heads) @ _heads(k, num_heads).transpose(-1, -2)
+    scores = scores * (1.0 / math.sqrt(d)) + bias_rows[:, None, None, :]
+    return torch.softmax(scores, dim=-1)
+
+
+def _keep(p: torch.Tensor, dropout_rate: float, seed: int) -> torch.Tensor:
+    b, h, sq, sk = p.shape
+    return attention_keep_mask(b, h, sq, sk, dropout_rate, seed, device=p.device)
 
 
 def attention_ref(
@@ -62,28 +96,57 @@ def attention_ref(
     *,
     num_heads: int,
     dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch attention. q [B, Sq, H], k/v [B, Sk, H] -> [B, Sq, H]."""
-    _check_rate(dropout_rate)
-    b, sq, hd = q.shape
-    sk = k.shape[1]
-    d = hd // num_heads
+    """Plain PyTorch attention (``_fwd_kernel``). q [B, Sq, H], k/v
+    [B, Sk, H] -> [B, Sq, H]; ``seed`` is the call's uint32 dropout seed."""
+    _check_rate(dropout_rate, seed)
+    p = _probs(q, k, _bias_rows(bias, q, k.shape[1]), num_heads)
+    if dropout_rate > 0.0:
+        p = torch.where(_keep(p, dropout_rate, seed), p * (1.0 / (1.0 - dropout_rate)), 0.0)
+    ctx = p.to(v.dtype).float() @ _heads(v, num_heads)
+    return _merge(ctx, q.dtype)
 
-    def heads(x, s):
-        return x.reshape(x.shape[0], s, num_heads, d).transpose(1, 2)
 
-    scores = heads(q, sq).float() @ heads(k, sk).float().transpose(-1, -2)
-    scores = scores * (1.0 / math.sqrt(d)) + _bias_rows(bias, q, sk)[:, None, None, :]
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    ctx = probs.float() @ heads(v, sk).float()
-    return ctx.transpose(1, 2).reshape(b, sq, hd).to(q.dtype)
+def attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    g: torch.Tensor,
+    *,
+    num_heads: int,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward of the attention (``_bwd_kernel``): g, the
+    cotangent of the [B, Sq, H] output -> (dq, dk, dv) in q's, k's and v's
+    dtypes."""
+    _check_rate(dropout_rate, seed)
+    d = q.shape[-1] // num_heads
+    p = _probs(q, k, _bias_rows(bias, q, k.shape[1]), num_heads)
+    g32, v32 = _heads(g, num_heads), _heads(v, num_heads)
+    dp = g32 @ v32.transpose(-1, -2)
+    if dropout_rate > 0.0:
+        keep = _keep(p, dropout_rate, seed)
+        inv_keep = 1.0 / (1.0 - dropout_rate)
+        p_dropped = torch.where(keep, p * inv_keep, 0.0)
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+    else:
+        p_dropped = p
+    dv = p_dropped.transpose(-1, -2) @ g32
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    scale = 1.0 / math.sqrt(d)
+    dq = (ds @ _heads(k, num_heads)) * scale
+    dk = (ds.transpose(-1, -2) @ _heads(q, num_heads)) * scale
+    return _merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype)
 
 
 def kernel_geometry(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias_rows: torch.Tensor,
     num_heads: int,
 ) -> tuple:
-    """Validate the kernel's operands; return (B, Sq, Sk, d).
+    """Validate the forward kernel's operands; return (B, Sq, Sk, d).
 
     Raises ValueError for anything the kernel does not take: q [B, Sq, H]
     and k, v [B, Sk, H] of one dtype (float32 or bfloat16) with unit stride
@@ -129,31 +192,49 @@ def kernel_geometry(
     return b, sq, sk, hd // num_heads
 
 
-def attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    bias: Optional[torch.Tensor],
-    *,
-    num_heads: int,
-    dropout_rate: float = 0.0,
-) -> torch.Tensor:
-    """Scaled dot-product attention over projected inputs.
+def bwd_kernel_geometry(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias_rows: torch.Tensor,
+    g: torch.Tensor, num_heads: int,
+) -> tuple:
+    """Validate the backward kernel's operands; return (B, Sq, Sk, d).
 
-    q [B, Sq, H], k/v [B, Sk, H], bias an additive key bias [B, 1, 1, Sk]
-    (0 / -10000, see ``make_additive_mask``) or None. Returns [B, Sq, H] in
-    q's dtype. CPU tensors take ``attention_ref``; CUDA tensors launch the
-    kernel and add one to ``attention.launches``.
+    On top of the forward's rules: 1 <= Sq, Sk <= 128; no stride-0 (broadcast)
+    batch or row in q, k, v (their dk and dv would need a reduction); g of
+    q's shape and dtype with unit stride along H.
     """
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, bias, num_heads=num_heads, dropout_rate=dropout_rate)
+    b, sq, sk, d = kernel_geometry(q, k, v, bias_rows, num_heads)
+    if sq > BWD_KERNEL_MAX_SEQ or sk > BWD_KERNEL_MAX_SEQ:
+        raise ValueError(
+            f"attention backward kernel takes Sq, Sk <= {BWD_KERNEL_MAX_SEQ}, "
+            f"got Sq={sq}, Sk={sk}"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.shape[0] > 1 and t.stride(0) == 0) or (t.shape[1] > 1 and t.stride(1) == 0):
+            raise ValueError(f"attention backward kernel refuses a broadcast {name}")
+    if tuple(g.shape) != tuple(q.shape) or g.dtype != q.dtype or g.stride(2) != 1:
+        raise ValueError(
+            f"attention backward kernel takes g of q's shape {tuple(q.shape)} and "
+            f"dtype {q.dtype} with unit stride along H, got {g.dtype} {tuple(g.shape)}"
+        )
+    return b, sq, sk, d
+
+
+def _dropout_args(dropout_rate: float, seed: Optional[int]) -> tuple:
+    """(seed, uint32 threshold, fp32 keep scale) of the kernels' C entries."""
+    if dropout_rate == 0.0:
+        return 0, 0, 1.0
+    return seed, keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate)
+
+
+def _check_devices(q: torch.Tensor, **others) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on cpu or cuda, got {q.device}")
-    _check_rate(dropout_rate)
-    for name, t in (("k", k), ("v", v), ("bias", bias)):
+    for name, t in others.items():
         if t is not None and t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    bias_rows = _bias_rows(bias, q, k.shape[1])
+
+
+def _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed):
     b, sq, sk, d = kernel_geometry(q, k, v, bias_rows, num_heads)
     out = torch.empty(b, sq, q.shape[2], dtype=q.dtype, device=q.device)
     lib = _build.load_library()
@@ -163,12 +244,124 @@ def attention(
             out.data_ptr(), _build.DTYPE_CODES[q.dtype], b, num_heads, d, sq, sk,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), bias_rows.stride(0),
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
+            1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "attention kernel")
     attention.launches += 1
     return out
 
 
+def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed):
+    if g.stride(2) != 1:
+        g = g.contiguous()  # autograd may hand the cotangent over as a view
+    b, sq, sk, d = bwd_kernel_geometry(q, k, v, bias_rows, g, num_heads)
+    dq = torch.empty(b, sq, q.shape[2], dtype=q.dtype, device=q.device)
+    dk = torch.empty(b, sk, k.shape[2], dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.vt_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _build.DTYPE_CODES[q.dtype], b, num_heads, d, sq, sk,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), g.stride(0), g.stride(1), bias_rows.stride(0),
+            1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "attention backward kernel")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """K1 forward and K2 backward; saves (q, k, v, bias_rows, seed) and no
+    probabilities. The bias is the constant mask: no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias_rows, num_heads, dropout_rate, seed):
+        ctx.save_for_backward(q, k, v, bias_rows)
+        ctx.args = (num_heads, dropout_rate, seed)
+        if q.device.type == "cpu":
+            return attention_ref(q, k, v, bias_rows, num_heads=num_heads,
+                                 dropout_rate=dropout_rate, seed=seed)
+        return _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias_rows = ctx.saved_tensors
+        num_heads, dropout_rate, seed = ctx.args
+        grads = attention_bwd(q, k, v, bias_rows, g, num_heads=num_heads,
+                              dropout_rate=dropout_rate, seed=seed)
+        return (*grads, None, None, None, None)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    *,
+    num_heads: int,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+) -> torch.Tensor:
+    """Scaled dot-product attention over projected inputs, differentiable.
+
+    q [B, Sq, H], k/v [B, Sk, H], bias an additive key bias [B, 1, 1, Sk]
+    (0 / -10000, see ``make_additive_mask``) or None; ``dropout_rate`` > 0
+    drops attention probabilities with the mask of the call's uint32
+    ``seed``. Returns [B, Sq, H] in q's dtype. CPU tensors take the plain
+    versions; CUDA tensors launch the kernels (``attention.launches`` and
+    ``attention_bwd.launches`` count them).
+    """
+    _check_rate(dropout_rate, seed)
+    if q.device.type != "cpu":
+        _check_devices(q, k=k, v=v, bias=bias)
+    bias_rows = _bias_rows(bias, q, k.shape[1])
+    return _Attention.apply(q, k, v, bias_rows, num_heads, float(dropout_rate), seed)
+
+
+def fused_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    *,
+    num_heads: int,
+) -> torch.Tensor:
+    """``vilbert_tpu.ops.pallas_attention.fused_attention`` (K3): attention
+    without dropout. Its forward is the K1 kernel at rate 0 and its backward
+    the K2 kernel at rate 0, which computes ``_folded_bwd``; the launches
+    count in ``attention.launches`` and ``attention_bwd.launches``."""
+    return attention(q, k, v, bias, num_heads=num_heads)
+
+
+def attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    g: torch.Tensor,
+    *,
+    num_heads: int,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention's backward (K2): (dq, dk, dv) for the cotangent g of
+    ``attention(q, k, v, bias, ...)`` with the same rate and seed. CPU
+    tensors take ``attention_bwd_ref``; CUDA tensors launch the kernel and
+    add one to ``attention_bwd.launches``."""
+    _check_rate(dropout_rate, seed)
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, bias, g, num_heads=num_heads,
+                                 dropout_rate=dropout_rate, seed=seed)
+    _check_devices(q, k=k, v=v, bias=bias, g=g)
+    bias_rows = _bias_rows(bias, q, k.shape[1])
+    return _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed)
+
+
 #: kernel launches since the last reset (CPU calls do not count)
 attention.launches = 0
+attention_bwd.launches = 0

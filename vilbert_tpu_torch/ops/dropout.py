@@ -1,0 +1,105 @@
+"""Counter-hash dropout masks of the JAX package, in PyTorch.
+
+Counterpart of ``vilbert_tpu/ops/dropout.py`` (``hash_keep_mask`` and
+``hash_dropout``, murmur3 variant: the hidden-state dropout sites, the
+JAX package's default ``use_fast_dropout``) and of the mask inside the TPU
+attention kernels, ``vilbert_tpu/ops/pallas_attention_train.py::_keep_mask``
+(the attention-probability dropout). ``csrc/attention.cu`` and
+``csrc/attention_bwd.cu`` compute the attention mask in-kernel;
+``attention_keep_mask`` here is their plain twin.
+
+torch on the CPU has no uint32 shift, so the uint32 arithmetic is emulated
+in int64: every value stays in [0, 2^32), and every product by a 32-bit
+constant is taken modulo 2^32 from the constant's two 16-bit halves, so no
+intermediate leaves int64's range. Seeds are Python ints in [0, 2^32).
+
+``draw_seed`` takes one uint32 seed from an explicit CPU ``torch.Generator``:
+a dropout site draws one per call, and the seed reaches the mask (or the
+kernel) as a host scalar, so no device value is read back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B1     # row / flat-index multiplier
+_SEED_MUL = 0x27D4EB2F
+_COL_ADD, _COL_MUL = 0x7F4A7C15, 0x85EBCA77
+#: the program-id stride of the Pallas kernels' tile seed
+TILE_SEED_STRIDE = 7919
+
+
+def keep_threshold(rate: float) -> int:
+    """uint32 threshold of a keep mask, in Python double as the JAX package
+    computes it: keep where hash >= threshold."""
+    return min(int(rate * (2 ** 32)), 2 ** 32 - 1)
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One uint32 seed from a CPU generator."""
+    return int(torch.randint(0, 2 ** 32, (), generator=generator, dtype=torch.int64))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a constant c < 2^32."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _murmur_mix(x: torch.Tensor) -> torch.Tensor:
+    """The murmur3 finalizer of ``dropout.py:29-35`` on int64-held uint32."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def hash_keep_mask(shape: Sequence[int], rate: float, seed: int,
+                   device=None) -> torch.Tensor:
+    """Boolean keep mask with P(keep) = 1 - rate, bit-exact with
+    ``vilbert_tpu.ops.dropout.hash_keep_mask(shape, rate, seed)``: the hash
+    of the flat element index and the seed."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    x = _mul32(idx, _GOLDEN) ^ ((seed * _SEED_MUL) & _M32)
+    return (_murmur_mix(x) >= keep_threshold(rate)).reshape(tuple(shape))
+
+
+def hash_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """``vilbert_tpu.ops.dropout.hash_dropout`` for one drawn seed: kept
+    elements are DIVIDED by (1 - rate) in x's dtype, dropped ones are 0.
+
+    The divisor is a tensor on x's device: a CPU scalar would make a CUDA
+    division multiply by its reciprocal, which rounds differently."""
+    if rate == 0.0:
+        return x
+    keep = hash_keep_mask(x.shape, rate, seed, device=x.device)
+    divisor = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / divisor, 0.0)
+
+
+def tile_keep_mask(sq: int, sk: int, rate: float, tile_seeds: torch.Tensor) -> torch.Tensor:
+    """``pallas_attention_train._keep_mask((sq, sk), rate, seed)`` for each
+    tile seed of ``tile_seeds`` (int64 in [0, 2^32), shape [N]) -> [N, sq, sk]:
+    the hash of (row, col, seed), with row the query and col the key index."""
+    dev = tile_seeds.device
+    row = torch.arange(sq, dtype=torch.int64, device=dev)[:, None]
+    col = torch.arange(sk, dtype=torch.int64, device=dev)[None, :]
+    base = _mul32(row, _GOLDEN) ^ _mul32((col + _COL_ADD) & _M32, _COL_MUL)
+    x = base[None] ^ _mul32(tile_seeds, _SEED_MUL)[:, None, None]
+    return _murmur_mix(x) >= keep_threshold(rate)
+
+
+def attention_keep_mask(batch: int, num_heads: int, sq: int, sk: int, rate: float,
+                        seed: int, device=None) -> torch.Tensor:
+    """The attention-probability keep mask [B, heads, Sq, Sk] of the Pallas
+    kernels for one call seed: tile (b, h) uses the seed
+    ``seed + (b * num_heads + h) * 7919`` mod 2^32, as the int32 wrap of
+    ``_fwd_kernel:73`` gives it."""
+    bh = torch.arange(batch * num_heads, dtype=torch.int64, device=device)
+    tile_seeds = (seed + bh * TILE_SEED_STRIDE) & _M32
+    return tile_keep_mask(sq, sk, rate, tile_seeds).reshape(batch, num_heads, sq, sk)

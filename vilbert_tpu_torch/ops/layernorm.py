@@ -7,13 +7,16 @@ fp32 weight and bias, output in x's dtype. The kernel (``csrc/layernorm.cu``)
 is bandwidth-bound; its source note says how it keeps to one read and one
 write of each element.
 
-``layer_norm`` is the entry point. On a CPU tensor it runs
-``layer_norm_ref``; on a CUDA tensor it launches the kernel or raises.
+``layer_norm`` is the entry point, differentiable through an
+``autograd.Function``. Its forward runs ``layer_norm_ref`` on a CPU tensor
+and launches the kernel on a CUDA tensor (or raises). Its backward is
+``layer_norm_bwd_ref`` on both: the JAX package's backward
+(``pallas_layernorm.py::_ln_bwd``) is XLA, not a Pallas kernel.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,6 +44,37 @@ def layer_norm_ref(
     var = (xf - mean).square().mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def layer_norm_bwd_ref(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    eps: float = 1e-12,
+    residual: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Backward of ``layer_norm`` for the cotangent g, as
+    ``vilbert_tpu/ops/pallas_layernorm.py::_ln_bwd``: fp32 math, then
+    (dx, dresidual = dx, dweight = sum g xhat, dbias = sum g) in the inputs'
+    dtypes (dresidual None without a residual)."""
+    h = x.shape[-1]
+    xf = x.float().reshape(-1, h)
+    if residual is not None:
+        xf = xf + residual.float().reshape(-1, h)
+    g32 = g.float().reshape(-1, h)
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * inv
+    dw = (g32 * xhat).sum(0)
+    db = g32.sum(0)
+    gw = g32 * weight.float()[None, :]
+    dx = inv * (gw - gw.mean(-1, keepdim=True)
+                - xhat * (gw * xhat).mean(-1, keepdim=True))
+    dx = dx.reshape(x.shape).to(x.dtype)
+    dres = None if residual is None else dx.to(residual.dtype)
+    return dx, dres, dw.to(weight.dtype), db.to(weight.dtype)
 
 
 def kernel_rows(
@@ -84,22 +118,7 @@ def kernel_rows(
     return x.numel() // h
 
 
-def layer_norm(
-    x: torch.Tensor,
-    weight: torch.Tensor,
-    bias: torch.Tensor,
-    *,
-    eps: float = 1e-12,
-    residual: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """LN(x [+ residual]) over the last axis; any leading shape.
-
-    CPU tensors take ``layer_norm_ref``. CUDA tensors launch the kernel and
-    add one to ``layer_norm.launches``; anything the kernel does not take
-    raises.
-    """
-    if x.device.type == "cpu":
-        return layer_norm_ref(x, weight, bias, eps=eps, residual=residual)
+def _fwd_cuda(x, weight, bias, eps, residual):
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm runs on cpu or cuda, got {x.device}")
     for name, t in (("weight", weight), ("bias", bias), ("residual", residual)):
@@ -119,6 +138,42 @@ def layer_norm(
     _build.check(err, "layer_norm kernel")
     layer_norm.launches += 1
     return out
+
+
+class _LayerNorm(torch.autograd.Function):
+    """K4 forward (the plain version on the CPU), ``_ln_bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, residual, weight, bias, eps):
+        ctx.save_for_backward(x, residual, weight)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return layer_norm_ref(x, weight, bias, eps=eps, residual=residual)
+        return _fwd_cuda(x, weight, bias, eps, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, residual, weight = ctx.saved_tensors
+        dx, dres, dw, db = layer_norm_bwd_ref(x, weight, g, eps=ctx.eps, residual=residual)
+        return dx, dres, dw, db, None
+
+
+def layer_norm(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    eps: float = 1e-12,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """LN(x [+ residual]) over the last axis; any leading shape;
+    differentiable.
+
+    CPU tensors take ``layer_norm_ref``. CUDA tensors launch the kernel and
+    add one to ``layer_norm.launches``; anything the kernel does not take
+    raises.
+    """
+    return _LayerNorm.apply(x, residual, weight, bias, eps)
 
 
 #: kernel launches since the last reset (CPU calls do not count)

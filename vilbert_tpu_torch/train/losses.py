@@ -1,14 +1,17 @@
-"""Per-task losses and scores, unreduced (one value per sample).
+"""Pretraining losses, and per-task losses and scores.
 
-Counterpart of ``vilbert_tpu/train/losses.py::task_loss_and_score_per_sample``
-and ``compute_score_with_logits_per_sample`` (reference task_utils.py:325-374,
-:618-623). Means of these vectors are the reference's batch loss and score;
-the evaluator sums them over the valid rows of padded batches.
+Counterpart of ``vilbert_tpu/train/losses.py``: the three pretraining losses
+(``pretrain_losses``: masked-LM cross-entropy with ignore index -1, the
+masked-region loss for visual targets 0 (KL against the detector's soft
+classes) and 1 (feature MSE), the alignment cross-entropy), all reduced in
+fp32; and ``task_loss_and_score_per_sample`` /
+``compute_score_with_logits_per_sample`` (reference task_utils.py:325-374,
+:618-623), whose means are the reference's batch loss and score.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -18,6 +21,75 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits.float(), dim=-1)
     gathered = logits.gather(-1, labels.long()[..., None])[..., 0]
     return lse - gathered.float()
+
+
+def cross_entropy_ignore_index(
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1
+) -> torch.Tensor:
+    """Mean CE over positions whose label != ignore_index (torch semantics)."""
+    valid = labels != ignore_index
+    nll = torch.where(valid, _nll(logits, torch.where(valid, labels, 0)), 0.0)
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def kl_div_soft_targets(log_pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """torch KLDivLoss(reduction="none") with 0 where the target is 0."""
+    target = target.float()
+    safe_log_t = torch.where(target > 0, torch.log(target.clamp_min(1e-30)), 0.0)
+    return torch.where(target > 0, target * (safe_log_t - log_pred), 0.0)
+
+
+class PretrainLosses(NamedTuple):
+    masked_lm_loss: torch.Tensor
+    masked_img_loss: torch.Tensor
+    next_sentence_loss: torch.Tensor
+
+
+def masked_image_loss(
+    prediction_scores_v: torch.Tensor,  # [B, R, v_target_size] (incl. global row 0)
+    image_label: torch.Tensor,          # [B, R-1]: 1 = masked region
+    image_target: torch.Tensor,         # [B, R-1, v_target_size] or [B, R-1, feat]
+    *,
+    visual_target: int,
+    gathered: bool = False,
+) -> torch.Tensor:
+    """Masked-region loss over the masked rows; row 0 (the global feature)
+    is skipped unless the model already gathered K rows (``gathered``)."""
+    pred = (prediction_scores_v if gathered else prediction_scores_v[:, 1:]).float()
+    if image_label.shape[1] != pred.shape[1]:
+        raise ValueError(
+            f"image_label rows {image_label.shape[1]} do not align with the "
+            f"prediction rows {pred.shape[1]}")
+    masked = (image_label == 1).float()
+    if visual_target == 1:  # feature regression, mean over masked elements
+        err = (pred - image_target.float()).square()
+        return (err * masked[..., None]).sum() / (masked.sum() * pred.shape[-1]).clamp_min(1.0)
+    if visual_target == 0:  # KL vs the soft class distribution, mean over masked rows
+        kl = kl_div_soft_targets(torch.log_softmax(pred, dim=-1), image_target)
+        return (kl * masked[..., None]).sum() / masked.sum().clamp_min(1.0)
+    if visual_target == 2:
+        raise NotImplementedError(
+            "visual_target 2 (NCE) draws its negatives from jax.random and is "
+            "not ported yet (ROADMAP A4)")
+    raise ValueError(f"unknown visual_target {visual_target}")
+
+
+def pretrain_losses(
+    out,
+    masked_lm_labels: torch.Tensor,
+    image_label: torch.Tensor,
+    image_target: torch.Tensor,
+    next_sentence_label: torch.Tensor,
+    *,
+    visual_target: int,
+    img_gathered: bool = False,
+) -> PretrainLosses:
+    return PretrainLosses(
+        cross_entropy_ignore_index(out.prediction_scores_t, masked_lm_labels, -1),
+        masked_image_loss(out.prediction_scores_v, image_label, image_target,
+                          visual_target=visual_target, gathered=img_gathered),
+        cross_entropy_ignore_index(out.seq_relationship_score, next_sentence_label, -1),
+    )
 
 
 def _bce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,234 @@
+"""Conceptual Captions pretraining: the loss function and the driver.
+
+Counterpart of ``vilbert_tpu/train/pretrain.py`` on one device:
+``make_pretrain_loss_fn`` (the LM / region gathers and the objective
+handling), ``evaluate_pretraining`` (the three raw losses, no dropout) and
+``run_pretraining`` (forward, three losses, backward, ``reference_adamw``
+on the schedule at ``count + 1``). On a CUDA device the model runs the
+port's kernels: attention forward (K1, with dropout) and backward (K2), the
+LayerNorm forward (K4).
+
+Dropout seeds come from one CPU ``torch.Generator`` seeded from ``seed``,
+which also draws the initial weights; the same seed gives the same steps.
+The JAX package's threefry stream cannot be reproduced, so a run matches
+the JAX trajectory only with dropout off.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import time
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import torch
+
+from vilbert_tpu_torch.core.config import ModelConfig, OptimizerConfig
+from vilbert_tpu_torch.data.prefetch import (
+    compress_for_transfer,
+    repeat_iterator,
+    to_device,
+    to_tensors,
+)
+from vilbert_tpu_torch.models.layers import set_dropout_generator
+from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
+from vilbert_tpu_torch.parallel.train_step import TrainState, make_train_step
+from vilbert_tpu_torch.train.losses import pretrain_losses
+from vilbert_tpu_torch.train.optim import build_optimizer
+
+logger = logging.getLogger(__name__)
+
+
+def _first_masked(masked: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the masked positions first, in order (a stable sort on an
+    integer key), then the others; the first k per row."""
+    return torch.sort((~masked).to(torch.int32), dim=1, stable=True).indices[:, :k]
+
+
+def make_pretrain_loss_fn(
+    cfg: ModelConfig,
+    *,
+    img_weight: float = 1.0,
+    deterministic: bool = False,
+    lm_gather: int = 0,
+    img_gather: int = 0,
+    apply_objective: bool = True,
+) -> Callable:
+    """loss_fn(model, batch) -> (loss, metrics) for ``make_train_step``.
+
+    As ``vilbert_tpu.train.pretrain.make_pretrain_loss_fn``: objective 1
+    clears the LM and region labels of misaligned pairs, objective 2 drops
+    the alignment loss (``apply_objective=False`` skips both, as the
+    validation pass does); ``lm_gather=K`` projects only the first K masked
+    positions through the LM head, ``img_gather=K`` only the first K masked
+    regions through the image head (visual targets 0 and 1). The model runs
+    in train mode unless ``deterministic``.
+    """
+    if cfg.visual_target == 2:
+        raise NotImplementedError(
+            "visual_target 2 (NCE) is not ported yet (ROADMAP A4)")
+    use_img_gather = bool(img_gather)
+
+    def loss_fn(model, batch: Dict[str, torch.Tensor]):
+        model.train(not deterministic)
+        lm_labels = batch["lm_label_ids"]
+        lm_positions = None
+        if lm_gather:
+            masked = lm_labels != -1
+            order = _first_masked(masked, lm_gather)
+            lm_labels = torch.where(masked.gather(1, order), lm_labels.gather(1, order), -1)
+            lm_positions = order
+        image_label = batch["image_label"]
+        image_target = batch["image_target"]
+        img_positions = None
+        if use_img_gather:
+            # image_label row i is sequence_v row i + 1 (row 0 is the global feature)
+            vmasked = image_label == 1
+            vorder = _first_masked(vmasked, img_gather)
+            image_label = torch.where(vmasked.gather(1, vorder), 1, -1)
+            image_target = torch.take_along_dim(image_target, vorder[:, :, None], dim=1)
+            img_positions = vorder + 1
+        out = model(
+            batch["input_ids"], batch["image_feat"], batch["image_loc"],
+            batch["segment_ids"], batch["input_mask"], batch["image_mask"],
+            lm_positions=lm_positions, img_positions=img_positions,
+        )
+        if apply_objective and cfg.objective == 1:
+            aligned = (batch["is_next"] == 0)[:, None]
+            lm_labels = torch.where(aligned, lm_labels, -1)
+            image_label = torch.where(aligned, image_label, -1)
+        losses = pretrain_losses(
+            out, lm_labels, image_label, image_target, batch["is_next"],
+            visual_target=cfg.visual_target, img_gathered=use_img_gather,
+        )
+        nsp = losses.next_sentence_loss
+        if apply_objective and cfg.objective == 2:
+            nsp = nsp * 0.0
+        loss = losses.masked_lm_loss + losses.masked_img_loss * img_weight + nsp
+        metrics = {
+            "masked_loss_t": losses.masked_lm_loss,
+            "masked_loss_v": losses.masked_img_loss,
+            "next_sentence_loss": losses.next_sentence_loss,
+        }
+        return loss, metrics
+
+    return loss_fn
+
+
+def host_batch(batch: Dict[str, Any], cfg: ModelConfig, grad_accum: int = 1) -> Dict[str, torch.Tensor]:
+    """A loader batch (numpy) -> CPU tensors as the step takes them: no
+    ``image_id``, compressed for transfer, split into ``grad_accum``
+    microbatches along a new leading axis."""
+    b = to_tensors({k: v for k, v in batch.items() if k != "image_id"})
+    b = compress_for_transfer(b, cfg.compute_dtype, raw_feature_targets=cfg.visual_target != 0)
+    if grad_accum > 1:
+        n = next(iter(b.values())).shape[0]
+        if n % grad_accum:
+            raise ValueError(f"batch size {n} not divisible by grad_accum {grad_accum}")
+        b = {k: v.reshape(grad_accum, n // grad_accum, *v.shape[1:]) for k, v in b.items()}
+    return b
+
+
+@torch.no_grad()
+def evaluate_pretraining(
+    model_cfg: ModelConfig,
+    model: ViLBERTForPretraining,
+    val_loader: Iterable[Dict[str, Any]],
+    *,
+    img_weight: float = 1.0,
+    lm_gather: int = 0,
+    img_gather: int = 0,
+    device="cuda",
+) -> Dict[str, float]:
+    """The validation pass: mean {"loss", "masked_loss_t", "masked_loss_v",
+    "next_sentence_loss"} over the batches, without dropout and without the
+    objective transforms (reference train_concap.py:608-654)."""
+    loss_fn = make_pretrain_loss_fn(
+        model_cfg, img_weight=img_weight, deterministic=True, lm_gather=lm_gather,
+        img_gather=img_gather, apply_objective=False,
+    )
+    was_training = model.training
+    totals: Dict[str, float] = {}
+    n = 0
+    for batch in val_loader:
+        loss, metrics = loss_fn(model, to_device(host_batch(batch, model_cfg), device))
+        for k, v in {**metrics, "loss": loss}.items():
+            totals[k] = totals.get(k, 0.0) + float(v)
+        n += 1
+    model.train(was_training)
+    return {k: v / max(n, 1) for k, v in totals.items()}
+
+
+def run_pretraining(
+    model_cfg: ModelConfig,
+    opt_cfg: OptimizerConfig,
+    train_loader: Iterable[Dict[str, Any]],
+    *,
+    num_steps: int,
+    seed: int = 0,
+    img_weight: float = 1.0,
+    grad_accum: int = 1,
+    lm_gather: int = 0,
+    img_gather: int = 0,
+    model: Optional[ViLBERTForPretraining] = None,
+    device="cuda",
+    log_every: int = 20,
+    val_loader: Optional[Iterable] = None,
+    val_every: int = 0,
+    hooks: Optional[list] = None,
+    freeze_prefix="",
+) -> TrainState:
+    """The pretraining driver (``vilbert_tpu.train.pretrain.run_pretraining``)
+    on one device. The model is ``model`` if given, else drawn from ``seed``.
+    With ``val_loader``, a validation pass runs every ``val_every`` steps
+    (default once after the last) and is logged. ``hooks`` are called as
+    hook(step, state, metrics) after every step. Raises FloatingPointError
+    on a non-finite loss at a logging step."""
+    generator = torch.Generator().manual_seed(seed)
+    if model is None:
+        model = ViLBERTForPretraining(model_cfg, generator=generator)
+    model = model.to(device)
+    set_dropout_generator(model, generator)
+
+    # step_offset=1: the reference steps the LR scheduler BEFORE the
+    # optimizer (train_concap.py:583-586), so update k trains at lambda(k)
+    opt, schedule = build_optimizer(opt_cfg, dict(model.named_parameters()), num_steps,
+                                    step_offset=1, freeze_prefix=freeze_prefix)
+    loss_fn = make_pretrain_loss_fn(model_cfg, img_weight=img_weight,
+                                    lm_gather=lm_gather, img_gather=img_gather)
+    step_fn = make_train_step(loss_fn, opt, grad_accum=grad_accum)
+    state = TrainState(0, model, opt)
+
+    def run_validation(step: int) -> None:
+        metrics = evaluate_pretraining(model_cfg, model, val_loader, img_weight=img_weight,
+                                       lm_gather=lm_gather, img_gather=img_gather,
+                                       device=device)
+        nan = float("nan")
+        logger.info("validation @ step %d: loss %.4f (t %.4f v %.4f nsp %.4f)", step,
+                    metrics.get("loss", nan), metrics.get("masked_loss_t", nan),
+                    metrics.get("masked_loss_v", nan), metrics.get("next_sentence_loss", nan))
+
+    batches = repeat_iterator(lambda: iter(train_loader))
+    t0 = time.perf_counter()
+    for step in range(num_steps):
+        batch = to_device(host_batch(next(batches), model_cfg, grad_accum), device)
+        metrics = step_fn(model, batch)
+        state = TrainState(step + 1, model, opt)
+        if log_every and (step + 1) % log_every == 0:
+            metrics = {k: float(v) for k, v in metrics.items()}
+            if not math.isfinite(metrics["loss"]):
+                raise FloatingPointError(f"non-finite loss at step {step + 1}: {metrics}")
+            dt = time.perf_counter() - t0
+            logger.info(
+                "step %d loss %.4f (t %.4f v %.4f nsp %.4f) lr %.2e %.2f it/s",
+                step + 1, metrics["loss"], metrics["masked_loss_t"], metrics["masked_loss_v"],
+                metrics["next_sentence_loss"], float(schedule(step + 1)), log_every / dt)
+            t0 = time.perf_counter()
+        for hook in hooks or ():
+            hook(step, state, metrics)
+        if val_loader is not None and val_every and (step + 1) % val_every == 0:
+            run_validation(step + 1)
+            t0 = time.perf_counter()
+    if val_loader is not None and (not val_every or num_steps % val_every != 0):
+        run_validation(num_steps)
+    return state
