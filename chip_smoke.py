@@ -13,28 +13,51 @@ the Conceptual Captions pretraining step.
 1. device: the card's name and power limit; TF32 off for fp32 comparisons;
 2. build: nvcc for sm_90a, one process per source, timed;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card, at the paths' shapes and the edges of its range. Forward (K1 at
-   rate 0 and 0.1, K4): fp32 1e-4 absolute (1e-3 on a row whose keys are
-   all padded), bf16 2^-7 * max|ref| plus one bf16 ulp. Backward (K2 at
-   rate 0 and 0.1): fp32 1e-4 * max|ref|, bf16 as the forward. The K3
-   entry (``fused_attention``, served by K1 and K2 at rate 0) likewise;
+   card, at the paths' shapes, the edges of its range and the tiling edges
+   of the tensor-core variants (Sq or Sk of 1, 16, 17, 65, 128), with each
+   call's variant checked on its counter (bf16 at Sk <= 128 on the tensor
+   cores, fp32 and bf16 at Sk > 128 on the CUDA cores), a stride-0 batch
+   and a misaligned operand (refused). Forward (K1 at rate 0 and 0.1, K4):
+   fp32 1e-4 absolute (1e-3 on a row whose keys are all padded), bf16
+   2^-7 * max|ref| plus one bf16 ulp. Backward (K2 at rate 0 and 0.1): fp32
+   1e-4 * max|ref|, bf16 as the forward. The K3 entry
+   (``fused_attention``, served by K1 and K2 at rate 0) likewise;
 4. VQA slice: ``run_eval`` (the eval CLI's function) on synthetic TASK1 at
    T=23, R=101, with the launch counters reset just before and read just
-   after; then a batch of 256 through the kernels and through the plain
-   ops, fp32 logits within 1e-3 and bf16 logits finite and within 5e-2;
+   after: every K1 launch on the tensor-core variant; then a batch of 256
+   through the kernels and through the plain ops, fp32 logits within 1e-3
+   and bf16 logits finite and within 5e-2;
 5. VQA timing: eval questions/s of the forward at B=1024 in bf16 (kernels
-   and plain ops), and each kernel against its plain version;
+   and plain ops); at the four attention shapes and the two LayerNorm
+   widths, each kernel against its plain version and a PyTorch library
+   call (``scaled_dot_product_attention``; ``F.layer_norm`` on the
+   pre-added sum, a reference point since it takes no residual) with the
+   kernel's bound; the CUDA-core K1 beside the tensor-core one at image
+   self-attention;
 6. training slice: ``train`` (the train CLI's function) on the synthetic CC
    loader at B=256, T=36, R=37, bf16, dropout 0.1 at every site, for a few
    steps, with the counters reset just before and read just after: finite
-   losses, and K1, K2 and K4 launched as often as the config says; then one
-   fp32 step at B=32 with dropout on through the kernels and through the
-   plain ops, from the same weights with the same masks;
+   losses, and K1, K2 and K4 launched as often as the config says, K1 and
+   K2 on the tensor-core variants; then one fp32 step at B=32 with dropout
+   on through the kernels and through the plain ops, from the same weights
+   with the same masks;
 7. training timing: samples/s of the bf16 step at B=256 (kernels and plain
-   ops, one batch held on the card, constant schedule), and K1 and K2 at
-   rates 0 and 0.1 against their plain versions at the CC shapes and
-   B=256, each output also checked against its plain twin's with phase 3's
-   bounds.
+   ops, one batch held on the card, constant schedule); K1 and K2 at rates
+   0 and 0.1 against their plain versions at the CC shapes and B=256, each
+   output also checked against its plain twin's with phase 3's bounds, with
+   SDPA (forward; forward and backward less forward) at rate 0 and the
+   bounds; the CUDA-core K1 and K2 beside the tensor-core ones at image
+   self-attention; the tiling edges again at B=256.
+
+Times: a kernel's ``ms`` (and its plain version's, the library call's,
+the CUDA-core variant's) is device time, calls run back to back behind a
+spin kernel that lets the host enqueue them all first (``device_ms``);
+``wall_ms`` is CUDA-event time per call with the host's launch gaps, which
+at the CC shapes reads the host's enqueue rate more than the kernel.
+Bounds: the larger of the bytes a call must move (each input read once,
+each output written once) over 3.35 TB/s and its operations over the
+card's peak for their type (989 TFLOP/s bf16 on the tensor cores, 67
+TFLOP/s fp32 on the CUDA cores): every kernel here is bound by bytes.
 
 The last three lines are the card line, a JSON object of the kernels and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -112,31 +135,173 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def alternate(kernel_fn, plain_fn) -> tuple:
+_SLEEP_CYCLES_PER_MS = []
+
+
+def _sleep_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per ms on this card, measured once."""
+    import torch
+
+    if not _SLEEP_CYCLES_PER_MS:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def device_ms(fns: dict, iters: int = 20) -> dict:
+    """name -> ms per call of ``fns[name]`` run back to back on the card: a
+    spin kernel holds the stream while the host enqueues all ``iters``
+    calls, and CUDA events time them from after the spin. Unlike
+    ``cuda_time_ms`` it leaves out the host's gaps between launches, so it
+    reads a small kernel's own time where the host enqueues more slowly
+    than the card runs."""
+    import torch
+
+    out = {}
+    for name, fn in fns.items():
+        wall = cuda_time_ms(fn, iters)  # also the warm-up; the host needs at most this
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2 * iters * wall * _sleep_cycles_per_ms()) + 10_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = start.elapsed_time(end) / iters
+    return out
+
+
+def alternate(kernel_fn, plain_fn, iters: int = 50) -> tuple:
     """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
-    p1 = cuda_time_ms(plain_fn)
-    k1 = cuda_time_ms(kernel_fn)
-    k2 = cuda_time_ms(kernel_fn)
-    p2 = cuda_time_ms(plain_fn)
+    p1 = cuda_time_ms(plain_fn, iters)
+    k1 = cuda_time_ms(kernel_fn, iters)
+    k2 = cuda_time_ms(kernel_fn, iters)
+    p2 = cuda_time_ms(plain_fn, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(nbytes: float, flops: float, peak: float) -> tuple:
+    """(ms, "bytes" or "operations"): the least time of a call that moves
+    ``nbytes`` and does ``flops`` at ``peak`` FLOP/s."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_cost(B, heads, d, sq, sk, elt=2) -> dict:
+    """Bytes and flops of K1 (q, k, v, the fp32 [B, Sk] bias in; out) and K2
+    (q, k, v, g, bias in; dq, dk, dv out; S, dP, dv, dq, dk products)."""
+    H = heads * d
+    q, kv, bias = elt * B * sq * H, elt * B * sk * H, 4 * B * sk
+    mnk = B * heads * sq * sk * d
+    return {"fwd": (2 * q + 2 * kv + bias, 4 * mnk), "bwd": (3 * q + 4 * kv + bias, 10 * mnk)}
+
+
+def counted(wrapper, variant, fn):
+    """fn() and whether it added one launch to ``wrapper``'s total and to
+    ``variant``'s count."""
+    before = (wrapper.launches, getattr(wrapper, f"launches_{variant}"))
+    out = fn()
+    after = (wrapper.launches, getattr(wrapper, f"launches_{variant}"))
+    return out, after == (before[0] + 1, before[1] + 1)
+
+
+def sdpa_views(B, heads, d, *tensors):
+    """[B, S, H] tensors as the [B, h, S, d] views SDPA takes."""
+    return [t.view(B, t.shape[1], heads, d).transpose(1, 2) for t in tensors]
+
+
+def library_attention_fns(q, k, v, bias, cot, heads, d) -> dict:
+    """SDPA at rate 0 on the same q, k, v ([B, h, S, d] views) with the bias
+    as a bf16 additive mask: ``library`` runs the forward,
+    ``library_fwd_bwd`` the forward and ``torch.autograd.grad``. Timed here
+    only: the port never calls SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    B = q.shape[0]
+    mask = bias.to(q.dtype)
+    qh, kh, vh = sdpa_views(B, heads, d, q, k, v)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    gh, = sdpa_views(B, heads, d, cot)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*sdpa_views(B, heads, d, *leaves), attn_mask=mask)
+        return torch.autograd.grad(out, leaves, gh)
+
+    return {"library": fwd, "library_fwd_bwd": fwd_bwd}
+
+
+def timed_row(fns: dict, kernel: str, plain: str, nbytes: float, flops: float, peak: float,
+              *, library=None, cc=None) -> dict:
+    """One kernel at one shape: device times (``device_ms``) of the kernel,
+    its plain version, the library call and the CUDA-core variant where
+    given; wall times of kernel and plain by CUDA events, alternated; the
+    bound. ``library`` names an entry of ``fns`` or is a callable of the
+    device times (a difference of two of them)."""
+    dev = device_ms(fns)
+    wall = alternate(fns[kernel], fns[plain])
+    b_ms, b_by = bound(nbytes, flops, peak)
+    row = dict(ms=dev[kernel], plain_ms=dev[plain], wall_ms=wall[0], plain_wall_ms=wall[1],
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=None if library is None else
+               library(dev) if callable(library) else dev[library])
+    if cc is not None:
+        row["cc_ms"] = dev[cc]
+    return row
+
+
+def row_text(row: dict) -> str:
+    lib = f", library {row['library_ms']:.4f}" if row["library_ms"] is not None else ""
+    cc = (f"; CUDA-core variant {row['cc_ms']:.4f} ({row['cc_ms'] / row['ms']:.2f}x)"
+          if "cc_ms" in row else "")
+    return (f"device ms: kernel {row['ms']:.4f}, plain {row['plain_ms']:.4f}{lib}, bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%} of it)"
+            f"{cc}; wall ms: kernel {row['wall_ms']:.4f}, plain {row['plain_wall_ms']:.4f}")
 
 
 # -- phase 3 -----------------------------------------------------------------
 
-#: (heads, head_dim, Sq, Sk): the slice's four kinds of attention (also at
-#: T=24, with --task_specific_tokens), Sk=1 and the Sk=512 end of the range
+#: (heads, head_dim, Sq, Sk) where the tensor-core kernels' m16 and k16
+#: tiles are ragged or full, and Sq = Sk = 128, their end of the range
+TILE_EDGE_CASES = [
+    (8, 128, 17, 65), (8, 128, 65, 17), (12, 64, 1, 128), (8, 128, 128, 128), (12, 64, 16, 16),
+]
+#: the slice's four kinds of attention (also at T=24, with
+#: --task_specific_tokens), Sk=1, 128 < Sk <= 512 (the CUDA-core variant in
+#: bf16) and the tiling edges
 ATTENTION_CASES = [
     (12, 64, 23, 23), (12, 64, 24, 24), (8, 128, 101, 101), (8, 128, 23, 101),
     (8, 128, 101, 23), (8, 128, 24, 101), (8, 128, 101, 24), (8, 128, 23, 1),
-    (8, 128, 101, 512), (12, 64, 23, 512),
+    (8, 128, 101, 512), (12, 64, 23, 512), (8, 128, 23, 129), *TILE_EDGE_CASES,
 ]
 #: the CC step's four attentions (text self, image self, text->image,
-#: image->text), Sk=1, and Sq=Sk=128 (the backward kernel's limit) at both
-#: head widths
+#: image->text), Sk=1, Sq=Sk=128 at d=64, and the tiling edges
 CC_ATTENTION_CASES = [
     (12, 64, 36, 36), (8, 128, 37, 37), (8, 128, 36, 37), (8, 128, 37, 36),
-    (8, 128, 36, 1), (8, 128, 128, 128), (12, 64, 128, 128),
+    (8, 128, 36, 1), (12, 64, 128, 128), *TILE_EDGE_CASES,
 ]
+#: the card's peaks (H100 SXM data sheet, dense): device memory, bf16 on the
+#: tensor cores, fp32 on the CUDA cores
+HBM_BYTES_PER_S = 3.35e12
+BF16_TC_FLOPS = 989e12
+FP32_FLOPS = 67e12
+#: (label, heads, head_dim, Sq, Sk) of the VQA forward's and the CC step's
+#: attentions
+VQA_ATTENTIONS = (("text self", 12, 64, T, T), ("image self", 8, 128, R, R),
+                  ("text->image", 8, 128, T, R), ("image->text", 8, 128, R, T))
+CC_ATTENTIONS = (("text self", 12, 64, TRAIN_T, TRAIN_T),
+                 ("image self", 8, 128, TRAIN_R, TRAIN_R),
+                 ("text->image", 8, 128, TRAIN_T, TRAIN_R),
+                 ("image->text", 8, 128, TRAIN_R, TRAIN_T))
 LN_WIDTHS = (768, 1024, 2048)
 LN_ROWS = 8 * 101 + 3  # not a multiple of any block
 
@@ -192,7 +357,9 @@ def phase_training_kernels(checks: Checks, g, err: dict) -> None:
         attention_bwd,
         attention_bwd_ref,
         attention_ref,
+        bwd_variant,
         fused_attention,
+        fwd_variant,
     )
 
     B = 8
@@ -202,19 +369,25 @@ def phase_training_kernels(checks: Checks, g, err: dict) -> None:
             q, k, v, cot, bias = _attention_operands(g, B, heads, d, sq, sk, dtype)
             shape = f"h={heads} d={d} Sq={sq} Sk={sk} {name}"
             kw = dict(num_heads=heads, dropout_rate=0.1, seed=DROPOUT_SEED)
-            got, want = attention(q, k, v, bias, **kw), attention_ref(q, k, v, bias, **kw)
+            variant = fwd_variant(dtype, sk)
+            got, on_variant = counted(attention, variant, lambda: attention(q, k, v, bias, **kw))
+            want = attention_ref(q, k, v, bias, **kw)
             torch.cuda.synchronize()
             e, bound, ok = _fwd_error(got, want, name)
             err["attention_fwd"] = max(err["attention_fwd"], e)
-            checks.expect(ok, f"attention fwd rate 0.1 {shape}: max|err| {e:.3e} (<= {bound:.3e})")
+            checks.expect(ok and on_variant, f"attention fwd rate 0.1 {shape} [{variant}]: "
+                                             f"max|err| {e:.3e} (<= {bound:.3e})")
             for rate in (0.0, 0.1):
                 kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
-                got = attention_bwd(q, k, v, bias, cot, **kw)
+                variant = bwd_variant(dtype)
+                got, on_variant = counted(attention_bwd, variant,
+                                          lambda: attention_bwd(q, k, v, bias, cot, **kw))
                 want = attention_bwd_ref(q, k, v, bias, cot, **kw)
                 torch.cuda.synchronize()
                 e, ok = _bwd_errors(got, want, name)
                 err["attention_bwd"] = max(err["attention_bwd"], e)
-                checks.expect(ok, f"attention bwd rate {rate} {shape}: max|err| {e:.3e}")
+                checks.expect(ok and on_variant,
+                              f"attention bwd rate {rate} {shape} [{variant}]: max|err| {e:.3e}")
             # the K3 entry: K1 and K2 at rate 0 through autograd
             qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
             out = fused_attention(qt, kt, vt, bias, num_heads=heads)
@@ -232,13 +405,18 @@ def phase_training_kernels(checks: Checks, g, err: dict) -> None:
 def phase_kernels(checks: Checks) -> dict:
     import torch
 
-    from vilbert_tpu_torch.ops.attention import attention, attention_ref, make_additive_mask
+    from vilbert_tpu_torch.ops.attention import (
+        attention,
+        attention_ref,
+        fwd_variant,
+        make_additive_mask,
+    )
     from vilbert_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     dev = DEVICE
     err = {"attention_fwd": 0.0, "attention_bwd": 0.0, "fused_attention": 0.0,
-           "layer_norm": 0.0}
+           "layer_norm_fwd": 0.0}
     B = 8
     for heads, d, sq, sk in ATTENTION_CASES:
         hd = heads * d
@@ -250,14 +428,36 @@ def phase_kernels(checks: Checks) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(B, s, hd, generator=g, device=dev).to(dtype)
                        for s in (sq, sk, sk))
-            got = attention(q, k, v, bias, num_heads=heads)
+            variant = fwd_variant(dtype, sk)
+            got, on_variant = counted(attention, variant,
+                                      lambda: attention(q, k, v, bias, num_heads=heads))
             want = attention_ref(q, k, v, bias, num_heads=heads)
             torch.cuda.synchronize()
             e = float((got.float() - want.float()).abs().max())
             bound = 1e-4 if dtype == torch.float32 else bf16_bound(want.float())
             err["attention_fwd"] = max(err["attention_fwd"], e)
-            checks.expect(e <= bound, f"attention h={heads} d={d} Sq={sq} Sk={sk} "
-                                      f"{str(dtype)[6:]}: max|err| {e:.3e} <= {bound:.3e}")
+            checks.expect(e <= bound and on_variant,
+                          f"attention h={heads} d={d} Sq={sq} Sk={sk} {str(dtype)[6:]} "
+                          f"[{variant}]: max|err| {e:.3e} <= {bound:.3e}")
+    # retrieval's fast_mode broadcasts one text over the batch: a stride-0
+    # batch in k and v reaches the tensor-core kernel as it is
+    q = torch.randn(B, 23, 768, generator=g, device=dev).bfloat16()
+    kv = torch.randn(1, 30, 768, generator=g, device=dev).bfloat16().expand(B, 30, 768)
+    got, on_variant = counted(attention, "tc", lambda: attention(q, kv, kv, None, num_heads=12))
+    want = attention_ref(q, kv, kv, None, num_heads=12)
+    e, bound = float((got.float() - want.float()).abs().max()), bf16_bound(want.float())
+    err["attention_fwd"] = max(err["attention_fwd"], e)
+    checks.expect(e <= bound and on_variant,
+                  f"attention stride-0 batch k, v bf16 [tc]: max|err| {e:.3e} <= {bound:.3e}")
+    # the tensor-core kernels copy 16-byte chunks: a row that starts 2 bytes
+    # off is refused, not sent elsewhere
+    wide = torch.randn(B, 23, 769, generator=g, device=dev).bfloat16()
+    try:
+        attention(wide[..., 1:], wide[..., 1:], wide[..., 1:], None, num_heads=12)
+        refused = False
+    except ValueError:
+        refused = True
+    checks.expect(refused, "attention refuses a bf16 operand that is not 16-byte aligned")
     for h in LN_WIDTHS:
         w = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
         b = 0.1 * torch.randn(h, generator=g, device=dev)
@@ -270,7 +470,7 @@ def phase_kernels(checks: Checks) -> dict:
                 torch.cuda.synchronize()
                 e = float((got.float() - want.float()).abs().max())
                 bound = 1e-4 if dtype == torch.float32 else bf16_bound(want.float())
-                err["layer_norm"] = max(err["layer_norm"], e)
+                err["layer_norm_fwd"] = max(err["layer_norm_fwd"], e)
                 checks.expect(e <= bound, f"layer_norm H={h} rows={LN_ROWS} "
                                           f"residual={r is not None} {str(dtype)[6:]}: "
                                           f"max|err| {e:.3e} <= {bound:.3e}")
@@ -308,20 +508,27 @@ def random_batch(cfg, batch: int, seed: int) -> dict:
     )
 
 
-def reset_launches() -> None:
-    from vilbert_tpu_torch.ops.attention import attention, attention_bwd
+def _counters() -> dict:
+    """counter name -> (wrapper, attribute): each kernel's total and, for K1
+    and K2, each variant's count."""
+    from vilbert_tpu_torch.ops.attention import VARIANTS, attention, attention_bwd
     from vilbert_tpu_torch.ops.layernorm import layer_norm
 
-    for wrapper in (attention, attention_bwd, layer_norm):
-        wrapper.launches = 0
+    out = {"layer_norm": (layer_norm, "launches")}
+    for name, wrapper in (("attention", attention), ("attention_bwd", attention_bwd)):
+        out[name] = (wrapper, "launches")
+        for variant in VARIANTS:
+            out[f"{name}_{variant}"] = (wrapper, f"launches_{variant}")
+    return out
+
+
+def reset_launches() -> None:
+    for wrapper, attr in _counters().values():
+        setattr(wrapper, attr, 0)
 
 
 def read_launches() -> dict:
-    from vilbert_tpu_torch.ops.attention import attention, attention_bwd
-    from vilbert_tpu_torch.ops.layernorm import layer_norm
-
-    return {"attention": attention.launches, "attention_bwd": attention_bwd.launches,
-            "layer_norm": layer_norm.launches}
+    return {name: getattr(wrapper, attr) for name, (wrapper, attr) in _counters().items()}
 
 
 def kernel_calls_per_forward(cfg) -> tuple:
@@ -364,8 +571,11 @@ def phase_slice(checks: Checks) -> tuple:
         f"records {len(records)} samples {metrics['num_samples']} in {time.time() - t0:.1f} s; "
         f"files {files}; launches {launches}")
     want_attn, want_ln = kernel_calls_per_forward(cfg)
-    checks.expect(launches["attention"] == n_batches * want_attn,
-                  f"attention launches {launches['attention']} == {n_batches} x {want_attn}")
+    checks.expect(launches["attention"] == launches["attention_tc"] == n_batches * want_attn
+                  and launches["attention_cc"] == 0,
+                  f"attention launches {launches['attention']} == tensor-core launches "
+                  f"{launches['attention_tc']} == {n_batches} x {want_attn}, CUDA-core "
+                  f"{launches['attention_cc']} == 0")
     checks.expect(launches["layer_norm"] == n_batches * want_ln,
                   f"layer_norm launches {launches['layer_norm']} == {n_batches} x {want_ln}")
     checks.expect(launches["attention_bwd"] == 0,
@@ -404,7 +614,7 @@ def phase_slice(checks: Checks) -> tuple:
             f"{float((kern - ref).abs().max()):.3e}, plain {float((plain - ref).abs().max()):.3e})",
         )
     checks.end_phase("slice")
-    return model, cfg
+    return model, cfg, launches
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -412,8 +622,10 @@ def phase_slice(checks: Checks) -> tuple:
 def phase_timing(model, cfg, card: str) -> dict:
     import torch
 
+    import torch.nn.functional as F
+
     from vilbert_tpu_torch.models.layers import use_plain_ops
-    from vilbert_tpu_torch.ops.attention import attention, attention_ref
+    from vilbert_tpu_torch.ops.attention import attention, attention_kernel, attention_ref
     from vilbert_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
 
     B = TIME_BATCH
@@ -431,17 +643,20 @@ def phase_timing(model, cfg, card: str) -> dict:
     mask = torch.ones(B, R, dtype=torch.long, device=DEVICE)
     mask[:, 60:] = 0
     times = {}
-    for label, heads, d, sq, sk in (("text self", 12, 64, T, T), ("image self", 8, 128, R, R),
-                                    ("text->image", 8, 128, T, R),
-                                    ("image->text", 8, 128, R, T)):
-        q, k, v = (torch.randn(B, s, heads * d, generator=g, device=DEVICE).bfloat16()
-                   for s in (sq, sk, sk))
+    for label, heads, d, sq, sk in VQA_ATTENTIONS:
+        q, k, v, cot = (torch.randn(B, s, heads * d, generator=g, device=DEVICE).bfloat16()
+                        for s in (sq, sk, sk, sq))
         bias = ((1.0 - mask[:, :sk].float()) * -10000.0)[:, None, None, :]
-        k_ms, p_ms = alternate(lambda: attention(q, k, v, bias, num_heads=heads),
-                               lambda: attention_ref(q, k, v, bias, num_heads=heads))
-        times[("attention", label)] = (k_ms, p_ms)
-        log(f"  attention {label} B={B} h={heads} d={d} {sq}x{sk} bf16: kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
+        fns = {"kernel": lambda: attention(q, k, v, bias, num_heads=heads),
+               "plain": lambda: attention_ref(q, k, v, bias, num_heads=heads),
+               "library": library_attention_fns(q, k, v, bias, cot, heads, d)["library"]}
+        if label == "image self":  # the CUDA-core variant beside the tensor-core one
+            fns["cc"] = lambda: attention_kernel(q, k, v, bias, num_heads=heads, variant="cc")
+        row = timed_row(fns, "kernel", "plain", *attention_cost(B, heads, d, sq, sk)["fwd"],
+                        BF16_TC_FLOPS, library="library", cc="cc" if "cc" in fns else None)
+        times[("attention_fwd", "VQA " + label, 0.0)] = row
+        log(f"  attention {label} B={B} h={heads} d={d} {sq}x{sk} bf16 rate 0 (library: SDPA): "
+            f"{row_text(row)} [{card}]")
     for label, rows, h, dtype, with_res in (("text", B * T, 768, torch.bfloat16, True),
                                             ("image", B * R, 1024, torch.bfloat16, True),
                                             ("classifier", B, 2048, torch.bfloat16, False),
@@ -450,11 +665,19 @@ def phase_timing(model, cfg, card: str) -> dict:
         res = torch.randn(rows, h, generator=g, device=DEVICE).to(dtype) if with_res else None
         w = torch.ones(h, device=DEVICE)
         b = torch.zeros(h, device=DEVICE)
-        k_ms, p_ms = alternate(lambda: layer_norm(xx, w, b, residual=res),
-                               lambda: layer_norm_ref(xx, w, b, residual=res))
-        times[("layer_norm", label)] = (k_ms, p_ms)
-        log(f"  layer_norm {label} rows={rows} H={h} residual={with_res} {str(dtype)[6:]}: "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
+        # F.layer_norm on the pre-added sum: a reference point, not the same
+        # function (no residual to read)
+        summed = xx + res if with_res else xx
+        wl, bl = w.to(dtype), b.to(dtype)
+        fns = {"kernel": lambda: layer_norm(xx, w, b, residual=res),
+               "plain": lambda: layer_norm_ref(xx, w, b, residual=res),
+               "library": lambda: F.layer_norm(summed, (h,), wl, bl, 1e-12)}
+        elt = xx.element_size()
+        row = timed_row(fns, "kernel", "plain", elt * rows * h * (3 if with_res else 2) + 8 * h,
+                        8 * rows * h, FP32_FLOPS, library="library")
+        times[("layer_norm", label)] = row
+        log(f"  layer_norm {label} rows={rows} H={h} residual={with_res} {str(dtype)[6:]} "
+            f"(library: F.layer_norm on the sum): {row_text(row)} [{card}]")
     return times
 
 
@@ -533,6 +756,10 @@ def phase_train(checks: Checks) -> tuple:
     for name, per_step in kernel_calls_per_step(cfg).items():
         checks.expect(launches[name] == TRAIN_STEPS * per_step,
                       f"{name} launches {launches[name]} == {TRAIN_STEPS} x {per_step}")
+    for name in ("attention", "attention_bwd"):  # bf16: all on the tensor cores
+        checks.expect(launches[f"{name}_tc"] == launches[name] and launches[f"{name}_cc"] == 0,
+                      f"{name} tensor-core launches {launches[f'{name}_tc']} == "
+                      f"{launches[name]}, CUDA-core {launches[f'{name}_cc']} == 0")
 
     # one fp32 step with dropout on, through the kernels and the plain ops
     cfg32 = cfg.replace(compute_dtype="float32")
@@ -579,7 +806,9 @@ def phase_train_timing(checks: Checks, state, args, card: str, err: dict) -> dic
     from vilbert_tpu_torch.ops.attention import (
         attention,
         attention_bwd,
+        attention_bwd_kernel,
         attention_bwd_ref,
+        attention_kernel,
         attention_ref,
     )
     from vilbert_tpu_torch.parallel.train_step import make_train_step
@@ -614,37 +843,119 @@ def phase_train_timing(checks: Checks, state, args, card: str, err: dict) -> dic
     del model, opt, batch
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
-    bias = torch.zeros(TRAIN_BATCH, 1, 1, TRAIN_R, device=DEVICE)
-    for label, heads, d, sq, sk in (("text self", 12, 64, TRAIN_T, TRAIN_T),
-                                    ("image self", 8, 128, TRAIN_R, TRAIN_R),
-                                    ("text->image", 8, 128, TRAIN_T, TRAIN_R),
-                                    ("image->text", 8, 128, TRAIN_R, TRAIN_T)):
-        q, k, v, cot = (torch.randn(TRAIN_BATCH, s, heads * d, generator=g, device=DEVICE)
-                        .bfloat16() for s in (sq, sk, sk, sq))
+    B = TRAIN_BATCH
+    bias = torch.zeros(B, 1, 1, TRAIN_R, device=DEVICE)
+    for label, heads, d, sq, sk in CC_ATTENTIONS:
+        q, k, v, cot = (torch.randn(B, s, heads * d, generator=g, device=DEVICE).bfloat16()
+                        for s in (sq, sk, sk, sq))
         b = bias[..., :sk]
+        cost = attention_cost(B, heads, d, sq, sk)
         for rate in (0.0, 0.1):
             kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
             with torch.inference_mode():
-                e, bound, ok = _fwd_error(attention(q, k, v, b, **kw),
-                                          attention_ref(q, k, v, b, **kw), "bfloat16")
+                e, bnd, ok = _fwd_error(attention(q, k, v, b, **kw),
+                                        attention_ref(q, k, v, b, **kw), "bfloat16")
                 eb, okb = _bwd_errors(attention_bwd(q, k, v, b, cot, **kw),
                                       attention_bwd_ref(q, k, v, b, cot, **kw), "bfloat16")
-                err["attention_fwd"] = max(err["attention_fwd"], e)
-                err["attention_bwd"] = max(err["attention_bwd"], eb)
-                checks.expect(ok and okb, f"CC attention {label} B={TRAIN_BATCH} bf16 rate "
-                                          f"{rate}: fwd max|err| {e:.3e} (<= {bound:.3e}), "
-                                          f"bwd max|err| {eb:.3e}")
-                fwd = alternate(lambda: attention(q, k, v, b, **kw),
-                                lambda: attention_ref(q, k, v, b, **kw))
-                bwd = alternate(lambda: attention_bwd(q, k, v, b, cot, **kw),
-                                lambda: attention_bwd_ref(q, k, v, b, cot, **kw))
-            times[("attention_fwd", label, rate)] = fwd
-            times[("attention_bwd", label, rate)] = bwd
-            log(f"  CC attention {label} B={TRAIN_BATCH} h={heads} d={d} {sq}x{sk} bf16 rate "
-                f"{rate}: fwd kernel {fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms; bwd kernel "
-                f"{bwd[0]:.4f} ms, plain {bwd[1]:.4f} ms [{card}]")
+            err["attention_fwd"] = max(err["attention_fwd"], e)
+            err["attention_bwd"] = max(err["attention_bwd"], eb)
+            checks.expect(ok and okb, f"CC attention {label} B={B} bf16 rate "
+                                      f"{rate}: fwd max|err| {e:.3e} (<= {bnd:.3e}), "
+                                      f"bwd max|err| {eb:.3e}")
+            fwd = {"kernel": lambda: attention(q, k, v, b, **kw),
+                   "plain": lambda: attention_ref(q, k, v, b, **kw)}
+            bwd = {"kernel": lambda: attention_bwd(q, k, v, b, cot, **kw),
+                   "plain": lambda: attention_bwd_ref(q, k, v, b, cot, **kw)}
+            lib = library_attention_fns(q, k, v, b, cot, heads, d) if rate == 0.0 else {}
+            if label == "image self":  # the CUDA-core variants beside the tensor-core ones
+                fwd["cc"] = lambda: attention_kernel(q, k, v, b, variant="cc", **kw)
+                bwd["cc"] = lambda: attention_bwd_kernel(q, k, v, b, cot, variant="cc", **kw)
+            with torch.inference_mode():
+                fwd_lib = {"library": lib["library"]} if lib else {}
+                rows = {"fwd": timed_row({**fwd, **fwd_lib}, "kernel", "plain", *cost["fwd"],
+                                         BF16_TC_FLOPS, library="library" if lib else None,
+                                         cc="cc" if "cc" in fwd else None)}
+            rows["bwd"] = timed_row(
+                {**bwd, **lib}, "kernel", "plain", *cost["bwd"], BF16_TC_FLOPS,
+                library=(lambda dev: dev["library_fwd_bwd"] - dev["library"]) if lib else None,
+                cc="cc" if "cc" in bwd else None)
+            for kind, row in rows.items():
+                times[(f"attention_{kind}", "CC " + label, rate)] = row
+                log(f"  CC attention {kind} {label} B={B} h={heads} d={d} {sq}x{sk} bf16 rate "
+                    f"{rate}: {row_text(row)} [{card}]")
+    # the tensor-core kernels' tiling edges at the step's batch
+    for heads, d, sq, sk in TILE_EDGE_CASES:
+        q, k, v, cot, eb_bias = _attention_operands(g, B, heads, d, sq, sk, torch.bfloat16)
+        for rate in (0.0, 0.1):
+            kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
+            with torch.inference_mode():
+                e, bnd, ok = _fwd_error(attention(q, k, v, eb_bias, **kw),
+                                        attention_ref(q, k, v, eb_bias, **kw), "bfloat16")
+                eb, okb = _bwd_errors(attention_bwd(q, k, v, eb_bias, cot, **kw),
+                                      attention_bwd_ref(q, k, v, eb_bias, cot, **kw), "bfloat16")
+            err["attention_fwd"] = max(err["attention_fwd"], e)
+            err["attention_bwd"] = max(err["attention_bwd"], eb)
+            checks.expect(ok and okb, f"attention h={heads} d={d} Sq={sq} Sk={sk} B={B} bf16 "
+                                      f"rate {rate}: fwd max|err| {e:.3e} (<= {bnd:.3e}), "
+                                      f"bwd max|err| {eb:.3e}")
     checks.end_phase("train timing")
     return times
+
+
+def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: dict) -> list:
+    """The kernels line. Each kernel's numbers (device ms, ``device_ms``;
+    ``wall_ms`` with the host's gaps) at its headline shape: K1 at VQA image
+    self-attention, where it costs most; K2 at CC image self-attention;
+    both at rate 0, where SDPA computes the same function; K4 at the VQA
+    image LayerNorm. Every main-path shape under ``shapes``; launches in the
+    VQA eval run and in the training run under ``launches_by_path``, and
+    ``launches`` of the path the headline shape belongs to."""
+    def entry(name, source, replaces, counter, key, library):
+        row = times[key]
+        shapes = [dict(shape=" ".join(map(str, k[1:])), **v) for k, v in times.items()
+                  if k[0] == key[0]]
+        path = vqa_launches if key[1].startswith("VQA") or key[0] == "layer_norm" else \
+            train_launches
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": path[counter],
+                "launches_by_path": {"vqa_eval": vqa_launches[counter],
+                                     "cc_train": train_launches[counter]},
+                "max_abs_err": err[name],
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "wall_ms": row["wall_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "bound": "memory",
+                "library_ms": row["library_ms"], "library": library,
+                "shape": " ".join(map(str, key[1:])), "shapes": shapes}
+
+    fwd = entry("attention_fwd", "vilbert_tpu_torch/csrc/attention.cu",
+                "vilbert_tpu/ops/pallas_attention_train.py:69", "attention",
+                ("attention_fwd", "VQA image self", 0.0),
+                "torch.nn.functional.scaled_dot_product_attention, rate 0")
+    fwd["launches_tc"] = vqa_launches["attention_tc"]
+    bwd = entry("attention_bwd", "vilbert_tpu_torch/csrc/attention_bwd.cu",
+                "vilbert_tpu/ops/pallas_attention_train.py:81", "attention_bwd",
+                ("attention_bwd", "CC image self", 0.0),
+                "scaled_dot_product_attention forward + autograd.grad less forward, rate 0")
+    bwd["launches_tc"] = train_launches["attention_bwd_tc"]
+    ln = entry("layer_norm_fwd", "vilbert_tpu_torch/csrc/layernorm.cu",
+               "vilbert_tpu/ops/pallas_layernorm.py:28", "layer_norm", ("layer_norm", "image"),
+               "torch.nn.functional.layer_norm on the pre-added sum (no residual): a reference "
+               "point")
+    # the K3 entry has no kernel of its own: K1 + K2 at rate 0
+    f0 = times[("attention_fwd", "CC image self", 0.0)]
+    b0 = times[("attention_bwd", "CC image self", 0.0)]
+    fused = {"name": "fused_attention", "route": "cuda",
+             "source": "vilbert_tpu_torch/ops/attention.py",
+             "replaces": "vilbert_tpu/ops/pallas_attention.py:33",
+             "served_by": "attention_fwd + attention_bwd at rate 0", "launches": 0,
+             "max_abs_err": err["fused_attention"],
+             "ms": f0["ms"] + b0["ms"], "plain_ms": f0["plain_ms"] + b0["plain_ms"],
+             "wall_ms": f0["wall_ms"] + b0["wall_ms"],
+             "bound_ms": f0["bound_ms"] + b0["bound_ms"], "bound_by": "bytes", "bound": "memory",
+             "library_ms": f0["library_ms"] + b0["library_ms"],
+             "library": "scaled_dot_product_attention forward + autograd.grad",
+             "shape": "CC image self 0.0"}
+    return [fwd, bwd, ln, fused]
 
 
 def main() -> int:
@@ -670,7 +981,7 @@ def main() -> int:
     log("[3 kernels vs plain]")
     err = phase_kernels(checks)
     log("[4 slice]")
-    model, cfg = phase_slice(checks)
+    model, cfg, vqa_launches = phase_slice(checks)
     log("[5 timing]")
     times = phase_timing(model, cfg, card)
     del model
@@ -680,33 +991,7 @@ def main() -> int:
     times.update(phase_train_timing(checks, state, args, card, err))
     del state
 
-    # launches: each kernel's count in the training step. The K3 entry has no
-    # kernel of its own: its row carries phase 3's check of the entry and the
-    # times of K1 + K2 at rate 0
-    fwd1, fwd0 = times[("attention_fwd", "image self", 0.1)], times[("attention_fwd", "image self", 0.0)]
-    bwd1, bwd0 = times[("attention_bwd", "image self", 0.1)], times[("attention_bwd", "image self", 0.0)]
-    kernels = [
-        {"name": "attention_fwd", "route": "cuda", "source": "vilbert_tpu_torch/csrc/attention.cu",
-         "replaces": "vilbert_tpu/ops/pallas_attention_train.py:69",
-         "launches": train_launches["attention"], "max_abs_err": err["attention_fwd"],
-         "ms": fwd1[0], "plain_ms": fwd1[1], "ms_rate0": fwd0[0], "plain_ms_rate0": fwd0[1]},
-        {"name": "attention_bwd", "route": "cuda",
-         "source": "vilbert_tpu_torch/csrc/attention_bwd.cu",
-         "replaces": "vilbert_tpu/ops/pallas_attention_train.py:81",
-         "launches": train_launches["attention_bwd"], "max_abs_err": err["attention_bwd"],
-         "ms": bwd1[0], "plain_ms": bwd1[1]},
-        {"name": "layer_norm_fwd", "route": "cuda", "source": "vilbert_tpu_torch/csrc/layernorm.cu",
-         "replaces": "vilbert_tpu/ops/pallas_layernorm.py:28",
-         "launches": train_launches["layer_norm"], "max_abs_err": err["layer_norm"],
-         "ms": times[("layer_norm", "image")][0],
-         "plain_ms": times[("layer_norm", "image")][1]},
-        {"name": "fused_attention", "route": "cuda",
-         "source": "vilbert_tpu_torch/ops/attention.py",
-         "replaces": "vilbert_tpu/ops/pallas_attention.py:33",
-         "served_by": "attention_fwd + attention_bwd at rate 0", "launches": 0,
-         "max_abs_err": err["fused_attention"],
-         "ms": fwd0[0] + bwd0[0], "plain_ms": fwd0[1] + bwd0[1]},
-    ]
+    kernels = kernel_report(times, err, vqa_launches, train_launches)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,11 @@
-"""The PyTorch port never imports jax or flax.
+"""The PyTorch port never imports jax, flax or the JAX package.
 
 The card machine has no jax. This file's tests run the port in a fresh
-interpreter (tests/conftest.py has already imported jax into this one):
-import every module of ``vilbert_tpu_torch``, run the eval CLI and the
-training CLI end to end on a tiny config on the CPU, and check that neither
-jax nor flax was loaded.
+interpreter (tests/conftest.py has already imported jax into this one) in
+which ``vilbert_tpu`` cannot be imported (``sys.modules["vilbert_tpu"] =
+None``): import every module of ``vilbert_tpu_torch``, run the eval CLI and
+the training CLI end to end on a tiny config on the CPU, and check that
+neither jax nor flax was loaded.
 """
 
 import json
@@ -26,6 +27,7 @@ _TINY = dict(
 
 _SCRIPT = """
 import importlib, pkgutil, sys
+sys.modules["vilbert_tpu"] = None  # any import of the JAX package fails
 import vilbert_tpu_torch
 for m in pkgutil.walk_packages(vilbert_tpu_torch.__path__, "vilbert_tpu_torch."):
     importlib.import_module(m.name)
@@ -57,6 +59,7 @@ def test_port_runs_without_jax(tmp_path):
 
 _TRAIN_SCRIPT = """
 import sys
+sys.modules["vilbert_tpu"] = None  # any import of the JAX package fails
 from vilbert_tpu_torch.cli.train_concap import main
 main(sys.argv[1:])
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
@@ -99,12 +102,31 @@ def test_no_jax_import_statement_in_port():
 
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py drives the port alone: no statement of it imports jax,
-    flax or the JAX package; what it needs of the shared configuration it
-    takes through ``vilbert_tpu_torch``."""
+    flax or the JAX package. The configuration it takes through
+    ``vilbert_tpu_torch`` is the port's own copy, with the JAX package's
+    fields and defaults, parsing every config file alike."""
+    import dataclasses
+
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|vilbert_tpu)\b", re.M)
     assert not pattern.findall((REPO / "chip_smoke.py").read_text())
-    from vilbert_tpu import core
+    from vilbert_tpu.core import config as jax_config
     from vilbert_tpu_torch.core import config
 
+    def fields(cls):
+        return [(f.name, f.default if f.default_factory is dataclasses.MISSING
+                 else f.default_factory()) for f in dataclasses.fields(cls)]
+
     for name in ("ModelConfig", "OptimizerConfig", "TaskConfig"):
-        assert getattr(config, name) is getattr(core.config, name)
+        assert getattr(config, name) is not getattr(jax_config, name)
+        assert fields(getattr(config, name)) == fields(getattr(jax_config, name)), name
+    for path in sorted((REPO / "configs").glob("*.json")):
+        assert dataclasses.asdict(config.ModelConfig.from_json_file(str(path))) == \
+            dataclasses.asdict(jax_config.ModelConfig.from_json_file(str(path))), path.name
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        return
+    tasks_yml = str(REPO / "configs" / "tasks.yml")
+    port, ref = config.load_task_configs(tasks_yml), jax_config.load_task_configs(tasks_yml)
+    assert {k: dataclasses.asdict(t) for k, t in port.items()} == \
+        {k: dataclasses.asdict(t) for k, t in ref.items()}

@@ -114,6 +114,62 @@ class TestAttentionKernelOperands:
             kernel_geometry(q, k, v, bias, heads)
 
 
+class TestAttentionVariants:
+    """Which kernel variant the wrappers pick, and what the tensor-core
+    variants take, before any launch."""
+
+    @pytest.mark.parametrize("dtype,sk,want", [
+        (torch.bfloat16, 1, "tc"), (torch.bfloat16, 101, "tc"), (torch.bfloat16, 128, "tc"),
+        (torch.bfloat16, 129, "cc"), (torch.bfloat16, 512, "cc"), (torch.float32, 23, "cc"),
+    ])
+    def test_forward_variant_by_dtype_and_keys(self, dtype, sk, want):
+        from vilbert_tpu_torch.ops.attention import fwd_variant
+
+        assert fwd_variant(dtype, sk) == want
+
+    def test_backward_variant_by_dtype(self):
+        from vilbert_tpu_torch.ops.attention import bwd_variant
+
+        assert (bwd_variant(torch.bfloat16), bwd_variant(torch.float32)) == ("tc", "cc")
+
+    def test_tc_strides_of_projections(self):
+        """[B, S, H] projections and a stride-0 batch pass; the stride of a
+        dimension of size 1 goes in as 0."""
+        from vilbert_tpu_torch.ops.attention import _tc_strides
+
+        q, k, _, _ = _qkv(sq=23, sk=101, hd=768)
+        one = torch.zeros(1, 1, 768, dtype=torch.bfloat16)
+        assert _tc_strides(q=q, k=k, b=k[:1].expand(4, 101, 768), one=one) == [
+            23 * 768, 768, 101 * 768, 768, 0, 768, 0, 0]
+
+    @pytest.mark.parametrize("case", ["offset", "row_stride"])
+    def test_tc_refuses_unaligned(self, case):
+        from vilbert_tpu_torch.ops.attention import _tc_strides
+
+        if case == "offset":  # rows start 2 bytes off a 16-byte boundary
+            x = torch.zeros(2, 23, 776, dtype=torch.bfloat16)[..., 1:769]
+        else:  # aligned start, rows 772 elements apart
+            x = torch.zeros(2, 23, 772, dtype=torch.bfloat16)[..., :768]
+        with pytest.raises(ValueError):
+            _tc_strides(q=x)
+
+    def test_named_variant_needs_cuda_tensors(self):
+        from vilbert_tpu_torch.ops.attention import attention_bwd_kernel, attention_kernel
+
+        q, k, v, _ = _qkv()
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            attention_kernel(q, k, v, None, num_heads=8, variant="tc")
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            attention_bwd_kernel(q, k, v, None, q, num_heads=8, variant="cc")
+
+    def test_each_variant_has_a_counter(self):
+        from vilbert_tpu_torch.ops.attention import VARIANTS, attention, attention_bwd
+
+        for wrapper in (attention, attention_bwd):
+            for variant in VARIANTS:
+                assert isinstance(getattr(wrapper, f"launches_{variant}"), int)
+
+
 class TestLayerNorm:
     @pytest.mark.parametrize("with_residual", [False, True])
     def test_ref_matches_pallas_kernel(self, with_residual, rng_np):
@@ -212,7 +268,7 @@ class TestBuild:
         assert path.name.startswith("libvilbert_kernels_") and path.suffix == ".so"
         assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} == {
             "attention.cu", "attention_bwd.cu", "layernorm.cu"}
-        assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {"keep_mask.cuh"}
+        assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {"keep_mask.cuh", "mma_bf16.cuh"}
 
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         from vilbert_tpu_torch.ops import _build

@@ -426,6 +426,12 @@ class TestCLI:
         eps from --adam_epsilon), with the schedule the caller asks for."""
         from vilbert_tpu_torch.cli.train_concap import build_parser, optimizer_config
 
+        import dataclasses
+
+        from vilbert_tpu_torch.core import config
+
         args = build_parser().parse_args(["--learning_rate", "3e-5", "--adam_epsilon", "1e-6"])
-        assert optimizer_config(args, schedule=schedule) == OptimizerConfig(
-            learning_rate=3e-5, warmup_proportion=0.1, schedule=schedule, beta2=0.98, eps=1e-6)
+        got = optimizer_config(args, schedule=schedule)
+        assert type(got) is config.OptimizerConfig  # the port's own copy
+        assert dataclasses.asdict(got) == dataclasses.asdict(OptimizerConfig(
+            learning_rate=3e-5, warmup_proportion=0.1, schedule=schedule, beta2=0.98, eps=1e-6))

@@ -108,9 +108,9 @@ def synthetic_vqa_loader(model_cfg: ModelConfig, task: TaskConfig, *, num: int =
     """Synthetic VQA questions at the task's full geometry: images of
     ``max_region_num - 1`` boxes plus the global row, questions of
     ``max_seq_length`` tokens, 3129 answer labels."""
-    from vilbert_tpu.data import synthetic as syn
-    from vilbert_tpu.data.tasks import DataLoader, VQADataset
-    from vilbert_tpu.data.tokenization import HashTokenizer
+    from vilbert_tpu_torch.data import synthetic as syn
+    from vilbert_tpu_torch.data.tasks import DataLoader, VQADataset
+    from vilbert_tpu_torch.data.tokenization import HashTokenizer
 
     store = syn.synthetic_store(num_images=16, num_boxes=task.max_region_num - 1,
                                 feature_dim=model_cfg.v_feature_size)
@@ -124,7 +124,7 @@ def _label2ans(task: TaskConfig) -> Optional[List[str]]:
     """Answer vocabulary for VQA/GQA submission records, if on disk."""
     if task.type not in ("VL-classifier", "VL-classifier-GQA"):
         return None
-    from vilbert_tpu.data.annotations import load_label2ans
+    from vilbert_tpu_torch.data.annotations import load_label2ans
 
     try:
         return load_label2ans(task.dataroot)
@@ -157,13 +157,13 @@ def main(argv=None) -> None:
                     for k, t in selected.items()}
 
     if args.synthetic:
-        from vilbert_tpu.cli.train_tasks import _synthetic_world
+        from vilbert_tpu_torch.cli.train_tasks import _synthetic_world
 
         loaders = _synthetic_world(selected, model_cfg.vocab_size)
         label2ans = {}
     else:
-        from vilbert_tpu.data.loading import load_datasets
-        from vilbert_tpu.data.tokenization import load_tokenizer
+        from vilbert_tpu_torch.data.loading import load_datasets
+        from vilbert_tpu_torch.data.tokenization import load_tokenizer
 
         if not args.vocab:
             raise SystemExit(

@@ -117,7 +117,7 @@ def synthetic_stores(batch_size: int):
     """The JAX CLI's synthetic CC world: 256 training images (or one batch,
     if larger: the JAX CLI's loader yields nothing there) and 64 validation
     images of 36 boxes, with captions."""
-    from vilbert_tpu.data.feature_store import InMemoryFeatureStore
+    from vilbert_tpu_torch.data.feature_store import InMemoryFeatureStore
 
     store = InMemoryFeatureStore.synthetic(num_images=max(256, batch_size), num_boxes=36)
     captions = {k: f"a synthetic caption about image {k}" for k in store.keys()}
@@ -128,7 +128,7 @@ def synthetic_stores(batch_size: int):
 
 def concap_loader(store, captions, tokenizer, model_cfg: ModelConfig, args, *, seed: int,
                   num_workers: int = 0):
-    from vilbert_tpu.data.concap import ConceptCapLoader, ConceptCapSampleConfig
+    from vilbert_tpu_torch.data.concap import ConceptCapLoader, ConceptCapSampleConfig
 
     return ConceptCapLoader(
         store, captions, tokenizer, batch_size=args.batch_size,
@@ -159,8 +159,8 @@ def train(args: argparse.Namespace, hooks: Optional[list] = None):
     ``run_pretraining`` for parsed flags; returns the final ``TrainState``."""
     check_flags(args)
 
-    from vilbert_tpu.cli.train_tasks import freeze_prefixes
-    from vilbert_tpu.data.tokenization import load_tokenizer
+    from vilbert_tpu_torch.cli.train_tasks import freeze_prefixes
+    from vilbert_tpu_torch.data.tokenization import load_tokenizer
     from vilbert_tpu_torch.train.pretrain import run_pretraining
 
     model_cfg = ModelConfig.from_json_file(
@@ -180,7 +180,7 @@ def train(args: argparse.Namespace, hooks: Optional[list] = None):
     if args.synthetic:
         store, captions, val_store, val_captions = synthetic_stores(args.batch_size)
     else:
-        from vilbert_tpu.data.feature_store import open_feature_store
+        from vilbert_tpu_torch.data.feature_store import open_feature_store
 
         if not (args.train_store and args.captions):
             raise SystemExit("--train_store and --captions are required without --synthetic")

@@ -3,7 +3,7 @@
 Counterpart of ``vilbert_tpu/core/checkpoint.py::load_params`` /
 ``load_pretrained_torch``. The port's parameter names ARE the reference
 torch ``state_dict`` names, so one mapping serves everything:
-``vilbert_tpu.core.importer._to_flax_key`` names the flax path of each port
+``core.importer._to_flax_key`` names the flax path of each port
 parameter and ``_needs_transpose`` says which are Linear weights ([out, in]
 in torch, [in, out] as a flax kernel). Embedding tables and LayerNorm
 parameters are not transposed. The reference's tied LM decoder and dead
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vilbert_tpu.core.importer import (
+from vilbert_tpu_torch.core.importer import (
     _flatten,
     _needs_transpose,
     _to_flax_key,

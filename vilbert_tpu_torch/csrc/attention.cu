@@ -1,32 +1,52 @@
 // Multi-head attention forward for Hopper (sm_90a): softmax(q k^T / sqrt(d) +
-// key bias) v, one block per (batch, head, tile of query rows).
+// key bias) [dropout] v over [B, S, H] projections.
 //
 // Replaces the TPU kernel vilbert_tpu/ops/pallas_attention_train.py::_fwd_kernel
 // (K1), with its in-kernel attention-probability dropout, and serves
 // vilbert_tpu/ops/pallas_attention.py::_attn_kernel (K3, K1 at rate 0). Same
 // arithmetic: scores and softmax in fp32; with dropout, P times the fp32
 // 1/(1 - rate) where _keep_mask keeps (keep_mask.cuh, hashed from the GLOBAL
-// query row, the key column and the tile seed of (batch, head)) and 0
-// elsewhere; P then rounded to v's dtype before the PV product, PV
-// accumulated in fp32, output in q's dtype. Rate 0 compiles the mask out
-// (kDrop = false), so evaluation runs the code it ran before dropout existed.
+// query row, the key column and the tile seed seed + (b heads + h) 7919)
+// and 0 elsewhere; the normalized, dropped P rounded to v's dtype before the
+// PV product (_fwd_kernel:75-76), PV accumulated in fp32, output in q's
+// dtype. Rate 0 compiles the mask out (kDrop = false).
 //
-// What bounds it on the H100: at the shapes of ViLBERT (S <= 101, d = 64 or
-// 128) each (batch, head) moves 3 S d elements in and S d out and does 4 S^2 d
-// flops, well below the card's ridge point. The design keeps device-memory
-// traffic near that floor: q, k and v are read straight from the [B, S, H]
-// output of the projections through strides (no head transposes in device
-// memory), the [Sq, Sk] score tile lives only in shared memory, and the
-// output is written once in [B, Sq, H]. The products run on the CUDA cores
-// in fp32, so what bounds the kernel itself is shared-memory bandwidth: each
-// thread keeps a 4 x 4 tile of scores (and a 4 x d/16 tile of the output) in
-// registers, so every shared-memory load feeds 2 to 2.7 FMAs.
-// Tensor cores (wgmma) are work for a later, faster version.
+// What bounds it on the H100: memory. A (batch, head) reads 3 S d elements
+// and writes S d, and does 4 S^2 d flops: about Sk flop per byte in bf16,
+// against the card's ridge of ~295 at 989 TFLOP/s and 3.35 TB/s. At VQA
+// image self-attention (B 1024, h 8, d 128, 101 x 101) the bytes take
+// 0.253 ms; the 42.8 GFLOP would take 0.14 ms even at mma.sync's ~300
+// TFLOP/s, so wgmma buys nothing here. Both variants read q, k and v
+// straight from the [B, S, H] projections through strides (no head
+// transposes in device memory; a stride-0 batch, retrieval's fast_mode,
+// passes), keep the [Sq, Sk] scores on chip and write the output once in
+// [B, Sq, H].
 //
-// Keys are walked in tiles of kBlockK rows in two passes (QK^T into the score
-// tile, then PV), so shared memory grows only with Sk * kBlockQ and Sk up to
-// kMaxKeys fits: 115 KB at Sk = 512, d = 128, above the 48 KB default, hence
-// cudaFuncSetAttribute.
+// Two variants; the Python wrapper picks one by dtype and Sk and counts each:
+//
+// * tensor cores (tc::, bf16, Sk <= 128: every shape of the VQA and CC
+//   paths). A block is one (batch, head) and up to 128 query rows, one
+//   warp per 16 rows, so that K and V are loaded once per head: 1.65x
+//   faster than 64-row blocks at VQA image self-attention (101 x 101), and
+//   within 3% of them at the other shapes (scripts/ab_kernels.py on an H100
+//   80GB HBM3 at 700 W). q, k and v rows arrive by 16-byte cp.async in
+//   bf16 (rows padded by 16 bytes, zero past S), V in a second group that
+//   lands while S and the softmax run.
+//   S = Q K^T on mma.sync.m16n8k16 (bf16 -> fp32) with ldmatrix operands;
+//   the softmax runs on the accumulators in registers (quad shuffles), keys
+//   past Sk set to -inf; the mask is hashed at each accumulator element's
+//   own (row, col); the normalized, dropped P is packed to bf16 in
+//   registers as the A operand of P V on the same mma.
+// * CUDA cores (cc::, fp32 at any Sk <= 512, bf16 at 128 < Sk <= 512): one
+//   block per (batch, head, 32 query rows), fp32 FMAs from fp32 tiles in
+//   shared memory, 4 x 4 register tiles; keys walked in tiles of 64 rows, so
+//   Sk up to 512 fits (115 KB at d = 128, hence cudaFuncSetAttribute). It
+//   served bf16 too before the tensor-core variant; its bf16 times on an
+//   H100 80GB HBM3 at 700 W: 5.210 ms at VQA image self-attention
+//   (B 1024, 101 x 101, h 8, d 128, rate 0), 0.327 ms at CC image
+//   self-attention (B 256, 37 x 37, rate 0.1), 0.201 ms at CC text
+//   self-attention (B 256, 36 x 36, h 12, d 64). chip_smoke.py times it
+//   beside the tensor-core variant.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,8 +54,12 @@
 #include <stdint.h>
 
 #include "keep_mask.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
+
+// ---- CUDA-core variant (fp32; bf16 at 128 < Sk <= 512) ---------------------
+namespace cc {
 
 constexpr int kThreads = 128;
 constexpr int kBlockQ = 32;   // query rows per block
@@ -220,9 +244,131 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   return cudaGetLastError();
 }
 
+}  // namespace cc
+
+// ---- tensor-core variant (bf16, Sk <= 128) ---------------------------------
+namespace tc {
+
+constexpr int kMaxWarps = 8;
+constexpr int kBlockQ = 16 * kMaxWarps;  // most query rows per block, 16 per warp
+constexpr int kMaxKeys = 128;
+
+struct Args {
+  const vt::bf16* q;
+  const vt::bf16* k;
+  const vt::bf16* v;
+  const float* bias;
+  vt::bf16* out;
+  int num_heads, sq, sk;
+  int q_rows, q_tiles;  // query rows per block (a multiple of 16), blocks per head
+  int64_t q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, bias_bs;  // strides in elements
+  float scale;
+  uint32_t seed, threshold;
+  float keep_scale;
+};
+
+// q tile [q_rows][D + 8], k and v [skp][D + 8] (bf16), bias [skp] (fp32)
+size_t smem_bytes(int d, int q_rows, int sk) {
+  const int skp = (sk + 15) / 16 * 16;
+  return sizeof(vt::bf16) * (size_t)(q_rows + 2 * skp) * (d + 8) + sizeof(float) * skp;
+}
+
+// KT: key tiles of 16 the accumulators are sized for (the launch picks the
+// smallest of 2, 4, 8 that covers Sk); loops run over the Sk's own count
+template <int D, int KT, bool kDrop>
+__global__ void __launch_bounds__(32 * kMaxWarps) attention_fwd_tc_kernel(const Args a) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kt = (a.sk + 15) / 16;
+  const int skp = 16 * kt;
+  vt::bf16* q_s = reinterpret_cast<vt::bf16*>(smem_raw);
+  vt::bf16* k_s = q_s + a.q_rows * LD;
+  vt::bf16* v_s = k_s + skp * LD;
+  float* bias_s = reinterpret_cast<float*>(v_s + skp * LD);
+
+  const int tile = blockIdx.x % a.q_tiles;
+  const int bh = blockIdx.x / a.q_tiles;
+  const int h = bh % a.num_heads;
+  const int64_t b = bh / a.num_heads;
+  const int q0 = tile * a.q_rows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nthreads = blockDim.x;
+
+  // two groups of copies: q and k, then v, which lands while S and the
+  // softmax run
+  vt::load_head_rows<D>(q_s, a.q + b * a.q_bs + q0 * a.q_rs + h * D, min(a.q_rows, a.sq - q0),
+                        a.q_rows, a.q_rs, tid, nthreads);
+  vt::load_head_rows<D>(k_s, a.k + b * a.k_bs + h * D, a.sk, skp, a.k_rs, tid, nthreads);
+  vt::cp_async_commit();
+  vt::load_head_rows<D>(v_s, a.v + b * a.v_bs + h * D, a.sk, skp, a.v_rs, tid, nthreads);
+  vt::cp_async_commit();
+  for (int j = tid; j < skp; j += nthreads) bias_s[j] = j < a.sk ? a.bias[b * a.bias_bs + j] : 0.f;
+  vt::cp_async_wait<1>();
+  __syncthreads();
+
+  const int r0 = 16 * warp;  // the warp's strip of the tile
+  const bool active = q0 + r0 < a.sq;
+  const int row = q0 + r0 + lane / 4;  // global query row of elements 0, 1
+  // the normalized, dropped P in bf16: the A fragments of P V
+  uint32_t pa[KT][4];
+  if (active) {
+    // S = Q K^T: s[n] is the C tile of keys [8 n, 8 n + 8)
+    float s[2 * KT][4];
+    vt::products_abt<D, KT>(s, q_s, k_s, r0, kt, lane);
+    // P in registers, then the mask at each element's global (row, key)
+    vt::softmax_strip<KT>(s, kt, a.sk, a.scale, bias_s, lane);
+    if (kDrop) {
+      const uint32_t tseed = vt::tile_seed(a.seed, bh);
+#pragma unroll
+      for (int n = 0; n < 2 * KT; ++n)
+        if (n < 2 * kt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = vt::keep(row + 8 * (e / 2), 8 * n + 2 * (lane % 4) + e % 2, tseed,
+                               a.threshold)
+                          ? s[n][e] * a.keep_scale
+                          : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+      if (j < kt) vt::c_to_a(pa[j], s[2 * j], s[2 * j + 1]);
+  }
+  vt::cp_async_wait<0>();
+  __syncthreads();  // v is in
+  if (!active) return;
+
+  // O = P V, written once in [B, Sq, H]
+  float o[D / 8][4];
+  vt::products_ab<D, KT>(o, pa, v_s, kt, lane);
+  const int64_t hidden = (int64_t)a.num_heads * D;
+  vt::store_strip<D>(a.out + b * a.sq * hidden + h * D, o, row, a.sq, hidden, 1.f, lane);
+}
+
+template <int D, int KT, bool kDrop>
+cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
+  const long long blocks = (long long)batch * a.num_heads * a.q_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_tc_kernel<D, KT, kDrop>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes(D, kBlockQ, 16 * KT));
+  if (err != cudaSuccess) return err;
+  attention_fwd_tc_kernel<D, KT, kDrop>
+      <<<(unsigned)blocks, 2 * a.q_rows, smem_bytes(D, a.q_rows, a.sk), stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D, bool kDrop>
+cudaError_t launch_keys(const Args& a, int batch, cudaStream_t stream) {
+  if (a.sk <= 32) return launch<D, 2, kDrop>(a, batch, stream);
+  if (a.sk <= 64) return launch<D, 4, kDrop>(a, batch, stream);
+  return launch<D, 8, kDrop>(a, batch, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Dropout:
+// The CUDA-core variant. dtype: 0 = float32, 1 = bfloat16. Strides are in
+// elements. Dropout:
 // the call's uint32 seed, the uint32 keep threshold and the fp32 keep scale
 // 1/(1 - rate), all computed by the caller; threshold 0 and scale 1 mean
 // rate 0. Returns a cudaError_t; cudaErrorInvalidValue for a dtype, head_dim
@@ -235,22 +381,58 @@ extern "C" int vt_attention_fwd(const void* q, const void* k, const void* v, con
                                 long long v_rstride, long long bias_bstride, float scale,
                                 unsigned int seed, unsigned int threshold, float keep_scale,
                                 void* stream) {
-  if (sk < 1 || sk > kMaxKeys || sq < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+  if (sk < 1 || sk > cc::kMaxKeys || sq < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = threshold != 0u || keep_scale != 1.f;
 #define VT_LAUNCH(T, D)                                                                        \
-  return (int)(drop ? launch<T, D, true>(q, k, v, bias, out, batch, num_heads, sq, sk,         \
-                                         q_bstride, q_rstride, k_bstride, k_rstride,           \
-                                         v_bstride, v_rstride, bias_bstride, scale, seed,      \
-                                         threshold, keep_scale, s)                             \
-                    : launch<T, D, false>(q, k, v, bias, out, batch, num_heads, sq, sk,        \
-                                          q_bstride, q_rstride, k_bstride, k_rstride,          \
-                                          v_bstride, v_rstride, bias_bstride, scale, seed,     \
-                                          threshold, keep_scale, s))
+  return (int)(drop ? cc::launch<T, D, true>(q, k, v, bias, out, batch, num_heads, sq, sk,     \
+                                             q_bstride, q_rstride, k_bstride, k_rstride,       \
+                                             v_bstride, v_rstride, bias_bstride, scale, seed,  \
+                                             threshold, keep_scale, s)                         \
+                    : cc::launch<T, D, false>(q, k, v, bias, out, batch, num_heads, sq, sk,    \
+                                              q_bstride, q_rstride, k_bstride, k_rstride,      \
+                                              v_bstride, v_rstride, bias_bstride, scale, seed, \
+                                              threshold, keep_scale, s))
   if (dtype == 0 && head_dim == 64) VT_LAUNCH(float, 64);
   if (dtype == 0 && head_dim == 128) VT_LAUNCH(float, 128);
   if (dtype == 1 && head_dim == 64) VT_LAUNCH(__nv_bfloat16, 64);
   if (dtype == 1 && head_dim == 128) VT_LAUNCH(__nv_bfloat16, 128);
 #undef VT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core variant: bf16 q, k, v and out, fp32 bias, 1 <= Sk <= 128,
+// head_dim 64 or 128; q, k and v 16-byte aligned with batch and row strides
+// that are multiples of 8 elements (16 bytes). Arguments otherwise as for
+// vt_attention_fwd; cudaErrorInvalidValue for what it does not take (the
+// Python wrapper checks these first).
+extern "C" int vt_attention_fwd_tc(const void* q, const void* k, const void* v, const void* bias,
+                                   void* out, int batch, int num_heads, int head_dim, int sq,
+                                   int sk, long long q_bstride, long long q_rstride,
+                                   long long k_bstride, long long k_rstride, long long v_bstride,
+                                   long long v_rstride, long long bias_bstride, float scale,
+                                   unsigned int seed, unsigned int threshold, float keep_scale,
+                                   void* stream) {
+  if (sk < 1 || sk > tc::kMaxKeys || sq < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 ||
+      (q_bstride | q_rstride | k_bstride | k_rstride | v_bstride | v_rstride) % 8)
+    return (int)cudaErrorInvalidValue;
+  // up to 128 query rows a block, so that K and V are loaded once per head
+  // at Sq <= 128; fewer where Sq is shorter
+  const int q_rows = min(tc::kBlockQ, (sq + 15) / 16 * 16);
+  tc::Args a{static_cast<const vt::bf16*>(q), static_cast<const vt::bf16*>(k),
+             static_cast<const vt::bf16*>(v), static_cast<const float*>(bias),
+             static_cast<vt::bf16*>(out), num_heads, sq, sk, q_rows, (sq + q_rows - 1) / q_rows,
+             q_bstride, q_rstride, k_bstride, k_rstride,
+             v_bstride, v_rstride, bias_bstride, scale, seed, threshold, keep_scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool drop = threshold != 0u || keep_scale != 1.f;
+  if (head_dim == 64)
+    return (int)(drop ? tc::launch_keys<64, true>(a, batch, s)
+                      : tc::launch_keys<64, false>(a, batch, s));
+  if (head_dim == 128)
+    return (int)(drop ? tc::launch_keys<128, true>(a, batch, s)
+                      : tc::launch_keys<128, false>(a, batch, s));
   return (int)cudaErrorInvalidValue;
 }

@@ -6,27 +6,43 @@
 // (_folded_bwd, the same math). It saves nothing from the forward: it
 // recomputes P in fp32 from q, k and the bias, regenerates the forward's
 // dropout mask from the seed (keep_mask.cuh), and follows _bwd_kernel:
-//   P_drop = keep ? P / (1 - rate) : 0          (fp32, NOT rounded, for dv)
+//   P_drop = keep ? P / (1 - rate) : 0
 //   dv = P_drop^T g
 //   dp = keep ? (g v^T) / (1 - rate) : 0
 //   ds = P (dp - rowsum(dp P))                  (the undropped P)
 //   dq = ds k / sqrt(d),  dk = ds^T q / sqrt(d)
 // All products accumulate in fp32; the outputs are in the inputs' dtype.
 //
-// What bounds it on the H100: at ViLBERT's shapes (S <= 101, d = 64 or 128)
-// a (batch, head) reads 4 S d elements and writes 3 S d, and does 10 S^2 d
-// flops: far below the card's ridge point, like the forward. The design
-// keeps device-memory traffic at that floor: q, k, v and g are read through
-// the strides of the [B, S, H] projections (no head transposes), the
-// [Sq, Sk] tiles P and ds live only in shared memory, and dq, dk and dv are
-// written once each as [B, S, H]. The whole key range of the head stays in
-// the block, so dk and dv need no atomics and the result is deterministic.
-// The products run on the CUDA cores: each thread keeps a register tile
-// (R x R of P, R x 2 of each output) so every shared-memory load feeds
-// several FMAs. Operand columns are staged 32 at a time as fp32, so at
-// Sq = Sk = 128 and d = 128 shared memory holds P and ds (2 x 66 KB) plus
-// three 17 KB staging tiles: 192 KB, under the 227 KB a block may take.
-// Tensor cores (wgmma) are work for a later, faster version.
+// What bounds it on the H100: memory. A (batch, head) reads 4 S d elements
+// and writes 3 S d, and does 10 S^2 d flops: about 1.4 S flop per byte in
+// bf16, far below the card's ridge of ~295. At CC image self-attention
+// (B 256, h 8, d 128, 37 x 37) the bytes take 0.041 ms. Both variants read
+// q, k, v and g through the strides of the [B, S, H] projections (no head
+// transposes), keep the [Sq, Sk] tiles on chip and write dq, dk and dv once
+// each as [B, S, H]. A block holds the whole key range of its head, so dk
+// and dv need no atomics and the result is deterministic.
+//
+// Two variants; the Python wrapper picks one by dtype and counts each:
+//
+// * tensor cores (tc::, bf16, Sq, Sk <= 128). q, k, v and g arrive by
+//   16-byte cp.async in bf16 (rows padded by 16 bytes, zero past S). One
+//   warp per 16 query rows recomputes S and P on mma.sync.m16n8k16 with the
+//   forward's register softmax, gets dP = g v^T on the same mma, forms the
+//   mask, dp, the rowsum (quad shuffles) and ds in registers, stages P_drop
+//   and ds in shared memory as bf16, and computes dq = ds k from ds in
+//   registers. Then one warp per 16 keys computes dv = P_drop^T g and
+//   dk = ds^T q, the transposed operands through ldmatrix.trans. The TPU
+//   kernel keeps P_drop and ds in fp32; rounding them to bf16 as mma
+//   operands is this variant's one departure from it.
+// * CUDA cores (cc::, fp32; it takes bf16 too, but the wrapper sends bf16
+//   to the tensor cores): the products as fp32 FMAs, each thread a register
+//   tile (R x R of P, R x 2 of each output), operand columns staged 32 at a
+//   time as fp32, P and ds in fp32 shared memory; at Sq = Sk = 128 and
+//   d = 128, 192 KB. It served bf16 too before the tensor-core variant; its
+//   bf16 times on an H100 80GB HBM3 at 700 W (B 256, rate 0.1): 0.615 ms at
+//   CC image self-attention (37 x 37, h 8, d 128; 5.8 TFLOP/s), 0.476 ms at
+//   CC text self-attention (36 x 36, h 12, d 64). chip_smoke.py times it
+//   beside the tensor-core variant.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,8 +50,12 @@
 #include <stdint.h>
 
 #include "keep_mask.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
+
+// ---- CUDA-core variant ------------------------------------------------------
+namespace cc {
 
 constexpr int kThreads = 256;
 constexpr int kT = 16;          // threads per side of the 16 x 16 thread grid
@@ -286,9 +306,193 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   return cudaGetLastError();
 }
 
+}  // namespace cc
+
+// ---- tensor-core variant (bf16) --------------------------------------------
+namespace tc {
+
+constexpr int kMaxSeq = 128;
+constexpr int kMaxWarps = kMaxSeq / 16;
+
+struct Args {
+  const vt::bf16* q;
+  const vt::bf16* k;
+  const vt::bf16* v;
+  const float* bias;
+  const vt::bf16* g;
+  vt::bf16* dq;
+  vt::bf16* dk;
+  vt::bf16* dv;
+  int num_heads, sq, sk;
+  int64_t q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, g_bs, g_rs, bias_bs;  // in elements
+  float scale;
+  bool drop;
+  uint32_t seed, threshold;
+  float keep_scale;
+};
+
+// q, g [sqp][D + 8], k, v [skp][D + 8], P_drop, ds [sqp][skp + 8] (bf16),
+// bias [skp] (fp32)
+size_t smem_bytes(int d, int sq, int sk) {
+  const size_t sqp = (sq + 15) / 16 * 16, skp = (sk + 15) / 16 * 16;
+  return sizeof(vt::bf16) * (2 * (sqp + skp) * (d + 8) + 2 * sqp * (skp + 8)) +
+         sizeof(float) * skp;
+}
+
+// KT: tiles of 16 (queries and keys) the accumulators are sized for (4 or
+// 8); loops run over the call's own counts
+template <int D, int KT>
+// one block an SM is enough to fill the SM's memory pipe at these sizes:
+// minBlocks 1 lets ptxas keep every accumulator in registers (no spills)
+__global__ void __launch_bounds__(32 * kMaxWarps, 1) attention_bwd_tc_kernel(const Args a) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int qt = (a.sq + 15) / 16, kt = (a.sk + 15) / 16;
+  const int sqp = 16 * qt, skp = 16 * kt, PL = skp + 8;
+  vt::bf16* q_s = reinterpret_cast<vt::bf16*>(smem_raw);
+  vt::bf16* g_s = q_s + sqp * LD;
+  vt::bf16* k_s = g_s + sqp * LD;
+  vt::bf16* v_s = k_s + skp * LD;
+  vt::bf16* pd_s = v_s + skp * LD;  // P_drop [query][key]
+  vt::bf16* ds_s = pd_s + sqp * PL;  // ds [query][key]
+  float* bias_s = reinterpret_cast<float*>(ds_s + sqp * PL);
+
+  const int bh = blockIdx.x;
+  const int h = bh % a.num_heads;
+  const int64_t b = bh / a.num_heads;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nthreads = blockDim.x, nwarps = nthreads / 32;
+
+  vt::load_head_rows<D>(q_s, a.q + b * a.q_bs + h * D, a.sq, sqp, a.q_rs, tid, nthreads);
+  vt::load_head_rows<D>(g_s, a.g + b * a.g_bs + h * D, a.sq, sqp, a.g_rs, tid, nthreads);
+  vt::load_head_rows<D>(k_s, a.k + b * a.k_bs + h * D, a.sk, skp, a.k_rs, tid, nthreads);
+  vt::load_head_rows<D>(v_s, a.v + b * a.v_bs + h * D, a.sk, skp, a.v_rs, tid, nthreads);
+  for (int j = tid; j < skp; j += nthreads) bias_s[j] = j < a.sk ? a.bias[b * a.bias_bs + j] : 0.f;
+  vt::cp_async_commit();
+  vt::cp_async_wait<0>();
+  __syncthreads();
+
+  const uint32_t tseed = vt::tile_seed(a.seed, bh);
+  const int64_t hidden = (int64_t)a.num_heads * D;
+
+  // 1. per 16 query rows: P, dp, ds; P_drop and ds to shared memory; dq
+  for (int strip = warp; strip < qt; strip += nwarps) {
+    const int r0 = 16 * strip;
+    // S = q k^T, then dP = g v^T: two passes, so that only the S and dP
+    // accumulators and one pass's fragments are live at a time (no spills
+    // at d = 128, Sk = 128)
+    float s[2 * KT][4], dp[2 * KT][4];
+    vt::products_abt<D, KT>(s, q_s, k_s, r0, kt, lane);
+    vt::softmax_strip<KT>(s, kt, a.sk, a.scale, bias_s, lane);
+    vt::products_abt<D, KT>(dp, g_s, v_s, r0, kt, lane);
+    // P, the mask, dp and the rowsum of dp P (the undropped P)
+    const int row = r0 + lane / 4;
+    uint64_t kept = 0;  // bit 4 n + e: element e of tile n is kept
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 2 * KT; ++n) {
+      if (n < 2 * kt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[n][e];
+          float d = dp[n][e];
+          if (a.drop) {
+            const bool kp = vt::keep(row + 8 * (e / 2), 8 * n + 2 * (lane % 4) + e % 2, tseed,
+                                     a.threshold);
+            kept |= (uint64_t)kp << (4 * n + e);
+            d = kp ? d * a.keep_scale : 0.f;
+          }
+          dp[n][e] = d;
+          rs[e / 2] += d * p;
+        }
+      }
+    }
+    rs[0] = vt::quad_sum(rs[0]);
+    rs[1] = vt::quad_sum(rs[1]);
+    // ds into dp, P_drop into s; rows past Sq are zero
+#pragma unroll
+    for (int n = 0; n < 2 * KT; ++n) {
+      if (n < 2 * kt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = row + 8 * (e / 2) < a.sq;
+          const float p = s[n][e];
+          dp[n][e] = valid ? p * (dp[n][e] - rs[e / 2]) : 0.f;
+          float pd = p;
+          if (a.drop) pd = (kept >> (4 * n + e)) & 1u ? p * a.keep_scale : 0.f;
+          s[n][e] = valid ? pd : 0.f;
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int idx = (row + 8 * half) * PL + 8 * n + 2 * (lane % 4);
+          *reinterpret_cast<uint32_t*>(pd_s + idx) =
+              vt::pack_bf16(s[n][2 * half], s[n][2 * half + 1]);
+          *reinterpret_cast<uint32_t*>(ds_s + idx) =
+              vt::pack_bf16(dp[n][2 * half], dp[n][2 * half + 1]);
+        }
+      }
+    }
+    // dq = ds k scale, ds straight from the registers
+    uint32_t da[KT][4];
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+      if (j < kt) vt::c_to_a(da[j], dp[2 * j], dp[2 * j + 1]);
+    float acc[D / 8][4];
+    vt::products_ab<D, KT>(acc, da, k_s, kt, lane);
+    vt::store_strip<D>(a.dq + b * a.sq * hidden + h * D, acc, row, a.sq, hidden, a.scale, lane);
+  }
+  __syncthreads();
+
+  // 2. per 16 keys: dv = P_drop^T g and dk = ds^T q scale
+  for (int strip = warp; strip < kt; strip += nwarps) {
+    const int m0 = 16 * strip;
+    const int row = m0 + lane / 4;
+#pragma unroll 1
+    for (int which = 0; which < 2; ++which) {
+      const vt::bf16* a_s = which == 0 ? pd_s : ds_s;
+      const vt::bf16* b_s = which == 0 ? g_s : q_s;
+      float acc[D / 8][4];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+      for (int i = 0; i < KT; ++i) {
+        if (i < qt) {
+          uint32_t ta[4];
+          vt::load_a_trans(ta, a_s, PL, 16 * i, m0, lane);
+#pragma unroll
+          for (int nd = 0; nd < D / 16; ++nd) {
+            uint32_t bb[4];
+            vt::load_b_kn(bb, b_s, LD, 16 * i, 16 * nd, lane);
+            vt::mma_bf16(acc[2 * nd], ta, bb[0], bb[1]);
+            vt::mma_bf16(acc[2 * nd + 1], ta, bb[2], bb[3]);
+          }
+        }
+      }
+      vt::store_strip<D>((which == 0 ? a.dv : a.dk) + b * a.sk * hidden + h * D, acc, row,
+                         a.sk, hidden, which == 0 ? 1.f : a.scale, lane);
+    }
+  }
+}
+
+template <int D, int KT>
+cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
+  const long long blocks = (long long)batch * a.num_heads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_tc_kernel<D, KT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes(D, 16 * KT, 16 * KT));
+  if (err != cudaSuccess) return err;
+  const int warps = (max(a.sq, a.sk) + 15) / 16;
+  attention_bwd_tc_kernel<D, KT>
+      <<<(unsigned)blocks, 32 * warps, smem_bytes(D, a.sq, a.sk), stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, g are read through their batch
+// The CUDA-core variant. dtype: 0 = float32, 1 = bfloat16. q, k, v, g are read through their batch
 // and row strides (in elements, unit stride along H); dq [B, Sq, H] and dk,
 // dv [B, Sk, H] are written contiguous. seed, threshold and keep_scale as
 // for vt_attention_fwd (threshold 0 and scale 1: rate 0). Returns a
@@ -302,26 +506,62 @@ extern "C" int vt_attention_bwd(const void* q, const void* k, const void* v, con
                                 long long g_bstride, long long g_rstride,
                                 long long bias_bstride, float scale, unsigned int seed,
                                 unsigned int threshold, float keep_scale, void* stream) {
-  if (sq < 1 || sk < 1 || sq > kMaxSeq || sk > kMaxSeq || batch < 1)
+  if (sq < 1 || sk < 1 || sq > cc::kMaxSeq || sk > cc::kMaxSeq || batch < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = threshold != 0u || keep_scale != 1.f;
   const bool small = sq <= 64 && sk <= 64;
 #define VT_LAUNCH(T, D)                                                                        \
-  return (int)(small ? launch<T, D, 64>(q, k, v, bias, g, dq, dk, dv, batch, num_heads, sq,    \
-                                        sk, q_bstride, q_rstride, k_bstride, k_rstride,        \
-                                        v_bstride, v_rstride, g_bstride, g_rstride,            \
-                                        bias_bstride, scale, drop, seed, threshold,            \
-                                        keep_scale, s)                                         \
-                     : launch<T, D, 128>(q, k, v, bias, g, dq, dk, dv, batch, num_heads, sq,   \
-                                         sk, q_bstride, q_rstride, k_bstride, k_rstride,       \
-                                         v_bstride, v_rstride, g_bstride, g_rstride,           \
-                                         bias_bstride, scale, drop, seed, threshold,           \
-                                         keep_scale, s))
+  return (int)(small ? cc::launch<T, D, 64>(q, k, v, bias, g, dq, dk, dv, batch, num_heads,    \
+                                            sq, sk, q_bstride, q_rstride, k_bstride,           \
+                                            k_rstride, v_bstride, v_rstride, g_bstride,        \
+                                            g_rstride, bias_bstride, scale, drop, seed,        \
+                                            threshold, keep_scale, s)                          \
+                     : cc::launch<T, D, 128>(q, k, v, bias, g, dq, dk, dv, batch, num_heads,   \
+                                             sq, sk, q_bstride, q_rstride, k_bstride,          \
+                                             k_rstride, v_bstride, v_rstride, g_bstride,       \
+                                             g_rstride, bias_bstride, scale, drop, seed,       \
+                                             threshold, keep_scale, s))
   if (dtype == 0 && head_dim == 64) VT_LAUNCH(float, 64);
   if (dtype == 0 && head_dim == 128) VT_LAUNCH(float, 128);
   if (dtype == 1 && head_dim == 64) VT_LAUNCH(__nv_bfloat16, 64);
   if (dtype == 1 && head_dim == 128) VT_LAUNCH(__nv_bfloat16, 128);
 #undef VT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core variant: bf16 q, k, v, g and outputs, fp32 bias,
+// 1 <= Sq, Sk <= 128, head_dim 64 or 128; q, k, v and g 16-byte aligned
+// with batch and row strides that are multiples of 8 elements. Arguments
+// otherwise as for vt_attention_bwd; cudaErrorInvalidValue for what it does
+// not take (the Python wrapper checks these first).
+extern "C" int vt_attention_bwd_tc(const void* q, const void* k, const void* v, const void* bias,
+                                   const void* g, void* dq, void* dk, void* dv, int batch,
+                                   int num_heads, int head_dim, int sq, int sk,
+                                   long long q_bstride, long long q_rstride, long long k_bstride,
+                                   long long k_rstride, long long v_bstride, long long v_rstride,
+                                   long long g_bstride, long long g_rstride,
+                                   long long bias_bstride, float scale, unsigned int seed,
+                                   unsigned int threshold, float keep_scale, void* stream) {
+  if (sq < 1 || sk < 1 || sq > tc::kMaxSeq || sk > tc::kMaxSeq || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g)) % 16 ||
+      (q_bstride | q_rstride | k_bstride | k_rstride | v_bstride | v_rstride | g_bstride |
+       g_rstride) % 8)
+    return (int)cudaErrorInvalidValue;
+  tc::Args a{static_cast<const vt::bf16*>(q), static_cast<const vt::bf16*>(k),
+             static_cast<const vt::bf16*>(v), static_cast<const float*>(bias),
+             static_cast<const vt::bf16*>(g), static_cast<vt::bf16*>(dq),
+             static_cast<vt::bf16*>(dk), static_cast<vt::bf16*>(dv), num_heads, sq, sk,
+             q_bstride, q_rstride, k_bstride, k_rstride, v_bstride, v_rstride, g_bstride,
+             g_rstride, bias_bstride, scale, threshold != 0u || keep_scale != 1.f, seed,
+             threshold, keep_scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool small = sq <= 64 && sk <= 64;
+  if (head_dim == 64)
+    return (int)(small ? tc::launch<64, 4>(a, batch, s) : tc::launch<64, 8>(a, batch, s));
+  if (head_dim == 128)
+    return (int)(small ? tc::launch<128, 4>(a, batch, s) : tc::launch<128, 8>(a, batch, s));
   return (int)cudaErrorInvalidValue;
 }

@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from vilbert_tpu_torch.core.config import ModelConfig, TaskConfig
-from vilbert_tpu.data.tasks import pad_batch
+from vilbert_tpu_torch.data.tasks import pad_batch
 from vilbert_tpu_torch.train.losses import task_loss_and_score_per_sample
 from vilbert_tpu_torch.train.multitask import HEAD_FOR_TYPE, MC_REGION_OFFSET, process_batch
 

@@ -4,7 +4,7 @@ the transformer blocks of both streams.
 Counterpart of ``vilbert_tpu/models/layers.py``. Module and parameter names
 are the reference torch ``state_dict`` names (``attention.self.query``,
 ``attention.output.LayerNorm``, ``intermediate.dense``, ``output.dense``),
-so ``vilbert_tpu.core.importer._to_flax_key`` maps every parameter of the
+so ``core.importer._to_flax_key`` maps every parameter of the
 port onto its flax path. The JAX ``FeedForward`` is split as the reference
 splits it: ``Intermediate`` (dense + activation) then ``Output`` (dense,
 dropout, LN with residual).

@@ -51,6 +51,9 @@ _SIGNATURES = {
     # q/k/v/g batch and row strides, bias batch stride, scale,
     # dropout seed, keep threshold, keep scale, stream
     "vt_attention_bwd": [_P] * 8 + [_I] * 6 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
+    # the tensor-core variants: the same without the dtype (bf16 only)
+    "vt_attention_fwd_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P],
+    "vt_attention_bwd_tc": [_P] * 8 + [_I] * 5 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # x, residual, weight, bias, out, dtype, rows, h, eps, stream
     "vt_layer_norm_fwd": [_P] * 5 + [_I] * 3 + [_F, _P],
 }

@@ -21,10 +21,23 @@ the port follows the kernels.
 ``autograd.Function``; ``fused_attention`` is K3's API counterpart over it. On CPU tensors
 they run ``attention_ref`` and ``attention_bwd_ref``; on CUDA tensors they
 launch ``csrc/attention.cu`` and ``csrc/attention_bwd.cu`` or raise.
+
+Each kernel has two variants, and the wrapper picks one by dtype and shape
+alone (``fwd_variant``, ``bwd_variant``), never by catching a failure:
+``"tc"`` on the tensor cores for bf16 (K1 at Sk <= 128, K2 at Sq, Sk <=
+128: every shape of the VQA and CC paths), ``"cc"`` on the CUDA cores for
+fp32 and for bf16 K1 at 128 < Sk <= 512. The tensor-core variants load
+rows by 16-byte copies, so they refuse (ValueError) operands that are not
+16-byte aligned or whose batch and row strides are not multiples of 8
+elements. The bf16 K2 rounds P_drop and ds to bf16 as mma operands (the
+TPU kernel keeps them in fp32). ``attention.launches`` counts every K1
+launch and ``attention.launches_tc`` / ``attention.launches_cc`` each
+variant's; likewise ``attention_bwd``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -38,6 +51,10 @@ KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_KEYS = 512
 #: the backward kernel keeps a whole (batch, head) in shared memory
 BWD_KERNEL_MAX_SEQ = 128
+#: longest sequence of the tensor-core variants
+TC_MAX_SEQ = 128
+#: kernel variants: tensor cores (bf16) and CUDA cores
+VARIANTS = ("tc", "cc")
 
 
 def make_additive_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -219,6 +236,36 @@ def bwd_kernel_geometry(
     return b, sq, sk, d
 
 
+def fwd_variant(dtype: torch.dtype, sk: int) -> str:
+    """The forward kernel's variant for a dtype and key count: ``"tc"``
+    (tensor cores) for bf16 at Sk <= 128, else ``"cc"`` (CUDA cores)."""
+    return "tc" if dtype == torch.bfloat16 and sk <= TC_MAX_SEQ else "cc"
+
+
+def bwd_variant(dtype: torch.dtype) -> str:
+    """The backward kernel's variant: ``"tc"`` for bf16, ``"cc"`` for fp32."""
+    return "tc" if dtype == torch.bfloat16 else "cc"
+
+
+def _tc_strides(**tensors) -> list:
+    """Batch and row strides of [B, S, H] bf16 operands for the tensor-core
+    kernels, which copy 16-byte chunks: each operand 16-byte aligned, each
+    stride a multiple of 8 elements (the stride of a dimension of size 1 is
+    never used and goes in as 0). Raises ValueError otherwise."""
+    strides = []
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"tensor-core attention kernel needs a 16-byte aligned {name}")
+        for dim in (0, 1):
+            st = t.stride(dim) if t.shape[dim] > 1 else 0
+            if st % 8:
+                raise ValueError(
+                    f"tensor-core attention kernel needs {name}'s batch and row strides "
+                    f"in multiples of 8 elements, got {tuple(t.stride())}")
+            strides.append(st)
+    return strides
+
+
 def _dropout_args(dropout_rate: float, seed: Optional[int]) -> tuple:
     """(seed, uint32 threshold, fp32 keep scale) of the kernels' C entries."""
     if dropout_rate == 0.0:
@@ -234,25 +281,39 @@ def _check_devices(q: torch.Tensor, **others) -> None:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
 
 
-def _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed):
+def _count(wrapper, variant: str) -> None:
+    """One launch of ``variant`` on ``wrapper``'s counters."""
+    wrapper.launches += 1
+    name = f"launches_{variant}"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+def _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed, variant):
     b, sq, sk, d = kernel_geometry(q, k, v, bias_rows, num_heads)
     out = torch.empty(b, sq, q.shape[2], dtype=q.dtype, device=q.device)
     lib = _build.load_library()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(), out.data_ptr())
+    if variant == "tc":
+        if q.dtype != torch.bfloat16 or sk > TC_MAX_SEQ:
+            raise ValueError(f"tensor-core attention kernel takes bf16 at Sk <= {TC_MAX_SEQ}, "
+                             f"got {q.dtype} at Sk={sk}")
+        call = functools.partial(lib.vt_attention_fwd_tc, *ptrs, b, num_heads, d, sq, sk,
+                                 *_tc_strides(q=q, k=k, v=v), bias_rows.stride(0))
+    elif variant == "cc":
+        call = functools.partial(lib.vt_attention_fwd, *ptrs, _build.DTYPE_CODES[q.dtype], b,
+                                 num_heads, d, sq, sk, q.stride(0), q.stride(1), k.stride(0),
+                                 k.stride(1), v.stride(0), v.stride(1), bias_rows.stride(0))
+    else:
+        raise ValueError(f"attention kernel variant must be one of {VARIANTS}, got {variant!r}")
     with torch.cuda.device(q.device):
-        err = lib.vt_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(),
-            out.data_ptr(), _build.DTYPE_CODES[q.dtype], b, num_heads, d, sq, sk,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), bias_rows.stride(0),
-            1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "attention kernel")
-    attention.launches += 1
+        err = call(1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
+                   torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"attention kernel ({variant})")
+    _count(attention, variant)
     return out
 
 
-def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed):
+def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, variant):
     if g.stride(2) != 1:
         g = g.contiguous()  # autograd may hand the cotangent over as a view
     b, sq, sk, d = bwd_kernel_geometry(q, k, v, bias_rows, g, num_heads)
@@ -260,18 +321,26 @@ def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed):
     dk = torch.empty(b, sk, k.shape[2], dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     lib = _build.load_library()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    if variant == "tc":
+        if q.dtype != torch.bfloat16:
+            raise ValueError(f"tensor-core attention backward kernel takes bf16, got {q.dtype}")
+        call = functools.partial(lib.vt_attention_bwd_tc, *ptrs, b, num_heads, d, sq, sk,
+                                 *_tc_strides(q=q, k=k, v=v, g=g), bias_rows.stride(0))
+    elif variant == "cc":
+        call = functools.partial(lib.vt_attention_bwd, *ptrs, _build.DTYPE_CODES[q.dtype], b,
+                                 num_heads, d, sq, sk, q.stride(0), q.stride(1), k.stride(0),
+                                 k.stride(1), v.stride(0), v.stride(1), g.stride(0),
+                                 g.stride(1), bias_rows.stride(0))
+    else:
+        raise ValueError(f"attention backward kernel variant must be one of {VARIANTS}, "
+                         f"got {variant!r}")
     with torch.cuda.device(q.device):
-        err = lib.vt_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _build.DTYPE_CODES[q.dtype], b, num_heads, d, sq, sk,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), g.stride(0), g.stride(1), bias_rows.stride(0),
-            1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "attention backward kernel")
-    attention_bwd.launches += 1
+        err = call(1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
+                   torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"attention backward kernel ({variant})")
+    _count(attention_bwd, variant)
     return dq, dk, dv
 
 
@@ -286,7 +355,8 @@ class _Attention(torch.autograd.Function):
         if q.device.type == "cpu":
             return attention_ref(q, k, v, bias_rows, num_heads=num_heads,
                                  dropout_rate=dropout_rate, seed=seed)
-        return _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed)
+        return _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed,
+                         fwd_variant(q.dtype, k.shape[1]))
 
     @staticmethod
     def backward(ctx, g):
@@ -313,8 +383,9 @@ def attention(
     (0 / -10000, see ``make_additive_mask``) or None; ``dropout_rate`` > 0
     drops attention probabilities with the mask of the call's uint32
     ``seed``. Returns [B, Sq, H] in q's dtype. CPU tensors take the plain
-    versions; CUDA tensors launch the kernels (``attention.launches`` and
-    ``attention_bwd.launches`` count them).
+    versions; CUDA tensors launch the kernels' variants that ``fwd_variant``
+    and ``bwd_variant`` pick (``attention.launches*`` and
+    ``attention_bwd.launches*`` count them).
     """
     _check_rate(dropout_rate, seed)
     if q.device.type != "cpu":
@@ -351,17 +422,43 @@ def attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The attention's backward (K2): (dq, dk, dv) for the cotangent g of
     ``attention(q, k, v, bias, ...)`` with the same rate and seed. CPU
-    tensors take ``attention_bwd_ref``; CUDA tensors launch the kernel and
-    add one to ``attention_bwd.launches``."""
+    tensors take ``attention_bwd_ref``; CUDA tensors launch the variant
+    ``bwd_variant`` picks and add one to ``attention_bwd.launches`` and to
+    the variant's count."""
     _check_rate(dropout_rate, seed)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, bias, g, num_heads=num_heads,
                                  dropout_rate=dropout_rate, seed=seed)
     _check_devices(q, k=k, v=v, bias=bias, g=g)
     bias_rows = _bias_rows(bias, q, k.shape[1])
-    return _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed)
+    return _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, bwd_variant(q.dtype))
 
 
-#: kernel launches since the last reset (CPU calls do not count)
-attention.launches = 0
-attention_bwd.launches = 0
+def attention_kernel(q, k, v, bias, *, num_heads: int, variant: str, dropout_rate: float = 0.0,
+                     seed: Optional[int] = None) -> torch.Tensor:
+    """One launch of the named forward variant (``"tc"`` or ``"cc"``) on CUDA
+    tensors, bypassing ``fwd_variant``: for comparing the two variants on the
+    card. Counts like ``attention``; not differentiable."""
+    _check_rate(dropout_rate, seed)
+    _check_devices(q, k=k, v=v, bias=bias)
+    return _fwd_cuda(q, k, v, _bias_rows(bias, q, k.shape[1]), num_heads, float(dropout_rate),
+                     seed, variant)
+
+
+def attention_bwd_kernel(q, k, v, bias, g, *, num_heads: int, variant: str,
+                         dropout_rate: float = 0.0, seed: Optional[int] = None):
+    """One launch of the named backward variant on CUDA tensors, bypassing
+    ``bwd_variant`` (see ``attention_kernel``)."""
+    _check_rate(dropout_rate, seed)
+    _check_devices(q, k=k, v=v, bias=bias, g=g)
+    return _bwd_cuda(q, k, v, _bias_rows(bias, q, k.shape[1]), g, num_heads,
+                     float(dropout_rate), seed, variant)
+
+
+#: kernel launches since the last reset, in all and by variant (CPU calls
+#: do not count)
+for _wrapper in (attention, attention_bwd):
+    _wrapper.launches = 0
+    for _variant in VARIANTS:
+        setattr(_wrapper, f"launches_{_variant}", 0)
+del _wrapper, _variant

@@ -15,7 +15,7 @@ frozen parameters keep their moments, and the moments accumulate in fp32.
 
 Names: the JAX rules match flax paths (``NO_DECAY_SUBSTRINGS``,
 ``TEXT_BERT_PREFIXES``), so every port parameter name goes through
-``vilbert_tpu.core.importer._to_flax_key`` first. The co-attention
+``core.importer._to_flax_key`` first. The co-attention
 ``LayerNorm1``/``LayerNorm2`` weights do not contain "LayerNorm.weight"
 and are decayed, as the reference decays them.
 
@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from vilbert_tpu_torch.core.config import OptimizerConfig
-from vilbert_tpu.core.importer import _to_flax_key
+from vilbert_tpu_torch.core.importer import _to_flax_key
 
 #: see vilbert_tpu/train/optim.py:38-45
 NO_DECAY_SUBSTRINGS = ("bias", "LayerNorm.weight")
