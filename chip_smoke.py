@@ -6,9 +6,11 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from vilbert_tpu_torch/csrc and drives the
-port's two paths at the full width of configs/bert_base_6layer_6conect.json,
-weights drawn from a seed: VQA evaluation (TASK1 of configs/tasks.yml) and
-the Conceptual Captions pretraining step.
+port's three paths at the full width of
+configs/bert_base_6layer_6conect.json, weights drawn from a seed: VQA
+evaluation (TASK1 of configs/tasks.yml), the Conceptual Captions
+pretraining step, and the 12-in-1 multi-task trainer on the flagship
+recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task tokens).
 
 1. device: the card's name and power limit; TF32 off for fp32 comparisons;
 2. build: nvcc for sm_90a, one process per source, timed;
@@ -17,8 +19,10 @@ the Conceptual Captions pretraining step.
    of the tensor-core variants (Sq or Sk of 1, 16, 17, 65, 128), with each
    call's variant checked on its counter (bf16 at Sk <= 128 on the tensor
    cores, fp32 and bf16 at Sk > 128 on the CUDA cores), a stride-0 batch
-   and a misaligned operand (refused). Forward (K1 at rate 0 and 0.1, K4):
-   fp32 1e-4 absolute (1e-3 on a row whose keys are all padded), bf16
+   and a misaligned operand (refused); K2's long-sequence variants (Sq or
+   Sk above 128: bf16 on the tensor cores, fp32 on the CUDA cores) at
+   their tiling edges 129, 200, 257, 306 and 512. Forward
+   (K1 at rate 0 and 0.1, K4): fp32 1e-4 absolute (1e-3 on a row whose keys are all padded), bf16
    2^-7 * max|ref| plus one bf16 ulp. Backward (K2 at rate 0 and 0.1): fp32
    1e-4 * max|ref|, bf16 as the forward. The K3 entry
    (``fused_attention``, served by K1 and K2 at rate 0) likewise;
@@ -47,7 +51,31 @@ the Conceptual Captions pretraining step.
    output also checked against its plain twin's with phase 3's bounds, with
    SDPA (forward; forward and backward less forward) at rate 0 and the
    bounds; the CUDA-core K1 and K2 beside the tensor-core ones at image
-   self-attention; the tiling edges again at B=256.
+   self-attention; the tiling edges again at B=256;
+8. multi-task slice: ``train`` (the multi-task CLI's function) on the
+   flagship recipe's twelve tasks, each at its batch size, text length
+   (+1 task token) and region count, synthetic batches in its process
+   mode's layout, bf16, dropout 0.1 at every site, the ``mannul`` schedule,
+   for two round-robin iterations, then ``evaluate`` of one batch per task;
+   counters reset just before and read just after: K1 30 a forward
+   (tensor cores at Sk <= 128, CUDA cores above), K2 30 a step (28 for
+   the V-logit tasks, whose loss reads the image stream only; tensor cores
+   at Sq, Sk <= 128, the long tensor-core variant above), K4 as the config
+   says;
+   every loss finite; after each task's step every other head (``cls``
+   included) bitwise unchanged and its own moved. Then one fp32 iteration
+   with dropout at 2 samples a task, full geometry, through the kernels and
+   through the plain ops in lockstep, each task's step from the same
+   weights with the same masks: losses within 1e-5 and every gradient
+   within phase 6's bounds (an Adam update amplifies gradients' rounding
+   where they are near eps, so the parameters after a step are not held
+   to these bounds);
+9. multi-task timing: each task's step (device-synced, one batch held on
+   the card), one iteration through the host loader, peak memory; K1 and
+   K2 at the Visual7w and GuessWhatPointing attention shapes against their
+   plain versions (outputs within phase 3's bounds, at rates 0 and 0.1),
+   SDPA and their bounds; the long K2 on the CUDA cores beside the
+   tensor-core one.
 
 Times: a kernel's ``ms`` (and its plain version's, the library call's,
 the CUDA-core variant's) is device time, calls run back to back behind a
@@ -241,14 +269,14 @@ def library_attention_fns(q, k, v, bias, cot, heads, d) -> dict:
 
 
 def timed_row(fns: dict, kernel: str, plain: str, nbytes: float, flops: float, peak: float,
-              *, library=None, cc=None) -> dict:
-    """One kernel at one shape: device times (``device_ms``) of the kernel,
-    its plain version, the library call and the CUDA-core variant where
-    given; wall times of kernel and plain by CUDA events, alternated; the
-    bound. ``library`` names an entry of ``fns`` or is a callable of the
-    device times (a difference of two of them)."""
-    dev = device_ms(fns)
-    wall = alternate(fns[kernel], fns[plain])
+              *, library=None, cc=None, iters: int = 20) -> dict:
+    """One kernel at one shape: device times (``device_ms``, ``iters``
+    calls) of the kernel, its plain version, the library call and the
+    CUDA-core variant where given; wall times of kernel and plain by CUDA
+    events, alternated; the bound. ``library`` names an entry of ``fns`` or
+    is a callable of the device times (a difference of two of them)."""
+    dev = device_ms(fns, iters)
+    wall = alternate(fns[kernel], fns[plain], iters * 5 // 2)
     b_ms, b_by = bound(nbytes, flops, peak)
     row = dict(ms=dev[kernel], plain_ms=dev[plain], wall_ms=wall[0], plain_wall_ms=wall[1],
                bound_ms=b_ms, bound_by=b_by,
@@ -283,11 +311,18 @@ ATTENTION_CASES = [
     (8, 128, 101, 23), (8, 128, 24, 101), (8, 128, 101, 24), (8, 128, 23, 1),
     (8, 128, 101, 512), (12, 64, 23, 512), (8, 128, 23, 129), *TILE_EDGE_CASES,
 ]
+#: the long-sequence K2's tiling edges (tiles of 64): one past 128, 200,
+#: 257, 306 (GuessWhatPointing), 512, in both directions
+LONG_EDGE_CASES = [
+    (8, 128, 129, 129), (8, 128, 200, 21), (8, 128, 21, 200), (12, 64, 257, 257),
+    (8, 128, 306, 306), (8, 128, 257, 306), (8, 128, 306, 257), (12, 64, 512, 512),
+    (8, 128, 1, 512), (12, 64, 512, 1),
+]
 #: the CC step's four attentions (text self, image self, text->image,
-#: image->text), Sk=1, Sq=Sk=128 at d=64, and the tiling edges
+#: image->text), Sk=1, Sq=Sk=128 at d=64, the tiling edges and the long K2's
 CC_ATTENTION_CASES = [
     (12, 64, 36, 36), (8, 128, 37, 37), (8, 128, 36, 37), (8, 128, 37, 36),
-    (8, 128, 36, 1), (12, 64, 128, 128), *TILE_EDGE_CASES,
+    (8, 128, 36, 1), (12, 64, 128, 128), *TILE_EDGE_CASES, *LONG_EDGE_CASES,
 ]
 #: the card's peaks (H100 SXM data sheet, dense): device memory, bf16 on the
 #: tensor cores, fp32 on the CUDA cores
@@ -347,6 +382,15 @@ def _bwd_errors(got, want, dtype) -> tuple:
     return worst, ok
 
 
+def track_error(err: dict, kernel: str, variant: str, e: float) -> None:
+    """Keep the largest error of a kernel, and of its CUDA-core K1 past 128
+    keys and long K2 on the tensor cores on their own."""
+    err[kernel] = max(err[kernel], e)
+    own = f"{kernel}_{variant}"
+    if own in err:
+        err[own] = max(err[own], e)
+
+
 def phase_training_kernels(checks: Checks, g, err: dict) -> None:
     """K1 at rate 0.1 and K2 at rates 0 and 0.1 against their plain twins,
     and the K3 entry at rate 0 (forward and backward), at the CC shapes."""
@@ -374,18 +418,18 @@ def phase_training_kernels(checks: Checks, g, err: dict) -> None:
             want = attention_ref(q, k, v, bias, **kw)
             torch.cuda.synchronize()
             e, bound, ok = _fwd_error(got, want, name)
-            err["attention_fwd"] = max(err["attention_fwd"], e)
+            track_error(err, "attention_fwd", variant, e)
             checks.expect(ok and on_variant, f"attention fwd rate 0.1 {shape} [{variant}]: "
                                              f"max|err| {e:.3e} (<= {bound:.3e})")
             for rate in (0.0, 0.1):
                 kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
-                variant = bwd_variant(dtype)
+                variant = bwd_variant(dtype, sq, sk)
                 got, on_variant = counted(attention_bwd, variant,
                                           lambda: attention_bwd(q, k, v, bias, cot, **kw))
                 want = attention_bwd_ref(q, k, v, bias, cot, **kw)
                 torch.cuda.synchronize()
                 e, ok = _bwd_errors(got, want, name)
-                err["attention_bwd"] = max(err["attention_bwd"], e)
+                track_error(err, "attention_bwd", variant, e)
                 checks.expect(ok and on_variant,
                               f"attention bwd rate {rate} {shape} [{variant}]: max|err| {e:.3e}")
             # the K3 entry: K1 and K2 at rate 0 through autograd
@@ -415,8 +459,10 @@ def phase_kernels(checks: Checks) -> dict:
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     dev = DEVICE
+    # the CUDA-core K1 past 128 keys and the long tensor-core K2 also on
+    # their own
     err = {"attention_fwd": 0.0, "attention_bwd": 0.0, "fused_attention": 0.0,
-           "layer_norm_fwd": 0.0}
+           "layer_norm_fwd": 0.0, "attention_fwd_cc": 0.0, "attention_bwd_long_tc": 0.0}
     B = 8
     for heads, d, sq, sk in ATTENTION_CASES:
         hd = heads * d
@@ -435,7 +481,7 @@ def phase_kernels(checks: Checks) -> dict:
             torch.cuda.synchronize()
             e = float((got.float() - want.float()).abs().max())
             bound = 1e-4 if dtype == torch.float32 else bf16_bound(want.float())
-            err["attention_fwd"] = max(err["attention_fwd"], e)
+            track_error(err, "attention_fwd", variant, e)
             checks.expect(e <= bound and on_variant,
                           f"attention h={heads} d={d} Sq={sq} Sk={sk} {str(dtype)[6:]} "
                           f"[{variant}]: max|err| {e:.3e} <= {bound:.3e}")
@@ -481,14 +527,85 @@ def phase_kernels(checks: Checks) -> dict:
 
 # -- phase 4 -----------------------------------------------------------------
 
-def task1():
-    """TASK1 of configs/tasks.yml (built here: the card has no PyYAML)."""
+_COCO_100 = "datasets/coco/features_100/COCO_trainval_resnext152_faster_rcnn_genome.lmdb"
+_FLICKR = "datasets/flickr30k/flickr30k_resnext152_faster_rcnn_genome.lmdb"
+_REFCOCO = "datasets/refcoco/{0}/{1}_{2}resnext152_faster_rcnn_genome.lmdb"
+#: the flagship recipe's entries of configs/tasks.yml, the fields that are
+#: not TaskConfig's defaults (built here: the card has no PyYAML;
+#: tests/test_torch_host.py holds them to the yml)
+FLAGSHIP_TASKS = {
+    "TASK1": dict(task_id=1, name="VQA", type="VL-classifier", loss="BCEWithLogitLoss",
+                  dataroot="datasets/VQA/", features_path=_COCO_100, eval_batch_size=1024,
+                  train_split="trainval", val_split="minval"),
+    "TASK2": dict(task_id=2, name="GenomeQA", type="VL-classifier", loss="BCEWithLogitLoss",
+                  dataroot="datasets/visual_genome/",
+                  features_path="datasets/visual_genome/vg_resnext152_faster_rcnn_genome.lmdb",
+                  max_seq_length=26, eval_batch_size=1024),
+    "TASK4": dict(task_id=4, name="Visual7w", type="V-logit-mc", loss="BCEWithLogitLoss",
+                  dataroot="datasets/visual7w",
+                  features_path="datasets/visual7w/visual7w_resnext152_faster_rcnn_genome.lmdb",
+                  features_path_gt="datasets/visual7w/visual7w_gt_resnext152_faster_rcnn_genome"
+                                   ".lmdb",
+                  max_seq_length=20, max_region_num=200, batch_size=256, lr=2e-05),
+    "TASK7": dict(task_id=7, name="RetrievalCOCO", type="VL-logit", loss="CrossEntropyLoss",
+                  process="retrieval", dataroot="datasets/cocoRetreival",
+                  features_path=_COCO_100,
+                  train_annotations_jsonpath="datasets/cocoRetreival/"
+                                             "all_data_final_train_2014.jsonline",
+                  val_annotations_jsonpath="datasets/cocoRetreival/"
+                                           "all_data_final_test_set0_2014.jsonline",
+                  max_seq_length=30, lr=2e-05),
+    "TASK8": dict(task_id=8, name="RetrievalFlickr30k", type="VL-logit",
+                  loss="CrossEntropyLoss", process="retrieval", dataroot="datasets/flickr30k",
+                  features_path=_FLICKR,
+                  train_annotations_jsonpath="datasets/flickr30k/"
+                                             "all_data_final_train_2014.jsonline",
+                  val_annotations_jsonpath="datasets/flickr30k/"
+                                           "all_data_final_test_set0_2014.jsonline",
+                  max_seq_length=30, lr=2e-05),
+    **{f"TASK{n}": dict(task_id=n, name=name, type="V-logit", loss="BCEWithLogitLoss",
+                        dataroot="datasets/refcoco",
+                        features_path=_REFCOCO.format(folder, name, ""),
+                        features_path_gt=_REFCOCO.format(folder, name, "gt_"),
+                        max_seq_length=20, batch_size=256, lr=2e-05, **extra)
+       for n, name, folder, extra in ((9, "refcoco", "refcoco_unc", {}),
+                                      (10, "refcoco+", "refcoco+_unc",
+                                       {"eval_batch_size": 1024}),
+                                      (11, "refcocog", "refcocog_umd", {}))},
+    "TASK12": dict(task_id=12, name="NLVR2", type="VL-binary-classifier",
+                   loss="BCEWithLogitLoss", process="nlvr", dataroot="datasets/nlvr2/",
+                   features_path="datasets/nlvr2/nlvr2_resnext152_faster_rcnn_genome.lmdb",
+                   max_seq_length=40, batch_size=64, eval_batch_size=512, val_split="dev",
+                   lr=2e-05),
+    "TASK13": dict(task_id=13, name="VisualEntailment", type="VL-tri-classifier",
+                   loss="BCEWithLogitLoss", dataroot="datasets/visual_entailment/",
+                   features_path=_FLICKR, max_seq_length=56, batch_size=256,
+                   eval_batch_size=1024, val_split="dev", lr=2e-05),
+    "TASK15": dict(task_id=15, name="GQA", type="VL-classifier-GQA", loss="BCEWithLogitLoss",
+                   dataroot="datasets/gqa/",
+                   features_path="datasets/gqa/gqa_resnext152_faster_rcnn_genome.lmdb",
+                   max_seq_length=26, eval_batch_size=1024, train_split="trainval",
+                   val_split="minval"),
+    "TASK17": dict(task_id=17, name="GuessWhatPointing", type="V-logit-mc",
+                   loss="BCEWithLogitLoss", dataroot="datasets/guesswhat/",
+                   features_path=_COCO_100,
+                   features_path_gt="datasets/guesswhat/guesswhat_gt_resnext152_faster_rcnn"
+                                    "_genome.lmdb",
+                   max_seq_length=256, max_region_num=306, batch_size=64, val_split="valid",
+                   lr=2e-05),
+}
+
+
+def flagship_tasks() -> dict:
+    """{"TASKn": TaskConfig} of train_tasks --tasks 1-2-4-7-8-9-10-11-12-13-15-17."""
     from vilbert_tpu_torch.core.config import TaskConfig
 
-    return TaskConfig(task_id=1, name="VQA", type="VL-classifier", loss="BCEWithLogitLoss",
-                      dataroot="datasets/VQA/", max_seq_length=T, max_region_num=R,
-                      batch_size=128, eval_batch_size=1024, train_split="trainval",
-                      val_split="minval", lr=4e-5, num_epoch=20)
+    return {key: TaskConfig(**kw) for key, kw in FLAGSHIP_TASKS.items()}
+
+
+def task1():
+    """TASK1 of configs/tasks.yml (23 tokens, 101 regions)."""
+    return flagship_tasks()["TASK1"]
 
 
 def random_batch(cfg, batch: int, seed: int) -> dict:
@@ -511,13 +628,19 @@ def random_batch(cfg, batch: int, seed: int) -> dict:
 def _counters() -> dict:
     """counter name -> (wrapper, attribute): each kernel's total and, for K1
     and K2, each variant's count."""
-    from vilbert_tpu_torch.ops.attention import VARIANTS, attention, attention_bwd
+    from vilbert_tpu_torch.ops.attention import (
+        BWD_VARIANTS,
+        VARIANTS,
+        attention,
+        attention_bwd,
+    )
     from vilbert_tpu_torch.ops.layernorm import layer_norm
 
     out = {"layer_norm": (layer_norm, "launches")}
-    for name, wrapper in (("attention", attention), ("attention_bwd", attention_bwd)):
+    for name, wrapper, variants in (("attention", attention, VARIANTS),
+                                    ("attention_bwd", attention_bwd, BWD_VARIANTS)):
         out[name] = (wrapper, "launches")
-        for variant in VARIANTS:
+        for variant in variants:
             out[f"{name}_{variant}"] = (wrapper, f"launches_{variant}")
     return out
 
@@ -902,24 +1025,411 @@ def phase_train_timing(checks: Checks, state, args, card: str, err: dict) -> dic
     return times
 
 
-def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: dict) -> list:
+# -- phase 8 -----------------------------------------------------------------
+
+MT_ITERATIONS = 2
+MT_CHECK_BATCH = 2  # fp32 iteration, kernels vs plain ops, samples a task
+MT_LOADER_LEN = 64  # batches a synthetic loader reports (the epoch length)
+#: the heads of ViLBERTForVLTasks by parameter prefix, and the one each task
+#: type trains
+HEAD_PREFIXES = ("vil_prediction.", "vil_prediction_gqa.", "vil_logit.",
+                 "vil_binary_prediction.", "vil_tri_prediction.", "vision_logit.",
+                 "linguisic_logit.", "cls.")
+
+
+class SyntheticLoader:
+    """One batch, yielded ``n`` times an epoch (the pattern of bench.py:414-423)."""
+
+    def __init__(self, batch: dict, n: int):
+        self.batch, self.n = batch, n
+        self.batch_size = len(batch["target"])
+
+    def __iter__(self):
+        return iter([self.batch] * self.n)
+
+    def __len__(self):
+        return self.n
+
+
+def task_batch(task, B: int, vocab: int, seed: int) -> dict:
+    """A numpy batch at the task's text length and region count, in its
+    process mode's layout: [B, 4, ...] for retrieval, [B, 2R, ...] images
+    for nlvr, ``multiple_choice_ids`` and per-option targets for the
+    V-logit-mc tasks (4 options for Visual7w, 204 for GuessWhatPointing);
+    padded tokens and regions, 2048-d features."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    T_, R_ = task.max_seq_length, task.max_region_num
+    lead = (B, 4) if task.process == "retrieval" else (B,)
+    rows = 2 * R_ if task.process == "nlvr" else R_
+
+    def lengths(n, lo):
+        # every row of a V-logit-mc image is a candidate: no padded region
+        if n == R_ and task.type == "V-logit-mc":
+            return np.full(lead, n)
+        return rng.integers(lo, n + 1, lead)
+
+    t_len, r_len = lengths(T_, 3), lengths(rows, rows // 2)
+    b = {
+        "question": rng.integers(1, vocab, lead + (T_,)).astype(np.int32),
+        "input_mask": (np.arange(T_) < t_len[..., None]).astype(np.int32),
+        "segment_ids": np.zeros(lead + (T_,), np.int32),
+        "features": rng.standard_normal(lead + (rows, 2048), dtype=np.float32),
+        "spatials": rng.random(lead + (rows, 5), dtype=np.float32),
+        "image_mask": (np.arange(rows) < r_len[..., None]).astype(np.int32),
+    }
+    if task.type in ("VL-classifier", "VL-classifier-GQA"):
+        n = 3129 if task.type == "VL-classifier" else 1533
+        t = np.zeros((B, n), np.float32)
+        t[np.arange(B)[:, None], rng.integers(0, n, (B, 3))] = rng.choice([0.3, 0.6, 1.0], (B, 3))
+        b["target"] = t
+    elif task.type == "V-logit":
+        # a region matches the expression where it is a valid box (not the
+        # global row, not padding), as the datasets' IoU targets
+        hit = (rng.random((B, R_)) < 0.05) & (b["image_mask"] == 1)
+        hit[:, 0] = False
+        b["target"] = hit[..., None].astype(np.float32)
+    elif task.type == "V-logit-mc":
+        n_opt = 204 if task.name == "GuessWhatPointing" else 4
+        b["multiple_choice_ids"] = rng.integers(0, R_ - 101, (B, n_opt)).astype(np.int64)
+        b["target"] = (rng.random((B, n_opt, 1)) < 0.25).astype(np.float32)
+    elif task.process == "retrieval":
+        b["target"] = np.zeros((B,), np.int64)  # the true pair is option 0
+    else:
+        n = 3 if task.type == "VL-tri-classifier" else 2
+        b["target"] = rng.integers(0, n, (B,)).astype(np.int64)
+    return b
+
+
+def multitask_loaders(tasks: dict, vocab: int, batch: int = 0, n: int = MT_LOADER_LEN):
+    """Train and val loaders of one synthetic batch a task, at each task's
+    batch size (or ``batch``)."""
+    train, val = {}, {}
+    for i, (key, task) in enumerate(tasks.items()):
+        b = task_batch(task, batch or task.batch_size, vocab, SEED + 100 + i)
+        train[key], val[key] = SyntheticLoader(b, n), SyntheticLoader(b, 1)
+    return train, val
+
+
+def task_geometry(task, cfg) -> tuple:
+    """(text length with the task token, regions) the encoder sees."""
+    return task.max_seq_length + int(cfg.task_specific_tokens), task.max_region_num
+
+
+def multitask_launches(tasks: dict, cfg, steps: int, evals: int) -> dict:
+    """Launch counts of ``steps`` training steps and ``evals`` eval forwards
+    of every task: K1 30 a forward (text self x12, image self x6, both
+    co-attention directions x6), on the tensor cores where Sk <= 128; K2
+    once for each attention the loss reaches, on the tensor cores where
+    Sq, Sk <= 128, else the long tensor-core variant: 30 a step, 28 for the V-logit
+    types, whose loss reads the image stream only (the text layers after
+    the last co-attention and its text-query direction feed no image
+    output); K4 as kernel_calls_per_forward, with the heads' own LayerNorms
+    (the classifiers' one, and for VL-binary the pretraining heads' two,
+    which its forward computes, and its classifier's one)."""
+    n_t, n_v = cfg.num_hidden_layers, cfg.v_num_hidden_layers
+    n_c = cfg.num_connection_layers
+    schedule = cfg.encoder_schedule()
+    last_c = max(i for i, (kind, _) in enumerate(schedule) if kind == "c")
+    trailing_t = sum(kind == "t" for kind, _ in schedule[last_c + 1:])
+    out = {name: 0 for name in _counters()}
+    for task in tasks.values():
+        t, r = task_geometry(task, cfg)
+        shapes = [(t, t)] * n_t + [(r, r)] * n_v + [(t, r), (r, t)] * n_c
+        bwd = shapes
+        if task.type in ("V-logit", "V-logit-mc"):
+            bwd = [(t, t)] * (n_t - trailing_t) + [(r, r)] * n_v + [(t, r), (r, t)] * (n_c - 1) \
+                + [(r, t)]
+        fwd = steps + evals
+        out["attention"] += fwd * len(shapes)
+        out["attention_tc"] += fwd * sum(sk <= 128 for _, sk in shapes)
+        out["attention_cc"] += fwd * sum(sk > 128 for _, sk in shapes)
+        out["attention_bwd"] += steps * len(bwd)
+        out["attention_bwd_tc"] += steps * sum(max(s) <= 128 for s in bwd)
+        out["attention_bwd_long_tc"] += steps * sum(max(s) > 128 for s in bwd)
+        head_ln = {"VL-classifier": 1, "VL-classifier-GQA": 1, "VL-binary-classifier": 3}
+        ln = 2 * n_t + 2 * n_v + 4 * n_c + 2 + head_ln.get(task.type, 0)
+        out["layer_norm"] += fwd * ln
+    return out
+
+
+def multitask_args(output_dir: str, extra=()):
+    from vilbert_tpu_torch.cli.train_tasks import build_parser
+
+    return build_parser().parse_args([
+        "--config", CONFIG, "--task_specific_tokens", "--lr_scheduler", "mannul",
+        "--head_lr", "1e-4", "--seed", str(SEED), "--device", DEVICE,
+        "--output_dir", output_dir, *extra,
+    ])
+
+
+def phase_multitask(checks: Checks, tmp: str) -> tuple:
+    import torch
+
+    from vilbert_tpu_torch.cli.train_tasks import train
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.train.multitask import HEAD_FOR_TYPE
+
+    tasks = flagship_tasks()
+    cfg = ModelConfig.from_json_file(CONFIG, task_specific_tokens=True)
+    t0 = time.time()
+    loaders, val_loaders = multitask_loaders(tasks, cfg.vocab_size)
+    log(f"  synthetic batches of {len(tasks)} tasks built in {time.time() - t0:.1f} s: "
+        + ", ".join(f"{k} B={t.batch_size} T={task_geometry(t, cfg)[0]} "
+                    f"R={task_geometry(t, cfg)[1]} {t.process}" for k, t in tasks.items()))
+    heads_before, head_checks, losses = {}, [], []
+
+    def head_hook(key, model, metrics):
+        params = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if n.startswith(HEAD_PREFIXES)}
+        if metrics is None:
+            heads_before.clear()
+            heads_before.update(params)
+            return
+        losses.append((key, float(metrics["loss"]), float(metrics["score"])))
+        own = HEAD_FOR_TYPE[tasks[key].type] + "."
+        others = all(torch.equal(p, heads_before[n]) for n, p in params.items()
+                     if not n.startswith(own))
+        moved = any(not torch.equal(p, heads_before[n]) for n, p in params.items()
+                    if n.startswith(own))
+        head_checks.append((key, others, moved))
+
+    args = multitask_args(tmp, ["--num_iterations", str(MT_ITERATIONS)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    trainer = train(args, tasks, loaders, val_loaders=val_loaders, task_hooks=[head_hook])
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    evals = {key: trainer.evaluate(key, max_batches=1) for key in tasks}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = trainer.model_cfg
+    log(f"  train {CONFIG}: {sum(p.numel() for p in trainer.model.parameters())} params, "
+        f"{cfg.compute_dtype}, task tokens {cfg.task_specific_tokens}, dropout "
+        f"{cfg.hidden_dropout_prob}/{cfg.attention_probs_dropout_prob}, {MT_ITERATIONS} "
+        f"iterations of {len(tasks)} tasks in {train_s:.1f} s (set-up, first calls and host "
+        f"loader included), peak memory {peak_gb:.2f} GB; launches {launches}")
+    for key, loss, score in losses:
+        log(f"  step {key}: loss {loss:.6f} score {score:.4f}")
+    for key, r in evals.items():
+        log(f"  evaluate {key}: loss {r['loss']:.6f} score {r['score']:.4f}")
+    checks.expect(cfg.compute_dtype == "bfloat16" and cfg.task_specific_tokens and min(
+        cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob, cfg.v_hidden_dropout_prob,
+        cfg.v_attention_probs_dropout_prob) == 0.1 and trainer.opt_cfg.schedule == "mannul"
+        and not trainer.opt_cfg.correct_bias and trainer.opt_cfg.head_lr == 1e-4,
+        "bf16, task tokens, dropout 0.1 at every site, mannul, no bias correction, head lr 1e-4")
+    checks.expect(len(losses) == MT_ITERATIONS * len(tasks) and all(
+        math.isfinite(v) for _, loss, score in losses for v in (loss, score)) and all(
+        math.isfinite(r["loss"]) for r in evals.values()),
+        f"{len(losses)} task steps and {len(evals)} evaluations, every loss finite")
+    checks.expect(len(head_checks) == len(losses) and all(o for _, o, _ in head_checks),
+                  "after each task's step every other head (cls included) is bitwise unchanged")
+    checks.expect(all(m for _, _, m in head_checks), "each task's step moves its own head")
+    want = multitask_launches(tasks, cfg, MT_ITERATIONS, 1)
+    for name, n in want.items():
+        checks.expect(launches[name] == n, f"{name} launches {launches[name]} == {n}")
+    checks.end_phase("multi-task slice")
+
+    # one fp32 iteration with dropout, kernels vs plain ops, full geometry
+    t0 = time.time()
+    result = multitask_fp32_steps(trainer, tasks)
+    log("  fp32 steps (kernels / plain loss, worst gradient at its bound): " + ", ".join(
+        f"{k} {lk:.6f}/{lp:.6f} {w:.2e}" for k, (lk, lp, w) in result.items())
+        + f" in {time.time() - t0:.1f} s")
+    loss_err = max(abs(lk - lp) / max(abs(lp), 1e-30) for lk, lp, _ in result.values())
+    worst = max(w for _, _, w in result.values())
+    checks.expect(len(result) == len(tasks) and all(
+        math.isfinite(lk) for lk, _, _ in result.values()) and loss_err <= 1e-5 and worst <= 1.0,
+        f"B={MT_CHECK_BATCH} a task fp32 iteration with dropout, kernels vs plain ops: worst "
+        f"loss rel {loss_err:.3e} (<= 1e-5), worst gradient at {worst:.3e} of its bound (<= 1)")
+    checks.end_phase("multi-task fp32 check")
+    return trainer, launches, peak_gb
+
+
+def multitask_fp32_steps(trainer, tasks) -> dict:
+    """One round-robin iteration of an fp32 copy of ``trainer``'s model at
+    MT_CHECK_BATCH samples a task, through the kernels, with a copy through
+    the plain ops in lockstep: before each task's step the plain model takes
+    the kernel model's weights, both draw the same dropout seeds. Returns
+    {task: (kernel loss, plain loss, worst gradient over its bound)}, the
+    bound of phase 6: 1e-3 of the tensor's max|grad| plus 1e-6 of the
+    model's."""
+    import numpy as np
+    import torch
+
+    from vilbert_tpu_torch.models.layers import use_plain_ops
+    from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks
+    from vilbert_tpu_torch.train.multitask import MultiTaskTrainer
+
+    cfg32 = trainer.model_cfg.replace(compute_dtype="float32")
+    state = {k: v.detach().to("cpu", copy=True) for k, v in trainer.model.state_dict().items()}
+    loaders, _ = multitask_loaders(tasks, cfg32.vocab_size, MT_CHECK_BATCH, n=1)
+    runs = []
+    for plain in (False, True):
+        model = ViLBERTForVLTasks(cfg32)
+        model.load_state_dict(state)
+        runs.append(MultiTaskTrainer(cfg32, tasks, loaders, opt_cfg=trainer.opt_cfg,
+                                     init_model=use_plain_ops(model, plain), seed=SEED + 9,
+                                     device=DEVICE))
+    kern, plain = runs
+    pk, pp = dict(kern.model.named_parameters()), dict(plain.model.named_parameters())
+    lr_first = float(np.float32(kern.schedule(0)))
+    lr_rest = float(np.float32(kern.schedule.mid_iteration(0)))
+    out = {}
+    for i, key in enumerate(tasks):
+        with torch.no_grad():
+            for n, p in pp.items():
+                p.copy_(pk[n])
+        lr = lr_first if i == 0 else lr_rest
+        losses = [float(t.tasks[key].step_fn(t.model, t.tasks[key].next_batch(), lr)["loss"])
+                  for t in (kern, plain)]
+        gk = {n: p.grad for n, p in pk.items() if p.grad is not None}
+        gp = {n: p.grad for n, p in pp.items() if p.grad is not None}
+        if set(gk) != set(gp):
+            raise SystemExit(f"chip_smoke: {key}: the two paths' gradients cover different "
+                             f"parameters: {sorted(set(gk) ^ set(gp))[:5]}")
+        top = max(float(g.abs().max()) for g in gp.values())
+        worst = max(float((gk[n] - gp[n]).abs().max())
+                    / (1e-3 * float(gp[n].abs().max()) + 1e-6 * top) for n in gp)
+        out[key] = (*losses, worst)
+    del kern, plain, runs, pk, pp
+    return out
+
+
+# -- phase 9 -----------------------------------------------------------------
+
+#: (label, heads, head_dim, Sq, Sk, B) of the long attentions of Visual7w
+#: (B=256, 20+1 tokens, 200 regions) and GuessWhatPointing (B=64, 256+1
+#: tokens, 306 regions)
+MT_ATTENTIONS = (
+    ("Visual7w image self", 8, 128, 200, 200, 256),
+    ("Visual7w text->image", 8, 128, 21, 200, 256),
+    ("Visual7w image->text", 8, 128, 200, 21, 256),
+    ("GuessWhatPointing text self", 12, 64, 257, 257, 64),
+    ("GuessWhatPointing image self", 8, 128, 306, 306, 64),
+    ("GuessWhatPointing text->image", 8, 128, 257, 306, 64),
+    ("GuessWhatPointing image->text", 8, 128, 306, 257, 64),
+)
+
+
+def phase_multitask_timing(checks: Checks, trainer, card: str, err: dict) -> dict:
+    import torch
+
+    from vilbert_tpu_torch.ops.attention import (
+        attention,
+        attention_bwd,
+        attention_bwd_kernel,
+        attention_bwd_ref,
+        attention_ref,
+        bwd_variant,
+        fwd_variant,
+    )
+
+    times = {}
+    # each task's step, one batch held on the card
+    lr = float(trainer.schedule(trainer.global_step))
+    total_ms = total_samples = 0.0
+    for key, task in trainer.tasks.items():
+        batch = task.next_batch()
+        task.step_fn(trainer.model, batch, lr)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            metrics = task.step_fn(trainer.model, batch, lr)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        samples = task.cfg.batch_size
+        total_ms, total_samples = total_ms + ms, total_samples + samples
+        times[("multitask_step", key)] = {"ms": ms, "samples_per_s": samples / ms * 1e3}
+        log(f"  step {key} B={samples} bf16 kernels: {ms:.2f} ms = {samples / ms * 1e3:.1f} "
+            f"samples/s (loss {loss:.4f}) [{card}]")
+    log(f"  steps of the twelve tasks: {total_ms:.1f} ms = {total_samples / total_ms * 1e3:.1f} "
+        f"samples/s, batches on the card [{card}]")
+    # whole iterations through the host loader (pinned copies included)
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_iteration(trainer.global_step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times[("multitask_iteration", i)] = {"s": dt, "samples_per_s": total_samples / dt}
+        log(f"  iteration {trainer.global_step}: {dt:.3f} s = {total_samples / dt:.1f} "
+            f"dataset samples/s, host loader included [{card}]")
+
+    # K1 and K2 at the long shapes: against the plain twins, SDPA, bounds
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    for label, heads, d, sq, sk, B in MT_ATTENTIONS:
+        q, k, v, cot = (torch.randn(B, s, heads * d, generator=g, device=DEVICE).bfloat16()
+                        for s in (sq, sk, sk, sq))
+        mask = torch.ones(B, sk, dtype=torch.long, device=DEVICE)
+        mask[:, sk - sk // 4:] = 0
+        b = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+        cost = attention_cost(B, heads, d, sq, sk)
+        for rate in (0.0, 0.1):
+            kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
+            with torch.inference_mode():
+                e, bnd, ok = _fwd_error(attention(q, k, v, b, **kw),
+                                        attention_ref(q, k, v, b, **kw), "bfloat16")
+                eb, okb = _bwd_errors(attention_bwd(q, k, v, b, cot, **kw),
+                                      attention_bwd_ref(q, k, v, b, cot, **kw), "bfloat16")
+            track_error(err, "attention_fwd", fwd_variant(torch.bfloat16, sk), e)
+            track_error(err, "attention_bwd", bwd_variant(torch.bfloat16, sq, sk), eb)
+            checks.expect(ok and okb, f"{label} B={B} bf16 rate {rate}: fwd max|err| {e:.3e} "
+                                      f"(<= {bnd:.3e}), bwd max|err| {eb:.3e}")
+        kw = dict(num_heads=heads)
+        lib = library_attention_fns(q, k, v, b, cot, heads, d)
+        fwd = {"kernel": lambda: attention(q, k, v, b, **kw),
+               "plain": lambda: attention_ref(q, k, v, b, **kw), "library": lib["library"]}
+        # the long K2 on the CUDA cores beside the tensor-core one
+        bwd = {"kernel": lambda: attention_bwd(q, k, v, b, cot, **kw),
+               "plain": lambda: attention_bwd_ref(q, k, v, b, cot, **kw),
+               "cc": lambda: attention_bwd_kernel(q, k, v, b, cot, variant="long", **kw), **lib}
+        with torch.inference_mode():
+            rows = {"fwd": timed_row(fwd, "kernel", "plain", *cost["fwd"], BF16_TC_FLOPS,
+                                     library="library", iters=5)}
+        rows["bwd"] = timed_row(bwd, "kernel", "plain", *cost["bwd"], BF16_TC_FLOPS,
+                                library=lambda dev: dev["library_fwd_bwd"] - dev["library"],
+                                cc="cc", iters=5)
+        rows["fwd"]["variant"] = fwd_variant(torch.bfloat16, sk)
+        rows["bwd"]["variant"] = bwd_variant(torch.bfloat16, sq, sk)
+        for kind, row in rows.items():
+            times[(f"attention_{kind}", label, 0.0)] = row
+            log(f"  attention {kind} {label} B={B} h={heads} d={d} {sq}x{sk} bf16 rate 0 "
+                f"[{row['variant']}]: {row_text(row)} [{card}]")
+    checks.end_phase("multi-task timing")
+    return times
+
+
+def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: dict,
+                  mt_launches: dict) -> list:
     """The kernels line. Each kernel's numbers (device ms, ``device_ms``;
     ``wall_ms`` with the host's gaps) at its headline shape: K1 at VQA image
     self-attention, where it costs most; K2 at CC image self-attention;
     both at rate 0, where SDPA computes the same function; K4 at the VQA
-    image LayerNorm. Every main-path shape under ``shapes``; launches in the
-    VQA eval run and in the training run under ``launches_by_path``, and
-    ``launches`` of the path the headline shape belongs to."""
+    image LayerNorm; K1 past 128 keys (the CUDA-core variant) and K2's long
+    tensor-core variant at Visual7w image self-attention. Every main-path shape under
+    ``shapes``; launches in the VQA eval run, the CC training run and the
+    multi-task run under ``launches_by_path``, and ``launches`` of the path
+    the headline shape belongs to."""
+    long_labels = tuple(label for label, *_ in MT_ATTENTIONS)
+
     def entry(name, source, replaces, counter, key, library):
         row = times[key]
+        long = key[1] in long_labels
         shapes = [dict(shape=" ".join(map(str, k[1:])), **v) for k, v in times.items()
-                  if k[0] == key[0]]
-        path = vqa_launches if key[1].startswith("VQA") or key[0] == "layer_norm" else \
-            train_launches
+                  if k[0] == key[0] and (k[1] in long_labels) == long]
+        path = mt_launches if long else vqa_launches if (
+            key[1].startswith("VQA") or key[0] == "layer_norm") else train_launches
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": path[counter],
                 "launches_by_path": {"vqa_eval": vqa_launches[counter],
-                                     "cc_train": train_launches[counter]},
+                                     "cc_train": train_launches[counter],
+                                     "multitask_train": mt_launches[counter]},
                 "max_abs_err": err[name],
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "wall_ms": row["wall_ms"],
                 "bound_ms": row["bound_ms"],
@@ -955,12 +1465,23 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
              "library_ms": f0["library_ms"] + b0["library_ms"],
              "library": "scaled_dot_product_attention forward + autograd.grad",
              "shape": "CC image self 0.0"}
-    return [fwd, bwd, ln, fused]
+    fwd_cc = entry("attention_fwd_cc", "vilbert_tpu_torch/csrc/attention.cu",
+                   "vilbert_tpu/ops/pallas_attention_train.py:69", "attention_cc",
+                   ("attention_fwd", "Visual7w image self", 0.0),
+                   "torch.nn.functional.scaled_dot_product_attention, rate 0")
+    fwd_cc["variant"] = "cc: CUDA cores, 128 < Sk <= 512 (and fp32)"
+    bwd_long = entry("attention_bwd_long_tc", "vilbert_tpu_torch/csrc/attention_bwd.cu",
+                     "vilbert_tpu/ops/pallas_attention_train.py:81", "attention_bwd_long_tc",
+                     ("attention_bwd", "Visual7w image self", 0.0),
+                     "scaled_dot_product_attention forward + autograd.grad less forward, rate 0")
+    bwd_long["variant"] = "long_tc: tensor cores, bf16, 128 < Sq or Sk <= 512"
+    return [fwd, bwd, ln, fused, fwd_cc, bwd_long]
 
 
 def main() -> int:
     import torch
 
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -978,20 +1499,37 @@ def main() -> int:
     log(f"[2 build] {_build.library_path().name} in {time.time() - t0:.1f} s")
 
     checks = Checks()
-    log("[3 kernels vs plain]")
+    t_phase = time.time()
+
+    def phase(title: str) -> None:
+        nonlocal t_phase
+        log(f"  ({time.time() - t_phase:.1f} s)")
+        t_phase = time.time()
+        log(title)
+
+    phase("[3 kernels vs plain]")
     err = phase_kernels(checks)
-    log("[4 slice]")
+    phase("[4 slice]")
     model, cfg, vqa_launches = phase_slice(checks)
-    log("[5 timing]")
+    phase("[5 timing]")
     times = phase_timing(model, cfg, card)
     del model
-    log("[6 train slice]")
+    phase("[6 train slice]")
     state, args, train_launches = phase_train(checks)
-    log("[7 train timing]")
+    phase("[7 train timing]")
     times.update(phase_train_timing(checks, state, args, card, err))
     del state
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("[8 multi-task slice]")
+        trainer, mt_launches, peak_gb = phase_multitask(checks, tmp)
+        phase("[9 multi-task timing]")
+        times.update(phase_multitask_timing(checks, trainer, card, err))
+        del trainer
+    phase(f"[done] phases 1-9 in {time.time() - t_start:.1f} s; multi-task peak memory "
+          f"{peak_gb:.2f} GB [{card}]")
 
-    kernels = kernel_report(times, err, vqa_launches, train_launches)
+    kernels = kernel_report(times, err, vqa_launches, train_launches, mt_launches)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where the device time goes in the PyTorch port's two paths, on one card.
+"""Where the device time goes in the PyTorch port's three paths, on one card.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
-    python3 scripts/profile_torch.py [--out profile.json]
+    python3 scripts/profile_torch.py [--out profile.json] [--paths vqa,cc,multitask]
 
 At the full width of configs/bert_base_6layer_6conect.json, weights from
 seed 0, bf16 compute, it profiles with ``torch.profiler`` (CPU and CUDA
@@ -11,7 +11,10 @@ activities) after warm-up:
 
 - the VQA forward (head ``vil_prediction``) at B=1024, T=23, R=101;
 - the CC pretraining step (forward, losses, backward, AdamW) at B=256,
-  T=36, R=37, dropout 0.1, lm_gather 12, one batch held on the card.
+  T=36, R=37, dropout 0.1, lm_gather 12, one batch held on the card;
+- one round-robin iteration of the multi-task trainer on the flagship
+  recipe (chip_smoke.py's twelve tasks and synthetic loaders, task tokens,
+  dropout 0.1), through the host loader.
 
 For each it prints the untraced time of one forward or step (host clock
 around work that ends in a synchronize), the device time per forward or
@@ -38,8 +41,12 @@ CONFIG = "configs/bert_base_6layer_6conect.json"
 
 #: (class, substrings of the kernel name), first match wins
 CLASSES = (
-    ("K1 attention forward", ("attention_fwd",)),
-    ("K2 attention backward", ("attention_bwd",)),
+    ("K1 attention forward, tensor cores", ("attention_fwd_tc",)),
+    ("K1 attention forward, CUDA cores", ("attention_fwd",)),
+    ("K2 attention backward, tensor cores", ("attention_bwd_tc",)),
+    ("K2 attention backward, long, tensor cores", ("attention_bwd_long_tc",)),
+    ("K2 attention backward, long, CUDA cores", ("attention_bwd_rows_dq", "attention_bwd_dkdv")),
+    ("K2 attention backward, CUDA cores", ("attention_bwd",)),
     ("K4 LayerNorm forward", ("layer_norm_fwd_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("Adam and grad norm (foreach)", ("multi_tensor", "foreach")),
@@ -58,13 +65,13 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile(fn, n: int) -> dict:
+def profile(fn, n: int, warmup: int = 3) -> dict:
     """Untraced ms per call, then the profiler's device kernels per call."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -117,7 +124,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default="", help="also write the numbers here as JSON")
     p.add_argument("--calls", type=int, default=3, help="forwards or steps profiled")
+    p.add_argument("--paths", default="vqa,cc,multitask",
+                   help="comma-separated: vqa, cc, multitask (one iteration profiled)")
     args = p.parse_args(argv)
+    paths = set(args.paths.split(","))
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
         return 1
@@ -136,26 +146,44 @@ def main(argv=None) -> int:
     card = smoke.card_line()
     out = {"card": card}
     cfg = ModelConfig.from_json_file(CONFIG)
-    model = build_model(cfg, seed=smoke.SEED, device="cuda")
-    x = smoke.random_batch(cfg, smoke.TIME_BATCH, smoke.SEED + 2)
-    with torch.inference_mode():
-        out["vqa_forward"] = profile(lambda: model(**x, heads=("vil_prediction",)), args.calls)
-    report(f"VQA forward B={smoke.TIME_BATCH} T={smoke.T} R={smoke.R} bf16", out["vqa_forward"],
-           card)
-    del model, x
+    if "vqa" in paths:
+        model = build_model(cfg, seed=smoke.SEED, device="cuda")
+        x = smoke.random_batch(cfg, smoke.TIME_BATCH, smoke.SEED + 2)
+        with torch.inference_mode():
+            out["vqa_forward"] = profile(lambda: model(**x, heads=("vil_prediction",)),
+                                         args.calls)
+        report(f"VQA forward B={smoke.TIME_BATCH} T={smoke.T} R={smoke.R} bf16",
+               out["vqa_forward"], card)
+        del model, x
 
-    train_args = build_parser().parse_args(["--synthetic", "--config", CONFIG])
-    model = ViLBERTForPretraining(cfg, generator=torch.Generator().manual_seed(smoke.SEED))
-    model = model.to("cuda").train()
-    opt, _ = build_optimizer(optimizer_config(train_args, schedule="constant"),
-                             dict(model.named_parameters()), 1000)
-    step = make_train_step(make_pretrain_loss_fn(cfg, lm_gather=smoke.LM_GATHER), opt)
-    batch = to_device(host_batch(smoke.bench_batch(cfg, smoke.TRAIN_BATCH, smoke.SEED + 6), cfg),
-                      "cuda")
-    set_dropout_generator(model, torch.Generator().manual_seed(smoke.SEED))
-    out["cc_step"] = profile(lambda: float(step(model, batch)["loss"]), args.calls)
-    report(f"CC step B={smoke.TRAIN_BATCH} T={smoke.TRAIN_T} R={smoke.TRAIN_R} bf16",
-           out["cc_step"], card)
+    if "cc" in paths:
+        train_args = build_parser().parse_args(["--synthetic", "--config", CONFIG])
+        model = ViLBERTForPretraining(cfg, generator=torch.Generator().manual_seed(smoke.SEED))
+        model = model.to("cuda").train()
+        opt, _ = build_optimizer(optimizer_config(train_args, schedule="constant"),
+                                 dict(model.named_parameters()), 1000)
+        step = make_train_step(make_pretrain_loss_fn(cfg, lm_gather=smoke.LM_GATHER), opt)
+        batch = to_device(host_batch(smoke.bench_batch(cfg, smoke.TRAIN_BATCH, smoke.SEED + 6),
+                                     cfg), "cuda")
+        set_dropout_generator(model, torch.Generator().manual_seed(smoke.SEED))
+        out["cc_step"] = profile(lambda: float(step(model, batch)["loss"]), args.calls)
+        report(f"CC step B={smoke.TRAIN_BATCH} T={smoke.TRAIN_T} R={smoke.TRAIN_R} bf16",
+               out["cc_step"], card)
+        del model, opt, step, batch
+
+    if "multitask" in paths:
+        import tempfile
+
+        from vilbert_tpu_torch.cli.train_tasks import train
+
+        tasks = smoke.flagship_tasks()
+        loaders, _ = smoke.multitask_loaders(tasks, cfg.vocab_size)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = train(smoke.multitask_args(tmp, ["--num_iterations", "1"]), tasks, loaders)
+            out["multitask_iteration"] = profile(
+                lambda: trainer.train_iteration(trainer.global_step), 1, warmup=1)
+        report(f"multi-task iteration, {len(tasks)} flagship tasks, bf16",
+               out["multitask_iteration"], card)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -138,6 +138,37 @@ class TestAttentionTwins:
         for t, w in zip((qt, kt, vt), got_grads):
             assert torch.equal(t.grad, w)
 
+    @pytest.mark.parametrize("rate", [0.0, 0.1])
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("sq,sk", [(200, 200), (21, 200), (257, 306), (306, 257)])
+    def test_long_backward_matches_pallas(self, sq, sk, d, rate):
+        """The backward twin past 128 keys or queries, where the kernel runs
+        its long-sequence variant (Visual7w, GuessWhatPointing), against
+        the VJP of ``fused_attention_train``, which takes a whole (batch,
+        head) at any length."""
+        from vilbert_tpu.ops.pallas_attention_train import fused_attention_train
+        from vilbert_tpu_torch.ops.attention import attention_bwd_ref, make_additive_mask
+
+        B, h = 2, 1
+        q, k, v, g, mask = _attention_inputs(B, sq, sk, h * d, seed=sq + sk)
+        # half the keys of the last row padded, not all: at -10000 fp32
+        # spacing is 2^-10, where the two matmuls' summation orders round
+        # scores apart (the fully padded row is held at the short shapes)
+        mask[-1, : sk - sk // 2] = 1
+        bias = make_additive_mask(_t(mask))
+        rng = jax.random.PRNGKey(sq * 1000 + sk)
+        seed = _jax_seed(rng) if rate else None
+        _, vjp = jax.vjp(
+            lambda q_, k_, v_: fused_attention_train(
+                q_, k_, v_, jnp.asarray(bias.numpy()), num_heads=h, dropout_rate=rate,
+                dropout_rng=rng, interpret=True),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        got = attention_bwd_ref(_t(q), _t(k), _t(v), bias, _t(g), num_heads=h,
+                                dropout_rate=rate, seed=seed)
+        for name, a, w in zip("qkv", got, vjp(jnp.asarray(g))):
+            np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5,
+                                       err_msg=f"d{name}")
+
     def test_dropout_changes_the_output_and_seeds_differ(self):
         from vilbert_tpu_torch.ops.attention import attention_ref
 

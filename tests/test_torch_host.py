@@ -2,10 +2,12 @@
 
 ``vilbert_tpu_torch`` imports nothing of ``vilbert_tpu``: it keeps its own
 copies of the configuration classes, the weight importer, the datasets and
-loaders, and two helpers of the multi-task CLI. Here, from the same seeds and
-inputs, each copy gives what its original gives: the same fields and
-defaults, the same parsed configs, bit-equal batches, ids, keys and
-prefixes.
+loaders, two helpers of the multi-task CLI and the stop controllers. Here,
+from the same seeds and inputs, each copy gives what its original gives:
+the same fields and defaults, the same parsed configs, bit-equal batches,
+ids, keys and prefixes, the same source. ``chip_smoke.py`` builds the
+flagship recipe's task configs in code (the card has no PyYAML); they equal
+``configs/tasks.yml``'s.
 """
 
 import dataclasses
@@ -328,3 +330,53 @@ def test_synthetic_pointing_uses_the_ports_region_offset():
         for k in da:
             np.testing.assert_array_equal(np.asarray(da[k], dtype=object),
                                           np.asarray(db[k], dtype=object), err_msg=k)
+
+
+# -- train/controllers.py, HostLRScheduler -------------------------------------
+
+def _code(path: Path) -> str:
+    """A module's source without its docstring (the copy's names its origin)."""
+    text = path.read_text()
+    return text[text.index('"""', 3) + 3:]
+
+
+def test_controllers_copy_is_the_original():
+    assert _code(REPO / "vilbert_tpu_torch/train/controllers.py") == _code(
+        REPO / "vilbert_tpu/train/controllers.py")
+
+
+def test_host_lr_scheduler_copy_is_the_original():
+    import inspect
+
+    from vilbert_tpu.train import optim as jax_optim
+    from vilbert_tpu_torch.train import optim
+
+    assert inspect.getsource(optim.HostLRScheduler) == inspect.getsource(
+        jax_optim.HostLRScheduler)
+    assert optim.EPOCH_SCHEDULES == jax_optim.EPOCH_SCHEDULES
+    assert optim.LR_REDUCE_EPOCHS == jax_optim.LR_REDUCE_EPOCHS
+    assert optim.ALL_HEAD_MODULES == jax_optim.ALL_HEAD_MODULES
+    assert optim.HEAD_MODULE_FOR_TYPE == jax_optim.HEAD_MODULE_FOR_TYPE
+
+
+# -- chip_smoke.py's task configs -------------------------------------------------
+
+def test_chip_smoke_task_configs_are_the_yml():
+    """The twelve ``TaskConfig``s of the flagship recipe that chip_smoke.py
+    builds in code equal ``load_task_configs("configs/tasks.yml")`` field by
+    field, so that a change to the yml cannot leave the card run behind."""
+    pytest.importorskip("yaml")
+    import importlib.util
+
+    from vilbert_tpu_torch.core.config import TaskConfig, load_task_configs
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    got = smoke.flagship_tasks()
+    want = load_task_configs(str(REPO / "configs" / "tasks.yml"))
+    assert list(got) == [f"TASK{n}" for n in (1, 2, 4, 7, 8, 9, 10, 11, 12, 13, 15, 17)]
+    for key, cfg in got.items():
+        assert type(cfg) is TaskConfig
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(want[key]), key
+    assert smoke.task1() == want["TASK1"]

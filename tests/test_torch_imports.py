@@ -4,8 +4,8 @@ The card machine has no jax. This file's tests run the port in a fresh
 interpreter (tests/conftest.py has already imported jax into this one) in
 which ``vilbert_tpu`` cannot be imported (``sys.modules["vilbert_tpu"] =
 None``): import every module of ``vilbert_tpu_torch``, run the eval CLI and
-the training CLI end to end on a tiny config on the CPU, and check that
-neither jax nor flax was loaded.
+the two training CLIs end to end on a tiny config on the CPU, and check
+that neither jax nor flax was loaded.
 """
 
 import json
@@ -88,6 +88,48 @@ def test_train_cli_runs_without_jax(tmp_path):
     with np.load(out / "params_final.npz") as z:
         assert "bert.embeddings.word_embeddings.embedding" in z.files
         assert "cls.predictions.bias" in z.files
+
+
+_TASKS_SCRIPT = """
+import sys
+sys.modules["vilbert_tpu"] = None  # any import of the JAX package fails
+from vilbert_tpu_torch.cli.train_tasks import main
+trainer = main(sys.argv[1:])
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+assert trainer.global_step == 2, trainer.global_step
+try:
+    main(["--synthetic", "--device", "cpu", "--optim", "radam"])
+except NotImplementedError as e:
+    assert "ROADMAP" in str(e), e
+else:
+    raise AssertionError("--optim radam was not refused")
+print("JAX_FREE_OK")
+"""
+
+
+def test_multitask_cli_runs_without_jax(tmp_path):
+    """The multi-task slice (task heads and losses, masks, the host LR
+    schedule, the trainer, controllers, logger) through the CLI on the CPU:
+    two round-robin iterations over six task types with task tokens, with
+    no jax, flax or optax loaded; a refused flag raises."""
+    import numpy as np
+
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(_TINY))
+    out = tmp_path / "out"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _TASKS_SCRIPT, "--synthetic", "--device", "cpu",
+         "--tasks", "1-4-7-9-12-13", "--task_specific_tokens", "--num_iterations", "2",
+         "--config", str(cfg), "--output_dir", str(out)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_FREE_OK" in proc.stdout
+    with np.load(out / "params_final.npz") as z:
+        assert "vil_prediction.dense1.kernel" in z.files
+        assert "bert.embeddings.task_embeddings.embedding" in z.files
 
 
 def test_no_jax_import_statement_in_port():

@@ -128,9 +128,35 @@ class TestAttentionVariants:
         assert fwd_variant(dtype, sk) == want
 
     def test_backward_variant_by_dtype(self):
+        """Up to 128 queries and keys, bf16 runs on the tensor cores and fp32
+        on the CUDA cores."""
         from vilbert_tpu_torch.ops.attention import bwd_variant
 
-        assert (bwd_variant(torch.bfloat16), bwd_variant(torch.float32)) == ("tc", "cc")
+        for sq, sk in ((1, 1), (37, 36), (128, 128)):
+            assert (bwd_variant(torch.bfloat16, sq, sk),
+                    bwd_variant(torch.float32, sq, sk)) == ("tc", "cc")
+
+    @pytest.mark.parametrize("sq,sk", [(129, 1), (1, 129), (21, 200), (200, 21), (257, 306),
+                                       (512, 512)])
+    @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "long_tc"), (torch.float32, "long")])
+    def test_backward_variant_past_128_is_long(self, sq, sk, dtype, want):
+        """Past 128 queries or keys, bf16 runs the long variant on the tensor
+        cores and fp32 on the CUDA cores."""
+        from vilbert_tpu_torch.ops.attention import bwd_variant
+
+        assert bwd_variant(dtype, sq, sk) == want
+
+    @pytest.mark.parametrize("sq,sk,ok", [(512, 512, True), (306, 257, True), (513, 20, False),
+                                          (20, 513, False)])
+    def test_backward_geometry_takes_up_to_512(self, sq, sk, ok):
+        from vilbert_tpu_torch.ops.attention import bwd_kernel_geometry
+
+        q, k, v, bias = _qkv(sq=sq, sk=sk, hd=256)
+        if ok:
+            assert bwd_kernel_geometry(q, k, v, bias, q, 2) == (2, sq, sk, 128)
+        else:
+            with pytest.raises(ValueError):
+                bwd_kernel_geometry(q, k, v, bias, q, 2)
 
     def test_tc_strides_of_projections(self):
         """[B, S, H] projections and a stride-0 batch pass; the stride of a
@@ -163,11 +189,17 @@ class TestAttentionVariants:
             attention_bwd_kernel(q, k, v, None, q, num_heads=8, variant="cc")
 
     def test_each_variant_has_a_counter(self):
-        from vilbert_tpu_torch.ops.attention import VARIANTS, attention, attention_bwd
+        from vilbert_tpu_torch.ops.attention import (
+            BWD_VARIANTS,
+            VARIANTS,
+            attention,
+            attention_bwd,
+        )
 
-        for wrapper in (attention, attention_bwd):
-            for variant in VARIANTS:
+        for wrapper, variants in ((attention, VARIANTS), (attention_bwd, BWD_VARIANTS)):
+            for variant in variants:
                 assert isinstance(getattr(wrapper, f"launches_{variant}"), int)
+        assert {"long", "long_tc"} <= set(BWD_VARIANTS) and "long" not in VARIANTS
 
 
 class TestLayerNorm:

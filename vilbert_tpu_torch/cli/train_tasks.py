@@ -1,13 +1,206 @@
-"""The multi-task trainer's CLI helpers that other parts of the port use.
+"""CLI: 12-in-1 multi-task fine-tuning on PyTorch (mirrors the reference
+train_tasks.py and ``vilbert_tpu.cli.train_tasks``).
 
-Counterpart of ``vilbert_tpu/cli/train_tasks.py``: so far only
-``freeze_prefixes`` (``--freeze`` expanded into parameter-path prefixes,
-used by ``cli/train_concap.py``) and ``_synthetic_world`` (synthetic
-loaders for every task family, used by ``cli/eval_tasks.py``), copied as
-they stand. The multi-task trainer itself comes with its slice.
+  python -m vilbert_tpu_torch.cli.train_tasks \\
+      --config configs/bert_base_6layer_6conect.json \\
+      --tasks_yml configs/tasks.yml --tasks 1-2-4-7-8-9-10-11-12-13-15-17 \\
+      --from_pretrained pretrained_model.bin --task_specific_tokens
+
+  # smoke test without data artifacts, on the CPU:
+  python -m vilbert_tpu_torch.cli.train_tasks --synthetic --tasks 1-12 \\
+      --device cpu --num_iterations 2
+
+Writes ``params_final.npz`` (flat, keyed by flax path) into
+``--output_dir``. ``freeze_prefixes`` and ``_synthetic_world`` are copies of
+the JAX CLI's (``tests/test_torch_host.py`` holds them to it); the other
+CLIs of the port use them too. ``--tasks_yml`` needs PyYAML; ``train``
+also takes the ``TaskConfig``s and loaders from its caller.
 """
 
 from __future__ import annotations
+
+import argparse
+import logging
+import os
+from typing import Optional, Sequence
+
+#: flags of the JAX CLI that the port refuses, and the ROADMAP item of each
+_REFUSED = {
+    "baseline": "the single-stream baseline (ROADMAP A11)",
+    "bf16_grads": "bf16 gradients (ROADMAP A5)",
+    "bf16_adam_state": "bf16 Adam moments (ROADMAP A5)",
+    "resume_file": "full-state resume (ROADMAP A6)",
+    "coordinator": "multi-GPU training (ROADMAP A12)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", default="configs/bert_base_6layer_6conect.json")
+    p.add_argument("--tasks_yml", default="configs/tasks.yml")
+    p.add_argument("--tasks", default="1", help="dash-separated task numbers")
+    p.add_argument("--from_pretrained", default="", help="local .npz or reference .bin")
+    p.add_argument("--vocab", default="")
+    p.add_argument("--output_dir", default="checkpoints/multitask")
+    p.add_argument("--num_epochs", type=int, default=0, help="0 = max task epochs")
+    p.add_argument("--num_iterations", type=int, default=0,
+                   help="stop after this many round-robin iterations (0: the whole schedule)")
+    p.add_argument("--learning_rate", type=float, default=0.0,
+                   help="0 = min of per-task lrs (reference behavior)")
+    p.add_argument("--head_lr", type=float, default=1e-4,
+                   help="lr for task heads (train_tasks.py:379-398)")
+    p.add_argument("--warmup_proportion", type=float, default=0.1)
+    p.add_argument("--adam_correct_bias", action="store_true",
+                   help="Adam bias correction (the reference runs without it)")
+    p.add_argument("--clip_grad_norm", type=float, default=0.0,
+                   help="global grad-norm clip before the optimizer; 0 = off")
+    p.add_argument("--bf16_adam_state", action="store_true", help="not ported yet")
+    p.add_argument("--bf16_grads", action="store_true", help="not ported yet")
+    p.add_argument("--lr_scheduler", default="mannul",
+                   choices=["mannul", "automatic", "cosine", "cosine_warm",
+                            "warmup_linear", "warmup_constant", "constant"])
+    p.add_argument("--optim", default="adamw", choices=["adamw", "radam"],
+                   help="radam is not ported yet")
+    p.add_argument("--baseline", action="store_true", help="not ported yet")
+    p.add_argument("--resume_file", default="", help="not ported yet")
+    p.add_argument("--freeze", default="",
+                   help="param path prefix(es, comma-separated) to freeze; an INTEGER N "
+                        "freezes the text embeddings + text layers 0..N (-1 = nothing)")
+    p.add_argument("--train_iter_gap", type=int, default=4)
+    p.add_argument("--train_iter_multiplier", type=float, default=1.0,
+                   help="scale per-task iterations/epoch (train_tasks.py:339)")
+    p.add_argument("--vision_scratch", action="store_true",
+                   help="train fresh (non-text-BERT) weights at head_lr")
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--save_name", default="",
+                   help="suffix for the run directory under output_dir")
+    p.add_argument("--clean_train_sets", type=lambda s: s.lower() != "false",
+                   default=True, metavar="BOOL",
+                   help="drop test-set image ids from train annotations (default true)")
+    p.add_argument("--eval_cadence", default="reference", choices=["reference", "epoch"])
+    p.add_argument("--bert_model", default="bert-base-uncased",
+                   help="'roberta' selects RoBERTa embeddings")
+    p.add_argument("--task_specific_tokens", action="store_true")
+    p.add_argument("--dynamic_attention", action="store_true")
+    p.add_argument("--use_pallas", action="store_true",
+                   help="accepted for flag parity; on CUDA the port always runs its kernels")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seeds the initial weights and every dropout mask")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--coordinator", default="", help="not ported yet")
+    p.add_argument("--num_processes", type=int, default=0)
+    p.add_argument("--process_id", type=int, default=-1)
+    p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    return p
+
+
+def check_flags(args: argparse.Namespace) -> None:
+    """Raise for the flags the port does not carry yet."""
+    for flag, what in _REFUSED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag}: {what} is not ported yet")
+    if args.optim != "adamw":
+        raise NotImplementedError(f"--optim {args.optim} is not ported yet (ROADMAP A5)")
+    if args.num_processes > 1 or args.process_id > 0:
+        raise NotImplementedError(f"--num_processes/--process_id: {_REFUSED['coordinator']}")
+
+
+def optimizer_config(args: argparse.Namespace, base_lr: float):
+    """The CLI's AdamW settings (as the JAX CLI builds them)."""
+    from vilbert_tpu_torch.core.config import OptimizerConfig
+
+    return OptimizerConfig(
+        name=args.optim,
+        learning_rate=args.learning_rate or base_lr,
+        schedule=args.lr_scheduler,
+        warmup_proportion=args.warmup_proportion,
+        head_lr=args.head_lr,
+        vision_scratch=args.vision_scratch,
+        correct_bias=args.adam_correct_bias,
+        grad_clip_norm=args.clip_grad_norm or None,
+    )
+
+
+def train(args: argparse.Namespace, task_cfgs=None, loaders=None, hooks: Optional[list] = None,
+          *, val_loaders=None, task_hooks: Optional[list] = None):
+    """The CLI's body without the final save: tasks, data, the
+    ``MultiTaskTrainer`` and its loop for parsed flags; returns the trainer.
+
+    ``task_cfgs`` ({"TASKn": TaskConfig}) replaces ``--tasks_yml`` and
+    ``--tasks``; ``loaders`` (and ``val_loaders``) replace the data the
+    flags name. ``hooks`` and ``task_hooks`` go to ``MultiTaskTrainer.train``.
+    """
+    check_flags(args)
+
+    from vilbert_tpu_torch.core.config import ModelConfig, TrainConfig, load_task_configs
+    from vilbert_tpu_torch.train.multitask import MultiTaskTrainer
+
+    model_cfg = ModelConfig.from_json_file(
+        args.config,
+        task_specific_tokens=args.task_specific_tokens,
+        dynamic_attention=args.dynamic_attention,
+        use_pallas_attention=args.use_pallas,
+        model="roberta" if "roberta" in args.bert_model else "bert",
+    )
+    if task_cfgs is None:
+        all_tasks = load_task_configs(args.tasks_yml)
+        task_cfgs = {f"TASK{n}": all_tasks[f"TASK{n}"] for n in args.tasks.split("-")}
+    if loaders is None:
+        if args.synthetic:
+            loaders, val_loaders = _synthetic_world(task_cfgs, model_cfg.vocab_size), {}
+        else:
+            from vilbert_tpu_torch.data.loading import load_datasets
+            from vilbert_tpu_torch.data.tokenization import load_tokenizer
+
+            tokenizer = load_tokenizer(args.vocab or None, model_cfg.vocab_size)
+            loaders, val_loaders = load_datasets(
+                task_cfgs, tokenizer, seed=args.seed,
+                grad_accum=args.gradient_accumulation_steps,
+                clean_train_sets=args.clean_train_sets,
+            )
+    if args.save_name:
+        # run directory named like the reference's timeStamp
+        # (train_tasks.py:253-261: tasks + config stem + "-" + save_name)
+        args.output_dir = os.path.join(
+            args.output_dir,
+            "-".join(sorted(task_cfgs)) + "_"
+            + os.path.splitext(os.path.basename(args.config))[0] + "-" + args.save_name,
+        )
+    trainer = MultiTaskTrainer(
+        model_cfg, task_cfgs, loaders,
+        opt_cfg=optimizer_config(args, min(t.lr for t in task_cfgs.values())),
+        train_cfg=TrainConfig(
+            freeze_prefix=freeze_prefixes(args.freeze),
+            train_iter_gap=args.train_iter_gap,
+            train_iter_multiplier=args.train_iter_multiplier,
+            gradient_accumulation_steps=args.gradient_accumulation_steps,
+            checkpoint_dir=f"{args.output_dir}/ckpt"),
+        val_loaders=val_loaders,
+        seed=args.seed,
+        num_train_epochs=args.num_epochs,
+        from_pretrained=args.from_pretrained,
+        device=args.device,
+    )
+    trainer.attach_logger(f"{args.output_dir}/logs")
+    trainer.train(args.num_epochs, eval_cadence=args.eval_cadence, hooks=hooks,
+                  task_hooks=task_hooks, max_iterations=args.num_iterations)
+    return trainer
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Parse the flags, train, write ``params_final.npz``; returns the
+    trainer."""
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
+    trainer = train(args)
+
+    from vilbert_tpu_torch.core.weights import save_params_npz
+
+    path = os.path.join(args.output_dir, "params_final.npz")
+    save_params_npz(path, trainer.model.state_dict())
+    logging.info("saved %s", path)
+    return trainer
 
 
 def freeze_prefixes(spec: str):
@@ -70,3 +263,7 @@ def _synthetic_world(task_cfgs, tokenizer_vocab):
             )
         loaders[key] = DataLoader(ds, batch_size=min(t.batch_size, 4), seed=0)
     return loaders
+
+
+if __name__ == "__main__":
+    main()

@@ -54,6 +54,11 @@ _SIGNATURES = {
     # the tensor-core variants: the same without the dtype (bf16 only)
     "vt_attention_fwd_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P],
     "vt_attention_bwd_tc": [_P] * 8 + [_I] * 5 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
+    # the long-sequence K2: vt_attention_bwd's arguments with the fp32
+    # row-statistics workspace after dv
+    "vt_attention_bwd_long": [_P] * 9 + [_I] * 6 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
+    # ... and on the tensor cores: the same without the dtype (bf16 only)
+    "vt_attention_bwd_long_tc": [_P] * 9 + [_I] * 5 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # x, residual, weight, bias, out, dtype, rows, h, eps, stream
     "vt_layer_norm_fwd": [_P] * 5 + [_I] * 3 + [_F, _P],
 }

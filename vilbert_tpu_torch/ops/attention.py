@@ -22,16 +22,21 @@ the port follows the kernels.
 they run ``attention_ref`` and ``attention_bwd_ref``; on CUDA tensors they
 launch ``csrc/attention.cu`` and ``csrc/attention_bwd.cu`` or raise.
 
-Each kernel has two variants, and the wrapper picks one by dtype and shape
-alone (``fwd_variant``, ``bwd_variant``), never by catching a failure:
-``"tc"`` on the tensor cores for bf16 (K1 at Sk <= 128, K2 at Sq, Sk <=
-128: every shape of the VQA and CC paths), ``"cc"`` on the CUDA cores for
-fp32 and for bf16 K1 at 128 < Sk <= 512. The tensor-core variants load
-rows by 16-byte copies, so they refuse (ValueError) operands that are not
-16-byte aligned or whose batch and row strides are not multiples of 8
-elements. The bf16 K2 rounds P_drop and ds to bf16 as mma operands (the
-TPU kernel keeps them in fp32). ``attention.launches`` counts every K1
-launch and ``attention.launches_tc`` / ``attention.launches_cc`` each
+The wrapper picks a kernel variant by dtype and shape alone
+(``fwd_variant``, ``bwd_variant``), never by catching a failure. K1 has
+two: ``"tc"`` on the tensor cores for bf16 at Sk <= 128 (every shape of the
+VQA and CC paths), ``"cc"`` on the CUDA cores for fp32 and for bf16 at
+128 < Sk <= 512. K2 has four: ``"tc"`` for bf16 at Sq, Sk <= 128, ``"cc"``
+for fp32 there; when Sq or Sk is above 128, up to 512, ``"long_tc"`` for
+bf16 and ``"long"`` (CUDA cores) for fp32, both tiles of 64 queries and
+keys over two kernels and an fp32 workspace of row statistics. ``"cc"``
+and ``"long"`` take bf16 too, when named (``attention_bwd_kernel``). The
+tensor-core variants load rows by 16-byte copies, so they refuse
+(ValueError) operands that are not 16-byte aligned or whose batch and row
+strides are not multiples of 8 elements. The bf16 tensor-core K2 variants
+round P_drop and ds to bf16 as mma operands (the TPU kernel keeps them in
+fp32). ``attention.launches``
+counts every K1 launch and ``attention.launches_<variant>`` each
 variant's; likewise ``attention_bwd``.
 """
 
@@ -49,12 +54,15 @@ from vilbert_tpu_torch.ops.dropout import attention_keep_mask, keep_threshold
 #: shapes the forward kernel takes
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_KEYS = 512
-#: the backward kernel keeps a whole (batch, head) in shared memory
-BWD_KERNEL_MAX_SEQ = 128
-#: longest sequence of the tensor-core variants
+#: longest Sq and Sk the backward kernel takes
+BWD_KERNEL_MAX_SEQ = 512
+#: longest sequence of the tensor-core variants, and of K2's "cc" variant,
+#: which keeps a whole (batch, head) in shared memory
 TC_MAX_SEQ = 128
-#: kernel variants: tensor cores (bf16) and CUDA cores
+#: kernel variants: tensor cores (bf16) and CUDA cores; K2 adds both past
+#: 128 queries or keys
 VARIANTS = ("tc", "cc")
+BWD_VARIANTS = ("tc", "cc", "long_tc", "long")
 
 
 def make_additive_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -215,7 +223,7 @@ def bwd_kernel_geometry(
 ) -> tuple:
     """Validate the backward kernel's operands; return (B, Sq, Sk, d).
 
-    On top of the forward's rules: 1 <= Sq, Sk <= 128; no stride-0 (broadcast)
+    On top of the forward's rules: 1 <= Sq, Sk <= 512; no stride-0 (broadcast)
     batch or row in q, k, v (their dk and dv would need a reduction); g of
     q's shape and dtype with unit stride along H.
     """
@@ -242,9 +250,14 @@ def fwd_variant(dtype: torch.dtype, sk: int) -> str:
     return "tc" if dtype == torch.bfloat16 and sk <= TC_MAX_SEQ else "cc"
 
 
-def bwd_variant(dtype: torch.dtype) -> str:
-    """The backward kernel's variant: ``"tc"`` for bf16, ``"cc"`` for fp32."""
-    return "tc" if dtype == torch.bfloat16 else "cc"
+def bwd_variant(dtype: torch.dtype, sq: int, sk: int) -> str:
+    """The backward kernel's variant for a dtype and sequence lengths:
+    ``"tc"`` for bf16 and ``"cc"`` for fp32 at Sq, Sk <= 128, ``"long_tc"``
+    and ``"long"`` when Sq or Sk is above."""
+    long = "long_" if max(sq, sk) > TC_MAX_SEQ else ""
+    if dtype == torch.bfloat16:
+        return long + "tc"
+    return "long" if long else "cc"
 
 
 def _tc_strides(**tensors) -> list:
@@ -323,6 +336,11 @@ def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, variant):
     lib = _build.load_library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(), g.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+               g.stride(0), g.stride(1), bias_rows.stride(0))
+    if variant in ("tc", "cc") and max(sq, sk) > TC_MAX_SEQ:
+        raise ValueError(f"attention backward kernel variant {variant!r} takes Sq, Sk <= "
+                         f"{TC_MAX_SEQ}, got Sq={sq}, Sk={sk}")
     if variant == "tc":
         if q.dtype != torch.bfloat16:
             raise ValueError(f"tensor-core attention backward kernel takes bf16, got {q.dtype}")
@@ -330,11 +348,22 @@ def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, variant):
                                  *_tc_strides(q=q, k=k, v=v, g=g), bias_rows.stride(0))
     elif variant == "cc":
         call = functools.partial(lib.vt_attention_bwd, *ptrs, _build.DTYPE_CODES[q.dtype], b,
-                                 num_heads, d, sq, sk, q.stride(0), q.stride(1), k.stride(0),
-                                 k.stride(1), v.stride(0), v.stride(1), g.stride(0),
-                                 g.stride(1), bias_rows.stride(0))
+                                 num_heads, d, sq, sk, *strides)
+    elif variant in ("long_tc", "long"):
+        # each row's softmax max, sum and D, passed between the two kernels
+        stats = torch.empty(3 * b * num_heads * sq, dtype=torch.float32, device=q.device)
+        if variant == "long":
+            call = functools.partial(lib.vt_attention_bwd_long, *ptrs, stats.data_ptr(),
+                                     _build.DTYPE_CODES[q.dtype], b, num_heads, d, sq, sk,
+                                     *strides)
+        elif q.dtype != torch.bfloat16:
+            raise ValueError(f"tensor-core attention backward kernel takes bf16, got {q.dtype}")
+        else:
+            call = functools.partial(lib.vt_attention_bwd_long_tc, *ptrs, stats.data_ptr(), b,
+                                     num_heads, d, sq, sk, *_tc_strides(q=q, k=k, v=v, g=g),
+                                     bias_rows.stride(0))
     else:
-        raise ValueError(f"attention backward kernel variant must be one of {VARIANTS}, "
+        raise ValueError(f"attention backward kernel variant must be one of {BWD_VARIANTS}, "
                          f"got {variant!r}")
     with torch.cuda.device(q.device):
         err = call(1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
@@ -431,7 +460,8 @@ def attention_bwd(
                                  dropout_rate=dropout_rate, seed=seed)
     _check_devices(q, k=k, v=v, bias=bias, g=g)
     bias_rows = _bias_rows(bias, q, k.shape[1])
-    return _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, bwd_variant(q.dtype))
+    return _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed,
+                     bwd_variant(q.dtype, q.shape[1], k.shape[1]))
 
 
 def attention_kernel(q, k, v, bias, *, num_heads: int, variant: str, dropout_rate: float = 0.0,
@@ -457,8 +487,8 @@ def attention_bwd_kernel(q, k, v, bias, g, *, num_heads: int, variant: str,
 
 #: kernel launches since the last reset, in all and by variant (CPU calls
 #: do not count)
-for _wrapper in (attention, attention_bwd):
+for _wrapper, _variants in ((attention, VARIANTS), (attention_bwd, BWD_VARIANTS)):
     _wrapper.launches = 0
-    for _variant in VARIANTS:
+    for _variant in _variants:
         setattr(_wrapper, f"launches_{_variant}", 0)
-del _wrapper, _variant
+del _wrapper, _variants, _variant

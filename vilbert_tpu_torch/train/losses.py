@@ -4,9 +4,12 @@ Counterpart of ``vilbert_tpu/train/losses.py``: the three pretraining losses
 (``pretrain_losses``: masked-LM cross-entropy with ignore index -1, the
 masked-region loss for visual targets 0 (KL against the detector's soft
 classes) and 1 (feature MSE), the alignment cross-entropy), all reduced in
-fp32; and ``task_loss_and_score_per_sample`` /
-``compute_score_with_logits_per_sample`` (reference task_utils.py:325-374,
-:618-623), whose means are the reference's batch loss and score.
+fp32; the per-task losses and scores of training, ``task_loss_and_score``
+over ``bce_with_logits``, ``cross_entropy`` and ``compute_score_with_logits``
+(reference task_utils.py:325-374, :618-623); and their unreduced forms for
+evaluation, ``task_loss_and_score_per_sample`` /
+``compute_score_with_logits_per_sample``, whose means are the reference's
+batch loss and score.
 """
 
 from __future__ import annotations
@@ -21,6 +24,11 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits.float(), dim=-1)
     gathered = logits.gather(-1, labels.long()[..., None])[..., 0]
     return lse - gathered.float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE with integer labels (no ignore index)."""
+    return _nll(logits, labels).mean()
 
 
 def cross_entropy_ignore_index(
@@ -96,6 +104,42 @@ def _bce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Elementwise binary cross-entropy with logits (stable form)."""
     t = target.float()
     return logits.clamp_min(0) - logits * t + torch.log1p(torch.exp(-logits.abs()))
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Elementwise binary CE with logits, mean reduction (torch
+    ``BCEWithLogitsLoss(reduction="mean")``), in fp32."""
+    return _bce(logits.float(), targets).mean()
+
+
+def compute_score_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Sum of soft-target mass at the argmax prediction."""
+    return compute_score_with_logits_per_sample(logits, targets).sum()
+
+
+def _accuracy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(-1) == target).float().mean()
+
+
+def task_loss_and_score(
+    task_type: str, logits: torch.Tensor, target: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean-style loss as the reference computes it, batch score) for one
+    task head type; ``logits`` is the head output already reshaped to
+    [batch(, options | regions), classes]."""
+    if task_type in ("VL-classifier", "VL-classifier-GQA"):
+        # the reference multiplies the mean BCE by the label width
+        loss = bce_with_logits(logits, target) * target.shape[1]
+        return loss, compute_score_with_logits(logits, target) / target.shape[0]
+    if task_type in ("VL-logit", "VL-binary-classifier", "VL-tri-classifier"):
+        return cross_entropy(logits, target), _accuracy(logits, target)
+    if task_type in ("V-logit", "V-logit-mc"):
+        # per-region BCE with a [B, R(, 1)] IoU-derived target
+        loss = bce_with_logits(logits, target) * target.shape[1]
+        t = target.squeeze(-1) if target.dim() == 3 else target
+        gathered = t.gather(1, logits.squeeze(-1).float().argmax(-1)[:, None])
+        return loss, (gathered > 0.5).float().sum() / logits.shape[0]
+    raise ValueError(f"unknown task type {task_type}")
 
 
 def compute_score_with_logits_per_sample(

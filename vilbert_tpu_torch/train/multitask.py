@@ -1,16 +1,52 @@
-"""Task-head routing and the batch process-mode reshapes.
+"""12-in-1 multi-task training: task heads, batch reshapes and the trainer.
 
-Counterpart of the host-side pieces of ``vilbert_tpu/train/multitask.py``
-(``HEAD_FOR_TYPE``, ``MC_REGION_OFFSET``, ``process_batch``; reference
-task_utils.py:199-310), which the evaluator needs. The multi-task trainer
-itself comes with the training slice.
+Counterpart of ``vilbert_tpu/train/multitask.py`` (reference train_tasks.py
++ task_utils.py) on one device:
+
+- ``HEAD_FOR_TYPE``, ``MC_REGION_OFFSET`` and ``process_batch`` (the
+  process-mode reshapes, task_utils.py:199-310);
+- ``make_task_loss_fn`` / ``make_task_eval_fn`` over ``_task_logits``: one
+  forward computing only the task's head, the ``VL-logit`` option reshape
+  and the ``V-logit-mc`` gather past ``MC_REGION_OFFSET``;
+- ``MultiTaskTrainer``: per-task loss scales lr_t / min lr
+  (train_tasks.py:239-251), round-robin iterations gated by the stop
+  controllers, one optimizer state shared by every task with each task's
+  participation mask (``train.optim.task_update_mask``), and the
+  reference's learning-rate quirks: the rate comes from the host once per
+  iteration (``external_lr``), the first task trained in an iteration
+  updates at lambda(i) and the others at ``mid_iteration(i)``, the epoch
+  schedules change at epoch end.
+
+The model runs in train mode (dropout at every site, seeds from the
+trainer's ``torch.Generator``, see ``models.layers.set_dropout_generator``)
+and, on a CUDA device, through the port's kernels. Batches reach the device
+through ``data.prefetch`` (pinned, ``non_blocking``). Multi-process meshes,
+the single-stream baseline, full-state checkpoints and radam raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import logging
+import math
+import os
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
+
+from vilbert_tpu_torch.core.config import ModelConfig, OptimizerConfig, TaskConfig, TrainConfig
+from vilbert_tpu_torch.data.prefetch import compress_for_transfer, to_device, to_tensors
+from vilbert_tpu_torch.models.layers import set_dropout_generator
+from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks
+from vilbert_tpu_torch.parallel.train_step import make_train_step
+from vilbert_tpu_torch.train.controllers import MultiTaskStopController
+from vilbert_tpu_torch.train.losses import task_loss_and_score, task_loss_and_score_per_sample
+from vilbert_tpu_torch.train.optim import build_optimizer, task_update_mask
+
+logger = logging.getLogger(__name__)
 
 #: head used per task type (reference task_utils.py:325-374)
 HEAD_FOR_TYPE = {
@@ -26,6 +62,11 @@ HEAD_FOR_TYPE = {
 #: rows to skip before gathering multiple-choice options: the 100 detector
 #: boxes + global row (reference task_utils.py:353 ``vision_logit[:, 101:]``)
 MC_REGION_OFFSET = 101
+
+#: batch entries the model never reads: the question ids, and the
+#: co-attention mask, which the model accepts and ignores (the reference's
+#: is inert too); they stay on the host
+HOST_ONLY_KEYS = ("question_id", "co_attention_mask")
 
 
 def process_batch(process: str, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -63,3 +104,426 @@ def process_batch(process: str, batch: Dict[str, torch.Tensor]) -> Dict[str, tor
             b[k] = torch.repeat_interleave(b[k], 2, dim=0)
         return b
     raise ValueError(process)
+
+
+def _task_logits(
+    model: ViLBERTForVLTasks,
+    model_cfg: ModelConfig,
+    task: TaskConfig,
+    batch: Dict[str, torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward with the task's head only; returns (logits, target) shaped
+    as ``task_loss_and_score`` takes them."""
+    head = HEAD_FOR_TYPE[task.type]
+    p = process_batch(task.process, batch)
+    task_ids = None
+    if model_cfg.task_specific_tokens:
+        task_ids = torch.full((p["question"].shape[0], 1), task.task_id, dtype=torch.long,
+                              device=p["question"].device)
+    out = model(
+        p["question"], p["features"], p["spatials"], p["segment_ids"], p["input_mask"],
+        p["image_mask"], p.get("co_attention_mask"), task_ids, heads=(head,),
+    )
+    logits = getattr(out, head)
+    target = p["target"]
+    if task.type == "VL-logit":
+        # rank options: [B*N, 1] -> [rows, N], rows following the (possibly
+        # flattened) target: B for expand/retrieval, B*rounds for dialog
+        logits = logits.reshape(target.shape[0], -1)
+    elif task.type == "V-logit-mc":
+        # gather the option rows past the detector block
+        mc = p["multiple_choice_ids"].long()
+        logits = logits[:, MC_REGION_OFFSET:, 0].gather(1, mc)[..., None]
+    return logits, target
+
+
+def make_task_loss_fn(model_cfg: ModelConfig, task: TaskConfig, *,
+                      deterministic: bool = False) -> Callable:
+    """loss_fn(model, batch) -> (loss, {"score": batch score}) for the
+    train step; the model runs in train mode unless ``deterministic``."""
+
+    def loss_fn(model, batch):
+        model.train(not deterministic)
+        logits, target = _task_logits(model, model_cfg, task, batch)
+        loss, score = task_loss_and_score(task.type, logits, target)
+        return loss, {"score": score}
+
+    return loss_fn
+
+
+def make_task_eval_fn(model_cfg: ModelConfig, task: TaskConfig) -> Callable:
+    """eval_fn(model, batch) -> ([rows] loss, [rows] score), eval mode, no
+    gradients: per-sample vectors, so that padded final batches still give
+    exact sample-weighted metrics (reference eval_tasks.py:276-301)."""
+
+    @torch.no_grad()
+    def eval_fn(model, batch):
+        was_training = model.training
+        model.eval()
+        try:
+            logits, target = _task_logits(model, model_cfg, task, batch)
+        finally:
+            model.train(was_training)
+        return task_loss_and_score_per_sample(task.type, logits, target)
+
+    return eval_fn
+
+
+def host_batch(batch: Dict[str, Any], compute_dtype: str) -> Dict[str, torch.Tensor]:
+    """A loader batch -> CPU tensors as the step takes them: without
+    ``HOST_ONLY_KEYS``, features compressed for transfer under bf16."""
+    b = to_tensors({k: v for k, v in batch.items() if k not in HOST_ONLY_KEYS})
+    return compress_for_transfer(b, compute_dtype)
+
+
+def _repeat(loader) -> Iterator:
+    """Endless stream over the loader's epochs."""
+    while True:
+        empty = True
+        for batch in loader:
+            empty = False
+            yield batch
+        if empty:
+            raise ValueError("a task loader yielded no batch")
+
+
+@dataclass
+class TaskRuntime:
+    key: str
+    cfg: TaskConfig
+    loader: Any                      # train loader (numpy batches)
+    val_loader: Optional[Any]
+    loss_scale: float
+    mask: Dict[str, bool]            # the task's participation mask
+    step_fn: Callable                # step(model, batch, lr) -> metrics
+    eval_fn: Callable                # per-sample (loss[rows], score[rows])
+    device: Any = "cuda"
+    compute_dtype: str = "float32"
+    grad_accum: int = 1
+    num_iters: int = 0
+    iterator: Iterator = None
+
+    def next_batch(self) -> Dict[str, torch.Tensor]:
+        """The next training batch on the device (the loader restarts at its
+        end). With gradient accumulation, ``grad_accum`` loader batches
+        stacked on a leading axis."""
+        if self.iterator is None:
+            self.iterator = _repeat(self.loader)
+        if self.grad_accum == 1:
+            b = host_batch(next(self.iterator), self.compute_dtype)
+        else:
+            micro = [host_batch(next(self.iterator), self.compute_dtype)
+                     for _ in range(self.grad_accum)]
+            b = {k: torch.stack([m[k] for m in micro]) for k in micro[0]}
+        return to_device(b, self.device)
+
+
+class MultiTaskTrainer:
+    """Round-robin multi-task driver (reference train_tasks.py:510-610) on
+    one device. ``model`` is built from ``seed`` unless ``init_model`` is
+    given; ``from_pretrained`` then loads a local ``.npz`` (the hits whose
+    shapes match: a pretraining checkpoint leaves the task heads at init) or
+    a reference ``.bin``."""
+
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        tasks: Dict[str, TaskConfig],
+        loaders: Dict[str, Any],
+        *,
+        opt_cfg: Optional[OptimizerConfig] = None,
+        train_cfg: Optional[TrainConfig] = None,
+        val_loaders: Optional[Dict[str, Any]] = None,
+        num_labels: int = 3129,
+        init_model: Optional[ViLBERTForVLTasks] = None,
+        seed: int = 0,
+        mesh=None,
+        num_train_epochs: int = 0,
+        model_family: str = "vilbert",
+        from_pretrained: str = "",
+        dropout_prob: float = 0.1,
+        device="cuda",
+    ):
+        if mesh is not None:
+            raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A12)")
+        if model_family != "vilbert":
+            raise NotImplementedError(
+                f"model_family {model_family!r}: the single-stream baseline is not ported "
+                "yet (ROADMAP A11)")
+        self.model_cfg = model_cfg
+        self.model_family = model_family
+        self.device = torch.device(device)
+        self.train_cfg = train_cfg or TrainConfig()
+        self.grad_accum = max(self.train_cfg.gradient_accumulation_steps, 1)
+        val_loaders = val_loaders or {}
+
+        # per-task LR -> base lr + loss scales (train_tasks.py:239-251); the
+        # default optimizer is the reference multi-task AdamW without bias
+        # correction (train_tasks.py:425)
+        base_lr = min(t.lr for t in tasks.values())
+        self.loss_scales = {k: t.lr / base_lr for k, t in tasks.items()}
+        opt_cfg = opt_cfg or OptimizerConfig(correct_bias=False)
+        self.opt_cfg = opt_cfg.__class__(**{**opt_cfg.__dict__, "learning_rate": base_lr})
+
+        # iterations per epoch: the MAX of per-task num_epoch * len(loader) *
+        # multiplier / num_train_epochs (the reference's misnamed
+        # median_num_iter, train_tasks.py:333-352)
+        self.num_train_epochs = num_train_epochs or max(t.num_epoch for t in tasks.values())
+        ave_iters = [
+            int(t.num_epoch * len(loaders[k]) * self.train_cfg.train_iter_multiplier
+                / self.num_train_epochs)
+            for k, t in tasks.items()
+        ]
+        self.median_num_iter = max(ave_iters) // self.grad_accum if ave_iters else 0
+        #: per-task train-loader length (reference task_num_iters), which
+        #: gates the per-task evals (train_tasks.py:583-586)
+        self.task_num_iters = {k: len(loaders[k]) for k in tasks}
+
+        #: draws the initial weights (unless given) and every dropout seed
+        self.generator = torch.Generator().manual_seed(seed)
+        model = init_model or ViLBERTForVLTasks(model_cfg, num_labels=num_labels,
+                                                dropout_prob=dropout_prob,
+                                                generator=self.generator)
+        if from_pretrained:
+            load_pretrained(model, from_pretrained)
+        self.model = model.to(self.device)
+        set_dropout_generator(self.model, self.generator)
+        params = dict(self.model.named_parameters())
+
+        # the schedule is a function of ITERATIONS: the LR advances once per
+        # round-robin iteration while the optimizer steps once per task
+        # (train_tasks.py:541-559); one optimizer, one state for all tasks
+        total_iterations = self.median_num_iter * self.num_train_epochs or 1000
+        self.optimizer, self.schedule = build_optimizer(
+            self.opt_cfg, params, total_iterations,
+            freeze_prefix=self.train_cfg.freeze_prefix, external_lr=True,
+        )
+        self.tasks: Dict[str, TaskRuntime] = {}
+        for key, tcfg in tasks.items():
+            # params outside the task's backward graph (other heads, cls, the
+            # poolers for V-logit) take no moment update or weight decay
+            mask = task_update_mask(params, tcfg.type)
+            self.tasks[key] = TaskRuntime(
+                key=key, cfg=tcfg, loader=loaders[key], val_loader=val_loaders.get(key),
+                loss_scale=self.loss_scales[key], mask=mask,
+                step_fn=make_train_step(
+                    make_task_loss_fn(model_cfg, tcfg), self.optimizer,
+                    loss_scale=self.loss_scales[key], external_lr=True,
+                    grad_accum=self.grad_accum, grad_dtype=self.train_cfg.grad_dtype or None,
+                    update_mask=mask,
+                ),
+                eval_fn=make_task_eval_fn(model_cfg, tcfg),
+                device=self.device, compute_dtype=model_cfg.compute_dtype,
+                grad_accum=self.grad_accum, num_iters=len(loaders[key]),
+            )
+        self.controller = MultiTaskStopController(
+            list(tasks), train_iter_gap=self.train_cfg.train_iter_gap)
+        self.global_step = 0
+        self.epoch = 0
+        self._last_val_scores: Dict[str, float] = {}
+        self.metrics_logger = None  # optional MetricsLogger (attach_logger)
+
+    # -- observability / checkpointing --------------------------------------
+
+    def attach_logger(self, log_dir: str):
+        from vilbert_tpu_torch.train.logger import MetricsLogger
+
+        self.metrics_logger = MetricsLogger(log_dir, list(self.tasks))
+        return self.metrics_logger
+
+    def save_checkpoint(self, step: Optional[int] = None, *, wait: bool = True) -> None:
+        raise NotImplementedError("full-state checkpoints are not ported yet (ROADMAP A6)")
+
+    def restore_checkpoint(self, step: Optional[int] = None,
+                           directory: Optional[str] = None) -> int:
+        raise NotImplementedError("full-state resume is not ported yet (ROADMAP A6)")
+
+    # -- loops --------------------------------------------------------------
+
+    def train_iteration(self, iter_id: int, task_hooks: Optional[list] = None
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """One round-robin pass over the tasks (train_tasks.py:513-570).
+
+        ``task_hooks`` are called as hook(key, model, None) before a task's
+        step and hook(key, model, metrics) after it."""
+        out = {}
+        # the reference's warmup scheduler steps right after the FIRST
+        # trained task's optimizer.step (train_tasks.py:548-556): within
+        # iteration i the first task updates at lambda(i), every later one at
+        # mid_iteration(i)
+        lr_first = float(np.float32(self.schedule(self.global_step)))
+        if hasattr(self.schedule, "mid_iteration"):
+            lr_rest = self.schedule.mid_iteration(self.global_step)
+        else:
+            lr_rest = self.schedule(self.global_step + 1)
+        lr_rest = float(np.float32(lr_rest))
+        first_task = True
+        for key, task in self.tasks.items():
+            if not self.controller.should_train(key, iter_id):
+                continue
+            lr = lr_first if first_task else lr_rest
+            first_task = False
+            batch = task.next_batch()
+            for hook in task_hooks or ():
+                hook(key, self.model, None)
+            metrics = task.step_fn(self.model, batch, lr)
+            for hook in task_hooks or ():
+                hook(key, self.model, metrics)
+            out[key] = metrics
+        if self.metrics_logger is not None:
+            for key, m in out.items():
+                self.metrics_logger.step_train(
+                    self.global_step, key, float(m["loss"]), float(m["score"]),
+                    lr=float(self.schedule(self.global_step)))
+        if out:
+            # global_step (and the warmup clock) advance only when a task ran
+            # (train_tasks.py:543-559)
+            self.global_step += 1
+        return out
+
+    def evaluate(self, key: str, max_batches: Optional[int] = None) -> Dict[str, float]:
+        """Val pass for one task, feeding the stop controller
+        (train_tasks.py:639-668). Final ragged batches are padded to the
+        loader's batch size and the metrics are sample-weighted means over
+        the valid rows."""
+        from vilbert_tpu_torch.data.tasks import pad_batch
+
+        task = self.tasks[key]
+        if task.val_loader is None:
+            raise ValueError(f"no val loader for {key}")
+        full_bs = getattr(task.val_loader, "batch_size", 0)
+        tot_loss = tot_score = 0.0
+        n_rows = 0
+        for i, batch in enumerate(task.val_loader):
+            if max_batches and i >= max_batches:
+                break
+            batch = {k: v for k, v in batch.items() if k not in HOST_ONLY_KEYS}
+            bsz = int(np.shape(batch["features"])[0])
+            if full_bs:
+                batch, _ = pad_batch(batch, full_bs)
+            dev = to_device(host_batch(batch, self.model_cfg.compute_dtype), self.device)
+            loss_v, score_v = (t.cpu().numpy() for t in task.eval_fn(self.model, dev))
+            # rows per sample > 1 for dialog (target flattened to B*rounds)
+            rows_per_sample = loss_v.shape[0] // max(full_bs or bsz, 1)
+            valid = bsz * max(rows_per_sample, 1)
+            tot_loss += float(loss_v[:valid].sum())
+            tot_score += float(score_v[:valid].sum())
+            n_rows += valid
+        result = {"loss": tot_loss / max(n_rows, 1), "score": tot_score / max(n_rows, 1)}
+        self._last_val_scores[key] = result["score"]
+        self.controller.step(key, result["score"])
+        if self.metrics_logger is not None:
+            self.metrics_logger.step_val(self.global_step, key, result["loss"], result["score"])
+        return result
+
+    def _eval_due(self, epoch: int, it: int, num_epochs: int, key: str) -> bool:
+        """Reference eval cadence (train_tasks.py:583-599): task ``key`` is
+        evaluated after each reference iterId that is a nonzero multiple of
+        its loader length, and at the last step of the last epoch. One of
+        these iterations covers ``grad_accum`` reference iterIds, aligned on
+        parameter state (see the JAX ``_eval_due``)."""
+        n = self.task_num_iters.get(key, 0)
+        ga = self.grad_accum
+        lo = (epoch * self.median_num_iter + it) * ga + ga - 1
+        hi = lo + ga
+        wrapped = n > 0 and (hi - 1) // n > (max(lo, 1) - 1) // n
+        last = epoch == num_epochs - 1 and it == self.median_num_iter - 1
+        return wrapped or last
+
+    def train(
+        self,
+        num_epochs: int = 0,
+        *,
+        eval_cadence: str = "reference",
+        lr_drop_epochs: Tuple[int, ...] = (5, 7),
+        log_every: int = 20,
+        hooks: Optional[list] = None,
+        task_hooks: Optional[list] = None,
+        max_iterations: int = 0,
+    ) -> ViLBERTForVLTasks:
+        """Run the multi-task loop; returns the model.
+
+        ``eval_cadence``: "reference" evaluates a task each time it wraps
+        its loader (train_tasks.py:583-586), "epoch" every task at every
+        epoch end. ``hooks`` are called as hook(epoch, it, trainer, metrics)
+        after every iteration, ``task_hooks`` as in ``train_iteration``.
+        ``max_iterations`` > 0 stops after that many iterations, without the
+        rest of the epoch and its end-of-epoch transitions."""
+        if eval_cadence not in ("reference", "epoch"):
+            raise ValueError(eval_cadence)
+        num_epochs = num_epochs or self.num_train_epochs
+        done = 0
+        for epoch in range(self.epoch, num_epochs):
+            self.epoch = epoch
+            t0 = time.perf_counter()
+            for it in range(self.median_num_iter):
+                # stopped tasks are gated on the GLOBAL iterId
+                # (train_tasks.py:514-521)
+                metrics = self.train_iteration(epoch * self.median_num_iter + it, task_hooks)
+                if log_every and (it + 1) % log_every == 0:
+                    host = {k: float(m["loss"]) for k, m in metrics.items()}
+                    bad = [k for k, v in host.items() if not math.isfinite(v)]
+                    if bad:
+                        raise FloatingPointError(
+                            f"non-finite loss at epoch {epoch} it {it + 1} for tasks {bad}")
+                    logger.info("epoch %d it %d %s", epoch, it + 1, " ".join(
+                        f"{k}:{host[k]:.3f}/{float(m['score']):.3f}"
+                        for k, m in metrics.items()))
+                if eval_cadence == "reference":
+                    for key, task in self.tasks.items():
+                        if task.val_loader is not None and self._eval_due(
+                                epoch, it, num_epochs, key):
+                            r = self.evaluate(key)
+                            logger.info("epoch %d it %d eval %s loss %.4f score %.4f "
+                                        "in_stop=%s", epoch, it, key, r["loss"], r["score"],
+                                        self.controller.controllers[key].in_stop)
+                for hook in hooks or ():
+                    hook(epoch, it, self, metrics)
+                done += 1
+                if max_iterations and done >= max_iterations:
+                    return self.model
+            if eval_cadence == "epoch":
+                for key, task in self.tasks.items():
+                    if task.val_loader is not None:
+                        r = self.evaluate(key)
+                        logger.info("epoch %d eval %s loss %.4f score %.4f in_stop=%s",
+                                    epoch, key, r["loss"], r["score"],
+                                    self.controller.controllers[key].in_stop)
+            # epoch-level LR transition (mannul x0.2 at {5, 7}, automatic
+            # ReduceLROnPlateau on the summed val scores, train_tasks.py:595-605)
+            if hasattr(self.schedule, "on_epoch_end"):
+                self.schedule.on_epoch_end(
+                    epoch, sum(self._last_val_scores.values()) if self._last_val_scores
+                    else None)
+            if epoch in lr_drop_epochs:
+                # the reference resets every stop controller on the LR-drop
+                # epochs (train_tasks.py:607-610)
+                self.controller.reset_all()
+            if self.train_cfg.checkpoint_every:
+                self.save_checkpoint(wait=False)
+            logger.info("epoch %d done in %.1fs", epoch, time.perf_counter() - t0)
+        return self.model
+
+
+def load_pretrained(model: ViLBERTForVLTasks, path: str) -> None:
+    """Weights from a local ``.npz`` (flat, keyed by flax path: the hits whose
+    shapes match are loaded, the rest kept at init) or a reference torch
+    checkpoint (through the importer's key migration) into ``model``."""
+    from vilbert_tpu_torch.core.importer import _flatten, _unflatten
+    from vilbert_tpu_torch.core.weights import (
+        flax_from_state_dict,
+        load_params_npz,
+        load_weights,
+        state_dict_from_flax,
+    )
+
+    if os.path.splitext(path)[1] != ".npz":
+        load_weights(model, path)
+        return
+    keys = list(model.state_dict().keys())
+    flat = _flatten(flax_from_state_dict(model.state_dict()))
+    loaded = _flatten(load_params_npz(path))
+    hits = {k: v for k, v in loaded.items() if k in flat and np.shape(v) == np.shape(flat[k])}
+    flat.update(hits)
+    model.load_state_dict(state_dict_from_flax(_unflatten(flat), keys))
+    logger.info("from_pretrained %s: %d/%d params loaded", path, len(hits), len(flat))
