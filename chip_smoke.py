@@ -17,11 +17,15 @@ recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task tokens).
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, at the paths' shapes, the edges of its range and the tiling edges
    of the tensor-core variants (Sq or Sk of 1, 16, 17, 65, 128), with each
-   call's variant checked on its counter (bf16 at Sk <= 128 on the tensor
-   cores, fp32 and bf16 at Sk > 128 on the CUDA cores), a stride-0 batch
-   and a misaligned operand (refused); K2's long-sequence variants (Sq or
-   Sk above 128: bf16 on the tensor cores, fp32 on the CUDA cores) at
-   their tiling edges 129, 200, 257, 306 and 512. Forward
+   call's variant checked on its counter (K1: bf16 at Sk <= 128 on "tc",
+   bf16 at Sk > 128 on "long_tc", fp32 on "cc"), a stride-0 batch and a
+   misaligned operand (refused); the long K1's tiling edges (Sq of 1, 16,
+   17, 65, 128, 129, 200, 257, 306, 512 against Sk of 129, 192, 200, 257,
+   306, 512: partial key tiles of 64 and partial query blocks, a fully
+   padded row) at rates 0 and 0.1 and a stride-0 batch k, v at Sk = 200;
+   K2's long-sequence variants (Sq or Sk above 128: bf16 on the tensor
+   cores, fp32 on the CUDA cores) at their tiling edges 129, 200, 257, 306
+   and 512. Forward
    (K1 at rate 0 and 0.1, K4): fp32 1e-4 absolute (1e-3 on a row whose keys are all padded), bf16
    2^-7 * max|ref| plus one bf16 ulp. Backward (K2 at rate 0 and 0.1): fp32
    1e-4 * max|ref|, bf16 as the forward. The K3 entry
@@ -32,12 +36,14 @@ recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task tokens).
    through the kernels and through the plain ops, fp32 logits within 1e-3
    and bf16 logits finite and within 5e-2;
 5. VQA timing: eval questions/s of the forward at B=1024 in bf16 (kernels
-   and plain ops); at the four attention shapes and the two LayerNorm
-   widths, each kernel against its plain version and a PyTorch library
-   call (``scaled_dot_product_attention``; ``F.layer_norm`` on the
-   pre-added sum, a reference point since it takes no residual) with the
-   kernel's bound; the CUDA-core K1 beside the tensor-core one at image
-   self-attention;
+   and plain ops); at the four attention shapes and the LayerNorm shapes
+   of the three paths (VQA text and image, the CC step's text and image,
+   Visual7w's image and GuessWhatPointing's text), each kernel against its
+   plain version and a PyTorch library call computing the same function
+   (``scaled_dot_product_attention``; ``F.layer_norm(x + residual)``, the
+   add inside the timed call) with the kernel's bound; the CUDA-core K1 and
+   the long tensor-core K1 beside the tensor-core one at image
+   self-attention (the long one also checked against the plain version);
 6. training slice: ``train`` (the train CLI's function) on the synthetic CC
    loader at B=256, T=36, R=37, bf16, dropout 0.1 at every site, for a few
    steps, with the counters reset just before and read just after: finite
@@ -58,7 +64,7 @@ recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task tokens).
    mode's layout, bf16, dropout 0.1 at every site, the ``mannul`` schedule,
    for two round-robin iterations, then ``evaluate`` of one batch per task;
    counters reset just before and read just after: K1 30 a forward
-   (tensor cores at Sk <= 128, CUDA cores above), K2 30 a step (28 for
+   ("tc" at Sk <= 128, "long_tc" above, none on "cc"), K2 30 a step (28 for
    the V-logit tasks, whose loss reads the image stream only; tensor cores
    at Sq, Sk <= 128, the long tensor-core variant above), K4 as the config
    says;
@@ -69,16 +75,17 @@ recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task tokens).
    weights with the same masks: losses within 1e-5 and every gradient
    within phase 6's bounds (an Adam update amplifies gradients' rounding
    where they are near eps, so the parameters after a step are not held
-   to these bounds);
+   to these bounds); every fp32 K1 launch of that iteration on "cc";
 9. multi-task timing: each task's step (device-synced, one batch held on
    the card), one iteration through the host loader, peak memory; K1 and
    K2 at the Visual7w and GuessWhatPointing attention shapes against their
-   plain versions (outputs within phase 3's bounds, at rates 0 and 0.1),
-   SDPA and their bounds; the long K2 on the CUDA cores beside the
-   tensor-core one.
+   plain versions (outputs within phase 3's bounds, at rates 0 and 0.1,
+   each call on its variant's counter), SDPA and their bounds; the
+   CUDA-core K1 (checked too) and the long K2 on the CUDA cores beside the
+   tensor-core ones.
 
 Times: a kernel's ``ms`` (and its plain version's, the library call's,
-the CUDA-core variant's) is device time, calls run back to back behind a
+another variant's) is device time, calls run back to back behind a
 spin kernel that lets the host enqueue them all first (``device_ms``);
 ``wall_ms`` is CUDA-event time per call with the host's launch gaps, which
 at the CC shapes reads the host's enqueue rate more than the kernel.
@@ -268,13 +275,19 @@ def library_attention_fns(q, k, v, bias, cot, heads, d) -> dict:
     return {"library": fwd, "library_fwd_bwd": fwd_bwd}
 
 
+#: other kernel variants a timed row may carry beside the routed one, as
+#: ``<variant>_ms``
+OTHER_VARIANTS = ("cc", "long_tc")
+
+
 def timed_row(fns: dict, kernel: str, plain: str, nbytes: float, flops: float, peak: float,
-              *, library=None, cc=None, iters: int = 20) -> dict:
+              *, library=None, iters: int = 20) -> dict:
     """One kernel at one shape: device times (``device_ms``, ``iters``
-    calls) of the kernel, its plain version, the library call and the
-    CUDA-core variant where given; wall times of kernel and plain by CUDA
-    events, alternated; the bound. ``library`` names an entry of ``fns`` or
-    is a callable of the device times (a difference of two of them)."""
+    calls) of the kernel, its plain version, the library call and the other
+    variants (entries of ``fns`` named in OTHER_VARIANTS) where given; wall
+    times of kernel and plain by CUDA events, alternated; the bound.
+    ``library`` names an entry of ``fns`` or is a callable of the device
+    times (a difference of two of them)."""
     dev = device_ms(fns, iters)
     wall = alternate(fns[kernel], fns[plain], iters * 5 // 2)
     b_ms, b_by = bound(nbytes, flops, peak)
@@ -282,18 +295,19 @@ def timed_row(fns: dict, kernel: str, plain: str, nbytes: float, flops: float, p
                bound_ms=b_ms, bound_by=b_by,
                library_ms=None if library is None else
                library(dev) if callable(library) else dev[library])
-    if cc is not None:
-        row["cc_ms"] = dev[cc]
+    for variant in OTHER_VARIANTS:
+        if variant in fns:
+            row[f"{variant}_ms"] = dev[variant]
     return row
 
 
 def row_text(row: dict) -> str:
     lib = f", library {row['library_ms']:.4f}" if row["library_ms"] is not None else ""
-    cc = (f"; CUDA-core variant {row['cc_ms']:.4f} ({row['cc_ms'] / row['ms']:.2f}x)"
-          if "cc_ms" in row else "")
+    others = "".join(f"; variant {v} {row[v + '_ms']:.4f} ({row[v + '_ms'] / row['ms']:.2f}x)"
+                     for v in OTHER_VARIANTS if v + "_ms" in row)
     return (f"device ms: kernel {row['ms']:.4f}, plain {row['plain_ms']:.4f}{lib}, bound "
             f"{row['bound_ms']:.4f} ({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%} of it)"
-            f"{cc}; wall ms: kernel {row['wall_ms']:.4f}, plain {row['plain_wall_ms']:.4f}")
+            f"{others}; wall ms: kernel {row['wall_ms']:.4f}, plain {row['plain_wall_ms']:.4f}")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -304,8 +318,8 @@ TILE_EDGE_CASES = [
     (8, 128, 17, 65), (8, 128, 65, 17), (12, 64, 1, 128), (8, 128, 128, 128), (12, 64, 16, 16),
 ]
 #: the slice's four kinds of attention (also at T=24, with
-#: --task_specific_tokens), Sk=1, 128 < Sk <= 512 (the CUDA-core variant in
-#: bf16) and the tiling edges
+#: --task_specific_tokens), Sk=1, 128 < Sk <= 512 (the long tensor-core
+#: variant in bf16) and the tiling edges
 ATTENTION_CASES = [
     (12, 64, 23, 23), (12, 64, 24, 24), (8, 128, 101, 101), (8, 128, 23, 101),
     (8, 128, 101, 23), (8, 128, 24, 101), (8, 128, 101, 24), (8, 128, 23, 1),
@@ -317,6 +331,14 @@ LONG_EDGE_CASES = [
     (8, 128, 129, 129), (8, 128, 200, 21), (8, 128, 21, 200), (12, 64, 257, 257),
     (8, 128, 306, 306), (8, 128, 257, 306), (8, 128, 306, 257), (12, 64, 512, 512),
     (8, 128, 1, 512), (12, 64, 512, 1),
+]
+#: the long K1's tiling edges (key tiles of 64, blocks of at most 128 query
+#: rows evened out): every Sq of 1, 16, 17, 65, 128, 129, 200, 257, 306,
+#: 512 and every Sk of 129, 192, 200, 257, 306, 512, at both head widths
+LONG_FWD_EDGE_CASES = [
+    (8, 128, 1, 129), (12, 64, 16, 192), (8, 128, 17, 200), (12, 64, 65, 257),
+    (8, 128, 128, 306), (8, 128, 129, 512), (12, 64, 200, 129), (8, 128, 257, 192),
+    (8, 128, 306, 200), (12, 64, 512, 306), (8, 128, 512, 512),
 ]
 #: the CC step's four attentions (text self, image self, text->image,
 #: image->text), Sk=1, Sq=Sk=128 at d=64, the tiling edges and the long K2's
@@ -383,8 +405,8 @@ def _bwd_errors(got, want, dtype) -> tuple:
 
 
 def track_error(err: dict, kernel: str, variant: str, e: float) -> None:
-    """Keep the largest error of a kernel, and of its CUDA-core K1 past 128
-    keys and long K2 on the tensor cores on their own."""
+    """Keep the largest error of a kernel, and of K1's long tensor-core and
+    CUDA-core variants and K2's long tensor-core variant on their own."""
     err[kernel] = max(err[kernel], e)
     own = f"{kernel}_{variant}"
     if own in err:
@@ -459,10 +481,11 @@ def phase_kernels(checks: Checks) -> dict:
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     dev = DEVICE
-    # the CUDA-core K1 past 128 keys and the long tensor-core K2 also on
-    # their own
+    # K1's long tensor-core and CUDA-core variants and the long tensor-core
+    # K2 also on their own
     err = {"attention_fwd": 0.0, "attention_bwd": 0.0, "fused_attention": 0.0,
-           "layer_norm_fwd": 0.0, "attention_fwd_cc": 0.0, "attention_bwd_long_tc": 0.0}
+           "layer_norm_fwd": 0.0, "attention_fwd_long_tc": 0.0, "attention_fwd_cc": 0.0,
+           "attention_bwd_long_tc": 0.0}
     B = 8
     for heads, d, sq, sk in ATTENTION_CASES:
         hd = heads * d
@@ -485,25 +508,42 @@ def phase_kernels(checks: Checks) -> dict:
             checks.expect(e <= bound and on_variant,
                           f"attention h={heads} d={d} Sq={sq} Sk={sk} {str(dtype)[6:]} "
                           f"[{variant}]: max|err| {e:.3e} <= {bound:.3e}")
+    # the long tensor-core K1's tiling edges, at rates 0 and 0.1
+    for heads, d, sq, sk in LONG_FWD_EDGE_CASES:
+        q, k, v, _, bias = _attention_operands(g, B, heads, d, sq, sk, torch.bfloat16)
+        for rate in (0.0, 0.1):
+            kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
+            got, on_variant = counted(attention, "long_tc", lambda: attention(q, k, v, bias, **kw))
+            want = attention_ref(q, k, v, bias, **kw)
+            torch.cuda.synchronize()
+            e, bound, ok = _fwd_error(got, want, "bfloat16")
+            track_error(err, "attention_fwd", "long_tc", e)
+            checks.expect(ok and on_variant, f"attention h={heads} d={d} Sq={sq} Sk={sk} bf16 "
+                                             f"rate {rate} [long_tc]: max|err| {e:.3e} <= "
+                                             f"{bound:.3e}")
     # retrieval's fast_mode broadcasts one text over the batch: a stride-0
-    # batch in k and v reaches the tensor-core kernel as it is
-    q = torch.randn(B, 23, 768, generator=g, device=dev).bfloat16()
-    kv = torch.randn(1, 30, 768, generator=g, device=dev).bfloat16().expand(B, 30, 768)
-    got, on_variant = counted(attention, "tc", lambda: attention(q, kv, kv, None, num_heads=12))
-    want = attention_ref(q, kv, kv, None, num_heads=12)
-    e, bound = float((got.float() - want.float()).abs().max()), bf16_bound(want.float())
-    err["attention_fwd"] = max(err["attention_fwd"], e)
-    checks.expect(e <= bound and on_variant,
-                  f"attention stride-0 batch k, v bf16 [tc]: max|err| {e:.3e} <= {bound:.3e}")
+    # batch in k and v reaches the tensor-core kernels as it is
+    for sk, variant in ((30, "tc"), (200, "long_tc")):
+        q = torch.randn(B, 23, 768, generator=g, device=dev).bfloat16()
+        kv = torch.randn(1, sk, 768, generator=g, device=dev).bfloat16().expand(B, sk, 768)
+        got, on_variant = counted(attention, variant,
+                                  lambda: attention(q, kv, kv, None, num_heads=12))
+        want = attention_ref(q, kv, kv, None, num_heads=12)
+        e, bound = float((got.float() - want.float()).abs().max()), bf16_bound(want.float())
+        track_error(err, "attention_fwd", variant, e)
+        checks.expect(e <= bound and on_variant, f"attention stride-0 batch k, v Sk={sk} bf16 "
+                                                 f"[{variant}]: max|err| {e:.3e} <= {bound:.3e}")
     # the tensor-core kernels copy 16-byte chunks: a row that starts 2 bytes
     # off is refused, not sent elsewhere
-    wide = torch.randn(B, 23, 769, generator=g, device=dev).bfloat16()
-    try:
-        attention(wide[..., 1:], wide[..., 1:], wide[..., 1:], None, num_heads=12)
-        refused = False
-    except ValueError:
-        refused = True
-    checks.expect(refused, "attention refuses a bf16 operand that is not 16-byte aligned")
+    for sk in (23, 200):
+        wide = torch.randn(B, sk, 769, generator=g, device=dev).bfloat16()
+        try:
+            attention(wide[:, :23, 1:], wide[..., 1:], wide[..., 1:], None, num_heads=12)
+            refused = False
+        except ValueError:
+            refused = True
+        checks.expect(refused, f"attention refuses a bf16 operand that is not 16-byte aligned "
+                               f"[{fwd_variant(torch.bfloat16, sk)}]")
     for h in LN_WIDTHS:
         w = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
         b = 0.1 * torch.randn(h, generator=g, device=dev)
@@ -742,7 +782,23 @@ def phase_slice(checks: Checks) -> tuple:
 
 # -- phase 5 -----------------------------------------------------------------
 
-def phase_timing(model, cfg, card: str) -> dict:
+#: (label, rows, H, dtype name, residual) of K4's timed shapes: the VQA
+#: forward's (B=1024), the CC step's text and image (B=256, T=36, R=37) and
+#: the multi-task iteration's largest, Visual7w's image (B=256, R=200) and
+#: GuessWhatPointing's text (B=64, 256+1 tokens)
+LN_SHAPES = (
+    ("text", TIME_BATCH * T, 768, "bfloat16", True),
+    ("image", TIME_BATCH * R, 1024, "bfloat16", True),
+    ("classifier", TIME_BATCH, 2048, "bfloat16", False),
+    ("text embedding", TIME_BATCH * T, 768, "float32", False),
+    ("CC text", TRAIN_BATCH * TRAIN_T, 768, "bfloat16", True),
+    ("CC image", TRAIN_BATCH * TRAIN_R, 1024, "bfloat16", True),
+    ("Visual7w image", 256 * 200, 1024, "bfloat16", True),
+    ("GuessWhatPointing text", 64 * 257, 768, "bfloat16", True),
+)
+
+
+def phase_timing(checks: Checks, model, cfg, card: str, err: dict) -> dict:
     import torch
 
     import torch.nn.functional as F
@@ -773,34 +829,40 @@ def phase_timing(model, cfg, card: str) -> dict:
         fns = {"kernel": lambda: attention(q, k, v, bias, num_heads=heads),
                "plain": lambda: attention_ref(q, k, v, bias, num_heads=heads),
                "library": library_attention_fns(q, k, v, bias, cot, heads, d)["library"]}
-        if label == "image self":  # the CUDA-core variant beside the tensor-core one
+        if label == "image self":  # the other variants beside the tensor-core one
             fns["cc"] = lambda: attention_kernel(q, k, v, bias, num_heads=heads, variant="cc")
+            fns["long_tc"] = lambda: attention_kernel(q, k, v, bias, num_heads=heads,
+                                                      variant="long_tc")
+            with torch.inference_mode():
+                e, bnd, ok = _fwd_error(fns["long_tc"](), fns["plain"](), "bfloat16")
+            track_error(err, "attention_fwd", "long_tc", e)
+            checks.expect(ok, f"attention {label} B={B} bf16 [long_tc, named]: max|err| "
+                              f"{e:.3e} <= {bnd:.3e}")
         row = timed_row(fns, "kernel", "plain", *attention_cost(B, heads, d, sq, sk)["fwd"],
-                        BF16_TC_FLOPS, library="library", cc="cc" if "cc" in fns else None)
+                        BF16_TC_FLOPS, library="library")
         times[("attention_fwd", "VQA " + label, 0.0)] = row
         log(f"  attention {label} B={B} h={heads} d={d} {sq}x{sk} bf16 rate 0 (library: SDPA): "
             f"{row_text(row)} [{card}]")
-    for label, rows, h, dtype, with_res in (("text", B * T, 768, torch.bfloat16, True),
-                                            ("image", B * R, 1024, torch.bfloat16, True),
-                                            ("classifier", B, 2048, torch.bfloat16, False),
-                                            ("text embedding", B * T, 768, torch.float32, False)):
+    for label, rows, h, dtype_name, with_res in LN_SHAPES:
+        dtype = getattr(torch, dtype_name)
         xx = torch.randn(rows, h, generator=g, device=DEVICE).to(dtype)
         res = torch.randn(rows, h, generator=g, device=DEVICE).to(dtype) if with_res else None
         w = torch.ones(h, device=DEVICE)
         b = torch.zeros(h, device=DEVICE)
-        # F.layer_norm on the pre-added sum: a reference point, not the same
-        # function (no residual to read)
-        summed = xx + res if with_res else xx
+        # the same function in PyTorch: the residual add inside the timed call
         wl, bl = w.to(dtype), b.to(dtype)
         fns = {"kernel": lambda: layer_norm(xx, w, b, residual=res),
                "plain": lambda: layer_norm_ref(xx, w, b, residual=res),
-               "library": lambda: F.layer_norm(summed, (h,), wl, bl, 1e-12)}
+               "library": lambda: F.layer_norm(xx + res if with_res else xx, (h,), wl, bl,
+                                               1e-12)}
         elt = xx.element_size()
         row = timed_row(fns, "kernel", "plain", elt * rows * h * (3 if with_res else 2) + 8 * h,
                         8 * rows * h, FP32_FLOPS, library="library")
         times[("layer_norm", label)] = row
         log(f"  layer_norm {label} rows={rows} H={h} residual={with_res} {str(dtype)[6:]} "
-            f"(library: F.layer_norm on the sum): {row_text(row)} [{card}]")
+            f"(library: F.layer_norm(x{' + residual' if with_res else ''})): {row_text(row)} "
+            f"[{card}]")
+    checks.end_phase("timing")
     return times
 
 
@@ -996,12 +1058,10 @@ def phase_train_timing(checks: Checks, state, args, card: str, err: dict) -> dic
             with torch.inference_mode():
                 fwd_lib = {"library": lib["library"]} if lib else {}
                 rows = {"fwd": timed_row({**fwd, **fwd_lib}, "kernel", "plain", *cost["fwd"],
-                                         BF16_TC_FLOPS, library="library" if lib else None,
-                                         cc="cc" if "cc" in fwd else None)}
+                                         BF16_TC_FLOPS, library="library" if lib else None)}
             rows["bwd"] = timed_row(
                 {**bwd, **lib}, "kernel", "plain", *cost["bwd"], BF16_TC_FLOPS,
-                library=(lambda dev: dev["library_fwd_bwd"] - dev["library"]) if lib else None,
-                cc="cc" if "cc" in bwd else None)
+                library=(lambda dev: dev["library_fwd_bwd"] - dev["library"]) if lib else None)
             for kind, row in rows.items():
                 times[(f"attention_{kind}", "CC " + label, rate)] = row
                 log(f"  CC attention {kind} {label} B={B} h={heads} d={d} {sq}x{sk} bf16 rate "
@@ -1120,7 +1180,8 @@ def task_geometry(task, cfg) -> tuple:
 def multitask_launches(tasks: dict, cfg, steps: int, evals: int) -> dict:
     """Launch counts of ``steps`` training steps and ``evals`` eval forwards
     of every task: K1 30 a forward (text self x12, image self x6, both
-    co-attention directions x6), on the tensor cores where Sk <= 128; K2
+    co-attention directions x6), on "tc" where Sk <= 128, on "long_tc"
+    above (bf16: none on the CUDA cores); K2
     once for each attention the loss reaches, on the tensor cores where
     Sq, Sk <= 128, else the long tensor-core variant: 30 a step, 28 for the V-logit
     types, whose loss reads the image stream only (the text layers after
@@ -1144,7 +1205,7 @@ def multitask_launches(tasks: dict, cfg, steps: int, evals: int) -> dict:
         fwd = steps + evals
         out["attention"] += fwd * len(shapes)
         out["attention_tc"] += fwd * sum(sk <= 128 for _, sk in shapes)
-        out["attention_cc"] += fwd * sum(sk > 128 for _, sk in shapes)
+        out["attention_long_tc"] += fwd * sum(sk > 128 for _, sk in shapes)
         out["attention_bwd"] += steps * len(bwd)
         out["attention_bwd_tc"] += steps * sum(max(s) <= 128 for s in bwd)
         out["attention_bwd_long_tc"] += steps * sum(max(s) > 128 for s in bwd)
@@ -1236,10 +1297,16 @@ def phase_multitask(checks: Checks, tmp: str) -> tuple:
 
     # one fp32 iteration with dropout, kernels vs plain ops, full geometry
     t0 = time.time()
+    reset_launches()
     result = multitask_fp32_steps(trainer, tasks)
+    torch.cuda.synchronize()
+    fp32_launches = read_launches()
     log("  fp32 steps (kernels / plain loss, worst gradient at its bound): " + ", ".join(
         f"{k} {lk:.6f}/{lp:.6f} {w:.2e}" for k, (lk, lp, w) in result.items())
-        + f" in {time.time() - t0:.1f} s")
+        + f" in {time.time() - t0:.1f} s; launches {fp32_launches}")
+    checks.expect(fp32_launches["attention_cc"] == fp32_launches["attention"] > 0,
+                  f"fp32 K1 launches {fp32_launches['attention']} all on the CUDA-core variant "
+                  f"({fp32_launches['attention_cc']})")
     loss_err = max(abs(lk - lp) / max(abs(lp), 1e-30) for lk, lp, _ in result.values())
     worst = max(w for _, _, w in result.values())
     checks.expect(len(result) == len(tasks) and all(
@@ -1247,7 +1314,7 @@ def phase_multitask(checks: Checks, tmp: str) -> tuple:
         f"B={MT_CHECK_BATCH} a task fp32 iteration with dropout, kernels vs plain ops: worst "
         f"loss rel {loss_err:.3e} (<= 1e-5), worst gradient at {worst:.3e} of its bound (<= 1)")
     checks.end_phase("multi-task fp32 check")
-    return trainer, launches, peak_gb
+    return trainer, launches, fp32_launches, peak_gb
 
 
 def multitask_fp32_steps(trainer, tasks) -> dict:
@@ -1320,10 +1387,12 @@ def phase_multitask_timing(checks: Checks, trainer, card: str, err: dict) -> dic
     import torch
 
     from vilbert_tpu_torch.ops.attention import (
+        TC_MAX_SEQ,
         attention,
         attention_bwd,
         attention_bwd_kernel,
         attention_bwd_ref,
+        attention_kernel,
         attention_ref,
         bwd_variant,
         fwd_variant,
@@ -1370,21 +1439,33 @@ def phase_multitask_timing(checks: Checks, trainer, card: str, err: dict) -> dic
         mask[:, sk - sk // 4:] = 0
         b = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
         cost = attention_cost(B, heads, d, sq, sk)
+        fv, bv = fwd_variant(torch.bfloat16, sk), bwd_variant(torch.bfloat16, sq, sk)
         for rate in (0.0, 0.1):
             kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
             with torch.inference_mode():
-                e, bnd, ok = _fwd_error(attention(q, k, v, b, **kw),
-                                        attention_ref(q, k, v, b, **kw), "bfloat16")
-                eb, okb = _bwd_errors(attention_bwd(q, k, v, b, cot, **kw),
-                                      attention_bwd_ref(q, k, v, b, cot, **kw), "bfloat16")
-            track_error(err, "attention_fwd", fwd_variant(torch.bfloat16, sk), e)
-            track_error(err, "attention_bwd", bwd_variant(torch.bfloat16, sq, sk), eb)
-            checks.expect(ok and okb, f"{label} B={B} bf16 rate {rate}: fwd max|err| {e:.3e} "
-                                      f"(<= {bnd:.3e}), bwd max|err| {eb:.3e}")
+                want = attention_ref(q, k, v, b, **kw)
+                got, on_fv = counted(attention, fv, lambda: attention(q, k, v, b, **kw))
+                e, bnd, ok = _fwd_error(got, want, "bfloat16")
+                got, on_bv = counted(attention_bwd, bv,
+                                     lambda: attention_bwd(q, k, v, b, cot, **kw))
+                eb, okb = _bwd_errors(got, attention_bwd_ref(q, k, v, b, cot, **kw), "bfloat16")
+                if sk > TC_MAX_SEQ:  # the CUDA-core K1 it replaces, on the same inputs
+                    ec, _, okc = _fwd_error(
+                        attention_kernel(q, k, v, b, variant="cc", **kw), want, "bfloat16")
+                    track_error(err, "attention_fwd", "cc", ec)
+                    checks.expect(okc, f"{label} B={B} bf16 rate {rate} [cc, named]: fwd "
+                                       f"max|err| {ec:.3e} (<= {bnd:.3e})")
+            track_error(err, "attention_fwd", fv, e)
+            track_error(err, "attention_bwd", bv, eb)
+            checks.expect(ok and okb and on_fv and on_bv,
+                          f"{label} B={B} bf16 rate {rate} [{fv}, {bv}]: fwd max|err| {e:.3e} "
+                          f"(<= {bnd:.3e}), bwd max|err| {eb:.3e}")
         kw = dict(num_heads=heads)
         lib = library_attention_fns(q, k, v, b, cot, heads, d)
         fwd = {"kernel": lambda: attention(q, k, v, b, **kw),
                "plain": lambda: attention_ref(q, k, v, b, **kw), "library": lib["library"]}
+        if sk > TC_MAX_SEQ:  # the CUDA-core K1 beside the long tensor-core one
+            fwd["cc"] = lambda: attention_kernel(q, k, v, b, variant="cc", **kw)
         # the long K2 on the CUDA cores beside the tensor-core one
         bwd = {"kernel": lambda: attention_bwd(q, k, v, b, cot, **kw),
                "plain": lambda: attention_bwd_ref(q, k, v, b, cot, **kw),
@@ -1394,9 +1475,8 @@ def phase_multitask_timing(checks: Checks, trainer, card: str, err: dict) -> dic
                                      library="library", iters=5)}
         rows["bwd"] = timed_row(bwd, "kernel", "plain", *cost["bwd"], BF16_TC_FLOPS,
                                 library=lambda dev: dev["library_fwd_bwd"] - dev["library"],
-                                cc="cc", iters=5)
-        rows["fwd"]["variant"] = fwd_variant(torch.bfloat16, sk)
-        rows["bwd"]["variant"] = bwd_variant(torch.bfloat16, sq, sk)
+                                iters=5)
+        rows["fwd"]["variant"], rows["bwd"]["variant"] = fv, bv
         for kind, row in rows.items():
             times[(f"attention_{kind}", label, 0.0)] = row
             log(f"  attention {kind} {label} B={B} h={heads} d={d} {sq}x{sk} bf16 rate 0 "
@@ -1406,36 +1486,42 @@ def phase_multitask_timing(checks: Checks, trainer, card: str, err: dict) -> dic
 
 
 def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: dict,
-                  mt_launches: dict) -> list:
+                  mt_launches: dict, fp32_launches: dict) -> list:
     """The kernels line. Each kernel's numbers (device ms, ``device_ms``;
     ``wall_ms`` with the host's gaps) at its headline shape: K1 at VQA image
     self-attention, where it costs most; K2 at CC image self-attention;
     both at rate 0, where SDPA computes the same function; K4 at the VQA
-    image LayerNorm; K1 past 128 keys (the CUDA-core variant) and K2's long
-    tensor-core variant at Visual7w image self-attention. Every main-path shape under
-    ``shapes``; launches in the VQA eval run, the CC training run and the
-    multi-task run under ``launches_by_path``, and ``launches`` of the path
-    the headline shape belongs to."""
+    image LayerNorm; K1 past 128 keys (the long tensor-core variant, with
+    the CUDA-core one it replaces on bf16 as ``cc_ms``) and K2's long
+    tensor-core variant at Visual7w image self-attention. Every main-path
+    shape under ``shapes``; launches in the VQA eval run, the CC training
+    run and the multi-task run under ``launches_by_path``, and ``launches``
+    of the path the headline shape belongs to. The CUDA-core K1, which the
+    bf16 paths no longer launch, reports its launches in phase 8's fp32
+    iteration through the kernels and its times at the long shapes."""
     long_labels = tuple(label for label, *_ in MT_ATTENTIONS)
 
-    def entry(name, source, replaces, counter, key, library):
+    def entry(name, source, replaces, counter, key, library, variant=None):
         row = times[key]
         long = key[1] in long_labels
         shapes = [dict(shape=" ".join(map(str, k[1:])), **v) for k, v in times.items()
-                  if k[0] == key[0] and (k[1] in long_labels) == long]
+                  if k[0] == key[0] and (k[1] in long_labels) == long
+                  and variant in (None, v.get("variant"))]
         path = mt_launches if long else vqa_launches if (
             key[1].startswith("VQA") or key[0] == "layer_norm") else train_launches
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": path[counter],
-                "launches_by_path": {"vqa_eval": vqa_launches[counter],
-                                     "cc_train": train_launches[counter],
-                                     "multitask_train": mt_launches[counter]},
-                "max_abs_err": err[name],
-                "ms": row["ms"], "plain_ms": row["plain_ms"], "wall_ms": row["wall_ms"],
-                "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "bound": "memory",
-                "library_ms": row["library_ms"], "library": library,
-                "shape": " ".join(map(str, key[1:])), "shapes": shapes}
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": path[counter],
+               "launches_by_path": {"vqa_eval": vqa_launches[counter],
+                                    "cc_train": train_launches[counter],
+                                    "multitask_train": mt_launches[counter]},
+               "max_abs_err": err[name],
+               "ms": row["ms"], "plain_ms": row["plain_ms"], "wall_ms": row["wall_ms"],
+               "bound_ms": row["bound_ms"],
+               "bound_by": row["bound_by"], "bound": "memory",
+               "library_ms": row["library_ms"], "library": library,
+               "shape": " ".join(map(str, key[1:])), "shapes": shapes}
+        out.update({f"{v}_ms": row[f"{v}_ms"] for v in OTHER_VARIANTS if f"{v}_ms" in row})
+        return out
 
     fwd = entry("attention_fwd", "vilbert_tpu_torch/csrc/attention.cu",
                 "vilbert_tpu/ops/pallas_attention_train.py:69", "attention",
@@ -1449,8 +1535,7 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
     bwd["launches_tc"] = train_launches["attention_bwd_tc"]
     ln = entry("layer_norm_fwd", "vilbert_tpu_torch/csrc/layernorm.cu",
                "vilbert_tpu/ops/pallas_layernorm.py:28", "layer_norm", ("layer_norm", "image"),
-               "torch.nn.functional.layer_norm on the pre-added sum (no residual): a reference "
-               "point")
+               "torch.nn.functional.layer_norm(x + residual), the add inside the timed call")
     # the K3 entry has no kernel of its own: K1 + K2 at rate 0
     f0 = times[("attention_fwd", "CC image self", 0.0)]
     b0 = times[("attention_bwd", "CC image self", 0.0)]
@@ -1465,17 +1550,33 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
              "library_ms": f0["library_ms"] + b0["library_ms"],
              "library": "scaled_dot_product_attention forward + autograd.grad",
              "shape": "CC image self 0.0"}
-    fwd_cc = entry("attention_fwd_cc", "vilbert_tpu_torch/csrc/attention.cu",
-                   "vilbert_tpu/ops/pallas_attention_train.py:69", "attention_cc",
-                   ("attention_fwd", "Visual7w image self", 0.0),
-                   "torch.nn.functional.scaled_dot_product_attention, rate 0")
-    fwd_cc["variant"] = "cc: CUDA cores, 128 < Sk <= 512 (and fp32)"
+    sdpa = "torch.nn.functional.scaled_dot_product_attention, rate 0"
+    fwd_long = entry("attention_fwd_long_tc", "vilbert_tpu_torch/csrc/attention.cu",
+                     "vilbert_tpu/ops/pallas_attention_train.py:69", "attention_long_tc",
+                     ("attention_fwd", "Visual7w image self", 0.0), sdpa, variant="long_tc")
+    fwd_long["variant"] = "long_tc: tensor cores, bf16, 128 < Sk <= 512"
+    # the CUDA-core K1: fp32 on the paths; its bf16 times beside the long
+    # tensor-core variant
+    cc_keys = ("plain_ms", "bound_ms", "bound_by", "library_ms")
+    fwd_cc = {"name": "attention_fwd_cc", "route": "cuda", "source": fwd_long["source"],
+              "replaces": fwd_long["replaces"], "launches": fp32_launches["attention_cc"],
+              "launches_of": "phase 8's fp32 iteration through the kernels",
+              "launches_by_path": {"vqa_eval": vqa_launches["attention_cc"],
+                                   "cc_train": train_launches["attention_cc"],
+                                   "multitask_train": mt_launches["attention_cc"],
+                                   "multitask_fp32_check": fp32_launches["attention_cc"]},
+              "max_abs_err": err["attention_fwd_cc"], "ms": fwd_long["cc_ms"],
+              **{k: fwd_long[k] for k in (*cc_keys, "bound", "library", "shape")},
+              "long_tc_ms": fwd_long["ms"],
+              "shapes": [{"shape": s["shape"], "ms": s["cc_ms"], "long_tc_ms": s["ms"],
+                          **{k: s[k] for k in cc_keys}} for s in fwd_long["shapes"]],
+              "variant": "cc: CUDA cores, fp32 (bf16 when named), bf16 times here"}
     bwd_long = entry("attention_bwd_long_tc", "vilbert_tpu_torch/csrc/attention_bwd.cu",
                      "vilbert_tpu/ops/pallas_attention_train.py:81", "attention_bwd_long_tc",
                      ("attention_bwd", "Visual7w image self", 0.0),
                      "scaled_dot_product_attention forward + autograd.grad less forward, rate 0")
     bwd_long["variant"] = "long_tc: tensor cores, bf16, 128 < Sq or Sk <= 512"
-    return [fwd, bwd, ln, fused, fwd_cc, bwd_long]
+    return [fwd, bwd, ln, fused, fwd_long, fwd_cc, bwd_long]
 
 
 def main() -> int:
@@ -1512,7 +1613,7 @@ def main() -> int:
     phase("[4 slice]")
     model, cfg, vqa_launches = phase_slice(checks)
     phase("[5 timing]")
-    times = phase_timing(model, cfg, card)
+    times = phase_timing(checks, model, cfg, card, err)
     del model
     phase("[6 train slice]")
     state, args, train_launches = phase_train(checks)
@@ -1522,14 +1623,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase("[8 multi-task slice]")
-        trainer, mt_launches, peak_gb = phase_multitask(checks, tmp)
+        trainer, mt_launches, fp32_launches, peak_gb = phase_multitask(checks, tmp)
         phase("[9 multi-task timing]")
         times.update(phase_multitask_timing(checks, trainer, card, err))
         del trainer
     phase(f"[done] phases 1-9 in {time.time() - t_start:.1f} s; multi-task peak memory "
           f"{peak_gb:.2f} GB [{card}]")
 
-    kernels = kernel_report(times, err, vqa_launches, train_launches, mt_launches)
+    kernels = kernel_report(times, err, vqa_launches, train_launches, mt_launches, fp32_launches)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,10 @@ copy in which ``--old`` is replaced by ``--new`` in ``--file`` (B), prints
 the registers, stack and spills that ``ptxas -v`` reports for each
 tensor-core kernel of both, checks both against the plain PyTorch versions
 at every shape below (the bf16 bound of chip_smoke.py), and times K1 and K2
-of both at the VQA (B=1024) and CC (B=256) attention shapes, alternated
-A, B, B, A, as device time (``chip_smoke.device_ms``). With no ``--old`` it
-reports and times the tree alone.
+of both at the VQA (B=1024), CC (B=256) and multi-task (past 128 keys)
+attention shapes, alternated A, B, B, A, as device time
+(``chip_smoke.device_ms``). With no ``--old`` it reports and times the tree
+alone.
 """
 
 from __future__ import annotations
@@ -29,12 +30,19 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-#: (label, batch, heads, head_dim, Sq, Sk)
+#: (label, batch, heads, head_dim, Sq, Sk): the VQA and CC shapes, and the
+#: multi-task's past 128 keys (chip_smoke.MT_ATTENTIONS, where K1 runs its
+#: long tensor-core variant)
 SHAPES = (
     ("VQA image self", 1024, 8, 128, 101, 101), ("VQA text->image", 1024, 8, 128, 23, 101),
     ("VQA image->text", 1024, 8, 128, 101, 23), ("VQA text self", 1024, 12, 64, 23, 23),
     ("CC image self", 256, 8, 128, 37, 37), ("CC text self", 256, 12, 64, 36, 36),
     ("Sq = Sk = 128", 64, 8, 128, 128, 128),
+    ("Visual7w image self", 256, 8, 128, 200, 200), ("Visual7w text->image", 256, 8, 128, 21, 200),
+    ("GuessWhatPointing text self", 64, 12, 64, 257, 257),
+    ("GuessWhatPointing image self", 64, 8, 128, 306, 306),
+    ("GuessWhatPointing text->image", 64, 8, 128, 257, 306),
+    ("GuessWhatPointing image->text", 64, 8, 128, 306, 257),
 )
 
 
@@ -59,12 +67,13 @@ def build(csrc: str, out_dir: str) -> tuple:
         for line in out.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                kernel = m.group(1) if "_tc_kernel" in m.group(1) else None
+                kernel = m.group(1) if "_tc_" in m.group(1) else None
             elif kernel and ("spill" in line or "Used" in line):
-                name = re.search(r"attention_(fwd|bwd)_tc_kernelILi(\d+)ELi(\d+)E(Lb[01])?",
-                                 kernel)
-                label = (f"{name.group(1)} d={name.group(2)} KT={name.group(3)}"
-                         f"{' drop' if name.group(4) == 'Lb1' else ''}" if name else kernel)
+                name = re.search(r"attention_(fwd|bwd)_(\w*?)_?kernelILi(\d+)E(?:Li(\d+)E)?"
+                                 r"(Lb[01])?", kernel)
+                label = (f"{name.group(1)} {name.group(2)} d={name.group(3)}"
+                         f"{f' KT={name.group(4)}' if name.group(4) else ''}"
+                         f"{' drop' if name.group(5) == 'Lb1' else ''}" if name else kernel)
                 report.append(f"{label}: {line.split(':', 1)[-1].strip()}")
     lib = os.path.join(out_dir, "lib.so")
     subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", lib, *objs], check=True)

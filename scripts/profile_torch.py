@@ -42,6 +42,7 @@ CONFIG = "configs/bert_base_6layer_6conect.json"
 #: (class, substrings of the kernel name), first match wins
 CLASSES = (
     ("K1 attention forward, tensor cores", ("attention_fwd_tc",)),
+    ("K1 attention forward, long, tensor cores", ("attention_fwd_long_tc",)),
     ("K1 attention forward, CUDA cores", ("attention_fwd",)),
     ("K2 attention backward, tensor cores", ("attention_bwd_tc",)),
     ("K2 attention backward, long, tensor cores", ("attention_bwd_long_tc",)),

@@ -96,6 +96,11 @@ def _attention_inputs(B, sq, sk, H, seed=0):
     return q, k, v, g, mask
 
 
+#: (Sq, Sk) past 128 keys: Visual7w image self and text->image,
+#: GuessWhatPointing's two co-attention directions, one query over 512 keys
+LONG_FORWARD_SHAPES = [(200, 200), (21, 200), (257, 306), (306, 257), (1, 512)]
+
+
 class TestAttentionTwins:
     """The plain twins (and the autograd entry on the CPU) within 1e-5 of
     ``fused_attention_train`` and its ``jax.vjp``, at fp32."""
@@ -169,6 +174,28 @@ class TestAttentionTwins:
             np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5,
                                        err_msg=f"d{name}")
 
+    @pytest.mark.parametrize("rate", [0.0, 0.1])
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("sq,sk", LONG_FORWARD_SHAPES)
+    def test_long_forward_matches_pallas(self, sq, sk, d, rate):
+        """The forward twin past 128 keys, where the kernel runs its
+        ``long_tc`` variant (Visual7w, GuessWhatPointing, and one query over
+        512 keys), against ``fused_attention_train``."""
+        from vilbert_tpu.ops.pallas_attention_train import fused_attention_train
+        from vilbert_tpu_torch.ops.attention import attention_ref, make_additive_mask
+
+        B, h = 2, 1
+        q, k, v, _, mask = _attention_inputs(B, sq, sk, h * d, seed=sq + sk + 1)
+        mask[-1, : sk - sk // 2] = 1  # half padded, as in the backward's long cases
+        bias = make_additive_mask(_t(mask))
+        rng = jax.random.PRNGKey(sq * 1000 + sk + 1)
+        seed = _jax_seed(rng) if rate else None
+        want = fused_attention_train(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     jnp.asarray(bias.numpy()), num_heads=h, dropout_rate=rate,
+                                     dropout_rng=rng, interpret=True)
+        got = attention_ref(_t(q), _t(k), _t(v), bias, num_heads=h, dropout_rate=rate, seed=seed)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
     def test_dropout_changes_the_output_and_seeds_differ(self):
         from vilbert_tpu_torch.ops.attention import attention_ref
 
@@ -206,6 +233,91 @@ def _bf16_close(got, want):
     """Within one bf16 rounding (2^-7 relative) of the larger magnitude."""
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     np.testing.assert_allclose(got, want, atol=2 ** -7 * np.abs(want).max(), rtol=2 ** -7)
+
+
+def _long_tc_walk(q, k, v, bias, *, num_heads, dropout_rate=0.0, seed=None, pad=-np.inf):
+    """The arithmetic of the tensor-core K1 past 128 keys (``ltc::`` in
+    ``csrc/attention.cu``) in PyTorch: bf16 q, k, v; fp32 scores; the keys
+    in softmax steps of 32 at d = 128 and 64 at d = 64 (the kernel's
+    ``kStep``; its tiles of 64 split into steps), the last step's keys
+    past Sk scored ``pad``; an online row max m and row sum l of the
+    UNDROPPED exps; exp(s - m) rescaled as m grows, dropped, rounded to bf16
+    before P V; O (1/(1 - rate)) / l at the end, rounded to bf16."""
+    from vilbert_tpu_torch.ops.attention import _bias_rows, _heads, _merge
+    from vilbert_tpu_torch.ops.dropout import attention_keep_mask
+
+    B, sq, H = q.shape
+    sk, d = k.shape[1], H // num_heads
+    tile = 32 if d == 128 else 64
+    qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
+    bias_rows = _bias_rows(bias, q, sk)
+    keep = attention_keep_mask(B, num_heads, sq, sk, dropout_rate, seed) if dropout_rate else None
+    m = torch.full((B, num_heads, sq, 1), -np.inf)
+    l = torch.zeros(B, num_heads, sq, 1)
+    o = torch.zeros(B, num_heads, sq, d)
+    for k0 in range(0, sk, tile):
+        n = min(tile, sk - k0)
+        s = (qh @ kh[:, :, k0:k0 + n].transpose(-1, -2)) * (1.0 / np.sqrt(d)) \
+            + bias_rows[:, None, None, k0:k0 + n]
+        s = torch.cat([s, torch.full((B, num_heads, sq, tile - n), pad)], -1)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        c = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * c + p.sum(-1, keepdim=True)
+        p = p[..., :n]
+        if keep is not None:
+            p = torch.where(keep[..., k0:k0 + n], p, 0.0)
+        o = o * c + p.to(torch.bfloat16).float() @ vh[:, :, k0:k0 + n]
+        m = m_new
+    return _merge(o * ((1.0 / (1.0 - dropout_rate)) / l), torch.bfloat16)
+
+
+def _bf16_bound(ref) -> float:
+    """chip_smoke.py's bf16 bound: one bf16 rounding of max|ref| plus one
+    bf16 ulp of it."""
+    top = float(ref.float().abs().max())
+    return 2.0 ** -7 * top + 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+class TestLongTensorCoreWalk:
+    """The tiled walk of the tensor-core K1 past 128 keys, emulated in
+    PyTorch, against the plain twin within chip_smoke.py's bf16 bound: the
+    kernel's rounding (exp(s - running max) to bf16 before 1/l) and tiling
+    checked here, where the kernel cannot run. The last batch row is fully
+    padded: every key at -10000, none past Sk."""
+
+    @pytest.mark.parametrize("rate", [0.0, 0.1])
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("sq,sk", LONG_FORWARD_SHAPES)
+    def test_walk_matches_plain_within_bf16(self, sq, sk, d, rate):
+        from vilbert_tpu_torch.ops.attention import attention_ref, make_additive_mask
+
+        B, h = 2, 2
+        q, k, v, _, mask = _attention_inputs(B, sq, sk, h * d, seed=sq * 7 + sk)
+        q, k, v = (_t(a).to(torch.bfloat16) for a in (q, k, v))
+        bias = make_additive_mask(_t(mask))
+        kw = dict(num_heads=h, dropout_rate=rate, seed=2 ** 31 + sq if rate else None)
+        got = _long_tc_walk(q, k, v, bias, **kw)
+        want = attention_ref(q, k, v, bias, **kw)
+        assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= _bf16_bound(want), (err, _bf16_bound(want))
+
+    def test_keys_past_sk_need_minus_inf(self):
+        """Scoring the last tile's keys past Sk at the padding bias (-10000)
+        instead of -inf would let a fully padded row (every score near
+        -10000) spread its softmax over 256 keys, not 200: outside the
+        bound."""
+        from vilbert_tpu_torch.ops.attention import attention_ref, make_additive_mask
+
+        q, k, v, _, mask = _attention_inputs(2, 21, 200, 64)
+        q, k, v = (_t(a).to(torch.bfloat16) for a in (q, k, v))
+        bias = make_additive_mask(_t(mask))
+        want = attention_ref(q, k, v, bias, num_heads=1)
+        bad = _long_tc_walk(q, k, v, bias, num_heads=1, pad=-10000.0)
+        assert float((bad[-1].float() - want[-1].float()).abs().max()) > _bf16_bound(want)
+        good = _long_tc_walk(q, k, v, bias, num_heads=1)
+        assert float((good.float() - want.float()).abs().max()) <= _bf16_bound(want)
 
 
 class TestGradients:

@@ -120,7 +120,10 @@ class TestAttentionVariants:
 
     @pytest.mark.parametrize("dtype,sk,want", [
         (torch.bfloat16, 1, "tc"), (torch.bfloat16, 101, "tc"), (torch.bfloat16, 128, "tc"),
-        (torch.bfloat16, 129, "cc"), (torch.bfloat16, 512, "cc"), (torch.float32, 23, "cc"),
+        (torch.bfloat16, 129, "long_tc"), (torch.bfloat16, 512, "long_tc"),
+        (torch.float32, 23, "cc"), (torch.float32, 129, "cc"), (torch.float32, 512, "cc"),
+        (torch.bfloat16, 200, "long_tc"), (torch.bfloat16, 257, "long_tc"),
+        (torch.bfloat16, 306, "long_tc"),
     ])
     def test_forward_variant_by_dtype_and_keys(self, dtype, sk, want):
         from vilbert_tpu_torch.ops.attention import fwd_variant
@@ -180,11 +183,16 @@ class TestAttentionVariants:
             _tc_strides(q=x)
 
     def test_named_variant_needs_cuda_tensors(self):
-        from vilbert_tpu_torch.ops.attention import attention_bwd_kernel, attention_kernel
+        from vilbert_tpu_torch.ops.attention import (
+            VARIANTS,
+            attention_bwd_kernel,
+            attention_kernel,
+        )
 
         q, k, v, _ = _qkv()
-        with pytest.raises(ValueError, match="cpu or cuda"):
-            attention_kernel(q, k, v, None, num_heads=8, variant="tc")
+        for variant in VARIANTS:
+            with pytest.raises(ValueError, match="cpu or cuda"):
+                attention_kernel(q, k, v, None, num_heads=8, variant=variant)
         with pytest.raises(ValueError, match="cpu or cuda"):
             attention_bwd_kernel(q, k, v, None, q, num_heads=8, variant="cc")
 
@@ -200,6 +208,90 @@ class TestAttentionVariants:
             for variant in variants:
                 assert isinstance(getattr(wrapper, f"launches_{variant}"), int)
         assert {"long", "long_tc"} <= set(BWD_VARIANTS) and "long" not in VARIANTS
+        assert isinstance(attention.launches_long_tc, int) and "long_tc" in VARIANTS
+
+
+class _FakeLibrary:
+    """Stands in for the kernels' ctypes library: records each entry point's
+    arguments and returns cudaSuccess, so the wrapper's dispatch runs on CPU
+    tensors."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("vt_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def fake_kernels(monkeypatch):
+    """``_fwd_cuda`` with a recording library and no CUDA stream."""
+    import contextlib
+    import types
+
+    from vilbert_tpu_torch.ops import _build
+    from vilbert_tpu_torch.ops.attention import VARIANTS, attention
+
+    for counter in ("launches", *(f"launches_{v}" for v in VARIANTS)):
+        monkeypatch.setattr(attention, counter, 0)  # restored after the test
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda _: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    return lib
+
+
+class TestLongForwardDispatch:
+    """What ``_fwd_cuda`` hands the tensor-core K1 past 128 keys, with the
+    library replaced by a recorder (the kernel itself runs on a card)."""
+
+    @pytest.mark.parametrize("sq,sk,hd,heads", [(200, 200, 1024, 8), (257, 306, 1024, 8),
+                                                (21, 200, 1024, 8), (257, 257, 768, 12)])
+    def test_long_shapes_reach_long_tc_with_tc_strides(self, fake_kernels, sq, sk, hd, heads):
+        from vilbert_tpu_torch.ops.attention import _fwd_cuda, attention, fwd_variant
+
+        q, k, v, bias = _qkv(sq=sq, sk=sk, hd=hd)
+        variant = fwd_variant(q.dtype, sk)
+        before = (attention.launches, attention.launches_long_tc)
+        out = _fwd_cuda(q, k, v, bias, heads, 0.1, 2 ** 31 + 5, variant)
+        assert variant == "long_tc" and out.shape == q.shape and out.dtype == q.dtype
+        assert (attention.launches, attention.launches_long_tc) == (before[0] + 1,
+                                                                   before[1] + 1)
+        (name, args), = fake_kernels.calls
+        assert name == "vt_attention_fwd_long_tc"
+        # pointers, batch, heads, head_dim, Sq, Sk, strides, bias stride, scale, dropout, stream
+        assert args[5:10] == (2, heads, hd // heads, sq, sk)
+        assert list(args[10:16]) == [sq * hd, hd, sk * hd, hd, sk * hd, hd]
+        assert args[16] == sk and args[17] == pytest.approx((hd // heads) ** -0.5)
+        assert args[18] == 2 ** 31 + 5 and args[-1] == 0
+
+    def test_stride0_batch_passes(self, fake_kernels):
+        """retrieval's fast_mode: one k, v row block broadcast over the batch."""
+        from vilbert_tpu_torch.ops.attention import _fwd_cuda
+
+        q, k, v, bias = _qkv(b=4, sq=23, sk=200)
+        k, v = (t[:1].expand(4, 200, 1024) for t in (k, v))
+        _fwd_cuda(q, k, v, bias, 8, 0.0, None, "long_tc")
+        (_, args), = fake_kernels.calls
+        assert list(args[10:16]) == [23 * 1024, 1024, 0, 1024, 0, 1024]
+
+    @pytest.mark.parametrize("case", ["offset", "row_stride", "fp32"])
+    def test_refuses_before_launch(self, fake_kernels, case):
+        from vilbert_tpu_torch.ops.attention import _fwd_cuda
+
+        q, k, v, bias = _qkv(sq=23, sk=200, hd=768)
+        if case == "offset":  # rows start 2 bytes off a 16-byte boundary
+            k = torch.zeros(2, 200, 776, dtype=torch.bfloat16)[..., 1:769]
+        elif case == "row_stride":  # aligned start, rows 772 elements apart
+            v = torch.zeros(2, 200, 772, dtype=torch.bfloat16)[..., :768]
+        else:
+            q, k, v = (t.float() for t in (q, k, v))
+        with pytest.raises(ValueError):
+            _fwd_cuda(q, k, v, bias, 12, 0.0, None, "long_tc")
+        assert fake_kernels.calls == []
 
 
 class TestLayerNorm:

@@ -22,7 +22,8 @@
 // passes), keep the [Sq, Sk] scores on chip and write the output once in
 // [B, Sq, H].
 //
-// Two variants; the Python wrapper picks one by dtype and Sk and counts each:
+// Three variants; the Python wrapper picks one by dtype and Sk and counts
+// each:
 //
 // * tensor cores (tc::, bf16, Sk <= 128: every shape of the VQA and CC
 //   paths). A block is one (batch, head) and up to 128 query rows, one
@@ -37,16 +38,44 @@
 //   past Sk set to -inf; the mask is hashed at each accumulator element's
 //   own (row, col); the normalized, dropped P is packed to bf16 in
 //   registers as the A operand of P V on the same mma.
-// * CUDA cores (cc::, fp32 at any Sk <= 512, bf16 at 128 < Sk <= 512): one
-//   block per (batch, head, 32 query rows), fp32 FMAs from fp32 tiles in
-//   shared memory, 4 x 4 register tiles; keys walked in tiles of 64 rows, so
-//   Sk up to 512 fits (115 KB at d = 128, hence cudaFuncSetAttribute). It
-//   served bf16 too before the tensor-core variant; its bf16 times on an
-//   H100 80GB HBM3 at 700 W: 5.210 ms at VQA image self-attention
-//   (B 1024, 101 x 101, h 8, d 128, rate 0), 0.327 ms at CC image
-//   self-attention (B 256, 37 x 37, rate 0.1), 0.201 ms at CC text
-//   self-attention (B 256, 36 x 36, h 12, d 64). chip_smoke.py times it
-//   beside the tensor-core variant.
+// * tensor cores past 128 keys (ltc::, bf16, 128 < Sk <= 512: Visual7w's
+//   200 regions, GuessWhatPointing's 257 tokens and 306 regions). The
+//   whole key axis no longer fits beside the query tile, so K and V stream
+//   through shared memory in tiles of 64 keys, two stages deep: tile t + 1
+//   lands by cp.async while tile t's S, softmax and P V run, one barrier a
+//   tile (about 105 KB a block at d = 128, so two blocks share an SM). A
+//   block is one (batch, head) and as few strips of 16 query rows, at most
+//   8, as cover Sq in evenly filled blocks. Per step of a key tile (the
+//   whole 64 keys at
+//   d = 64; 32 at d = 128, where 64 O accumulators a thread leave no room
+//   for 64 keys of S within the 128 registers that two blocks an SM allow)
+//   a warp computes S = Q K^T with products_abt, scales it and adds the
+//   bias in one fused multiply-add (-inf past Sk, not -10000), keeps an
+//   online softmax in registers (running row max m by quad shuffles; each
+//   lane's share of the row sum l of the UNDROPPED exps, as the TPU kernel
+//   normalizes before it drops; exponentials by ex2.approx), rescales O by
+//   exp(m_old - m_new), hashes the mask at each accumulator element's global
+//   (row, key), packs the kept exp(s - m) to bf16 in registers (c_to_a) and
+//   accumulates P V (accumulate_ab). O keep_scale / l is written once.
+//   Its one departure from the TPU kernel: that kernel rounds the
+//   normalized, dropped P to bf16 (_fwd_kernel:76); this variant rounds
+//   exp(s - m) against the running max and divides by l after P V. The
+//   relative rounding is the same size (one bf16 rounding of each P), and
+//   K2 recomputes P itself, so only the output has to stay within the bf16
+//   bound; exact normalization before P V would take a second walk over
+//   the keys and a third product. It takes Sk <= 128 too, for timing beside
+//   tc::, but the wrapper does not send those shapes here.
+// * CUDA cores (cc::, fp32 at any Sk <= 512): one block per (batch, head,
+//   32 query rows), fp32 FMAs from fp32 tiles in shared memory, 4 x 4
+//   register tiles; keys walked in tiles of 64 rows, so Sk up to 512 fits
+//   (115 KB at d = 128, hence cudaFuncSetAttribute). It takes bf16 too and
+//   served it before the tensor-core variants; its bf16 times on an H100
+//   80GB HBM3 at 700 W: 5.210 ms at VQA image self-attention (B 1024,
+//   101 x 101, h 8, d 128, rate 0), 0.327 ms at CC image self-attention
+//   (B 256, 37 x 37, rate 0.1), 0.201 ms at CC text self-attention (B 256,
+//   36 x 36, h 12, d 64), 5.299 ms at Visual7w image self-attention (B 256,
+//   200 x 200, rate 0). chip_smoke.py times it beside the tensor-core
+//   variants.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +87,7 @@
 
 namespace {
 
-// ---- CUDA-core variant (fp32; bf16 at 128 < Sk <= 512) ---------------------
+// ---- CUDA-core variant (fp32; bf16 when named) ------------------------------
 namespace cc {
 
 constexpr int kThreads = 128;
@@ -365,6 +394,175 @@ cudaError_t launch_keys(const Args& a, int batch, cudaStream_t stream) {
 
 }  // namespace tc
 
+// ---- tensor-core variant past 128 keys (bf16, Sk <= 512) -------------------
+namespace ltc {
+
+constexpr int kMaxQWarps = 8;              // most warps a block, 16 query rows each
+constexpr int kBlockQ = 16 * kMaxQWarps;   // most query rows a block
+constexpr int kBlockK = 64;                // keys a streamed tile
+constexpr int kStages = 2;                 // key tiles in shared memory: in use, landing
+constexpr int kMaxKeys = 512;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// q tile [q_rows][D + 8], then kStages of k [kBlockK][D + 8], of v (bf16)
+// and of the bias [kBlockK] (fp32)
+size_t smem_bytes(int d, int q_rows) {
+  return sizeof(vt::bf16) * ((size_t)q_rows + 2 * kStages * kBlockK) * (d + 8) +
+         sizeof(float) * kStages * kBlockK;
+}
+
+// 2^x on the special-function unit (-inf -> 0); about 2 ulp, far inside the
+// bf16 rounding of P
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(32 * kMaxQWarps) attention_fwd_long_tc_kernel(const tc::Args a) {
+  constexpr int LD = D + 8;
+  // keys a softmax step takes of a tile: at d = 128 the O accumulators hold
+  // 64 registers a thread, so S is computed 32 keys at a time, which keeps
+  // the kernel within 128 registers and two blocks on an SM; at d = 64 the
+  // whole tile at once
+  constexpr int kStep = D == 128 ? 32 : 64;
+  constexpr int kST = kStep / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  vt::bf16* q_s = reinterpret_cast<vt::bf16*>(smem_raw);
+  vt::bf16* k_s = q_s + a.q_rows * LD;
+  vt::bf16* v_s = k_s + kStages * kBlockK * LD;
+  float* bias_s = reinterpret_cast<float*>(v_s + kStages * kBlockK * LD);
+
+  const int tile = blockIdx.x % a.q_tiles;
+  const int bh = blockIdx.x / a.q_tiles;
+  const int h = bh % a.num_heads;
+  const int64_t b = bh / a.num_heads;
+  const int q0 = tile * a.q_rows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nthreads = blockDim.x;
+  const vt::bf16* kb = a.k + b * a.k_bs + h * D;
+  const vt::bf16* vb = a.v + b * a.v_bs + h * D;
+  const float* bias_b = a.bias + b * a.bias_bs;
+  const int n_tiles = (a.sk + kBlockK - 1) / kBlockK;
+
+  // key tile t into stage t % kStages by cp.async: k and v rows (zero past
+  // Sk, to the tile's last k16 tile) and the bias (-inf past Sk)
+  auto load_tile = [&](int t) {
+    const int k0 = t * kBlockK, keys = min(kBlockK, a.sk - k0), st = t % kStages;
+    const int rows = (keys + 15) / 16 * 16;
+    vt::load_head_rows<D>(k_s + st * kBlockK * LD, kb + k0 * a.k_rs, keys, rows, a.k_rs, tid,
+                          nthreads);
+    vt::load_head_rows<D>(v_s + st * kBlockK * LD, vb + k0 * a.v_rs, keys, rows, a.v_rs, tid,
+                          nthreads);
+    for (int j = tid; j < rows; j += nthreads) {
+      float* dst = bias_s + st * kBlockK + j;
+      if (j < keys)
+        vt::cp_async4(dst, bias_b + k0 + j);
+      else
+        *dst = -INFINITY;
+    }
+  };
+
+  vt::load_head_rows<D>(q_s, a.q + b * a.q_bs + q0 * a.q_rs + h * D, min(a.q_rows, a.sq - q0),
+                        a.q_rows, a.q_rs, tid, nthreads);
+  load_tile(0);
+  vt::cp_async_commit();
+
+  const int r0 = 16 * warp;  // the warp's strip of the tile
+  const bool active = q0 + r0 < a.sq;
+  const int row = q0 + r0 + lane / 4;  // global query row of elements 0, 1
+  const uint32_t tseed = vt::tile_seed(a.seed, bh);
+  // O, the running row max m and this lane's share of the row sum l of the
+  // undropped exps, for rows lane / 4 and lane / 4 + 8 of the strip
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    vt::cp_async_wait<0>();  // q and tile t are in
+    __syncthreads();  // ... for every thread; and stage (t + 1) % 2 was consumed at t - 1
+    if (t + 1 < n_tiles) {  // lands while tile t runs
+      load_tile(t + 1);
+      vt::cp_async_commit();
+    }
+    if (!active) continue;
+    const int k0 = t * kBlockK, kt = (min(kBlockK, a.sk - k0) + 15) / 16;
+#pragma unroll
+    for (int j0 = 0; j0 < kBlockK; j0 += kStep) {
+      const int st = kt - j0 / 16;  // k16 tiles of this step that hold keys
+      if (st <= 0) break;
+      const vt::bf16* k_t = k_s + ((t % kStages) * kBlockK + j0) * LD;
+      const vt::bf16* v_t = v_s + ((t % kStages) * kBlockK + j0) * LD;
+      const float* bias_t = bias_s + (t % kStages) * kBlockK + j0;
+
+      // S = Q K^T of the step: s[n] is the C tile of keys k0 + j0 + [8 n, 8 n + 8)
+      float s[2 * kST][4];
+      vt::products_abt<D, kST>(s, q_s, k_t, r0, st, lane);
+      float mn[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < 2 * kST; ++n)
+        if (n < 2 * st)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] = fmaf(s[n][e], a.scale, bias_t[8 * n + 2 * (lane % 4) + e % 2]);
+            mn[e / 2] = fmaxf(mn[e / 2], s[n][e]);
+          }
+      float c[2], ml[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mn[r] = vt::quad_max(mn[r]);
+        ml[r] = mn[r] * kLog2e;
+        c[r] = exp2_approx(fmaf(m[r], kLog2e, -ml[r]));  // 0 at the first step (m = -inf)
+        m[r] = mn[r];
+        l[r] *= c[r];
+      }
+      // P = exp(s - m) into l undropped, then the mask at each element's
+      // global (row, key), packed to bf16 as the A fragments of P V
+#pragma unroll
+      for (int n = 0; n < 2 * kST; ++n)
+        if (n < 2 * st)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = exp2_approx(fmaf(s[n][e], kLog2e, -ml[e / 2]));
+            l[e / 2] += p;
+            s[n][e] = !kDrop || vt::keep(row + 8 * (e / 2),
+                                         k0 + j0 + 8 * n + 2 * (lane % 4) + e % 2, tseed,
+                                         a.threshold)
+                          ? p
+                          : 0.f;
+          }
+      uint32_t pa[kST][4];
+#pragma unroll
+      for (int j = 0; j < kST; ++j)
+        if (j < st) vt::c_to_a(pa[j], s[2 * j], s[2 * j + 1]);
+      vt::scale_rows<D / 8>(o, c[0], c[1]);
+      vt::accumulate_ab<D, kST>(o, pa, v_t, st, lane);
+    }
+  }
+  if (!active) return;
+
+  // O keep_scale / l, written once in [B, Sq, H]
+  vt::scale_rows<D / 8>(o, a.keep_scale / vt::quad_sum(l[0]), a.keep_scale / vt::quad_sum(l[1]));
+  const int64_t hidden = (int64_t)a.num_heads * D;
+  vt::store_strip<D>(a.out + b * a.sq * hidden + h * D, o, row, a.sq, hidden, 1.f, lane);
+}
+
+template <int D, bool kDrop>
+cudaError_t launch(const tc::Args& a, int batch, cudaStream_t stream) {
+  const long long blocks = (long long)batch * a.num_heads * a.q_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_long_tc_kernel<D, kDrop>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes(D, kBlockQ));
+  if (err != cudaSuccess) return err;
+  attention_fwd_long_tc_kernel<D, kDrop>
+      <<<(unsigned)blocks, 2 * a.q_rows, smem_bytes(D, a.q_rows), stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace ltc
+
 }  // namespace
 
 // The CUDA-core variant. dtype: 0 = float32, 1 = bfloat16. Strides are in
@@ -434,5 +632,42 @@ extern "C" int vt_attention_fwd_tc(const void* q, const void* k, const void* v, 
   if (head_dim == 128)
     return (int)(drop ? tc::launch_keys<128, true>(a, batch, s)
                       : tc::launch_keys<128, false>(a, batch, s));
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core variant past 128 keys: bf16 q, k, v and out, fp32 bias,
+// 1 <= Sk <= 512 (Sk <= 128 too, for comparing it with vt_attention_fwd_tc),
+// head_dim 64 or 128; the alignment and stride rules and the arguments of
+// vt_attention_fwd_tc; cudaErrorInvalidValue for what it does not take (the
+// Python wrapper checks these first).
+extern "C" int vt_attention_fwd_long_tc(const void* q, const void* k, const void* v,
+                                        const void* bias, void* out, int batch, int num_heads,
+                                        int head_dim, int sq, int sk, long long q_bstride,
+                                        long long q_rstride, long long k_bstride,
+                                        long long k_rstride, long long v_bstride,
+                                        long long v_rstride, long long bias_bstride, float scale,
+                                        unsigned int seed, unsigned int threshold,
+                                        float keep_scale, void* stream) {
+  if (sk < 1 || sk > ltc::kMaxKeys || sq < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 ||
+      (q_bstride | q_rstride | k_bstride | k_rstride | v_bstride | v_rstride) % 8)
+    return (int)cudaErrorInvalidValue;
+  // as few blocks of up to 128 query rows as cover Sq, their rows evened out
+  // (200 queries: two blocks of 112, not 128 and 72)
+  const int q_tiles = (sq + ltc::kBlockQ - 1) / ltc::kBlockQ;
+  const int q_rows = ((sq + q_tiles - 1) / q_tiles + 15) / 16 * 16;
+  tc::Args a{static_cast<const vt::bf16*>(q), static_cast<const vt::bf16*>(k),
+             static_cast<const vt::bf16*>(v), static_cast<const float*>(bias),
+             static_cast<vt::bf16*>(out), num_heads, sq, sk, q_rows, q_tiles,
+             q_bstride, q_rstride, k_bstride, k_rstride,
+             v_bstride, v_rstride, bias_bstride, scale, seed, threshold, keep_scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool drop = threshold != 0u || keep_scale != 1.f;
+  if (head_dim == 64)
+    return (int)(drop ? ltc::launch<64, true>(a, batch, s) : ltc::launch<64, false>(a, batch, s));
+  if (head_dim == 128)
+    return (int)(drop ? ltc::launch<128, true>(a, batch, s)
+                      : ltc::launch<128, false>(a, batch, s));
   return (int)cudaErrorInvalidValue;
 }

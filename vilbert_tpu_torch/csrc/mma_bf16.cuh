@@ -36,6 +36,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// 4 bytes global -> shared (cp.async takes 4- and 8-byte copies through L1
+// only)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -136,14 +143,12 @@ __device__ __forceinline__ void products_abt(float (&c)[2 * KT][4], const bf16* 
   }
 }
 
-// c = a b for one warp's 16-row strip, a given as bf16 A fragments in
+// c += a b for one warp's 16-row strip, a given as bf16 A fragments in
 // registers over kt k-tiles of 16 (c_to_a), b [k rows][D + 8] bf16 in
 // shared memory; c[n] is the C tile of columns [8 n, 8 n + 8)
 template <int D, int KT>
-__device__ __forceinline__ void products_ab(float (&c)[D / 8][4], const uint32_t (&a)[KT][4],
-                                            const bf16* b_s, int kt, int lane) {
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+__device__ __forceinline__ void accumulate_ab(float (&c)[D / 8][4], const uint32_t (&a)[KT][4],
+                                              const bf16* b_s, int kt, int lane) {
 #pragma unroll
   for (int j = 0; j < KT; ++j) {
     if (j < kt) {
@@ -155,6 +160,28 @@ __device__ __forceinline__ void products_ab(float (&c)[D / 8][4], const uint32_t
         mma_bf16(c[2 * nd + 1], a[j], fb[2], fb[3]);
       }
     }
+  }
+}
+
+// c = a b (accumulate_ab from zero)
+template <int D, int KT>
+__device__ __forceinline__ void products_ab(float (&c)[D / 8][4], const uint32_t (&a)[KT][4],
+                                            const bf16* b_s, int kt, int lane) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+  accumulate_ab<D, KT>(c, a, b_s, kt, lane);
+}
+
+// each row of a 16-row strip of C tiles times its own factor: elements 0, 1
+// (row lane / 4) by f0, elements 2, 3 (row lane / 4 + 8) by f1
+template <int N>
+__device__ __forceinline__ void scale_rows(float (&c)[N][4], float f0, float f1) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    c[n][0] *= f0;
+    c[n][1] *= f0;
+    c[n][2] *= f1;
+    c[n][3] *= f1;
   }
 }
 

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "vt_attention_bwd": [_P] * 8 + [_I] * 6 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # the tensor-core variants: the same without the dtype (bf16 only)
     "vt_attention_fwd_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P],
+    "vt_attention_fwd_long_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P],
     "vt_attention_bwd_tc": [_P] * 8 + [_I] * 5 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # the long-sequence K2: vt_attention_bwd's arguments with the fp32
     # row-statistics workspace after dv

@@ -24,18 +24,22 @@ launch ``csrc/attention.cu`` and ``csrc/attention_bwd.cu`` or raise.
 
 The wrapper picks a kernel variant by dtype and shape alone
 (``fwd_variant``, ``bwd_variant``), never by catching a failure. K1 has
-two: ``"tc"`` on the tensor cores for bf16 at Sk <= 128 (every shape of the
-VQA and CC paths), ``"cc"`` on the CUDA cores for fp32 and for bf16 at
-128 < Sk <= 512. K2 has four: ``"tc"`` for bf16 at Sq, Sk <= 128, ``"cc"``
-for fp32 there; when Sq or Sk is above 128, up to 512, ``"long_tc"`` for
-bf16 and ``"long"`` (CUDA cores) for fp32, both tiles of 64 queries and
-keys over two kernels and an fp32 workspace of row statistics. ``"cc"``
-and ``"long"`` take bf16 too, when named (``attention_bwd_kernel``). The
-tensor-core variants load rows by 16-byte copies, so they refuse
-(ValueError) operands that are not 16-byte aligned or whose batch and row
-strides are not multiples of 8 elements. The bf16 tensor-core K2 variants
-round P_drop and ds to bf16 as mma operands (the TPU kernel keeps them in
-fp32). ``attention.launches``
+three: ``"tc"`` on the tensor cores for bf16 at Sk <= 128 (every shape of
+the VQA and CC paths, the whole key axis in shared memory), ``"long_tc"``
+on the tensor cores for bf16 at 128 < Sk <= 512 (K and V streamed in tiles
+of 64 keys under an online softmax; it rounds exp(s - max) to bf16 before
+dividing by the row sum, where the TPU kernel rounds the normalized P), and
+``"cc"`` on the CUDA cores for fp32. K2 has four: ``"tc"`` for bf16 at
+Sq, Sk <= 128, ``"cc"`` for fp32 there; when Sq or Sk is above 128, up to
+512, ``"long_tc"`` for bf16 and ``"long"`` (CUDA cores) for fp32, both
+tiles of 64 queries and keys over two kernels and an fp32 workspace of row
+statistics. ``"cc"`` and ``"long"`` take bf16 too, and ``"long_tc"`` K1
+takes Sk <= 128, when named (``attention_kernel``,
+``attention_bwd_kernel``). The tensor-core variants load rows by 16-byte
+copies, so they refuse (ValueError) operands that are not 16-byte aligned
+or whose batch and row strides are not multiples of 8 elements. The bf16
+tensor-core K2 variants round P_drop and ds to bf16 as mma operands (the
+TPU kernel keeps them in fp32). ``attention.launches``
 counts every K1 launch and ``attention.launches_<variant>`` each
 variant's; likewise ``attention_bwd``.
 """
@@ -56,12 +60,13 @@ KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_KEYS = 512
 #: longest Sq and Sk the backward kernel takes
 BWD_KERNEL_MAX_SEQ = 512
-#: longest sequence of the tensor-core variants, and of K2's "cc" variant,
-#: which keeps a whole (batch, head) in shared memory
+#: longest sequence of the "tc" variants, and of K2's "cc" variant, which
+#: keep a whole (batch, head) in shared memory
 TC_MAX_SEQ = 128
-#: kernel variants: tensor cores (bf16) and CUDA cores; K2 adds both past
+#: kernel variants: tensor cores (bf16) up to 128 keys and past them, CUDA
+#: cores; K2's tensor-core and CUDA-core variants each have a long twin past
 #: 128 queries or keys
-VARIANTS = ("tc", "cc")
+VARIANTS = ("tc", "long_tc", "cc")
 BWD_VARIANTS = ("tc", "cc", "long_tc", "long")
 
 
@@ -246,8 +251,11 @@ def bwd_kernel_geometry(
 
 def fwd_variant(dtype: torch.dtype, sk: int) -> str:
     """The forward kernel's variant for a dtype and key count: ``"tc"``
-    (tensor cores) for bf16 at Sk <= 128, else ``"cc"`` (CUDA cores)."""
-    return "tc" if dtype == torch.bfloat16 and sk <= TC_MAX_SEQ else "cc"
+    (tensor cores) for bf16 at Sk <= 128, ``"long_tc"`` for bf16 above,
+    ``"cc"`` (CUDA cores) for fp32."""
+    if dtype != torch.bfloat16:
+        return "cc"
+    return "tc" if sk <= TC_MAX_SEQ else "long_tc"
 
 
 def bwd_variant(dtype: torch.dtype, sq: int, sk: int) -> str:
@@ -306,11 +314,13 @@ def _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed, variant):
     out = torch.empty(b, sq, q.shape[2], dtype=q.dtype, device=q.device)
     lib = _build.load_library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(), out.data_ptr())
-    if variant == "tc":
-        if q.dtype != torch.bfloat16 or sk > TC_MAX_SEQ:
-            raise ValueError(f"tensor-core attention kernel takes bf16 at Sk <= {TC_MAX_SEQ}, "
-                             f"got {q.dtype} at Sk={sk}")
-        call = functools.partial(lib.vt_attention_fwd_tc, *ptrs, b, num_heads, d, sq, sk,
+    if variant in ("tc", "long_tc"):
+        max_keys = TC_MAX_SEQ if variant == "tc" else KERNEL_MAX_KEYS
+        if q.dtype != torch.bfloat16 or sk > max_keys:
+            raise ValueError(f"tensor-core attention kernel {variant!r} takes bf16 at Sk <= "
+                             f"{max_keys}, got {q.dtype} at Sk={sk}")
+        fn = lib.vt_attention_fwd_tc if variant == "tc" else lib.vt_attention_fwd_long_tc
+        call = functools.partial(fn, *ptrs, b, num_heads, d, sq, sk,
                                  *_tc_strides(q=q, k=k, v=v), bias_rows.stride(0))
     elif variant == "cc":
         call = functools.partial(lib.vt_attention_fwd, *ptrs, _build.DTYPE_CODES[q.dtype], b,
@@ -466,8 +476,8 @@ def attention_bwd(
 
 def attention_kernel(q, k, v, bias, *, num_heads: int, variant: str, dropout_rate: float = 0.0,
                      seed: Optional[int] = None) -> torch.Tensor:
-    """One launch of the named forward variant (``"tc"`` or ``"cc"``) on CUDA
-    tensors, bypassing ``fwd_variant``: for comparing the two variants on the
+    """One launch of the named forward variant (one of ``VARIANTS``) on CUDA
+    tensors, bypassing ``fwd_variant``: for comparing the variants on the
     card. Counts like ``attention``; not differentiable."""
     _check_rate(dropout_rate, seed)
     _check_devices(q, k=k, v=v, bias=bias)
