@@ -25,30 +25,38 @@ recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task tokens).
    padded row) at rates 0 and 0.1 and a stride-0 batch k, v at Sk = 200;
    K2's long-sequence variants (Sq or Sk above 128: bf16 on the tensor
    cores, fp32 on the CUDA cores) at their tiling edges 129, 200, 257, 306
-   and 512. Forward
-   (K1 at rate 0 and 0.1, K4): fp32 1e-4 absolute (1e-3 on a row whose keys are all padded), bf16
-   2^-7 * max|ref| plus one bf16 ulp. Backward (K2 at rate 0 and 0.1): fp32
-   1e-4 * max|ref|, bf16 as the forward. The K3 entry
-   (``fused_attention``, served by K1 and K2 at rate 0) likewise;
+   and 512; each K4 variant ("block", "persistent", named) and the routed
+   call at H of 128, 384, 768, 1024 and 2048 and rows of 1, 2, 31, 132, 811
+   and each crossover of ``ln_variant`` +- 1, with and without a residual,
+   each call on its variant's counter, and a misaligned operand (refused).
+   Forward (K1 at rate 0 and 0.1, K4): fp32 1e-4 absolute (1e-3 on a row
+   whose keys are all padded), bf16 2^-7 * max|ref| plus one bf16 ulp.
+   Backward (K2 at rate 0 and 0.1): fp32 1e-4 * max|ref|, bf16 as the
+   forward. The K3 entry (``fused_attention``, served by K1 and K2 at rate
+   0) likewise;
 4. VQA slice: ``run_eval`` (the eval CLI's function) on synthetic TASK1 at
    T=23, R=101, with the launch counters reset just before and read just
-   after: every K1 launch on the tensor-core variant; then a batch of 256
+   after: every K1 launch on the tensor-core variant, K4's launches by
+   shape (recorded) and by variant as ``ln_forward`` says; then a batch of 256
    through the kernels and through the plain ops, fp32 logits within 1e-3
    and bf16 logits finite and within 5e-2;
-5. VQA timing: eval questions/s of the forward at B=1024 in bf16 (kernels
-   and plain ops); at the four attention shapes and the LayerNorm shapes
-   of the three paths (VQA text and image, the CC step's text and image,
-   Visual7w's image and GuessWhatPointing's text), each kernel against its
-   plain version and a PyTorch library call computing the same function
-   (``scaled_dot_product_attention``; ``F.layer_norm(x + residual)``, the
-   add inside the timed call) with the kernel's bound; the CUDA-core K1 and
-   the long tensor-core K1 beside the tensor-core one at image
-   self-attention (the long one also checked against the plain version);
+5. VQA timing: K4's shapes in one forward at B=1024 (recorded) against
+   ``ln_shapes``; eval questions/s of the forward at B=1024 in bf16
+   (kernels and plain ops); at the four attention shapes, and at every
+   distinct K4 shape of the three paths (``ln_shapes``: 37 (rows, H, dtype,
+   residual), with each path's launches), each kernel against its plain
+   version (K4's output also checked) and a PyTorch library call computing
+   the same function (``scaled_dot_product_attention``;
+   ``F.layer_norm(x + residual)``, the add inside the timed call) with the
+   kernel's bound; the CUDA-core K1 and the long tensor-core K1 beside the
+   tensor-core one at image self-attention (the long one also checked
+   against the plain version), both K4 variants beside the routed one;
 6. training slice: ``train`` (the train CLI's function) on the synthetic CC
    loader at B=256, T=36, R=37, bf16, dropout 0.1 at every site, for a few
    steps, with the counters reset just before and read just after: finite
    losses, and K1, K2 and K4 launched as often as the config says, K1 and
-   K2 on the tensor-core variants; then one fp32 step at B=32 with dropout
+   K2 on the tensor-core variants, K4 by shape and variant as ``ln_shapes``
+   says; then one fp32 step at B=32 with dropout
    on through the kernels and through the plain ops, from the same weights
    with the same masks;
 7. training timing: samples/s of the bf16 step at B=256 (kernels and plain
@@ -67,7 +75,7 @@ recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task tokens).
    ("tc" at Sk <= 128, "long_tc" above, none on "cc"), K2 30 a step (28 for
    the V-logit tasks, whose loss reads the image stream only; tensor cores
    at Sq, Sk <= 128, the long tensor-core variant above), K4 as the config
-   says;
+   says, by shape (recorded) and variant as ``ln_shapes`` says;
    every loss finite; after each task's step every other head (``cls``
    included) bitwise unchanged and its own moved. Then one fp32 iteration
    with dropout at 2 samples a task, full geometry, through the kernels and
@@ -101,6 +109,8 @@ them. Without a CUDA device, or outside a checkout, it exits non-zero.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import os
@@ -276,8 +286,8 @@ def library_attention_fns(q, k, v, bias, cot, heads, d) -> dict:
 
 
 #: other kernel variants a timed row may carry beside the routed one, as
-#: ``<variant>_ms``
-OTHER_VARIANTS = ("cc", "long_tc")
+#: ``<variant>_ms``: K1's, and K4's named
+OTHER_VARIANTS = ("cc", "long_tc", "block", "persistent")
 
 
 def timed_row(fns: dict, kernel: str, plain: str, nbytes: float, flops: float, peak: float,
@@ -359,7 +369,9 @@ CC_ATTENTIONS = (("text self", 12, 64, TRAIN_T, TRAIN_T),
                  ("image self", 8, 128, TRAIN_R, TRAIN_R),
                  ("text->image", 8, 128, TRAIN_T, TRAIN_R),
                  ("image->text", 8, 128, TRAIN_R, TRAIN_T))
-LN_WIDTHS = (768, 1024, 2048)
+#: K4's widths at phase 3: a warp's 32 vectors of 4 (128), 8-byte bf16
+#: vectors (384), and the paths' 768, 1024 and 2048
+LN_EDGE_WIDTHS = (128, 384, 768, 1024, 2048)
 LN_ROWS = 8 * 101 + 3  # not a multiple of any block
 
 
@@ -468,6 +480,69 @@ def phase_training_kernels(checks: Checks, g, err: dict) -> None:
                                       f"grads {eb:.3e}")
 
 
+def ln_edge_rows(dtype) -> tuple:
+    """K4's row counts at the edges for ``dtype``: 1, 2, a warp less one,
+    the SM count, LN_ROWS and the variants' two crossovers +- 1."""
+    from vilbert_tpu_torch.ops.layernorm import PERSISTENT_MAX_ROWS, PERSISTENT_MIN_ROWS
+
+    return (1, 2, 31, 132, LN_ROWS, *(n + d for n in (PERSISTENT_MIN_ROWS,
+                                                     PERSISTENT_MAX_ROWS[dtype])
+                                      for d in (-1, 0, 1)))
+
+
+def phase_layer_norm_kernels(checks: Checks, g, err: dict) -> None:
+    """Every K4 variant, named, and the routed call against
+    ``layer_norm_ref`` at LN_EDGE_WIDTHS x ``ln_edge_rows(dtype)``, with and
+    without a residual, fp32 (1e-4) and bf16 (``bf16_bound``), each call on
+    its variant's counter; a misaligned operand refused."""
+    import torch
+
+    from vilbert_tpu_torch.ops.layernorm import (
+        VARIANTS,
+        layer_norm,
+        layer_norm_kernel,
+        layer_norm_ref,
+        ln_variant,
+    )
+
+    for h in LN_EDGE_WIDTHS:
+        w = 1 + 0.1 * torch.randn(h, generator=g, device=DEVICE)
+        b = 0.1 * torch.randn(h, generator=g, device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            for rows in ln_edge_rows(dtype):
+                x = (2 * torch.randn(rows, h, generator=g, device=DEVICE) + 0.5).to(dtype)
+                res = torch.randn(rows, h, generator=g, device=DEVICE).to(dtype)
+                routed = ln_variant(rows, h, dtype)
+                worst, failed = {}, []
+                for r in (None, res):
+                    want = layer_norm_ref(x, w, b, residual=r).float()
+                    bound = 1e-4 if dtype == torch.float32 else bf16_bound(want)
+                    calls = {v: (v, lambda v=v: layer_norm_kernel(x, w, b, residual=r, variant=v))
+                             for v in VARIANTS}
+                    calls["routed"] = (routed, lambda: layer_norm(x, w, b, residual=r))
+                    for name, (variant, fn) in calls.items():
+                        got, on_variant = counted(layer_norm, variant, fn)
+                        torch.cuda.synchronize()
+                        e = float((got.float() - want).abs().max())
+                        worst[name] = max(worst.get(name, 0.0), e)
+                        err["layer_norm_fwd"] = max(err["layer_norm_fwd"], e)
+                        if not (e <= bound and on_variant):
+                            failed.append(f"{name} residual={r is not None}: {e:.3e} > "
+                                          f"{bound:.3e} or not on {variant}")
+                checks.expect(not failed, f"layer_norm H={h} rows={rows} {str(dtype)[6:]} "
+                                          f"(routed {routed}), max|err| " + ", ".join(
+                                              f"{k} {e:.3e}" for k, e in worst.items())
+                              + (f": {failed}" if failed else ""))
+    # 16-byte vectors: a row that starts 2 bytes off is refused
+    x = torch.zeros(4 * 768 + 1, dtype=torch.bfloat16, device=DEVICE)[1:].view(4, 768)
+    try:
+        layer_norm(x, torch.ones(768, device=DEVICE), torch.zeros(768, device=DEVICE))
+        refused = False
+    except ValueError:
+        refused = True
+    checks.expect(refused, "layer_norm refuses a bf16 operand that is not 16-byte aligned")
+
+
 def phase_kernels(checks: Checks) -> dict:
     import torch
 
@@ -477,7 +552,6 @@ def phase_kernels(checks: Checks) -> dict:
         fwd_variant,
         make_additive_mask,
     )
-    from vilbert_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     dev = DEVICE
@@ -544,22 +618,7 @@ def phase_kernels(checks: Checks) -> dict:
             refused = True
         checks.expect(refused, f"attention refuses a bf16 operand that is not 16-byte aligned "
                                f"[{fwd_variant(torch.bfloat16, sk)}]")
-    for h in LN_WIDTHS:
-        w = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
-        b = 0.1 * torch.randn(h, generator=g, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            x = (2 * torch.randn(LN_ROWS, h, generator=g, device=dev) + 0.5).to(dtype)
-            res = torch.randn(LN_ROWS, h, generator=g, device=dev).to(dtype)
-            for r in (None, res):
-                got = layer_norm(x, w, b, residual=r)
-                want = layer_norm_ref(x, w, b, residual=r)
-                torch.cuda.synchronize()
-                e = float((got.float() - want.float()).abs().max())
-                bound = 1e-4 if dtype == torch.float32 else bf16_bound(want.float())
-                err["layer_norm_fwd"] = max(err["layer_norm_fwd"], e)
-                checks.expect(e <= bound, f"layer_norm H={h} rows={LN_ROWS} "
-                                          f"residual={r is not None} {str(dtype)[6:]}: "
-                                          f"max|err| {e:.3e} <= {bound:.3e}")
+    phase_layer_norm_kernels(checks, g, err)
     phase_training_kernels(checks, g, err)
     checks.end_phase("kernels")
     return err
@@ -666,19 +725,20 @@ def random_batch(cfg, batch: int, seed: int) -> dict:
 
 
 def _counters() -> dict:
-    """counter name -> (wrapper, attribute): each kernel's total and, for K1
-    and K2, each variant's count."""
+    """counter name -> (wrapper, attribute): each kernel's total and each
+    variant's count."""
+    from vilbert_tpu_torch.ops import layernorm
     from vilbert_tpu_torch.ops.attention import (
         BWD_VARIANTS,
         VARIANTS,
         attention,
         attention_bwd,
     )
-    from vilbert_tpu_torch.ops.layernorm import layer_norm
 
-    out = {"layer_norm": (layer_norm, "launches")}
+    out = {}
     for name, wrapper, variants in (("attention", attention, VARIANTS),
-                                    ("attention_bwd", attention_bwd, BWD_VARIANTS)):
+                                    ("attention_bwd", attention_bwd, BWD_VARIANTS),
+                                    ("layer_norm", layernorm.layer_norm, layernorm.VARIANTS)):
         out[name] = (wrapper, "launches")
         for variant in variants:
             out[f"{name}_{variant}"] = (wrapper, f"launches_{variant}")
@@ -692,6 +752,56 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: getattr(wrapper, attr) for name, (wrapper, attr) in _counters().items()}
+
+
+@contextlib.contextmanager
+def recording_ln_shapes():
+    """Counts K4's launches by (rows, H, dtype name, residual) while open,
+    through the wrapper's launch function (``layer_norm`` and
+    ``layer_norm_kernel`` reach it by its module's name)."""
+    from vilbert_tpu_torch.ops import layernorm
+
+    launch, seen = layernorm._fwd_cuda, collections.Counter()
+
+    def recorded(x, weight, bias, eps, residual, variant=None):
+        out = launch(x, weight, bias, eps, residual, variant)
+        seen[(x.numel() // x.shape[-1], x.shape[-1], str(x.dtype)[6:], residual is not None)] += 1
+        return out
+
+    layernorm._fwd_cuda = recorded
+    try:
+        yield seen
+    finally:
+        layernorm._fwd_cuda = launch
+
+
+def ln_expected(shapes: dict, times: int = 1) -> tuple:
+    """({(rows, H, dtype, residual): launches}, {counter: launches}) of
+    ``shapes`` ({key: count}) run ``times`` times: the recording they give
+    and the K4 counts, total and by the variant ``ln_variant`` picks."""
+    import torch
+
+    from vilbert_tpu_torch.ops.layernorm import VARIANTS, ln_variant
+
+    counts = {"layer_norm": 0, **{f"layer_norm_{v}": 0 for v in VARIANTS}}
+    for (rows, h, dtype, _), n in shapes.items():
+        counts["layer_norm"] += n * times
+        counts[f"layer_norm_{ln_variant(rows, h, getattr(torch, dtype))}"] += n * times
+    return {key: n * times for key, n in shapes.items() if n}, counts
+
+
+def check_ln_recording(checks: Checks, what: str, seen, shapes: dict, launches: dict,
+                       times: int = 1) -> None:
+    """K4's recorded shapes and its counters against ``shapes`` run
+    ``times`` times."""
+    want, counts = ln_expected(shapes, times)
+    diff = {k: (seen.get(k, 0), want.get(k, 0)) for k in {*seen, *want}
+            if seen.get(k, 0) != want.get(k, 0)}
+    checks.expect(not diff, f"{what}: K4 launches by (rows, H, dtype, residual) as "
+                            f"chip_smoke.ln_shapes says ({len(want)} shapes; recorded vs "
+                            f"expected where they differ: {diff})")
+    got = {name: launches[name] for name in counts}
+    checks.expect(got == counts, f"{what}: K4 launches by variant {got} == {counts}")
 
 
 def kernel_calls_per_forward(cfg) -> tuple:
@@ -722,7 +832,7 @@ def phase_slice(checks: Checks) -> tuple:
 
     loader = synthetic_vqa_loader(cfg, task)
     n_batches = len(loader)
-    with tempfile.TemporaryDirectory() as out_dir:
+    with tempfile.TemporaryDirectory() as out_dir, recording_ln_shapes() as ln_seen:
         reset_launches()
         t0 = time.time()
         metrics, records = run_eval(model, cfg, {"TASK1": task}, {"TASK1": loader},
@@ -741,6 +851,11 @@ def phase_slice(checks: Checks) -> tuple:
                   f"{launches['attention_cc']} == 0")
     checks.expect(launches["layer_norm"] == n_batches * want_ln,
                   f"layer_norm launches {launches['layer_norm']} == {n_batches} x {want_ln}")
+    # the evaluator pads a short last batch to the batch size
+    bs = loader.batch_size
+    ln_want = {key: count for key, (_, count) in ln_forward(
+        cfg, bs, T, R, [("classifier", bs, 2 * cfg.bi_hidden_size)]).items()}
+    check_ln_recording(checks, "run_eval", ln_seen, ln_want, launches, n_batches)
     checks.expect(launches["attention_bwd"] == 0,
                   f"attention_bwd launches {launches['attention_bwd']} == 0")
     checks.expect(math.isfinite(metrics["loss"]) and 0 <= metrics["score"] <= 1,
@@ -782,20 +897,131 @@ def phase_slice(checks: Checks) -> tuple:
 
 # -- phase 5 -----------------------------------------------------------------
 
-#: (label, rows, H, dtype name, residual) of K4's timed shapes: the VQA
-#: forward's (B=1024), the CC step's text and image (B=256, T=36, R=37) and
-#: the multi-task iteration's largest, Visual7w's image (B=256, R=200) and
-#: GuessWhatPointing's text (B=64, 256+1 tokens)
-LN_SHAPES = (
-    ("text", TIME_BATCH * T, 768, "bfloat16", True),
-    ("image", TIME_BATCH * R, 1024, "bfloat16", True),
-    ("classifier", TIME_BATCH, 2048, "bfloat16", False),
-    ("text embedding", TIME_BATCH * T, 768, "float32", False),
-    ("CC text", TRAIN_BATCH * TRAIN_T, 768, "bfloat16", True),
-    ("CC image", TRAIN_BATCH * TRAIN_R, 1024, "bfloat16", True),
-    ("Visual7w image", 256 * 200, 1024, "bfloat16", True),
-    ("GuessWhatPointing text", 64 * 257, 768, "bfloat16", True),
-)
+def ln_forward(cfg, B: int, T: int, R: int, heads=()) -> dict:
+    """K4's launches in one forward of B samples at T tokens and R regions,
+    {(rows, H, dtype name, residual): (kind, count)}: the text embedding's
+    in fp32; the image embedding's, and two a text or image layer and four a
+    connection layer (two a stream, with the residual), in the compute
+    dtype; ``heads`` adds (kind, rows, H) of the heads' LayerNorms (compute
+    dtype, no residual)."""
+    dt, h_t, h_v = cfg.compute_dtype, cfg.hidden_size, cfg.v_hidden_size
+    n_c = cfg.num_connection_layers
+    out = {}
+    for kind, rows, h, dtype, res, n in (
+            ("text embedding", B * T, h_t, "float32", False, 1),
+            ("image embedding", B * R, h_v, dt, False, 1),
+            ("text", B * T, h_t, dt, True, 2 * cfg.num_hidden_layers + 2 * n_c),
+            ("image", B * R, h_v, dt, True, 2 * cfg.v_num_hidden_layers + 2 * n_c),
+            *((kind, rows, h, dt, False, 1) for kind, rows, h in heads)):
+        key = (rows, h, dtype, res)
+        kinds, count = out.get(key, ((), 0))
+        out[key] = (kinds + (kind,), count + n)
+    return {key: (" + ".join(kinds), n) for key, (kinds, n) in out.items()}
+
+
+def ln_task_forward(task, cfg) -> dict:
+    """``ln_forward`` of one training forward of a flagship task: its batch
+    in the model's layout (x4 for retrieval, x2 images for nlvr), text with
+    the task token, and its head: the VL classifiers' LayerNorm at
+    2 x bi_hidden, or for VL-binary the pretraining heads' two transforms
+    (which its forward computes) and its classifier's."""
+    t, r = task_geometry(task, cfg)
+    b = task.batch_size * {"retrieval": 4, "nlvr": 2}.get(task.process, 1)
+    wide = 2 * cfg.bi_hidden_size
+    heads = {"VL-classifier": [("classifier", b, wide)],
+             "VL-classifier-GQA": [("classifier", b, wide)],
+             "VL-binary-classifier": [("LM transform", b * t, cfg.hidden_size),
+                                      ("image transform", b * r, cfg.v_hidden_size),
+                                      ("classifier", b // 2, wide)]}.get(task.type, ())
+    return ln_forward(cfg, b, t, r, heads)
+
+
+#: the paths whose K4 shapes phase 5 times: a VQA forward at B=1024, a CC
+#: step, one multi-task iteration (a step of each flagship task)
+LN_PATHS = ("vqa", "cc", "multitask")
+
+
+def ln_shapes() -> dict:
+    """K4's distinct shapes on the three paths, {(rows, H, dtype name,
+    residual): {"label": ..., "vqa": n, "cc": n, "multitask": n}}, with
+    each path's launches: a VQA forward (B=1024, T=23, R=101, the VQA head),
+    a CC step (B=256, T=36, R=37; the LM transform on LM_GATHER tokens a
+    sample, the image transform on every region) and one multi-task
+    iteration. Phases 5, 6 and 8 check these against recordings."""
+    from vilbert_tpu_torch.core.config import ModelConfig
+
+    cfg = ModelConfig.from_json_file(CONFIG)
+    wide = 2 * cfg.bi_hidden_size
+    per_path = {
+        "vqa": [("VQA", ln_forward(cfg, TIME_BATCH, T, R,
+                                   [("classifier", TIME_BATCH, wide)]))],
+        "cc": [("CC", ln_forward(cfg, TRAIN_BATCH, TRAIN_T, TRAIN_R,
+                                 [("LM transform", TRAIN_BATCH * LM_GATHER, cfg.hidden_size),
+                                  ("image transform", TRAIN_BATCH * TRAIN_R,
+                                   cfg.v_hidden_size)]))],
+        "multitask": [(key, ln_task_forward(task, cfg.replace(task_specific_tokens=True)))
+                      for key, task in flagship_tasks().items()],
+    }
+    out = {}
+    for path, sources in per_path.items():
+        for who, shapes in sources:
+            for key, (kind, n) in shapes.items():
+                row = out.setdefault(key, {"who": {}, **{p: 0 for p in LN_PATHS}})
+                row["who"].setdefault(kind, []).append(who)
+                row[path] += n
+    for row in out.values():
+        row["label"] = "; ".join(f"{','.join(who)} {kind}" for kind, who in row.pop("who").items())
+    return out
+
+
+def time_layer_norm(checks: Checks, shapes: dict, card: str, err: dict, g) -> dict:
+    """K4 at each of ``ln_shapes()``: the routed kernel against its plain
+    version (output within phase 3's bounds), every variant named,
+    ``F.layer_norm(x + residual)`` (the add inside the timed call) and the
+    bound (bytes: inputs and the output once, weight and bias once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vilbert_tpu_torch.ops.layernorm import (
+        VARIANTS,
+        layer_norm,
+        layer_norm_kernel,
+        layer_norm_ref,
+        ln_variant,
+    )
+
+    times = {}
+    for (rows, h, dtype_name, with_res), info in shapes.items():
+        dtype = getattr(torch, dtype_name)
+        xx = torch.randn(rows, h, generator=g, device=DEVICE).to(dtype)
+        res = torch.randn(rows, h, generator=g, device=DEVICE).to(dtype) if with_res else None
+        w = 1 + 0.1 * torch.randn(h, generator=g, device=DEVICE)
+        b = 0.1 * torch.randn(h, generator=g, device=DEVICE)
+        wl, bl = w.to(dtype), b.to(dtype)
+        fns = {"kernel": lambda: layer_norm(xx, w, b, residual=res),
+               "plain": lambda: layer_norm_ref(xx, w, b, residual=res),
+               "library": lambda: F.layer_norm(xx + res if with_res else xx, (h,), wl, bl,
+                                               1e-12),
+               **{v: lambda v=v: layer_norm_kernel(xx, w, b, residual=res, variant=v)
+                  for v in VARIANTS}}
+        variant = ln_variant(rows, h, dtype)
+        want = fns["plain"]().float()
+        e = float((fns["kernel"]().float() - want).abs().max())
+        bound_e = 1e-4 if dtype == torch.float32 else bf16_bound(want)
+        err["layer_norm_fwd"] = max(err["layer_norm_fwd"], e)
+        checks.expect(e <= bound_e, f"layer_norm {info['label']} rows={rows} H={h} {dtype_name} "
+                                    f"residual={with_res} [{variant}]: max|err| {e:.3e} <= "
+                                    f"{bound_e:.3e}")
+        row = timed_row(fns, "kernel", "plain", xx.element_size() * rows * h
+                        * (3 if with_res else 2) + 8 * h, 8 * rows * h, FP32_FLOPS,
+                        library="library")
+        row.update(variant=variant, launches_by_path={p: info[p] for p in LN_PATHS})
+        times[("layer_norm", info["label"])] = row
+        log(f"  layer_norm {info['label']} rows={rows} H={h} residual={with_res} {dtype_name} "
+            f"[{variant}] (library: F.layer_norm(x{' + residual' if with_res else ''})): "
+            f"{row_text(row)}; launches vqa/cc/multitask "
+            f"{'/'.join(str(info[p]) for p in LN_PATHS)} [{card}]")
+    return times
 
 
 def phase_timing(checks: Checks, model, cfg, card: str, err: dict) -> dict:
@@ -805,10 +1031,17 @@ def phase_timing(checks: Checks, model, cfg, card: str, err: dict) -> dict:
 
     from vilbert_tpu_torch.models.layers import use_plain_ops
     from vilbert_tpu_torch.ops.attention import attention, attention_kernel, attention_ref
-    from vilbert_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
 
     B = TIME_BATCH
     x = random_batch(cfg, B, SEED + 2)
+    shapes = ln_shapes()
+    with torch.inference_mode(), recording_ln_shapes() as ln_seen:
+        reset_launches()
+        model(**x, heads=("vil_prediction",))
+        torch.cuda.synchronize()
+        launches = read_launches()
+    check_ln_recording(checks, f"VQA forward B={B}", ln_seen,
+                       {key: row["vqa"] for key, row in shapes.items()}, launches)
     for plain in (False, True):
         use_plain_ops(model, plain)
         with torch.inference_mode():
@@ -843,25 +1076,7 @@ def phase_timing(checks: Checks, model, cfg, card: str, err: dict) -> dict:
         times[("attention_fwd", "VQA " + label, 0.0)] = row
         log(f"  attention {label} B={B} h={heads} d={d} {sq}x{sk} bf16 rate 0 (library: SDPA): "
             f"{row_text(row)} [{card}]")
-    for label, rows, h, dtype_name, with_res in LN_SHAPES:
-        dtype = getattr(torch, dtype_name)
-        xx = torch.randn(rows, h, generator=g, device=DEVICE).to(dtype)
-        res = torch.randn(rows, h, generator=g, device=DEVICE).to(dtype) if with_res else None
-        w = torch.ones(h, device=DEVICE)
-        b = torch.zeros(h, device=DEVICE)
-        # the same function in PyTorch: the residual add inside the timed call
-        wl, bl = w.to(dtype), b.to(dtype)
-        fns = {"kernel": lambda: layer_norm(xx, w, b, residual=res),
-               "plain": lambda: layer_norm_ref(xx, w, b, residual=res),
-               "library": lambda: F.layer_norm(xx + res if with_res else xx, (h,), wl, bl,
-                                               1e-12)}
-        elt = xx.element_size()
-        row = timed_row(fns, "kernel", "plain", elt * rows * h * (3 if with_res else 2) + 8 * h,
-                        8 * rows * h, FP32_FLOPS, library="library")
-        times[("layer_norm", label)] = row
-        log(f"  layer_norm {label} rows={rows} H={h} residual={with_res} {str(dtype)[6:]} "
-            f"(library: F.layer_norm(x{' + residual' if with_res else ''})): {row_text(row)} "
-            f"[{card}]")
+    times.update(time_layer_norm(checks, shapes, card, err, g))
     checks.end_phase("timing")
     return times
 
@@ -916,12 +1131,13 @@ def phase_train(checks: Checks) -> tuple:
         "--num_steps", str(TRAIN_STEPS), "--seed", str(SEED), "--device", DEVICE,
     ])
     losses = []
-    reset_launches()
-    t0 = time.time()
-    state = train(args, hooks=[lambda step, st, m: losses.append(
-        {k: float(v) for k, v in m.items()})])
-    torch.cuda.synchronize()
-    launches = read_launches()
+    with recording_ln_shapes() as ln_seen:
+        reset_launches()
+        t0 = time.time()
+        state = train(args, hooks=[lambda step, st, m: losses.append(
+            {k: float(v) for k, v in m.items()})])
+        torch.cuda.synchronize()
+        launches = read_launches()
     model = state.model
     cfg = model.cfg
     log(f"  train {CONFIG}: {sum(p.numel() for p in model.parameters())} params, "
@@ -945,6 +1161,9 @@ def phase_train(checks: Checks) -> tuple:
         checks.expect(launches[f"{name}_tc"] == launches[name] and launches[f"{name}_cc"] == 0,
                       f"{name} tensor-core launches {launches[f'{name}_tc']} == "
                       f"{launches[name]}, CUDA-core {launches[f'{name}_cc']} == 0")
+    check_ln_recording(checks, f"{TRAIN_STEPS} CC steps", ln_seen,
+                       {key: row["cc"] for key, row in ln_shapes().items()}, launches,
+                       TRAIN_STEPS)
 
     # one fp32 step with dropout on, through the kernels and the plain ops
     cfg32 = cfg.replace(compute_dtype="float32")
@@ -1186,15 +1405,14 @@ def multitask_launches(tasks: dict, cfg, steps: int, evals: int) -> dict:
     Sq, Sk <= 128, else the long tensor-core variant: 30 a step, 28 for the V-logit
     types, whose loss reads the image stream only (the text layers after
     the last co-attention and its text-query direction feed no image
-    output); K4 as kernel_calls_per_forward, with the heads' own LayerNorms
-    (the classifiers' one, and for VL-binary the pretraining heads' two,
-    which its forward computes, and its classifier's one)."""
+    output); K4 as ``ln_task_forward`` says (its variants:
+    ``check_ln_recording``)."""
     n_t, n_v = cfg.num_hidden_layers, cfg.v_num_hidden_layers
     n_c = cfg.num_connection_layers
     schedule = cfg.encoder_schedule()
     last_c = max(i for i, (kind, _) in enumerate(schedule) if kind == "c")
     trailing_t = sum(kind == "t" for kind, _ in schedule[last_c + 1:])
-    out = {name: 0 for name in _counters()}
+    out = {name: 0 for name in _counters() if not name.startswith("layer_norm_")}
     for task in tasks.values():
         t, r = task_geometry(task, cfg)
         shapes = [(t, t)] * n_t + [(r, r)] * n_v + [(t, r), (r, t)] * n_c
@@ -1209,9 +1427,7 @@ def multitask_launches(tasks: dict, cfg, steps: int, evals: int) -> dict:
         out["attention_bwd"] += steps * len(bwd)
         out["attention_bwd_tc"] += steps * sum(max(s) <= 128 for s in bwd)
         out["attention_bwd_long_tc"] += steps * sum(max(s) > 128 for s in bwd)
-        head_ln = {"VL-classifier": 1, "VL-classifier-GQA": 1, "VL-binary-classifier": 3}
-        ln = 2 * n_t + 2 * n_v + 4 * n_c + 2 + head_ln.get(task.type, 0)
-        out["layer_norm"] += fwd * ln
+        out["layer_norm"] += fwd * sum(n for _, n in ln_task_forward(task, cfg).values())
     return out
 
 
@@ -1259,14 +1475,15 @@ def phase_multitask(checks: Checks, tmp: str) -> tuple:
     args = multitask_args(tmp, ["--num_iterations", str(MT_ITERATIONS)])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.time()
-    trainer = train(args, tasks, loaders, val_loaders=val_loaders, task_hooks=[head_hook])
-    torch.cuda.synchronize()
-    train_s = time.time() - t0
-    evals = {key: trainer.evaluate(key, max_batches=1) for key in tasks}
-    torch.cuda.synchronize()
-    launches = read_launches()
+    with recording_ln_shapes() as ln_seen:
+        reset_launches()
+        t0 = time.time()
+        trainer = train(args, tasks, loaders, val_loaders=val_loaders, task_hooks=[head_hook])
+        torch.cuda.synchronize()
+        train_s = time.time() - t0
+        evals = {key: trainer.evaluate(key, max_batches=1) for key in tasks}
+        torch.cuda.synchronize()
+        launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = trainer.model_cfg
     log(f"  train {CONFIG}: {sum(p.numel() for p in trainer.model.parameters())} params, "
@@ -1293,6 +1510,11 @@ def phase_multitask(checks: Checks, tmp: str) -> tuple:
     want = multitask_launches(tasks, cfg, MT_ITERATIONS, 1)
     for name, n in want.items():
         checks.expect(launches[name] == n, f"{name} launches {launches[name]} == {n}")
+    log("  K4 shapes recorded (rows, H, dtype, residual): launches: " + ", ".join(
+        f"{k}: {n}" for k, n in sorted(ln_seen.items())))
+    check_ln_recording(checks, f"{MT_ITERATIONS} iterations and an evaluation of each task",
+                       ln_seen, {key: row["multitask"] for key, row in ln_shapes().items()},
+                       launches, MT_ITERATIONS + 1)
     checks.end_phase("multi-task slice")
 
     # one fp32 iteration with dropout, kernels vs plain ops, full geometry
@@ -1499,6 +1721,8 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
     of the path the headline shape belongs to. The CUDA-core K1, which the
     bf16 paths no longer launch, reports its launches in phase 8's fp32
     iteration through the kernels and its times at the long shapes."""
+    from vilbert_tpu_torch.ops.layernorm import VARIANTS as LN_VARIANTS
+
     long_labels = tuple(label for label, *_ in MT_ATTENTIONS)
 
     def entry(name, source, replaces, counter, key, library, variant=None):
@@ -1534,8 +1758,11 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
                 "scaled_dot_product_attention forward + autograd.grad less forward, rate 0")
     bwd["launches_tc"] = train_launches["attention_bwd_tc"]
     ln = entry("layer_norm_fwd", "vilbert_tpu_torch/csrc/layernorm.cu",
-               "vilbert_tpu/ops/pallas_layernorm.py:28", "layer_norm", ("layer_norm", "image"),
+               "vilbert_tpu/ops/pallas_layernorm.py:28", "layer_norm", ("layer_norm", "VQA image"),
                "torch.nn.functional.layer_norm(x + residual), the add inside the timed call")
+    ln["variants"] = {v: {"launches_by_path": {
+        "vqa_eval": vqa_launches[f"layer_norm_{v}"], "cc_train": train_launches[f"layer_norm_{v}"],
+        "multitask_train": mt_launches[f"layer_norm_{v}"]}} for v in LN_VARIANTS}
     # the K3 entry has no kernel of its own: K1 + K2 at rate 0
     f0 = times[("attention_fwd", "CC image self", 0.0)]
     b0 = times[("attention_bwd", "CC image self", 0.0)]

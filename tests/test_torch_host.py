@@ -380,3 +380,35 @@ def test_chip_smoke_task_configs_are_the_yml():
         assert type(cfg) is TaskConfig
         assert dataclasses.asdict(cfg) == dataclasses.asdict(want[key]), key
     assert smoke.task1() == want["TASK1"]
+
+
+def test_chip_smoke_ln_shapes_are_each_paths_launches(monkeypatch):
+    """chip_smoke.py's K4 shapes (phase 5 times each one; phases 4-8 hold
+    the recorded launches to them) add up, path by path, to the launches
+    its phases count: 63 a VQA forward, 64 a CC step, 750 a multi-task
+    iteration; the heads' LayerNorms are among them at their batches."""
+    import importlib.util
+
+    from vilbert_tpu_torch.core.config import ModelConfig
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.chdir(REPO)
+    shapes = smoke.ln_shapes()
+    cfg = ModelConfig.from_json_file(smoke.CONFIG)
+    total = {p: sum(row[p] for row in shapes.values()) for p in smoke.LN_PATHS}
+    mt_cfg = cfg.replace(task_specific_tokens=True)
+    assert total == {
+        "vqa": smoke.kernel_calls_per_forward(cfg)[1],
+        "cc": smoke.kernel_calls_per_step(cfg)["layer_norm"],
+        "multitask": smoke.multitask_launches(smoke.flagship_tasks(), mt_cfg, 1, 0)["layer_norm"],
+    } == {"vqa": 63, "cc": 64, "multitask": 750}
+    heads = {key: row["label"] for key, row in shapes.items() if not key[3] and key[2] != "float32"
+             and "embedding" not in row["label"]}
+    assert heads == {(1024, 2048, "bfloat16", False): "VQA classifier",
+                     (3072, 768, "bfloat16", False): "CC LM transform",
+                     (128, 2048, "bfloat16", False): "TASK1,TASK2,TASK15 classifier",
+                     (5248, 768, "bfloat16", False): "TASK12 LM transform",
+                     (64, 2048, "bfloat16", False): "TASK12 classifier"}
+    assert shapes[(9472, 1024, "bfloat16", False)]["cc"] == 2  # embedding + image transform

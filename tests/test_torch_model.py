@@ -41,6 +41,29 @@ def _inputs(cfg, B=4, T=7, R=5, seed=0):
     )
 
 
+#: encoder variants of ModelConfig, each held to the flax apply
+ENCODER_VARIANTS = {
+    "no_coattention": dict(with_coattention=False),
+    "fixed_layers": dict(fixed_t_layer=2, fixed_v_layer=1),
+    "fast_mode": dict(fast_mode=True),
+    "roberta": dict(model="roberta"),
+    "fusion_sum": dict(fusion_method="sum"),
+    "relu": dict(hidden_act="relu", v_hidden_act="relu"),
+    "no_connection_layers": dict(v_biattention_id=(), t_biattention_id=()),
+}
+#: variants whose gradients only are held to the flax apply here
+GRADIENT_VARIANTS = {"dynamic_attention": dict(dynamic_attention=True)}
+
+
+def _variant_inputs(cfg):
+    """``_inputs``, with one text for the four images under fast_mode."""
+    x = _inputs(cfg, seed=5)
+    if cfg.fast_mode:
+        for k in ("input_txt", "token_type_ids", "attention_mask"):
+            x[k] = x[k][:1]
+    return x
+
+
 def _port_model(cfg, seed=0):
     from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks
 
@@ -185,6 +208,78 @@ class TestSlice:
                 getattr(got, name).numpy(), np.asarray(getattr(want, name)),
                 atol=1e-4, rtol=1e-4, err_msg=name,
             )
+
+    @pytest.mark.parametrize("variant", sorted(ENCODER_VARIANTS))
+    def test_encoder_variant_matches_flax(self, tiny_config, variant):
+        """Every head of the forward within 1e-4 of the flax apply through
+        the Pallas kernels, for each encoder variant; fast_mode runs one text
+        against the batch of images."""
+        from vilbert_tpu.models.vilbert import ViLBERTForVLTasks as JaxModel
+        from vilbert_tpu_torch.core.weights import flax_from_state_dict
+
+        cfg = tiny_config.replace(**ENCODER_VARIANTS[variant])
+        model = _port_model(cfg, seed=5)
+        params = flax_from_state_dict(model.state_dict())
+        x = _variant_inputs(cfg)
+        want = jax.jit(functools.partial(JaxModel(_pallas(cfg)).apply, heads=None))(
+            {"params": params}, **x)
+        with torch.inference_mode():
+            got = model(**{k: torch.from_numpy(v) for k, v in x.items()})
+        compared = 0
+        for name in want._fields:
+            w = getattr(want, name)
+            assert (getattr(got, name) is None) == (w is None), name
+            if w is not None:
+                np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(w),
+                                           atol=1e-4, rtol=1e-4, err_msg=name)
+                compared += 1
+        assert compared >= 6
+
+    @pytest.mark.parametrize("variant", ["fixed_layers", "no_connection_layers",
+                                         "dynamic_attention"])
+    def test_encoder_variant_gradients_match_flax(self, tiny_config, variant):
+        """The gradient of a fixed random projection of four heads' outputs,
+        each parameter's within 1e-3 of its own max|grad| plus 1e-6 of the
+        largest gradient of the model: the key biases' gradients are zero
+        but for rounding (softmax is shift-invariant), as in chip_smoke.py's
+        fp32 steps. Zero where the flax apply stops the gradient (below the
+        fixed layers)."""
+        from vilbert_tpu.models.vilbert import ViLBERTForVLTasks as JaxModel
+        from vilbert_tpu_torch.core.weights import flax_from_state_dict
+
+        cfg = tiny_config.replace(**{**ENCODER_VARIANTS, **GRADIENT_VARIANTS}[variant])
+        model = _port_model(cfg, seed=6)
+        params = flax_from_state_dict(model.state_dict())
+        x = _variant_inputs(cfg)
+        heads = ("vil_prediction", "vil_logit", "vision_logit", "linguisic_logit")
+        jax_model = JaxModel(_pallas(cfg))
+        shapes = jax.eval_shape(functools.partial(jax_model.apply, heads=heads),
+                                {"params": params}, **x)
+        rng = np.random.RandomState(7)
+        cots = {h: rng.randn(*getattr(shapes, h).shape).astype(np.float32) for h in heads}
+
+        def jax_objective(p):
+            out = jax_model.apply({"params": p}, **x, heads=heads)
+            return sum(jnp.sum(getattr(out, h) * cots[h]) for h in heads)
+
+        want = _flatten(jax.jit(jax.grad(jax_objective))(params))
+        out = model(**{k: torch.from_numpy(v) for k, v in x.items()}, heads=heads)
+        sum((getattr(out, h) * torch.from_numpy(cots[h])).sum() for h in heads).backward()
+        got = _flatten(flax_from_state_dict(
+            {n: torch.zeros_like(p) if p.grad is None else p.grad
+             for n, p in model.named_parameters()}))
+        assert set(got) == set(want)
+        top = max(np.abs(np.asarray(w)).max() for w in want.values())
+        for path, w in want.items():
+            w = np.asarray(w)
+            err = np.abs(np.asarray(got[path]) - w).max()
+            assert err <= 1e-3 * np.abs(w).max() + 1e-6 * top, (path, err, np.abs(w).max())
+        if variant == "fixed_layers":  # below the fixed layers nothing moves
+            fixed = [p for p in want if p.startswith(("bert.encoder.layer_0.",
+                                                      "bert.encoder.layer_1.",
+                                                      "bert.encoder.v_layer_0."))]
+            assert fixed and not any(np.asarray(want[p]).any() or np.asarray(got[p]).any()
+                                     for p in fixed)
 
     def test_evaluate_task_matches_jax(self, tiny_config, port_and_params, tmp_path):
         """Synthetic TASK1 through both evaluators: same loss and score, the

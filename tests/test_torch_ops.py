@@ -7,6 +7,8 @@ shape logic and run here too; the kernels themselves run only on a card
 (chip_smoke.py compares them with the plain versions there).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -225,23 +227,38 @@ class _FakeLibrary:
         return lambda *args: self.calls.append((name, args)) or 0
 
 
-@pytest.fixture
-def fake_kernels(monkeypatch):
-    """``_fwd_cuda`` with a recording library and no CUDA stream."""
+def _fake_library(monkeypatch, wrapper, variants) -> _FakeLibrary:
+    """A recording library in place of the kernels', no CUDA stream, and
+    ``wrapper``'s counters at 0 (restored after the test)."""
     import contextlib
     import types
 
     from vilbert_tpu_torch.ops import _build
-    from vilbert_tpu_torch.ops.attention import VARIANTS, attention
 
-    for counter in ("launches", *(f"launches_{v}" for v in VARIANTS)):
-        monkeypatch.setattr(attention, counter, 0)  # restored after the test
+    for counter in ("launches", *(f"launches_{v}" for v in variants)):
+        monkeypatch.setattr(wrapper, counter, 0)
     lib = _FakeLibrary()
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda _: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
     return lib
+
+
+@pytest.fixture
+def fake_kernels(monkeypatch):
+    """The attention ``_fwd_cuda`` with a recording library."""
+    from vilbert_tpu_torch.ops.attention import VARIANTS, attention
+
+    return _fake_library(monkeypatch, attention, VARIANTS)
+
+
+@pytest.fixture
+def fake_ln_kernels(monkeypatch):
+    """The LayerNorm ``_fwd_cuda`` with a recording library."""
+    from vilbert_tpu_torch.ops.layernorm import VARIANTS, layer_norm
+
+    return _fake_library(monkeypatch, layer_norm, VARIANTS)
 
 
 class TestLongForwardDispatch:
@@ -355,6 +372,164 @@ class TestLayerNormKernelOperands:
             x = torch.zeros(4 * h + 1, dtype=torch.bfloat16)[1:].view(4, h)
         with pytest.raises(ValueError):
             kernel_rows(x, w, b, res)
+
+
+class TestLayerNormVariants:
+    """Which K4 variant the wrapper picks and what it hands the kernel's
+    entry point, with the library replaced by a recorder (the kernel itself
+    runs on a card)."""
+
+    @pytest.mark.parametrize("h", [128, 768, 1024, 2048])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_variant_by_rows(self, h, dtype):
+        """"block" up to the first crossover and past the second,
+        "persistent" between; the paths' shapes on their measured side."""
+        from vilbert_tpu_torch.ops.layernorm import (
+            PERSISTENT_MAX_ROWS,
+            PERSISTENT_MIN_ROWS,
+            ln_variant,
+        )
+
+        top = PERSISTENT_MAX_ROWS[dtype]
+        for rows, want in ((1, "block"), (64, "block"), (PERSISTENT_MIN_ROWS, "block"),
+                           (PERSISTENT_MIN_ROWS + 1, "persistent"), (top, "persistent"),
+                           (top + 1, "block"), (103424, "block")):
+            assert ln_variant(rows, h, dtype) == want, rows
+        assert ln_variant(9216, 768, torch.bfloat16) == "persistent"  # the CC step's text
+        assert ln_variant(16448, 768, torch.bfloat16) == "block"  # GuessWhatPointing's text
+        assert ln_variant(9216, 768, torch.float32) == "block"  # the CC text embedding
+
+    def test_each_variant_has_a_counter_and_an_entry_point(self):
+        from vilbert_tpu_torch.ops import _build
+        from vilbert_tpu_torch.ops.layernorm import VARIANTS, layer_norm
+
+        assert set(VARIANTS) == {"block", "persistent"}
+        for variant in VARIANTS:
+            assert isinstance(getattr(layer_norm, f"launches_{variant}"), int)
+            assert _build._SIGNATURES[f"vt_layer_norm_fwd_{variant}"] == (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+
+    @pytest.mark.parametrize("rows,lead", [(1, ()), (64, ()), (1024, ()), (9216, ()),
+                                           (6 * 101, (6,))])
+    @pytest.mark.parametrize("with_res", [False, True])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_hands_the_entry_point_its_operands(self, fake_ln_kernels, rows, lead, with_res,
+                                                 dtype):
+        from vilbert_tpu_torch.ops import _build
+        from vilbert_tpu_torch.ops.layernorm import _fwd_cuda, layer_norm, ln_variant
+
+        h = 1024
+        x = torch.zeros(*lead, rows // int(np.prod(lead)), h, dtype=dtype)
+        res = torch.ones_like(x) if with_res else None
+        w, b = torch.ones(h), torch.zeros(h)
+        variant = ln_variant(rows, h, dtype)
+        out = _fwd_cuda(x, w, b, 1e-12, res)
+        assert out.shape == x.shape and out.dtype == dtype
+        (name, args), = fake_ln_kernels.calls
+        assert name == f"vt_layer_norm_fwd_{variant}"
+        assert args[:5] == (x.data_ptr(), res.data_ptr() if with_res else None, w.data_ptr(),
+                            b.data_ptr(), out.data_ptr())
+        assert args[5:] == (_build.DTYPE_CODES[dtype], rows, h, 1e-12, 0)
+        other, = {"block", "persistent"} - {variant}
+        assert (layer_norm.launches, getattr(layer_norm, f"launches_{variant}"),
+                getattr(layer_norm, f"launches_{other}")) == (1, 1, 0)
+
+    @pytest.mark.parametrize("variant", ["block", "persistent"])
+    def test_named_variant_launches_it(self, fake_ln_kernels, variant):
+        """``layer_norm_kernel``'s variant, whatever ``ln_variant`` would pick."""
+        from vilbert_tpu_torch.ops.layernorm import _fwd_cuda, layer_norm
+
+        for rows in (1, 50_000):
+            x = torch.zeros(rows, 768, dtype=torch.bfloat16)
+            _fwd_cuda(x, torch.ones(768), torch.zeros(768), 1e-5, None, variant)
+        assert [name for name, _ in fake_ln_kernels.calls] == [f"vt_layer_norm_fwd_{variant}"] * 2
+        assert fake_ln_kernels.calls[0][1][8] == 1e-5
+        assert (layer_norm.launches, getattr(layer_norm, f"launches_{variant}")) == (2, 2)
+
+    @pytest.mark.parametrize("case", ["misaligned", "strided", "fp16", "h_96", "h_200",
+                                      "h_2176", "h_4096", "variant"])
+    def test_refuses_before_launch(self, fake_ln_kernels, case):
+        from vilbert_tpu_torch.ops.layernorm import _fwd_cuda, layer_norm
+
+        h = {"h_96": 96, "h_200": 200, "h_2176": 2176, "h_4096": 4096}.get(case, 768)
+        x = torch.zeros(4, h, dtype=torch.float16 if case == "fp16" else torch.bfloat16)
+        if case == "misaligned":
+            x = torch.zeros(4 * h + 1, dtype=torch.bfloat16)[1:].view(4, h)
+        elif case == "strided":
+            x = torch.zeros(h, 4, dtype=torch.bfloat16).T
+        with pytest.raises(ValueError):
+            _fwd_cuda(x, torch.ones(h), torch.zeros(h), 1e-12, None,
+                      "tiles" if case == "variant" else None)
+        assert fake_ln_kernels.calls == [] and layer_norm.launches == 0
+
+    def test_cuda_entry_needs_cuda_tensors(self):
+        from vilbert_tpu_torch.ops.layernorm import VARIANTS, layer_norm_kernel
+
+        x = torch.zeros(4, 768)
+        for variant in VARIANTS:
+            with pytest.raises(ValueError, match="cpu or cuda"):
+                layer_norm_kernel(x, torch.ones(768), torch.zeros(768), variant=variant)
+
+
+def _kernel_row_sum(v, warps, vec):
+    """The sum of each row of v [rows, H] (fp32) in the K4 kernel's order,
+    with the row over ``warps`` warps of 32 lanes and vectors of ``vec``
+    elements: thread t holds vectors t, t + 32 warps, ... and sums its
+    elements in column order; a butterfly over each warp's lanes
+    (``__shfl_xor_sync`` by 16, 8, 4, 2, 1); then the warps' sums in order."""
+    rows, h = v.shape
+    threads = 32 * warps
+    parts = v.reshape(rows, h // (vec * threads), threads, vec)
+    s = np.zeros((rows, threads), np.float32)
+    for i in range(parts.shape[1]):
+        for e in range(vec):
+            s = s + parts[:, i, :, e]
+    s = s.reshape(rows, warps, 32)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, :, np.arange(32) ^ o]
+    total = s[:, 0, 0]
+    for k in range(1, warps):
+        total = total + s[:, k, 0]
+    return total
+
+
+def _kernel_layer_norm(x, w, b, res, warps, vec, eps=1e-12):
+    """K4's arithmetic in numpy fp32, its sums in the kernel's order (fused
+    multiply-adds aside)."""
+    v = x + res if res is not None else x
+    h = np.float32(v.shape[1])
+    mean = _kernel_row_sum(v, warps, vec) / h
+    d = v - mean[:, None]
+    inv = np.float32(1) / np.sqrt(_kernel_row_sum(d * d, warps, vec) / h + np.float32(eps))
+    return d * inv[:, None] * w + b
+
+
+class TestLayerNormSummationOrder:
+    """The kernel's order of summation, emulated in numpy, against the
+    Pallas kernel in interpret mode at fp32: both variants sum a row over
+    H / (32 x vector) warps with one vector a thread. Vectors of 4 are
+    fp32's layout (and bf16's at H a multiple of 128 but not of 256),
+    vectors of 8 bf16's, here on fp32 values. One warp a row (32 lanes of
+    several vectors each) is emulated beside it: the same function in
+    another order, within the same bound."""
+
+    @pytest.mark.parametrize("h,vec", [(128, 4), (384, 4), (768, 4), (1024, 4), (2048, 4),
+                                       (768, 8), (1024, 8), (2048, 8)])
+    @pytest.mark.parametrize("layout", ["kernel", "one warp a row"])
+    @pytest.mark.parametrize("with_res", [False, True])
+    def test_matches_pallas(self, h, vec, layout, with_res, rng_np):
+        from vilbert_tpu.ops.pallas_layernorm import fused_layer_norm
+
+        x = rng_np.randn(5, h).astype(np.float32) * 3 + 1
+        res = rng_np.randn(5, h).astype(np.float32) if with_res else None
+        w = rng_np.randn(h).astype(np.float32)
+        b = rng_np.randn(h).astype(np.float32)
+        want = fused_layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                residual=None if res is None else jnp.asarray(res),
+                                interpret=True)
+        warps = 1 if layout == "one warp a row" else h // (32 * vec)
+        got = _kernel_layer_norm(x, w, b, res, warps, vec)
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
 class TestActivations:

@@ -1,17 +1,37 @@
-// LayerNorm(x [+ residual]) forward for Hopper (sm_90a), one warp per row.
+// LayerNorm(x [+ residual]) forward for Hopper (sm_90a): K4.
 //
-// Replaces the TPU kernel vilbert_tpu/ops/pallas_layernorm.py::_ln_kernel.
-// Same arithmetic: the residual is added in fp32, mean and variance are fp32
-// two-pass statistics over the row, eps (1e-12) sits inside the rsqrt, weight
-// and bias are fp32, and the output takes x's dtype.
+// Replaces the TPU kernel vilbert_tpu/ops/pallas_layernorm.py:28 _ln_kernel,
+// with the same arithmetic: the residual is added in fp32; the mean first,
+// then the mean of the squared deviations, both over values held in
+// registers (two passes, never a sum and a sum of squares); eps (1e-12)
+// inside the rsqrt; fp32 weight and bias; one rounding to x's dtype.
 //
-// What bounds it on the H100: a handful of flops per element against 2 or 3
-// elements read and one written, so device-memory bandwidth alone. The design
-// reads every element once with 16-byte (fp32) or 8-byte (bf16) vector loads,
-// keeps the row in registers for both statistics passes (H <= kMaxH), reduces
-// with warp shuffles only (no shared memory, no block barrier), and writes
-// once. Four rows per block of 128 threads; a ragged last block simply has
-// idle warps.
+// What bounds it on the H100: a few flops per element against two or three
+// elements read and one written, so device-memory bytes alone. The design:
+// - the kernel is templated on H, and a row is split over H / (32 * vector)
+//   warps of one block, one vector a thread: a thread holds 4 or 8 values,
+//   32 registers, so an SM holds 64 warps and their loads in flight;
+// - every access is a 16-byte vector (4 fp32 or 8 bf16) but for bf16 rows
+//   whose H is a multiple of 128 and not of 256, which take 8-byte vectors
+//   so that the row splits into whole warps; neighbouring threads read
+//   neighbouring vectors;
+// - each element is read once and written once; a thread issues its loads
+//   of x, the residual, the weight and the bias before the statistics, and
+//   the warps' partial sums meet in shared memory (two barriers a row);
+// - two variants, picked in Python by row count
+//   (ops/layernorm.py::ln_variant, crossovers measured on the card):
+//   "block": one row a block. Few rows, where every row should be in flight
+//   at once, and very many, where 32 registers a thread keep the most
+//   loads in flight.
+//   "persistent": as many blocks as the card holds at once, each striding
+//   over the rows with the weight and bias kept in registers; a thread
+//   loads its share of the next row before it reduces the current one, so
+//   the loads of one row overlap the barriers of the other. Between the
+//   two, from about a thousand to about fourteen thousand rows, where one
+//   row a block leaves SMs waiting on their rows' single round trip.
+// Sums are taken in a fixed order: a thread's elements in column order, a
+// butterfly over the 32 lanes of its warp, then the warps of the row in
+// order (tests/test_torch_ops.py emulates it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -19,128 +39,226 @@
 
 namespace {
 
-constexpr int kRowsPerBlock = 4;
-constexpr int kVec = 4;                     // elements per vector load
 constexpr int kMaxH = 2048;
-constexpr int kMaxVecs = kMaxH / (32 * kVec);  // vectors per lane at kMaxH
 
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+template <typename T, int H>
+struct Row {
+  static constexpr int kVec = (sizeof(T) == 2 && H % 256 == 0) ? 8 : 4;  // elements a vector
+  static constexpr int kWarps = H / kVec / 32;                            // one vector a thread
+  static_assert(H % 128 == 0 && kWarps * 32 * kVec == H, "H must be a multiple of 128");
+};
+
+template <int kBytes> struct RawOf;
+template <> struct RawOf<8> { using type = uint2; };
+template <> struct RawOf<16> { using type = uint4; };
+// N elements of T as one vector register operand
+template <typename T, int N>
+using Raw = typename RawOf<sizeof(T) * N>::type;
+
+template <typename T, int N>
+__device__ __forceinline__ Raw<T, N> load_raw(const T* p) {
+  return *reinterpret_cast<const Raw<T, N>*>(p);
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+// the N elements of a raw vector, as fp32
+template <typename T, int N>
+__device__ __forceinline__ void widen(const Raw<T, N>& r, float* v) {
+  if constexpr (sizeof(T) == 4) {
+    const float* f = reinterpret_cast<const float*>(&r);
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = f[e];
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) {
+      const float2 t = __bfloat1622float2(h[e]);
+      v[2 * e] = t.x;
+      v[2 * e + 1] = t.y;
+    }
+  }
 }
 
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+template <typename T, int N>
+__device__ __forceinline__ void store_vec(T* p, const float* v) {
+  Raw<T, N> r;
+  if constexpr (sizeof(T) == 4) {
+    float* f = reinterpret_cast<float*>(&r);
+#pragma unroll
+    for (int e = 0; e < N; ++e) f[e] = v[e];
+  } else {
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  }
+  *reinterpret_cast<Raw<T, N>*>(p) = r;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 t;
-  t.x = *reinterpret_cast<const uint32_t*>(&lo);
-  t.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = t;
+// N fp32 values (N a multiple of 4) in 16-byte loads
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float* v) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float4 t = reinterpret_cast<const float4*>(p)[j];
+    v[4 * j] = t.x; v[4 * j + 1] = t.y; v[4 * j + 2] = t.z; v[4 * j + 3] = t.w;
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
-layer_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                      const float* __restrict__ weight, const float* __restrict__ bias,
-                      T* __restrict__ out, int rows, int h, float eps) {
-  const int lane = threadIdx.x % 32;
-  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int nvec = h / (32 * kVec);
-  const T* xr = x + row * h;
-  const T* rr = res ? res + row * h : nullptr;
-
-  float vals[kMaxVecs * kVec];
-  float sum = 0.f;
+// The sum over the kWarps warps of a block, the same in every thread;
+// `slots` holds kWarps floats of shared memory.
+template <int kWarps>
+__device__ __forceinline__ float block_sum(float s, float* slots) {
+  s = warp_sum(s);
+  if constexpr (kWarps == 1) {
+    return s;
+  } else {
+    if (threadIdx.x % 32 == 0) slots[threadIdx.x / 32] = s;
+    __syncthreads();
+    float total = slots[0];
 #pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
-    if (i < nvec) {
-      const int col = (i * 32 + lane) * kVec;
-      load4(xr + col, &vals[i * kVec]);
-      if (rr) {
-        float r[kVec];
-        load4(rr + col, r);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) vals[i * kVec + e] += r[e];
-      }
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) sum += vals[i * kVec + e];
-    }
-  }
-  const float mean = warp_sum(sum) / h;
-  float sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
-    if (i < nvec) {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        const float d = vals[i * kVec + e] - mean;
-        sq += d * d;
-      }
-    }
-  }
-  const float inv = rsqrtf(warp_sum(sq) / h + eps);
-  T* orow = out + row * h;
-#pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
-    if (i < nvec) {
-      const int col = (i * 32 + lane) * kVec;
-      float w[kVec], b[kVec], y[kVec];
-      load4(weight + col, w);
-      load4(bias + col, b);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) y[e] = (vals[i * kVec + e] - mean) * inv * w[e] + b[e];
-      store4(orow + col, y);
-    }
+    for (int k = 1; k < kWarps; ++k) total += slots[k];
+    return total;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* res, const void* weight, const void* bias,
-                   void* out, int rows, int h, float eps, cudaStream_t stream) {
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  layer_norm_fwd_kernel<T><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res), static_cast<const float*>(weight),
-      static_cast<const float*>(bias), static_cast<T*>(out), rows, h, eps);
+// Row blockIdx.x ("block"), or rows blockIdx.x, + gridDim.x, ...
+// ("persistent"), one vector a thread: thread t holds columns
+// [t * kVec, (t + 1) * kVec). The grid has at most `rows` blocks.
+template <typename T, int H, bool kPersistent>
+__global__ void __launch_bounds__(32 * Row<T, H>::kWarps)
+layer_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                      const float* __restrict__ weight, const float* __restrict__ bias,
+                      T* __restrict__ out, int rows, float eps) {
+  constexpr int kVec = Row<T, H>::kVec;
+  constexpr int kWarps = Row<T, H>::kWarps;
+  // slots[1] is written only after the barrier that slots[0] is read behind,
+  // and slots[0] again only after the next: two barriers a row suffice
+  __shared__ float slots[2][kWarps];
+
+  const int col = threadIdx.x * kVec;
+  int64_t row = blockIdx.x;
+  Raw<T, kVec> xv, rv;
+  xv = load_raw<T, kVec>(x + row * H + col);
+  if (res) rv = load_raw<T, kVec>(res + row * H + col);
+  float w[kVec], b[kVec];
+  load_f32<kVec>(weight + col, w);
+  load_f32<kVec>(bias + col, b);
+
+  while (true) {
+    float v[kVec];
+    widen<T, kVec>(xv, v);
+    if (res) {
+      float r[kVec];
+      widen<T, kVec>(rv, r);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) v[e] += r[e];
+    }
+    const int64_t next = row + gridDim.x;
+    if (kPersistent && next < rows) {
+      xv = load_raw<T, kVec>(x + next * H + col);
+      if (res) rv = load_raw<T, kVec>(res + next * H + col);
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) sum += v[e];
+    const float mean = block_sum<kWarps>(sum, slots[0]) / H;
+    float sq = 0.f;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const float d = v[e] - mean;
+      sq += d * d;
+    }
+    const float inv = rsqrtf(block_sum<kWarps>(sq, slots[1]) / H + eps);
+    float y[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) y[e] = (v[e] - mean) * inv * w[e] + b[e];
+    store_vec<T, kVec>(out + row * H + col, y);
+    if (!kPersistent || next >= rows) break;
+    row = next;
+  }
+}
+
+struct Args {
+  const void *x, *res, *weight, *bias;
+  void* out;
+  int rows;
+  float eps;
+  cudaStream_t stream;
+};
+
+// blocks of `threads` threads of `kernel` that the current card holds at once
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return sms * per_sm;
+}
+
+template <typename T, int H, bool kPersistent>
+cudaError_t launch(const Args& a) {
+  constexpr int kThreads = 32 * Row<T, H>::kWarps;
+  const auto kernel = layer_norm_fwd_kernel<T, H, kPersistent>;
+  int blocks = a.rows;
+  if constexpr (kPersistent) {
+    static const int resident = resident_blocks(kernel, kThreads);
+    if (resident < 1) return cudaErrorLaunchOutOfResources;
+    blocks = blocks < resident ? blocks : resident;
+  }
+  kernel<<<blocks, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.res),
+      static_cast<const float*>(a.weight), static_cast<const float*>(a.bias),
+      static_cast<T*>(a.out), a.rows, a.eps);
   return cudaGetLastError();
+}
+
+// the instantiation for H = 128 * K (K = 1 .. kMaxH / 128)
+template <typename T, bool kPersistent, int K = 1>
+cudaError_t launch_h(int h, const Args& a) {
+  if constexpr (K * 128 > kMaxH) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (h != K * 128) return launch_h<T, kPersistent, K + 1>(h, a);
+    return launch<T, K * 128, kPersistent>(a);
+  }
+}
+
+template <bool kPersistent>
+int layer_norm_fwd(const void* x, const void* residual, const void* weight, const void* bias,
+                   void* out, int dtype, int rows, int h, float eps, void* stream) {
+  if (rows < 1 || h < 128 || h > kMaxH || h % 128 != 0) return (int)cudaErrorInvalidValue;
+  const Args a{x, residual, weight, bias, out, rows, eps, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)launch_h<float, kPersistent>(h, a);
+  if (dtype == 1) return (int)launch_h<__nv_bfloat16, kPersistent>(h, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, residual and out); weight and bias are
-// float32. residual may be null. h must be a multiple of 128 and at most
-// 2048, and every pointer 16-byte aligned (the Python wrapper checks this
-// first). Returns a cudaError_t.
-extern "C" int vt_layer_norm_fwd(const void* x, const void* residual, const void* weight,
-                                 const void* bias, void* out, int dtype, int rows, int h,
-                                 float eps, void* stream) {
-  if (rows < 1 || h < 32 * kVec || h > kMaxH || h % (32 * kVec) != 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, residual, weight, bias, out, rows, h, eps, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, residual, weight, bias, out, rows, h, eps, s);
-  return (int)cudaErrorInvalidValue;
+// The two variants, one entry point each. dtype: 0 = float32, 1 = bfloat16
+// (x, residual and out); weight and bias are float32. residual may be null.
+// h must be a multiple of 128 and at most 2048, and every pointer 16-byte
+// aligned (the Python wrapper checks this first). Returns a cudaError_t.
+extern "C" int vt_layer_norm_fwd_block(const void* x, const void* residual, const void* weight,
+                                       const void* bias, void* out, int dtype, int rows, int h,
+                                       float eps, void* stream) {
+  return layer_norm_fwd<false>(x, residual, weight, bias, out, dtype, rows, h, eps, stream);
 }
 
-// Message for a cudaError_t returned by the entry points above.
+extern "C" int vt_layer_norm_fwd_persistent(const void* x, const void* residual,
+                                            const void* weight, const void* bias, void* out,
+                                            int dtype, int rows, int h, float eps,
+                                            void* stream) {
+  return layer_norm_fwd<true>(x, residual, weight, bias, out, dtype, rows, h, eps, stream);
+}
+
+// Message for a cudaError_t returned by the entry points of this library.
 extern "C" const char* vt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

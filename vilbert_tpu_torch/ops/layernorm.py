@@ -4,14 +4,17 @@ Counterpart of ``vilbert_tpu/ops/layernorm.py`` and of the TPU kernel
 ``vilbert_tpu/ops/pallas_layernorm.py::_ln_kernel``: TF-style LayerNorm
 (eps inside the sqrt, 1e-12), fp32 statistics, the residual added in fp32,
 fp32 weight and bias, output in x's dtype. The kernel (``csrc/layernorm.cu``)
-is bandwidth-bound; its source note says how it keeps to one read and one
-write of each element.
+is bound by device-memory bytes; its source note says how it keeps to one
+read and one write of each element. It has two variants (``VARIANTS``),
+both a row split over the warps of a block: "block", one row a block, and
+"persistent", a grid the card holds at once striding over the rows;
+``ln_variant`` picks one by row count.
 
 ``layer_norm`` is the entry point, differentiable through an
 ``autograd.Function``. Its forward runs ``layer_norm_ref`` on a CPU tensor
-and launches the kernel on a CUDA tensor (or raises). Its backward is
-``layer_norm_bwd_ref`` on both: the JAX package's backward
-(``pallas_layernorm.py::_ln_bwd``) is XLA, not a Pallas kernel.
+and launches the variant ``ln_variant`` picks on a CUDA tensor (or
+raises). Its backward is ``layer_norm_bwd_ref`` on both: the JAX package's
+backward (``pallas_layernorm.py::_ln_bwd``) is XLA, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +28,17 @@ from vilbert_tpu_torch.ops import _build
 #: the kernel keeps a row in registers: H a multiple of 32 lanes x 4 elements
 KERNEL_H_MULTIPLE = 128
 KERNEL_MAX_H = 2048
+#: the kernel's variants: one row a block, and a resident grid striding
+#: over the rows
+VARIANTS = ("block", "persistent")
+#: "persistent" takes more than PERSISTENT_MIN_ROWS rows and at most
+#: PERSISTENT_MAX_ROWS[dtype], "block" the rest. Measured on an H100 80GB
+#: HBM3 at 700 W (scripts/ab_kernels.py --kernel layer_norm, PERF.md): the
+#: two tie up to 1,024 rows; "persistent" is faster from 2,048 rows (by up
+#: to 22% at 9,472 x 1,024 bf16) to 12,928 (bf16) and 6,144 (fp32); "block"
+#: from 14,592 (bf16) and 8,192 (fp32), by up to 6% at 103,424 x 1,024
+PERSISTENT_MIN_ROWS = 1024
+PERSISTENT_MAX_ROWS = {torch.bfloat16: 14_000, torch.float32: 7_000}
 
 
 def layer_norm_ref(
@@ -77,6 +91,15 @@ def layer_norm_bwd_ref(
     return dx, dres, dw.to(weight.dtype), db.to(weight.dtype)
 
 
+def ln_variant(rows: int, h: int, dtype: torch.dtype) -> str:
+    """The kernel's variant for ``rows`` rows of ``h`` elements of
+    ``dtype``: "persistent" between PERSISTENT_MIN_ROWS and
+    PERSISTENT_MAX_ROWS, "block" outside (at every H of the paths)."""
+    if PERSISTENT_MIN_ROWS < rows <= PERSISTENT_MAX_ROWS[dtype]:
+        return "persistent"
+    return "block"
+
+
 def kernel_rows(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -118,25 +141,35 @@ def kernel_rows(
     return x.numel() // h
 
 
-def _fwd_cuda(x, weight, bias, eps, residual):
+def _check_devices(x, weight, bias, residual) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm runs on cpu or cuda, got {x.device}")
     for name, t in (("weight", weight), ("bias", bias), ("residual", residual)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
+
+
+def _fwd_cuda(x, weight, bias, eps, residual, variant=None):
+    """Launch ``variant`` (``ln_variant``'s pick when None) and count it."""
     rows = kernel_rows(x, weight, bias, residual)
+    h = x.shape[-1]
+    variant = variant or ln_variant(rows, h, x.dtype)
+    if variant not in VARIANTS:
+        raise ValueError(f"layer_norm kernel variant must be one of {VARIANTS}, got {variant!r}")
     out = torch.empty_like(x)
-    lib = _build.load_library()
+    fn = getattr(_build.load_library(), f"vt_layer_norm_fwd_{variant}")
     with torch.cuda.device(x.device):
-        err = lib.vt_layer_norm_fwd(
+        err = fn(
             x.data_ptr(),
             residual.data_ptr() if residual is not None else None,
             weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            _build.DTYPE_CODES[x.dtype], rows, x.shape[-1], eps,
+            _build.DTYPE_CODES[x.dtype], rows, h, eps,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(err, "layer_norm kernel")
+    _build.check(err, f"layer_norm kernel ({variant})")
     layer_norm.launches += 1
+    name = f"launches_{variant}"
+    setattr(layer_norm, name, getattr(layer_norm, name) + 1)
     return out
 
 
@@ -149,6 +182,7 @@ class _LayerNorm(torch.autograd.Function):
         ctx.eps = eps
         if x.device.type == "cpu":
             return layer_norm_ref(x, weight, bias, eps=eps, residual=residual)
+        _check_devices(x, weight, bias, residual)
         return _fwd_cuda(x, weight, bias, eps, residual)
 
     @staticmethod
@@ -169,12 +203,33 @@ def layer_norm(
     """LN(x [+ residual]) over the last axis; any leading shape;
     differentiable.
 
-    CPU tensors take ``layer_norm_ref``. CUDA tensors launch the kernel and
-    add one to ``layer_norm.launches``; anything the kernel does not take
+    CPU tensors take ``layer_norm_ref``. CUDA tensors launch the variant
+    ``ln_variant`` picks and add one to ``layer_norm.launches`` and to
+    ``layer_norm.launches_<variant>``; anything the kernel does not take
     raises.
     """
     return _LayerNorm.apply(x, residual, weight, bias, eps)
 
 
-#: kernel launches since the last reset (CPU calls do not count)
+def layer_norm_kernel(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    variant: str,
+    eps: float = 1e-12,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One launch of the named variant (one of ``VARIANTS``) on CUDA
+    tensors, bypassing ``ln_variant``: for checking and timing each variant
+    on the card. Counts like ``layer_norm``; not differentiable."""
+    _check_devices(x, weight, bias, residual)
+    return _fwd_cuda(x, weight, bias, eps, residual, variant)
+
+
+#: kernel launches since the last reset, in all and by variant (CPU calls
+#: do not count)
 layer_norm.launches = 0
+for _variant in VARIANTS:
+    setattr(layer_norm, f"launches_{_variant}", 0)
+del _variant
