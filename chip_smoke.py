@@ -6,11 +6,12 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from vilbert_tpu_torch/csrc and drives the
-port's three paths at the full width of
-configs/bert_base_6layer_6conect.json, weights drawn from a seed: VQA
-evaluation (TASK1 of configs/tasks.yml), the Conceptual Captions
-pretraining step, and the 12-in-1 multi-task trainer on the flagship
-recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task tokens).
+port's paths at the full width of configs/bert_base_6layer_6conect.json,
+weights drawn from a seed: VQA evaluation (TASK1 of configs/tasks.yml),
+the Conceptual Captions pretraining step, the 12-in-1 multi-task trainer
+on the flagship recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task
+tokens), image-text retrieval and the demo, and the training options
+(bf16 gradients and moments, RAdam, checkpoints and resume).
 
 1. device: the card's name and power limit; TF32 off for fp32 comparisons;
 2. build: nvcc for sm_90a, one process per source, timed;
@@ -28,7 +29,9 @@ recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task tokens).
    and 512; each K4 variant ("block", "persistent", named) and the routed
    call at H of 128, 384, 768, 1024 and 2048 and rows of 1, 2, 31, 132, 811
    and each crossover of ``ln_variant`` +- 1, with and without a residual,
-   each call on its variant's counter, and a misaligned operand (refused).
+   each call on its variant's counter, with fp32 and with bf16 weight and
+   bias (the bf16-weight instantiation, on its own counter too), and a
+   misaligned operand (refused).
    Forward (K1 at rate 0 and 0.1, K4): fp32 1e-4 absolute (1e-3 on a row
    whose keys are all padded), bf16 2^-7 * max|ref| plus one bf16 ulp.
    Backward (K2 at rate 0 and 0.1): fp32 1e-4 * max|ref|, bf16 as the
@@ -90,7 +93,30 @@ recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task tokens).
    plain versions (outputs within phase 3's bounds, at rates 0 and 0.1,
    each call on its variant's counter), SDPA and their bounds; the
    CUDA-core K1 (checked too) and the long K2 on the CUDA cores beside the
-   tensor-core ones.
+   tensor-core ones;
+10. retrieval and demo: ``cli/eval_retrieval.py``'s ``run`` over a
+   synthetic pool of 1,000 images x 101 regions x 2048 in chunks of 500,
+   captions of 30 tokens: 10 captions fine-tuned with ``--fast_mode`` and 2
+   zero-shot, counters reset just before each and read just after (K1 30 a
+   forward, all on "tc"; K4 by shape with the text stream at batch 1 before
+   the first co-attention); the bf16 scores against the plain ops within
+   5e-2 per unit of logit scale; fp32 scores with ``fast_mode`` against the
+   caption broadcast on the host within 1e-4; captions/s; ``cli/demo.py``
+   once at the flagship config (launches and shapes likewise); K1 and K4
+   timed at the retrieval and demo shapes;
+11. training options: ``train_concap.train`` with ``--bf16_grads
+   --bf16_adam_state`` for 2 steps (finite losses, bf16 moments, every K4
+   launch on the bf16-weight instantiation, K4's shapes with the text
+   embedding's in bf16), then a bf16-gradient step at fp32 compute
+   through the kernels and the plain ops (loss within 1e-5, each gradient
+   within one bf16 rounding of its max plus 1e-6 of the largest); the
+   bf16-weight K4 timed at the CC and multi-task shapes; one flagship
+   iteration with ``--optim radam`` (finite losses, launches); the CC run
+   resumed: 2 steps, a checkpoint, 2 resumed steps against 4 uninterrupted
+   (fp32, dropout off, one held batch; bitwise, or within 1e-6 of each
+   tensor's max); the flagship trainer of phases 8-9 saved and restored
+   into a new one (parameters, moments and host state equal), the
+   checkpoint's size and its save and restore seconds.
 
 Times: a kernel's ``ms`` (and its plain version's, the library call's,
 another variant's) is device time, calls run back to back behind a
@@ -111,6 +137,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import math
 import os
@@ -493,8 +520,10 @@ def ln_edge_rows(dtype) -> tuple:
 def phase_layer_norm_kernels(checks: Checks, g, err: dict) -> None:
     """Every K4 variant, named, and the routed call against
     ``layer_norm_ref`` at LN_EDGE_WIDTHS x ``ln_edge_rows(dtype)``, with and
-    without a residual, fp32 (1e-4) and bf16 (``bf16_bound``), each call on
-    its variant's counter; a misaligned operand refused."""
+    without a residual, fp32 (1e-4) and bf16 (``bf16_bound``) x, weight and
+    bias fp32 and bf16 (the bf16-weight instantiation), each call on its
+    variant's counter and, with bf16 weights, on ``launches_bf16_weight``;
+    a misaligned operand refused."""
     import torch
 
     from vilbert_tpu_torch.ops.layernorm import (
@@ -505,34 +534,46 @@ def phase_layer_norm_kernels(checks: Checks, g, err: dict) -> None:
         ln_variant,
     )
 
+    # the bf16-weight cases draw from their own generator: ``g`` goes on to
+    # the attention cases with the stream it had before them
+    g_bf16_weight = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
     for h in LN_EDGE_WIDTHS:
-        w = 1 + 0.1 * torch.randn(h, generator=g, device=DEVICE)
-        b = 0.1 * torch.randn(h, generator=g, device=DEVICE)
-        for dtype in (torch.float32, torch.bfloat16):
-            for rows in ln_edge_rows(dtype):
-                x = (2 * torch.randn(rows, h, generator=g, device=DEVICE) + 0.5).to(dtype)
-                res = torch.randn(rows, h, generator=g, device=DEVICE).to(dtype)
-                routed = ln_variant(rows, h, dtype)
-                worst, failed = {}, []
-                for r in (None, res):
-                    want = layer_norm_ref(x, w, b, residual=r).float()
-                    bound = 1e-4 if dtype == torch.float32 else bf16_bound(want)
-                    calls = {v: (v, lambda v=v: layer_norm_kernel(x, w, b, residual=r, variant=v))
-                             for v in VARIANTS}
-                    calls["routed"] = (routed, lambda: layer_norm(x, w, b, residual=r))
-                    for name, (variant, fn) in calls.items():
-                        got, on_variant = counted(layer_norm, variant, fn)
-                        torch.cuda.synchronize()
-                        e = float((got.float() - want).abs().max())
-                        worst[name] = max(worst.get(name, 0.0), e)
-                        err["layer_norm_fwd"] = max(err["layer_norm_fwd"], e)
-                        if not (e <= bound and on_variant):
-                            failed.append(f"{name} residual={r is not None}: {e:.3e} > "
-                                          f"{bound:.3e} or not on {variant}")
-                checks.expect(not failed, f"layer_norm H={h} rows={rows} {str(dtype)[6:]} "
-                                          f"(routed {routed}), max|err| " + ", ".join(
-                                              f"{k} {e:.3e}" for k, e in worst.items())
-                              + (f": {failed}" if failed else ""))
+        w32 = 1 + 0.1 * torch.randn(h, generator=g, device=DEVICE)
+        b32 = 0.1 * torch.randn(h, generator=g, device=DEVICE)
+        for wdtype in (torch.float32, torch.bfloat16):
+            w, b = w32.to(wdtype), b32.to(wdtype)
+            bf16_w = wdtype == torch.bfloat16
+            err_key = "layer_norm_fwd_bf16_weight" if bf16_w else "layer_norm_fwd"
+            gx = g_bf16_weight if bf16_w else g
+            for dtype in (torch.float32, torch.bfloat16):
+                for rows in ln_edge_rows(dtype):
+                    x = (2 * torch.randn(rows, h, generator=gx, device=DEVICE) + 0.5).to(dtype)
+                    res = torch.randn(rows, h, generator=gx, device=DEVICE).to(dtype)
+                    routed = ln_variant(rows, h, dtype)
+                    worst, failed = {}, []
+                    for r in (None, res):
+                        want = layer_norm_ref(x, w, b, residual=r).float()
+                        bound = 1e-4 if dtype == torch.float32 else bf16_bound(want)
+                        calls = {v: (v, lambda v=v: layer_norm_kernel(x, w, b, residual=r,
+                                                                      variant=v))
+                                 for v in VARIANTS}
+                        calls["routed"] = (routed, lambda: layer_norm(x, w, b, residual=r))
+                        for name, (variant, fn) in calls.items():
+                            before = layer_norm.launches_bf16_weight
+                            got, on_variant = counted(layer_norm, variant, fn)
+                            on_variant &= layer_norm.launches_bf16_weight - before == bf16_w
+                            torch.cuda.synchronize()
+                            e = float((got.float() - want).abs().max())
+                            worst[name] = max(worst.get(name, 0.0), e)
+                            err[err_key] = max(err[err_key], e)
+                            if not (e <= bound and on_variant and got.dtype == dtype):
+                                failed.append(f"{name} residual={r is not None}: {e:.3e} > "
+                                              f"{bound:.3e} or not on {variant}")
+                    checks.expect(not failed, f"layer_norm H={h} rows={rows} {str(dtype)[6:]} "
+                                              f"weight {str(wdtype)[6:]} (routed {routed}), "
+                                              "max|err| " + ", ".join(
+                                                  f"{k} {e:.3e}" for k, e in worst.items())
+                                  + (f": {failed}" if failed else ""))
     # 16-byte vectors: a row that starts 2 bytes off is refused
     x = torch.zeros(4 * 768 + 1, dtype=torch.bfloat16, device=DEVICE)[1:].view(4, 768)
     try:
@@ -558,8 +599,8 @@ def phase_kernels(checks: Checks) -> dict:
     # K1's long tensor-core and CUDA-core variants and the long tensor-core
     # K2 also on their own
     err = {"attention_fwd": 0.0, "attention_bwd": 0.0, "fused_attention": 0.0,
-           "layer_norm_fwd": 0.0, "attention_fwd_long_tc": 0.0, "attention_fwd_cc": 0.0,
-           "attention_bwd_long_tc": 0.0}
+           "layer_norm_fwd": 0.0, "layer_norm_fwd_bf16_weight": 0.0,
+           "attention_fwd_long_tc": 0.0, "attention_fwd_cc": 0.0, "attention_bwd_long_tc": 0.0}
     B = 8
     for heads, d, sq, sk in ATTENTION_CASES:
         hd = heads * d
@@ -725,8 +766,8 @@ def random_batch(cfg, batch: int, seed: int) -> dict:
 
 
 def _counters() -> dict:
-    """counter name -> (wrapper, attribute): each kernel's total and each
-    variant's count."""
+    """counter name -> (wrapper, attribute): each kernel's total, each
+    variant's count and K4's bf16-weight launches."""
     from vilbert_tpu_torch.ops import layernorm
     from vilbert_tpu_torch.ops.attention import (
         BWD_VARIANTS,
@@ -742,6 +783,8 @@ def _counters() -> dict:
         out[name] = (wrapper, "launches")
         for variant in variants:
             out[f"{name}_{variant}"] = (wrapper, f"launches_{variant}")
+    # K4's bf16-weight instantiation (of either variant)
+    out["layer_norm_bf16_weight"] = (layernorm.layer_norm, "launches_bf16_weight")
     return out
 
 
@@ -897,22 +940,31 @@ def phase_slice(checks: Checks) -> tuple:
 
 # -- phase 5 -----------------------------------------------------------------
 
-def ln_forward(cfg, B: int, T: int, R: int, heads=()) -> dict:
+def ln_forward(cfg, B: int, T: int, R: int, heads=(), *, fast: bool = False) -> dict:
     """K4's launches in one forward of B samples at T tokens and R regions,
     {(rows, H, dtype name, residual): (kind, count)}: the text embedding's
     in fp32; the image embedding's, and two a text or image layer and four a
     connection layer (two a stream, with the residual), in the compute
     dtype; ``heads`` adds (kind, rows, H) of the heads' LayerNorms (compute
-    dtype, no residual)."""
+    dtype, no residual). ``fast`` (retrieval's ``fast_mode``): one text runs
+    at batch 1 up to the first co-attention layer, then at batch B."""
     dt, h_t, h_v = cfg.compute_dtype, cfg.hidden_size, cfg.v_hidden_size
     n_c = cfg.num_connection_layers
+    n_pre = 0
+    if fast:
+        schedule = cfg.encoder_schedule()
+        first_c = next(i for i, (kind, _) in enumerate(schedule) if kind == "c")
+        n_pre = sum(kind == "t" for kind, _ in schedule[:first_c])
     out = {}
     for kind, rows, h, dtype, res, n in (
-            ("text embedding", B * T, h_t, "float32", False, 1),
+            ("text embedding", (1 if fast else B) * T, h_t, "float32", False, 1),
+            ("text, batch 1", T, h_t, dt, True, 2 * n_pre),
+            ("text", B * T, h_t, dt, True, 2 * (cfg.num_hidden_layers - n_pre) + 2 * n_c),
             ("image embedding", B * R, h_v, dt, False, 1),
-            ("text", B * T, h_t, dt, True, 2 * cfg.num_hidden_layers + 2 * n_c),
             ("image", B * R, h_v, dt, True, 2 * cfg.v_num_hidden_layers + 2 * n_c),
             *((kind, rows, h, dt, False, 1) for kind, rows, h in heads)):
+        if not n:
+            continue
         key = (rows, h, dtype, res)
         kinds, count = out.get(key, ((), 0))
         out[key] = (kinds + (kind,), count + n)
@@ -974,11 +1026,15 @@ def ln_shapes() -> dict:
     return out
 
 
-def time_layer_norm(checks: Checks, shapes: dict, card: str, err: dict, g) -> dict:
-    """K4 at each of ``ln_shapes()``: the routed kernel against its plain
-    version (output within phase 3's bounds), every variant named,
-    ``F.layer_norm(x + residual)`` (the add inside the timed call) and the
-    bound (bytes: inputs and the output once, weight and bias once)."""
+def time_layer_norm(checks: Checks, shapes: dict, card: str, err: dict, g, *,
+                    paths=LN_PATHS, wdtype=None) -> dict:
+    """K4 at each of ``shapes`` (``ln_shapes()``'s form, launches under
+    ``paths``): the routed kernel against its plain version (output within
+    phase 3's bounds), every variant named, ``F.layer_norm(x + residual)``
+    (the add inside the timed call) and the bound (bytes: inputs and the
+    output once, weight and bias once). Weight and bias in ``wdtype``
+    (fp32 by default; bf16 times the bf16-weight instantiation, under
+    ``("layer_norm_bf16_weight", label)``)."""
     import torch
     import torch.nn.functional as F
 
@@ -990,13 +1046,16 @@ def time_layer_norm(checks: Checks, shapes: dict, card: str, err: dict, g) -> di
         ln_variant,
     )
 
+    wdtype = wdtype or torch.float32
+    name = "layer_norm" if wdtype == torch.float32 else "layer_norm_bf16_weight"
+    err_key = {"layer_norm": "layer_norm_fwd"}.get(name, "layer_norm_fwd_bf16_weight")
     times = {}
     for (rows, h, dtype_name, with_res), info in shapes.items():
         dtype = getattr(torch, dtype_name)
         xx = torch.randn(rows, h, generator=g, device=DEVICE).to(dtype)
         res = torch.randn(rows, h, generator=g, device=DEVICE).to(dtype) if with_res else None
-        w = 1 + 0.1 * torch.randn(h, generator=g, device=DEVICE)
-        b = 0.1 * torch.randn(h, generator=g, device=DEVICE)
+        w = (1 + 0.1 * torch.randn(h, generator=g, device=DEVICE)).to(wdtype)
+        b = (0.1 * torch.randn(h, generator=g, device=DEVICE)).to(wdtype)
         wl, bl = w.to(dtype), b.to(dtype)
         fns = {"kernel": lambda: layer_norm(xx, w, b, residual=res),
                "plain": lambda: layer_norm_ref(xx, w, b, residual=res),
@@ -1008,19 +1067,20 @@ def time_layer_norm(checks: Checks, shapes: dict, card: str, err: dict, g) -> di
         want = fns["plain"]().float()
         e = float((fns["kernel"]().float() - want).abs().max())
         bound_e = 1e-4 if dtype == torch.float32 else bf16_bound(want)
-        err["layer_norm_fwd"] = max(err["layer_norm_fwd"], e)
-        checks.expect(e <= bound_e, f"layer_norm {info['label']} rows={rows} H={h} {dtype_name} "
-                                    f"residual={with_res} [{variant}]: max|err| {e:.3e} <= "
-                                    f"{bound_e:.3e}")
+        err[err_key] = max(err[err_key], e)
+        wtext = f" weight {str(wdtype)[6:]}"
+        checks.expect(e <= bound_e, f"layer_norm {info['label']} rows={rows} H={h} {dtype_name}"
+                                    f"{wtext} residual={with_res} [{variant}]: max|err| {e:.3e} "
+                                    f"<= {bound_e:.3e}")
         row = timed_row(fns, "kernel", "plain", xx.element_size() * rows * h
-                        * (3 if with_res else 2) + 8 * h, 8 * rows * h, FP32_FLOPS,
-                        library="library")
-        row.update(variant=variant, launches_by_path={p: info[p] for p in LN_PATHS})
-        times[("layer_norm", info["label"])] = row
-        log(f"  layer_norm {info['label']} rows={rows} H={h} residual={with_res} {dtype_name} "
-            f"[{variant}] (library: F.layer_norm(x{' + residual' if with_res else ''})): "
-            f"{row_text(row)}; launches vqa/cc/multitask "
-            f"{'/'.join(str(info[p]) for p in LN_PATHS)} [{card}]")
+                        * (3 if with_res else 2) + 2 * w.element_size() * h, 8 * rows * h,
+                        FP32_FLOPS, library="library")
+        row.update(variant=variant, launches_by_path={p: info[p] for p in paths})
+        times[(name, info["label"])] = row
+        log(f"  layer_norm {info['label']} rows={rows} H={h} residual={with_res} {dtype_name}"
+            f"{wtext} [{variant}] (library: F.layer_norm(x{' + residual' if with_res else ''})): "
+            f"{row_text(row)}; launches {'/'.join(paths)} "
+            f"{'/'.join(str(info[p]) for p in paths)} [{card}]")
     return times
 
 
@@ -1707,8 +1767,488 @@ def phase_multitask_timing(checks: Checks, trainer, card: str, err: dict) -> dic
     return times
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+#: retrieval at the reference protocol's pool: 1,000 images of 100 boxes (+
+#: the global row) in two chunks of 500, captions of 30 tokens
+RET_POOL, RET_CHUNK, RET_T, RET_R = 1000, 500, 30, 101
+RET_CAPTIONS, RET_ZERO_SHOT_CAPTIONS = 10, 2
+RET_CHECK_CAPTIONS = 2  # kernels vs plain ops, fast_mode vs broadcast
+#: the demo's geometry (cli/demo.py defaults): one image of 36 boxes + the
+#: global row, 30 tokens
+DEMO_T, DEMO_R = 30, 37
+#: (label, heads, head_dim, Sq, Sk, B) of K1 at the retrieval forward's
+#: shapes (the text stream at batch 1 before the first co-attention, with
+#: fast_mode) and the demo's (batch 1; its text self-attention is the
+#: retrieval's at batch 1)
+RET_ATTENTIONS = (
+    ("demo and fast retrieval text self", 12, 64, RET_T, RET_T, 1),
+    ("retrieval text self", 12, 64, RET_T, RET_T, RET_CHUNK),
+    ("retrieval image self", 8, 128, RET_R, RET_R, RET_CHUNK),
+    ("retrieval text->image", 8, 128, RET_T, RET_R, RET_CHUNK),
+    ("retrieval image->text", 8, 128, RET_R, RET_T, RET_CHUNK),
+    ("demo image self", 8, 128, DEMO_R, DEMO_R, 1),
+    ("demo text->image", 8, 128, DEMO_T, DEMO_R, 1),
+    ("demo image->text", 8, 128, DEMO_R, DEMO_T, 1),
+)
+
+
+def retrieval_args(tmp: str, extra=()):
+    from vilbert_tpu_torch.cli.eval_retrieval import build_parser
+
+    return build_parser().parse_args([
+        "--config", CONFIG, "--pool_size", str(RET_POOL), "--chunk", str(RET_CHUNK),
+        "--max_seq_length", str(RET_T), "--max_region_num", str(RET_R), "--device", DEVICE,
+        "--output", os.path.join(tmp, "retrieval.json"), *extra,
+    ])
+
+
+def demo_heads(cfg) -> list:
+    """The LayerNorms of the demo's heads at batch 1: the pretraining heads'
+    two transforms (every head is computed) and the VQA and GQA
+    classifiers'."""
+    wide = 2 * cfg.bi_hidden_size
+    return [("LM transform", DEMO_T, cfg.hidden_size), ("image transform", DEMO_R, cfg.v_hidden_size),
+            ("VQA classifier", 1, wide), ("GQA classifier", 1, wide)]
+
+
+def retrieval_world():
+    """The synthetic pool (no soft targets) and captions: RET_CAPTIONS
+    captions of the first images, each of its own image."""
+    from vilbert_tpu_torch.data.feature_store import InMemoryFeatureStore
+
+    store = InMemoryFeatureStore.synthetic(num_images=RET_POOL, num_boxes=RET_R - 1,
+                                           target_dim=None)
+    keys = store.keys()
+    captions = [(f"a synthetic caption about image {k} number {i}", k)
+                for i, k in enumerate(keys[:RET_CAPTIONS])]
+    return store, keys, captions
+
+
+def check_k1_tc(checks: Checks, what: str, launches: dict, forwards: int, cfg) -> None:
+    want = forwards * kernel_calls_per_forward(cfg)[0]
+    checks.expect(launches["attention"] == launches["attention_tc"] == want
+                  and launches["attention_bwd"] == 0,
+                  f"{what}: K1 launches {launches['attention']} == tensor-core "
+                  f"{launches['attention_tc']} == {forwards} forwards x "
+                  f"{kernel_calls_per_forward(cfg)[0]}, no K2")
+
+
+def phase_retrieval(checks: Checks, tmp: str, card: str, err: dict) -> tuple:
+    """Retrieval through cli/eval_retrieval.py (fine-tuned with fast_mode,
+    then zero-shot) and the demo through cli/demo.py at the flagship width;
+    launches, scores against the plain ops and fast_mode against the host
+    broadcast at fp32; K1 and K4 timed at the retrieval and demo shapes."""
+    import numpy as np
+    import torch
+
+    from vilbert_tpu_torch.cli import demo
+    from vilbert_tpu_torch.cli.eval_retrieval import load_pool, run
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.data.tasks import _pad_text
+    from vilbert_tpu_torch.data.tokenization import add_special_single, load_tokenizer
+    from vilbert_tpu_torch.eval.retrieval import (
+        make_alignment_scorer,
+        make_vil_logit_scorer,
+        score_matrix,
+    )
+    from vilbert_tpu_torch.models.layers import use_plain_ops
+    from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining, ViLBERTForVLTasks
+    from vilbert_tpu_torch.ops.attention import attention, attention_ref
+
+    t0 = time.time()
+    store, keys, entries = retrieval_world()
+    log(f"  synthetic pool of {RET_POOL} images x {RET_R - 1} boxes built in "
+        f"{time.time() - t0:.1f} s")
+    cfg = ModelConfig.from_json_file(CONFIG, fast_mode=True)
+    chunks = RET_POOL // RET_CHUNK
+    model = ViLBERTForVLTasks(cfg, generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    launches = {}
+
+    # fine-tuned, fast_mode, through the CLI
+    with recording_ln_shapes() as ln_seen:
+        reset_launches()
+        t0 = time.time()
+        metrics = run(retrieval_args(tmp, ["--fast_mode"]), store=store, keys=keys,
+                      caption_entries=entries, model=model)
+        torch.cuda.synchronize()
+        cli_s = time.time() - t0
+        launches["fast"] = read_launches()
+    forwards = RET_CAPTIONS * chunks
+    log(f"  eval_retrieval --fast_mode: {metrics} in {cli_s:.1f} s (pool load included); "
+        f"launches {launches['fast']}")
+    checks.expect(metrics["num_captions"] == RET_CAPTIONS and metrics["pool_size"] == RET_POOL
+                  and all(math.isfinite(v) for v in metrics.values()),
+                  f"{RET_CAPTIONS} captions ranked against {RET_POOL} images, metrics finite")
+    check_k1_tc(checks, "eval_retrieval --fast_mode", launches["fast"], forwards, cfg)
+    fast_shapes = {k: n for k, (_, n) in ln_forward(cfg, RET_CHUNK, RET_T, RET_R,
+                                                    fast=True).items()}
+    check_ln_recording(checks, "eval_retrieval --fast_mode", ln_seen, fast_shapes,
+                       launches["fast"], forwards)
+
+    # zero-shot, through the CLI (the caption broadcast on the host)
+    cfg_zs = ModelConfig.from_json_file(CONFIG)
+    zs_model = ViLBERTForPretraining(cfg_zs, generator=torch.Generator().manual_seed(SEED))
+    zs_model = zs_model.to(DEVICE)
+    zs_heads = [("LM transform", RET_CHUNK * RET_T, cfg.hidden_size),
+                ("image transform", RET_CHUNK * RET_R, cfg.v_hidden_size)]
+    with recording_ln_shapes() as ln_seen:
+        reset_launches()
+        t0 = time.time()
+        zs = run(retrieval_args(tmp, ["--zero_shot"]), store=store, keys=keys,
+                 caption_entries=entries[:RET_ZERO_SHOT_CAPTIONS], model=zs_model)
+        torch.cuda.synchronize()
+        zs_s = time.time() - t0
+        launches["zero_shot"] = read_launches()
+    log(f"  eval_retrieval --zero_shot: {zs} in {zs_s:.1f} s (pool load included); launches "
+        f"{launches['zero_shot']}")
+    checks.expect(zs["num_captions"] == RET_ZERO_SHOT_CAPTIONS
+                  and all(math.isfinite(v) for v in zs.values()), "zero-shot metrics finite")
+    zs_forwards = RET_ZERO_SHOT_CAPTIONS * chunks
+    check_k1_tc(checks, "eval_retrieval --zero_shot", launches["zero_shot"], zs_forwards, cfg)
+    zs_shapes = {k: n for k, (_, n) in ln_forward(cfg_zs, RET_CHUNK, RET_T, RET_R,
+                                                  zs_heads).items()}
+    check_ln_recording(checks, "eval_retrieval --zero_shot", ln_seen, zs_shapes,
+                       launches["zero_shot"], zs_forwards)
+
+    # scoring alone: captions/s; kernels against the plain ops (bf16, C6)
+    tokenizer = load_tokenizer(None, cfg.vocab_size)
+    pool = load_pool(store, keys, RET_R, cfg.v_feature_size)
+    index = {k: i for i, k in enumerate(keys)}
+    caps = []
+    for text, k in entries:
+        q, m, sg = _pad_text(add_special_single(
+            tokenizer, list(tokenizer.encode(text))[:RET_T - 2]), RET_T)
+        caps.append({"question": q, "input_mask": m, "segment_ids": sg,
+                     "target_index": index[k]})
+    scorer = make_vil_logit_scorer(model)
+    rates = {}
+    for mode, fn, n, fast in (("fine-tuned fast_mode", scorer, RET_CAPTIONS, True),
+                              ("zero-shot", make_alignment_scorer(zs_model),
+                               RET_ZERO_SHOT_CAPTIONS, False)):
+        score_matrix(fn, caps[:1], pool, chunk=RET_CHUNK, fast_mode=fast, device=DEVICE)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = score_matrix(fn, caps[:n], pool, chunk=RET_CHUNK, fast_mode=fast, device=DEVICE)
+        rates[mode] = n / (time.perf_counter() - t0)
+        log(f"  {mode} scoring: {n} captions x {RET_POOL} images = {rates[mode]:.3f} captions/s "
+            f"(host copies of the pool chunks included) [{card}]")
+        if fast:
+            kern = scores
+    del zs_model
+    plain = score_matrix(make_vil_logit_scorer(use_plain_ops(model)), caps[:RET_CHECK_CAPTIONS],
+                         pool, chunk=RET_CHUNK, fast_mode=True, device=DEVICE)
+    use_plain_ops(model, False)
+    scale = max(1.0, float(np.abs(plain).max()))
+    e = float(np.abs(kern[:RET_CHECK_CAPTIONS] - plain).max())
+    checks.expect(np.isfinite(kern).all() and kern.shape == (RET_CAPTIONS, RET_POOL)
+                  and e <= 5e-2 * scale,
+                  f"bf16 retrieval scores, kernels vs plain ops: max|err| {e:.3e} <= "
+                  f"{5e-2 * scale:.3e} (5e-2 per unit of logit scale)")
+
+    # fp32: fast_mode (text at batch 1) against the caption broadcast on the host
+    state = model.state_dict()
+    del model, scorer
+    scores32 = {}
+    for fast in (True, False):
+        m32 = ViLBERTForVLTasks(cfg.replace(compute_dtype="float32", fast_mode=fast))
+        m32.load_state_dict(state)
+        m32 = m32.to(DEVICE)
+        scores32[fast] = score_matrix(make_vil_logit_scorer(m32), caps[:RET_CHECK_CAPTIONS],
+                                      pool, chunk=RET_CHUNK, fast_mode=fast, device=DEVICE)
+        del m32
+    e32 = float(np.abs(scores32[True] - scores32[False]).max())
+    checks.expect(e32 <= 1e-4, f"fp32 scores, fast_mode vs host broadcast: max|err| {e32:.3e} "
+                               f"<= 1e-4 ({RET_CHECK_CAPTIONS} captions x {RET_POOL} images)")
+    del state, pool
+
+    # the demo at the flagship config
+    buf = io.StringIO()
+    with recording_ln_shapes() as ln_seen, contextlib.redirect_stdout(buf):
+        reset_launches()
+        out = demo.main(["--synthetic", "--config", CONFIG, "--device", DEVICE,
+                         "--question", "what color is the couch?"])
+        torch.cuda.synchronize()
+        launches["demo"] = read_launches()
+    log("  demo: " + " | ".join(buf.getvalue().strip().splitlines()))
+    checks.expect(all(bool(torch.isfinite(v).all()) for v in out if v is not None)
+                  and out.vil_prediction.shape == (1, 3129),
+                  "demo: every head finite, 3129 VQA answers")
+    check_k1_tc(checks, "demo", launches["demo"], 1, cfg_zs)
+    demo_shapes = {k: n for k, (_, n) in ln_forward(cfg_zs, 1, DEMO_T, DEMO_R,
+                                                     demo_heads(cfg_zs)).items()}
+    check_ln_recording(checks, "demo", ln_seen, demo_shapes, launches["demo"])
+    checks.end_phase("retrieval")
+
+    # K1 and K4 at the retrieval and demo shapes
+    times = {}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    for label, heads, d, sq, sk, B in RET_ATTENTIONS:
+        q, k, v, cot = (torch.randn(B, s, heads * d, generator=g, device=DEVICE).bfloat16()
+                        for s in (sq, sk, sk, sq))
+        mask = torch.ones(B, sk, dtype=torch.long, device=DEVICE)
+        mask[:, sk - sk // 4:] = 0
+        bias = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+        fns = {"kernel": lambda: attention(q, k, v, bias, num_heads=heads),
+               "plain": lambda: attention_ref(q, k, v, bias, num_heads=heads),
+               "library": library_attention_fns(q, k, v, bias, cot, heads, d)["library"]}
+        with torch.inference_mode():
+            e, bnd, ok = _fwd_error(fns["kernel"](), fns["plain"](), "bfloat16")
+            track_error(err, "attention_fwd", "tc", e)
+            checks.expect(ok, f"attention {label} B={B} bf16: max|err| {e:.3e} <= {bnd:.3e}")
+            row = timed_row(fns, "kernel", "plain", *attention_cost(B, heads, d, sq, sk)["fwd"],
+                            BF16_TC_FLOPS, library="library")
+        row["variant"] = "tc"
+        times[("attention_fwd", label, 0.0)] = row
+        log(f"  attention {label} B={B} h={heads} d={d} {sq}x{sk} bf16 (library: SDPA): "
+            f"{row_text(row)} [{card}]")
+    ln_rows = {}
+    for path, shapes in (("retrieval", ln_forward(cfg, RET_CHUNK, RET_T, RET_R, fast=True)),
+                         ("demo", ln_forward(cfg_zs, 1, DEMO_T, DEMO_R, demo_heads(cfg_zs)))):
+        for key, (kind, n) in shapes.items():
+            row = ln_rows.setdefault(key, {"labels": [], "retrieval": 0, "demo": 0})
+            row["labels"].append(f"{path} {kind}")
+            row[path] += n
+    ln_rows = {key: {"label": "; ".join(row.pop("labels")), **row} for key, row in ln_rows.items()}
+    times.update(time_layer_norm(checks, ln_rows, card, err, g, paths=("retrieval", "demo")))
+    checks.end_phase("retrieval timing")
+    ret = {"fast": launches["fast"], "zero_shot": launches["zero_shot"], "demo": launches["demo"],
+           "captions_per_s": rates}
+    return times, ret
+
+
+# -- phase 11 ----------------------------------------------------------------
+
+BF16_GRAD_STEPS = 2
+RESUME_BATCH = 32  # the fp32 resume check
+
+
+def bf16_grad_shapes(shapes: dict) -> dict:
+    """K4's shapes under bf16 gradients: the text embedding's LayerNorm takes
+    its sum in the bf16 tables' dtype, so its fp32 shapes become bf16."""
+    out = collections.Counter()
+    for (rows, h, dtype, res), n in shapes.items():
+        out[(rows, h, "bfloat16", res)] += n
+    return dict(out)
+
+
+class _Interrupt(Exception):
+    """Ends a run after a checkpoint (phase 11's resume check)."""
+
+
+def phase_training_options(checks: Checks, trainer, tmp: str, card: str, err: dict) -> tuple:
+    """The CC step with bf16 gradients and moments, a multi-task iteration
+    with RAdam, the CC resume check and the flagship trainer's
+    checkpoint round trip."""
+    import torch
+
+    from vilbert_tpu_torch.cli import train_concap, train_tasks
+    from vilbert_tpu_torch.core.checkpoint import CheckpointManager
+    from vilbert_tpu_torch.core.config import ModelConfig, OptimizerConfig
+    from vilbert_tpu_torch.data.prefetch import to_device
+    from vilbert_tpu_torch.models.layers import set_dropout_generator, use_plain_ops
+    from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
+    from vilbert_tpu_torch.parallel.train_step import bf16_grads, train_state_dict
+    from vilbert_tpu_torch.train.pretrain import (
+        host_batch,
+        make_pretrain_loss_fn,
+        run_pretraining,
+    )
+
+    # 1. the CC step with --bf16_grads --bf16_adam_state, through the CLI
+    args = train_concap.build_parser().parse_args([
+        "--synthetic", "--config", CONFIG, "--batch_size", str(TRAIN_BATCH),
+        "--num_steps", str(BF16_GRAD_STEPS), "--seed", str(SEED), "--device", DEVICE,
+        "--bf16_grads", "--bf16_adam_state", "--output_dir", os.path.join(tmp, "cc_bf16"),
+    ])
+    losses = []
+    with recording_ln_shapes() as ln_seen:
+        reset_launches()
+        state = train_concap.train(args, hooks=[lambda step, st, m: losses.append(
+            {k: float(v) for k, v in m.items()})])
+        torch.cuda.synchronize()
+        bf16_launches = read_launches()
+    opt = state.optimizer
+    log(f"  train --bf16_grads --bf16_adam_state: "
+        + "; ".join(f"loss {m['loss']:.6f} grad_norm {m['grad_norm']:.4f}" for m in losses)
+        + f"; launches {bf16_launches}")
+    checks.expect(len(losses) == BF16_GRAD_STEPS and all(
+        math.isfinite(v) for m in losses for v in m.values()), "losses and grad norms finite")
+    checks.expect({t.dtype for t in (*opt.state.mu.values(), *opt.state.nu.values())}
+                  == {torch.bfloat16} and opt.state.count == BF16_GRAD_STEPS
+                  and all(p.dtype == torch.float32 for p in opt.params.values()),
+                  "moments stored in bf16, parameters fp32, count == steps")
+    per_step = kernel_calls_per_step(state.model.cfg)
+    checks.expect(bf16_launches["layer_norm_bf16_weight"] == bf16_launches["layer_norm"]
+                  == BF16_GRAD_STEPS * per_step["layer_norm"],
+                  f"every K4 launch on the bf16-weight instantiation: "
+                  f"{bf16_launches['layer_norm_bf16_weight']} == {bf16_launches['layer_norm']} "
+                  f"== {BF16_GRAD_STEPS} x {per_step['layer_norm']}")
+    cc_shapes = bf16_grad_shapes({key: row["cc"] for key, row in ln_shapes().items()})
+    check_ln_recording(checks, f"{BF16_GRAD_STEPS} CC steps, bf16 gradients", ln_seen,
+                       cc_shapes, bf16_launches, BF16_GRAD_STEPS)
+    for name in ("attention", "attention_bwd"):
+        checks.expect(bf16_launches[name] == BF16_GRAD_STEPS * per_step[name]
+                      == bf16_launches[f"{name}_tc"],
+                      f"{name} launches {bf16_launches[name]} == {BF16_GRAD_STEPS} x "
+                      f"{per_step[name]}, all on the tensor cores")
+    # kernels vs plain ops: a bf16-gradient step at fp32 compute (K4 takes
+    # fp32 x with bf16 weight and bias), dropout on, the same masks
+    cfg32 = state.model.cfg.replace(compute_dtype="float32")
+    m32 = ViLBERTForPretraining(cfg32)
+    m32.load_state_dict(state.model.state_dict())
+    m32 = m32.to(DEVICE)
+    del state, opt
+    batch = to_device(host_batch(bench_batch(cfg32, TRAIN_CHECK_BATCH, SEED + 5), cfg32), DEVICE)
+    loss_fn = make_pretrain_loss_fn(cfg32, lm_gather=LM_GATHER)
+    names = [n for n, _ in m32.named_parameters()]
+    result = {}
+    for plain in (False, True):
+        use_plain_ops(m32, plain)
+        set_dropout_generator(m32, torch.Generator().manual_seed(SEED + 7))
+        before = read_launches()["layer_norm_bf16_weight"]
+        loss, _, grads = bf16_grads(m32, loss_fn, batch, names)
+        torch.cuda.synchronize()
+        result[plain] = (loss.item(), grads, read_launches()["layer_norm_bf16_weight"] - before)
+    del m32
+    (lk, gk, nk), (lp, gp, np_) = result[False], result[True]
+    top = max(float(g.float().abs().max()) for g in gp.values())
+    worst = max(float((gk[n].float() - gp[n].float()).abs().max())
+                / (bf16_bound(gp[n].float()) + 1e-6 * top) for n in gp)
+    loss_err = abs(lk - lp) / abs(lp)
+    checks.expect(all(g.dtype == torch.bfloat16 for g in gk.values()) and nk == per_step[
+        "layer_norm"] and np_ == 0 and math.isfinite(lk) and loss_err <= 1e-5 and worst <= 1.0,
+        f"B={TRAIN_CHECK_BATCH} fp32-compute bf16-gradient step with dropout, kernels vs plain "
+        f"ops: bf16 gradients, {nk} K4 launches on the bf16-weight instantiation; loss "
+        f"{lk:.6f} vs {lp:.6f} (rel {loss_err:.3e} <= 1e-5), worst gradient at {worst:.3e} of "
+        f"its bound (bf16_bound + 1e-6 of the largest; <= 1)")
+    del result, gk, gp, batch
+    checks.end_phase("bf16 gradients")
+
+    # bf16-weight K4 timed at the CC and multi-task shapes (the text
+    # embedding's in bf16, as the bf16-gradient step gives it)
+    shapes = {}
+    for key, row in ln_shapes().items():
+        if row["cc"] or row["multitask"]:
+            new = (*key[:2], "bfloat16", key[3])
+            have = shapes.setdefault(new, {"label": row["label"], "cc": 0, "multitask": 0})
+            if have["label"] != row["label"]:
+                have["label"] += "; " + row["label"]
+            have["cc"] += row["cc"]
+            have["multitask"] += row["multitask"]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    times = time_layer_norm(checks, shapes, card, err, g, paths=("cc", "multitask"),
+                            wdtype=torch.bfloat16)
+    checks.end_phase("bf16-weight K4 timing")
+
+    # 2. one flagship iteration with --optim radam
+    tasks = flagship_tasks()
+    loaders, val_loaders = multitask_loaders(tasks, trainer.model_cfg.vocab_size)
+    losses = []
+    with recording_ln_shapes() as ln_seen:
+        reset_launches()
+        radam = train_tasks.train(
+            multitask_args(os.path.join(tmp, "radam"), ["--optim", "radam", "--num_iterations",
+                                                        "1"]),
+            tasks, loaders, val_loaders=val_loaders,
+            hooks=[lambda e, it, tr, m: losses.extend((k, float(v["loss"])) for k, v in m.items())])
+        torch.cuda.synchronize()
+        radam_launches = read_launches()
+    counts = {lb: st.count for lb, st in radam.optimizer.state.items()}
+    log(f"  --optim radam iteration: " + ", ".join(f"{k} {v:.6f}" for k, v in losses)
+        + f"; label counts {counts}; launches {radam_launches}")
+    checks.expect(type(radam.optimizer).__name__ == "ReferenceRAdam" and len(losses) == len(tasks)
+                  and all(math.isfinite(v) for _, v in losses)
+                  and counts == {"base": len(tasks), "head": len(tasks)},
+                  f"RAdam: {len(losses)} task losses finite, each label stepped by every task")
+    want = multitask_launches(tasks, radam.model_cfg, 1, 0)
+    checks.expect(all(radam_launches[k] == n for k, n in want.items()),
+                  f"RAdam iteration launches {({k: radam_launches[k] for k in want})} == {want}")
+    del radam, loaders, val_loaders
+
+    # 3. the CC resume check: fp32, dropout off, one held batch
+    cfg_r = ModelConfig.from_json_file(CONFIG).replace(
+        compute_dtype="float32", hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        v_hidden_dropout_prob=0.0, v_attention_probs_dropout_prob=0.0)
+    held = [bench_batch(cfg_r, RESUME_BATCH, SEED + 13)]
+    opt_cfg = OptimizerConfig(learning_rate=1e-4, beta2=0.98, schedule="warmup_linear",
+                              warmup_proportion=0.5)
+
+    def fresh():
+        model = ViLBERTForPretraining(cfg_r, generator=torch.Generator().manual_seed(SEED))
+        model.cls.dropout.rate = 0.0  # the fixed-rate fuse site
+        return model
+
+    kw = dict(num_steps=4, device=DEVICE, lm_gather=LM_GATHER, log_every=0)
+    whole = run_pretraining(cfg_r, opt_cfg, held, model=fresh(), **kw)
+    ckpt = os.path.join(tmp, "cc_ckpt")
+    mngr = CheckpointManager(ckpt)
+
+    def interrupt(step, st, metrics):
+        if step + 1 == 2:
+            mngr.save(2, train_state_dict(st))
+            raise _Interrupt
+
+    try:
+        run_pretraining(cfg_r, opt_cfg, held, model=fresh(), hooks=[interrupt], **kw)
+    except _Interrupt:
+        pass
+    resumed = run_pretraining(cfg_r, opt_cfg, held, model=fresh(), resume_dir=ckpt, **kw)
+    pairs = [(n, a, b) for tree_a, tree_b in (
+        (whole.model.state_dict(), resumed.model.state_dict()),
+        (whole.optimizer.state.mu, resumed.optimizer.state.mu),
+        (whole.optimizer.state.nu, resumed.optimizer.state.nu)) for n, a in tree_a.items()
+        for b in (tree_b[n],)]
+    bitwise = all(torch.equal(a, b) for _, a, b in pairs)
+    rel = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30) for _, a, b in pairs)
+    log(f"  resume: 2 steps + checkpoint + 2 resumed steps vs 4 uninterrupted (fp32, B="
+        f"{RESUME_BATCH}, one held batch, dropout off): bitwise {bitwise}, worst difference "
+        f"{rel:.3e} of its tensor's max over {len(pairs)} tensors")
+    checks.expect(resumed.step == 4 and resumed.optimizer.state.count == 4 and (
+        bitwise or rel <= 1e-6), f"resumed run equals the uninterrupted one (bitwise {bitwise}, "
+                                 f"{rel:.3e} <= 1e-6 of each tensor's max)")
+    del whole, resumed, pairs
+
+    # 4. the flagship trainer (phases 8-9) saved and restored into a new one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = trainer.save_checkpoint()
+    save_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    loaders, val_loaders = multitask_loaders(tasks, trainer.model_cfg.vocab_size)
+    fresh_trainer = train_tasks.build_trainer(
+        multitask_args(os.path.join(tmp, "restored")), tasks, loaders, val_loaders=val_loaders)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = fresh_trainer.restore_checkpoint(directory=os.path.dirname(path))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, fresh_trainer.model.state_dict()[n])
+               for n, a in trainer.model.state_dict().items())
+    for tree_a, tree_b in ((trainer.optimizer.state.mu, fresh_trainer.optimizer.state.mu),
+                           (trainer.optimizer.state.nu, fresh_trainer.optimizer.state.nu)):
+        same = same and all(torch.equal(a, tree_b[n]) for n, a in tree_a.items())
+    host = (fresh_trainer.optimizer.state.count, fresh_trainer.global_step, fresh_trainer.epoch,
+            fresh_trainer.controller.state_dict(), fresh_trainer.schedule.state_dict(),
+            fresh_trainer.metrics_logger.state_dict())
+    want_host = (trainer.optimizer.state.count, trainer.global_step, trainer.epoch,
+                 trainer.controller.state_dict(), trainer.schedule.state_dict(),
+                 trainer.metrics_logger.state_dict())
+    log(f"  flagship checkpoint (step {step}): {size / 1e9:.3f} GB, saved in {save_s:.2f} s, "
+        f"restored in {restore_s:.2f} s [{card}]")
+    checks.expect(same and host == want_host and step == trainer.global_step,
+                  "restored trainer: parameters and both moments bitwise, count, global step, "
+                  "epoch, controllers, schedule and logger equal")
+    del fresh_trainer
+    checks.end_phase("training options")
+    out = {"bf16_launches": bf16_launches, "radam_launches": radam_launches,
+           "checkpoint_gb": size / 1e9, "save_s": save_s, "restore_s": restore_s,
+           "resume_bitwise": bitwise}
+    return times, out
+
+
 def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: dict,
-                  mt_launches: dict, fp32_launches: dict) -> list:
+                  mt_launches: dict, fp32_launches: dict, ret: dict, opts: dict) -> list:
     """The kernels line. Each kernel's numbers (device ms, ``device_ms``;
     ``wall_ms`` with the host's gaps) at its headline shape: K1 at VQA image
     self-attention, where it costs most; K2 at CC image self-attention;
@@ -1720,7 +2260,11 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
     run and the multi-task run under ``launches_by_path``, and ``launches``
     of the path the headline shape belongs to. The CUDA-core K1, which the
     bf16 paths no longer launch, reports its launches in phase 8's fp32
-    iteration through the kernels and its times at the long shapes."""
+    iteration through the kernels and its times at the long shapes. K1 and
+    K4 also carry their launches in phase 10's retrieval runs and demo; K4's
+    bf16-weight instantiation is an entry of its own, with its launches in
+    phase 11's CC steps with bf16 gradients and its times at the CC and
+    multi-task shapes."""
     from vilbert_tpu_torch.ops.layernorm import VARIANTS as LN_VARIANTS
 
     long_labels = tuple(label for label, *_ in MT_ATTENTIONS)
@@ -1803,7 +2347,25 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
                      ("attention_bwd", "Visual7w image self", 0.0),
                      "scaled_dot_product_attention forward + autograd.grad less forward, rate 0")
     bwd_long["variant"] = "long_tc: tensor cores, bf16, 128 < Sq or Sk <= 512"
-    return [fwd, bwd, ln, fused, fwd_long, fwd_cc, bwd_long]
+    for out, counter in ((fwd, "attention"), (ln, "layer_norm")):
+        out["launches_by_path"].update({f"retrieval_{k}" if k != "demo" else k: ret[k][counter]
+                                        for k in ("fast", "zero_shot", "demo")})
+    bf16w = {k: v for k, v in times.items() if k[0] == "layer_norm_bf16_weight"}
+    head = max(bf16w, key=lambda k: bf16w[k]["launches_by_path"]["cc"])  # CC text + residual
+    row = bf16w[head]
+    ln_bf16w = {
+        "name": "layer_norm_fwd_bf16_weight", "route": "cuda", "source": ln["source"],
+        "replaces": ln["replaces"],
+        "launches": opts["bf16_launches"]["layer_norm_bf16_weight"],
+        "launches_of": "phase 11's CC steps with --bf16_grads",
+        "variants": {v: opts["bf16_launches"][f"layer_norm_{v}"] for v in LN_VARIANTS},
+        "max_abs_err": err["layer_norm_fwd_bf16_weight"],
+        **{k: row[k] for k in ("ms", "plain_ms", "wall_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+        "bound": "memory", "library": ln["library"], "shape": head[1],
+        "shapes": [dict(shape=k[1], **v) for k, v in bf16w.items()],
+        "weight": "bf16 weight and bias, widened in registers"}
+    return [fwd, bwd, ln, fused, fwd_long, fwd_cc, bwd_long, ln_bf16w]
 
 
 def main() -> int:
@@ -1853,11 +2415,22 @@ def main() -> int:
         trainer, mt_launches, fp32_launches, peak_gb = phase_multitask(checks, tmp)
         phase("[9 multi-task timing]")
         times.update(phase_multitask_timing(checks, trainer, card, err))
+        torch.cuda.empty_cache()
+        phase("[10 retrieval and demo]")
+        ret_times, ret = phase_retrieval(checks, tmp, card, err)
+        times.update(ret_times)
+        torch.cuda.empty_cache()
+        phase("[11 training options and resume]")
+        opt_times, opts = phase_training_options(checks, trainer, tmp, card, err)
+        times.update(opt_times)
         del trainer
-    phase(f"[done] phases 1-9 in {time.time() - t_start:.1f} s; multi-task peak memory "
-          f"{peak_gb:.2f} GB [{card}]")
+    phase(f"[done] phases 1-11 in {time.time() - t_start:.1f} s; multi-task peak memory "
+          f"{peak_gb:.2f} GB; retrieval captions/s {ret['captions_per_s']}; flagship "
+          f"checkpoint {opts['checkpoint_gb']:.3f} GB saved in {opts['save_s']:.2f} s, restored "
+          f"in {opts['restore_s']:.2f} s [{card}]")
 
-    kernels = kernel_report(times, err, vqa_launches, train_launches, mt_launches, fp32_launches)
+    kernels = kernel_report(times, err, vqa_launches, train_launches, mt_launches, fp32_launches,
+                            ret, opts)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

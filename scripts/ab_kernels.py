@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
     python3 scripts/ab_kernels.py --file attention.cu \\
         --old "constexpr int kMaxWarps = 8;" --new "constexpr int kMaxWarps = 4;"
     python3 scripts/ab_kernels.py --kernel layer_norm --baseline OLD/csrc
+    python3 scripts/ab_kernels.py --kernel layer_norm --ln_weight bfloat16
 
 It builds the kernels of ``vilbert_tpu_torch/csrc`` as they are (A) and a
 copy in which ``--old`` is replaced by ``--new`` in ``--file`` (B), prints
@@ -24,6 +25,10 @@ ptxas lines of every instantiation, and at every shape of
 variants (an earlier design's single ``vt_layer_norm_fwd`` counts as one)
 checked against ``layer_norm_ref`` (fp32 1e-4, bf16 ``bf16_bound``) and
 timed A, B, B, A; ``routed`` is the variant ``ln_variant`` picks.
+``--ln_weight bfloat16`` times the bf16-weight instantiations (weight and
+bias in bf16) in place of the fp32-weight ones. The libraries compared must
+take the weight dtype argument of the entry points (from the bf16-weight
+K4 on).
 """
 
 from __future__ import annotations
@@ -88,13 +93,15 @@ def build(csrc: str, out_dir: str, sources=None) -> tuple:
                 kernel = m.group(1) if "_tc_" in m.group(1) or "layer_norm" in m.group(1) \
                     else None
             elif kernel and ("spill" in line or "Used" in line):
-                ln = re.search(r"layer_norm_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])",
-                               kernel)
+                # <x type, weight type (S0_: x's again), H, persistent>
+                ln = re.search(r"layer_norm_fwd_kernelI(f|13__nv_bfloat16)"
+                               r"(f|13__nv_bfloat16|S\d*_)Li(\d+)ELb([01])", kernel)
                 if ln:  # the widths of the paths and of phase 3's edges
-                    if int(ln.group(2)) in (128, 384, 768, 1024, 2048):
+                    if int(ln.group(3)) in (128, 384, 768, 1024, 2048):
                         report.append(
                             f"layer_norm {'fp32' if ln.group(1) == 'f' else 'bf16'} "
-                            f"H={ln.group(2)} {('block', 'persistent')[int(ln.group(3))]}: "
+                            f"weight {'fp32' if ln.group(2) == 'f' else 'bf16'} "
+                            f"H={ln.group(3)} {('block', 'persistent')[int(ln.group(4))]}: "
                             f"{line.split(':', 1)[-1].strip()}")
                     continue
                 name = re.search(r"attention_(fwd|bwd)_(\w*?)_?kernelILi(\d+)E(?:Li(\d+)E)?"
@@ -135,6 +142,8 @@ def main(argv=None) -> int:
     p.add_argument("--new", action="append", default=[], help="what B puts in its place")
     p.add_argument("--baseline", default="", help="a csrc directory to build A from")
     p.add_argument("--kernel", default="attention", choices=("attention", "layer_norm"))
+    p.add_argument("--ln_weight", default="float32", choices=("float32", "bfloat16"),
+                   help="dtype of K4's weight and bias in the layer_norm timings")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
@@ -173,7 +182,7 @@ def main(argv=None) -> int:
             for line in report:
                 print(f"  {name} ptxas {line}")
         if args.kernel == "layer_norm":
-            return time_layer_norm(variants, smoke)
+            return time_layer_norm(variants, smoke, getattr(torch, args.ln_weight))
 
         def use(name):
             _build.load_library = lambda: variants[name]
@@ -208,9 +217,10 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def time_layer_norm(libs: dict, smoke) -> int:
-    """K4 of each library at chip_smoke's shapes and the sweep: every
-    variant checked and timed, the libraries alternated A, B, B, A."""
+def time_layer_norm(libs: dict, smoke, wdtype) -> int:
+    """K4 of each library at chip_smoke's shapes and the sweep, with weight
+    and bias in ``wdtype``: every variant checked and timed, the libraries
+    alternated A, B, B, A."""
     import torch
 
     from vilbert_tpu_torch.ops import _build
@@ -230,8 +240,8 @@ def time_layer_norm(libs: dict, smoke) -> int:
         dtype = getattr(torch, dtype_name)
         x = (2 * torch.randn(rows, h, generator=g, device="cuda") + 0.5).to(dtype)
         res = torch.randn(rows, h, generator=g, device="cuda").to(dtype) if with_res else None
-        w = 1 + 0.1 * torch.randn(h, generator=g, device="cuda")
-        b = 0.1 * torch.randn(h, generator=g, device="cuda")
+        w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(wdtype)
+        b = (0.1 * torch.randn(h, generator=g, device="cuda")).to(wdtype)
         out = torch.empty_like(x)
         want = layer_norm_ref(x, w, b, residual=res).float()
         bound = 1e-4 if dtype == torch.float32 else smoke.bf16_bound(want)
@@ -240,7 +250,8 @@ def time_layer_norm(libs: dict, smoke) -> int:
         def call(fn):
             return lambda: fn(x.data_ptr(), None if res is None else res.data_ptr(),
                               w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                              _build.DTYPE_CODES[dtype], rows, h, 1e-12, stream)
+                              _build.DTYPE_CODES[dtype], _build.DTYPE_CODES[wdtype], rows, h,
+                              1e-12, stream)
 
         times = {}
         for name in (*libs, *reversed(libs)):  # A, B, B, A
@@ -256,8 +267,9 @@ def time_layer_norm(libs: dict, smoke) -> int:
             for key, ms in smoke.device_ms(fns).items():
                 times.setdefault(key, []).append(ms)
         text = ", ".join(f"{key} {sum(t) / len(t):.4f}" for key, t in times.items())
-        print(f"layer_norm {label} rows={rows} H={h} {dtype_name} residual={with_res} routed "
-              f"{ln_variant(rows, h, dtype)}: device ms {text}", flush=True)
+        print(f"layer_norm {label} rows={rows} H={h} {dtype_name} weight {str(wdtype)[6:]} "
+              f"residual={with_res} routed {ln_variant(rows, h, dtype)}: device ms {text}",
+              flush=True)
     print("checks failed:", fails)
     return 1 if fails else 0
 

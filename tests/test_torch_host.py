@@ -412,3 +412,27 @@ def test_chip_smoke_ln_shapes_are_each_paths_launches(monkeypatch):
                      (5248, 768, "bfloat16", False): "TASK12 LM transform",
                      (64, 2048, "bfloat16", False): "TASK12 classifier"}
     assert shapes[(9472, 1024, "bfloat16", False)]["cc"] == 2  # embedding + image transform
+
+
+def test_vcr_copy_matches(tmp_path):
+    """``eval/vcr.py``: joint Q->AR accuracy and the submission CSV equal the
+    original's on the same results (a question missing from QA->R, one
+    missing from the targets, ties)."""
+    from vilbert_tpu.eval import vcr as ref
+    from vilbert_tpu_torch.eval import vcr as port
+
+    assert port is not ref
+    rng = np.random.RandomState(3)
+    qa = [{"question_id": i, "answer": rng.rand(4).round(2).tolist()} for i in range(12)]
+    qar = [{"question_id": i, "answer": rng.rand(4).round(2).tolist()} for i in range(11)]
+    qa[5]["answer"] = [0.5, 0.5, 0.1, 0.1]
+    qa_t = {i: int(rng.randint(4)) for i in range(13)}
+    qar_t = {i: int(rng.randint(4)) for i in range(12) if i != 3}
+    got = port.vcr_joint_accuracy(qa, qar, qa_t, qar_t)
+    assert got == ref.vcr_joint_accuracy(qa, qar, qa_t, qar_t)
+    assert got["num_samples"] == 11 and 0 < got["qa_accuracy"] < 1
+    a = port.write_vcr_submission_csv(qa, qar, str(tmp_path / "port.csv"))
+    b = ref.write_vcr_submission_csv(qa, qar, str(tmp_path / "ref.csv"))
+    assert open(a).read() == open(b).read()
+    (tmp_path / "r.json").write_text(__import__("json").dumps(qa))
+    assert port.load_results(str(tmp_path / "r.json")) == ref.load_results(str(tmp_path / "r.json"))

@@ -4,8 +4,8 @@ The card machine has no jax. This file's tests run the port in a fresh
 interpreter (tests/conftest.py has already imported jax into this one) in
 which ``vilbert_tpu`` cannot be imported (``sys.modules["vilbert_tpu"] =
 None``): import every module of ``vilbert_tpu_torch``, run the eval CLI and
-the two training CLIs end to end on a tiny config on the CPU, and check
-that neither jax nor flax was loaded.
+the two training CLIs, the retrieval CLI and the demo end to end on a tiny
+config on the CPU, and check that neither jax nor flax was loaded.
 """
 
 import json
@@ -99,11 +99,11 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "
 assert not leaked, leaked
 assert trainer.global_step == 2, trainer.global_step
 try:
-    main(["--synthetic", "--device", "cpu", "--optim", "radam"])
+    main(["--synthetic", "--device", "cpu", "--baseline"])
 except NotImplementedError as e:
     assert "ROADMAP" in str(e), e
 else:
-    raise AssertionError("--optim radam was not refused")
+    raise AssertionError("--baseline was not refused")
 print("JAX_FREE_OK")
 """
 
@@ -172,3 +172,36 @@ def test_chip_smoke_imports_only_the_port():
     port, ref = config.load_task_configs(tasks_yml), jax_config.load_task_configs(tasks_yml)
     assert {k: dataclasses.asdict(t) for k, t in port.items()} == \
         {k: dataclasses.asdict(t) for k, t in ref.items()}
+
+
+_EVAL_SCRIPT = """
+import sys
+sys.modules["vilbert_tpu"] = None  # any import of the JAX package fails
+from vilbert_tpu_torch.cli import demo, eval_retrieval
+cfg, out = sys.argv[1:3]
+metrics = eval_retrieval.main(["--synthetic", "--device", "cpu", "--config", cfg,
+                               "--fast_mode", "--output", out])
+assert metrics["num_captions"] == 40 and metrics["pool_size"] == 8, metrics
+eval_retrieval.main(["--synthetic", "--device", "cpu", "--config", cfg, "--zero_shot",
+                     "--output", out + ".zs"])
+demo.main(["--synthetic", "--device", "cpu", "--config", cfg])
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+print("JAX_FREE_OK")
+"""
+
+
+def test_retrieval_and_demo_run_without_jax(tmp_path):
+    """The retrieval CLI (fine-tuned with fast_mode, and zero-shot) and the
+    demo on the CPU, with no jax, flax or optax loaded."""
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(_TINY))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _EVAL_SCRIPT, str(cfg), str(tmp_path / "r.json")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_FREE_OK" in proc.stdout and "grounded region:" in proc.stdout
+    assert set(json.loads((tmp_path / "r.json").read_text())) == {
+        "r1", "r5", "r10", "medr", "meanr", "num_captions", "pool_size"}

@@ -258,7 +258,7 @@ def fake_ln_kernels(monkeypatch):
     """The LayerNorm ``_fwd_cuda`` with a recording library."""
     from vilbert_tpu_torch.ops.layernorm import VARIANTS, layer_norm
 
-    return _fake_library(monkeypatch, layer_norm, VARIANTS)
+    return _fake_library(monkeypatch, layer_norm, (*VARIANTS, "bf16_weight"))
 
 
 class TestLongForwardDispatch:
@@ -344,6 +344,36 @@ class TestLayerNorm:
         np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                    atol=1e-2, rtol=1e-2)
 
+    @pytest.mark.parametrize("with_residual", [False, True])
+    @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+    def test_bf16_weight_and_bias_match_pallas_kernel(self, with_residual, x_dtype, rng_np):
+        """bf16 weight and bias (what a ``--bf16_grads`` step hands K4),
+        widened to fp32 inside the plain version as inside the Pallas
+        kernel, at either dtype of x: fp32 within 1e-5, bf16 within one
+        rounding of the output. The backward returns dw and db in bf16."""
+        from vilbert_tpu.ops.pallas_layernorm import fused_layer_norm
+        from vilbert_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
+
+        x = rng_np.randn(3, 7, 128).astype(np.float32) * 3 + 1
+        res = rng_np.randn(3, 7, 128).astype(np.float32) if with_residual else None
+        w = rng_np.randn(128).astype(np.float32)
+        b = rng_np.randn(128).astype(np.float32)
+        jdt, tdt = jnp.dtype(x_dtype), getattr(torch, x_dtype)
+        want = fused_layer_norm(
+            jnp.asarray(x, jdt), jnp.asarray(w, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16),
+            residual=None if res is None else jnp.asarray(res, jdt), interpret=True,
+        )
+        wt, bt = _t(w).to(torch.bfloat16), _t(b).to(torch.bfloat16)
+        r = None if res is None else _t(res).to(tdt)
+        got = layer_norm_ref(_t(x).to(tdt), wt, bt, residual=r)
+        assert got.dtype == tdt
+        tol = 1e-5 if x_dtype == "float32" else 2 ** -7
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   atol=tol * 4, rtol=tol)
+        wl, bl = (t.clone().requires_grad_() for t in (wt, bt))
+        layer_norm(_t(x).to(tdt), wl, bl, residual=r).sum().backward()
+        assert wl.grad.dtype == bl.grad.dtype == torch.bfloat16
+
 
 class TestLayerNormKernelOperands:
     @pytest.mark.parametrize("h", [768, 1024, 2048])
@@ -353,6 +383,9 @@ class TestLayerNormKernelOperands:
 
         x = torch.zeros(811, h, dtype=dtype)
         assert kernel_rows(x, torch.ones(h), torch.zeros(h), x.clone()) == 811
+        # bf16 weight and bias, at either dtype of x
+        ones, zeros = torch.ones(h, dtype=torch.bfloat16), torch.zeros(h, dtype=torch.bfloat16)
+        assert kernel_rows(x, ones, zeros, None) == 811
 
     @pytest.mark.parametrize("case", ["h_96", "h_4096", "fp16", "residual_dtype",
                                       "weight_dtype", "strided", "misaligned"])
@@ -407,7 +440,8 @@ class TestLayerNormVariants:
         for variant in VARIANTS:
             assert isinstance(getattr(layer_norm, f"launches_{variant}"), int)
             assert _build._SIGNATURES[f"vt_layer_norm_fwd_{variant}"] == (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        assert layer_norm.launches_bf16_weight == 0
 
     @pytest.mark.parametrize("rows,lead", [(1, ()), (64, ()), (1024, ()), (9216, ()),
                                            (6 * 101, (6,))])
@@ -429,10 +463,29 @@ class TestLayerNormVariants:
         assert name == f"vt_layer_norm_fwd_{variant}"
         assert args[:5] == (x.data_ptr(), res.data_ptr() if with_res else None, w.data_ptr(),
                             b.data_ptr(), out.data_ptr())
-        assert args[5:] == (_build.DTYPE_CODES[dtype], rows, h, 1e-12, 0)
+        assert args[5:] == (_build.DTYPE_CODES[dtype], 0, rows, h, 1e-12, 0)
         other, = {"block", "persistent"} - {variant}
         assert (layer_norm.launches, getattr(layer_norm, f"launches_{variant}"),
-                getattr(layer_norm, f"launches_{other}")) == (1, 1, 0)
+                getattr(layer_norm, f"launches_{other}"), layer_norm.launches_bf16_weight) == (
+                    1, 1, 0, 0)
+
+    @pytest.mark.parametrize("rows", [1, 9216, 50_000])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_bf16_weight_reaches_its_instantiation(self, fake_ln_kernels, rows, dtype):
+        """bf16 weight and bias go to the entry point as they are, with the
+        weight dtype code 1, no cast launched: the same variant as fp32
+        weights, and one more on ``launches_bf16_weight``."""
+        from vilbert_tpu_torch.ops.layernorm import _fwd_cuda, layer_norm, ln_variant
+
+        x = torch.zeros(rows, 768, dtype=dtype)
+        w, b = torch.ones(768, dtype=torch.bfloat16), torch.zeros(768, dtype=torch.bfloat16)
+        _fwd_cuda(x, w, b, 1e-12, None)
+        variant = ln_variant(rows, 768, dtype)
+        (name, args), = fake_ln_kernels.calls
+        assert name == f"vt_layer_norm_fwd_{variant}"
+        assert args[2:4] == (w.data_ptr(), b.data_ptr()) and args[6] == 1
+        assert (layer_norm.launches, getattr(layer_norm, f"launches_{variant}"),
+                layer_norm.launches_bf16_weight) == (1, 1, 1)
 
     @pytest.mark.parametrize("variant", ["block", "persistent"])
     def test_named_variant_launches_it(self, fake_ln_kernels, variant):
@@ -443,7 +496,7 @@ class TestLayerNormVariants:
             x = torch.zeros(rows, 768, dtype=torch.bfloat16)
             _fwd_cuda(x, torch.ones(768), torch.zeros(768), 1e-5, None, variant)
         assert [name for name, _ in fake_ln_kernels.calls] == [f"vt_layer_norm_fwd_{variant}"] * 2
-        assert fake_ln_kernels.calls[0][1][8] == 1e-5
+        assert fake_ln_kernels.calls[0][1][9] == 1e-5
         assert (layer_norm.launches, getattr(layer_norm, f"launches_{variant}")) == (2, 2)
 
     @pytest.mark.parametrize("case", ["misaligned", "strided", "fp16", "h_96", "h_200",

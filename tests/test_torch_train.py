@@ -412,8 +412,9 @@ class TestCLI:
         for path, want in _flatten(jax_tree).items():
             np.testing.assert_array_equal(_flax(state.model.state_dict())[path], want)
 
-    @pytest.mark.parametrize("flag", [["--baseline"], ["--bf16_grads"], ["--bf16_adam_state"],
-                                      ["--resume_file", "x"], ["--visual_target", "2"]])
+    @pytest.mark.parametrize("flag", [["--baseline"], ["--coordinator", "x"],
+                                      ["--num_processes", "2"], ["--num_shards", "2"],
+                                      ["--visual_target", "2"]])
     def test_refused_flags_name_their_roadmap_item(self, flag):
         from vilbert_tpu_torch.cli.train_concap import main
 

@@ -10,8 +10,13 @@ train_concap.py and ``vilbert_tpu.cli.train_concap``).
   python -m vilbert_tpu_torch.cli.train_concap --synthetic --device cpu --num_steps 3
 
 Writes ``params_final.npz`` (flat, keyed by flax path) into
-``--output_dir``; ``vilbert_tpu.core.checkpoint.load_params`` reads it. On a
-CUDA device the model runs the port's attention (forward with dropout,
+``--output_dir``; ``vilbert_tpu.core.checkpoint.load_params`` reads it.
+``--checkpoint_every N`` writes a full-state checkpoint (parameters,
+optimizer state, step; ``core.checkpoint``) every N steps into
+``<output_dir>/ckpt``; ``--resume_file`` names such a directory to resume
+from (its latest step, or ``--start_step``). ``--bf16_grads`` takes the
+gradients in bf16, ``--bf16_adam_state`` stores the Adam moments in bf16.
+On a CUDA device the model runs the port's attention (forward with dropout,
 backward) and LayerNorm kernels, built from ``vilbert_tpu_torch/csrc`` at
 first use.
 """
@@ -29,10 +34,6 @@ from vilbert_tpu_torch.core.config import ModelConfig, OptimizerConfig
 #: flags of the JAX CLI that the port refuses, and the ROADMAP item of each
 _REFUSED = {
     "baseline": "the single-stream baseline (ROADMAP A11)",
-    "bf16_grads": "bf16 gradients (ROADMAP A5)",
-    "bf16_adam_state": "bf16 Adam moments (ROADMAP A5)",
-    "resume_file": "full-state resume (ROADMAP A6)",
-    "checkpoint_every": "full-state checkpoints (ROADMAP A6)",
     "coordinator": "multi-GPU training (ROADMAP A12)",
 }
 
@@ -65,8 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pretrained_lr_scale", type=float, default=1.0)
     p.add_argument("--baseline", action="store_true", help="not ported yet")
     p.add_argument("--adam_epsilon", type=float, default=1e-8)
-    p.add_argument("--bf16_adam_state", action="store_true", help="not ported yet")
-    p.add_argument("--bf16_grads", action="store_true", help="not ported yet")
+    p.add_argument("--bf16_adam_state", action="store_true",
+                   help="store the Adam moments in bfloat16 (they accumulate in fp32)")
+    p.add_argument("--bf16_grads", action="store_true",
+                   help="differentiate with respect to bf16 copies of the parameters")
     p.add_argument("--num_negative", type=int, default=128)
     p.add_argument("--freeze", type=int, default=-1,
                    help="freeze text embeddings + text layers 0..N (-1 = nothing)")
@@ -74,8 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bert_model", default="bert-base-uncased")
     p.add_argument("--without_coattention", action="store_true")
     p.add_argument("--save_name", default="")
-    p.add_argument("--resume_file", default="", help="not ported yet")
-    p.add_argument("--start_step", type=int, default=-1, help="not ported yet")
+    p.add_argument("--resume_file", default="",
+                   help="checkpoint directory to resume (parameters + optimizer state)")
+    p.add_argument("--start_step", type=int, default=-1,
+                   help="override the resume step (-1: from the checkpoint)")
     p.add_argument("--seed", type=int, default=0,
                    help="seeds the initial weights and every dropout mask")
     p.add_argument("--shard_id", type=int, default=-1, help="-1: 0 (one process)")
@@ -95,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=0,
                    help=">1: thread-pool host batch building (deterministic)")
     p.add_argument("--synthetic", action="store_true", help="synthetic data smoke run")
-    p.add_argument("--checkpoint_every", type=int, default=0, help="not ported yet")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="steps between full-state checkpoints into <output_dir>/ckpt (0: none)")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
 
@@ -105,8 +111,6 @@ def check_flags(args: argparse.Namespace) -> None:
     for flag, what in _REFUSED.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {what} is not ported yet")
-    if args.start_step >= 0:
-        raise NotImplementedError(f"--start_step: {_REFUSED['resume_file']} is not ported yet")
     if args.num_processes > 1 or args.num_shards > 1:
         raise NotImplementedError(f"--num_processes/--num_shards: {_REFUSED['coordinator']}")
     if args.visual_target == 2:
@@ -144,6 +148,7 @@ def concap_loader(store, captions, tokenizer, model_cfg: ModelConfig, args, *, s
 def optimizer_config(args: argparse.Namespace, schedule: str = "warmup_linear") -> OptimizerConfig:
     """The CLI's AdamW settings; ``schedule="constant"`` holds the learning
     rate, for timing steps at any step count."""
+    moments = "bfloat16" if args.bf16_adam_state else "float32"
     return OptimizerConfig(
         learning_rate=args.learning_rate,
         warmup_proportion=args.warmup_proportion,
@@ -151,12 +156,15 @@ def optimizer_config(args: argparse.Namespace, schedule: str = "warmup_linear") 
         beta2=0.98,  # reference AdamW betas for concap (train_concap.py:467)
         eps=args.adam_epsilon,
         pretrained_lr_scale=args.pretrained_lr_scale,
+        first_moment_dtype=moments,
+        second_moment_dtype=moments,
     )
 
 
 def train(args: argparse.Namespace, hooks: Optional[list] = None):
     """The CLI's body without the final save: data, model and
-    ``run_pretraining`` for parsed flags; returns the final ``TrainState``."""
+    ``run_pretraining`` for parsed flags, with the checkpoint hook of
+    ``--checkpoint_every`` after ``hooks``; returns the final ``TrainState``."""
     check_flags(args)
 
     from vilbert_tpu_torch.cli.train_tasks import freeze_prefixes
@@ -213,6 +221,19 @@ def train(args: argparse.Namespace, hooks: Optional[list] = None):
         model = ViLBERTForPretraining(model_cfg, generator=torch.Generator().manual_seed(args.seed))
         load_weights(model, args.from_pretrained)
 
+    hooks = list(hooks or ())
+    if args.checkpoint_every:
+        from vilbert_tpu_torch.core.checkpoint import CheckpointManager
+        from vilbert_tpu_torch.parallel.train_step import train_state_dict
+
+        mngr = CheckpointManager(os.path.join(args.output_dir, "ckpt"))
+
+        def ckpt_hook(step, state, metrics):
+            if (step + 1) % args.checkpoint_every == 0:
+                mngr.save(step + 1, train_state_dict(state))
+
+        hooks.append(ckpt_hook)
+
     return run_pretraining(
         model_cfg, optimizer_config(args), loader, num_steps=num_steps, seed=args.seed,
         img_weight=args.img_weight, grad_accum=args.gradient_accumulation_steps,
@@ -220,6 +241,8 @@ def train(args: argparse.Namespace, hooks: Optional[list] = None):
         img_gather=args.img_gather, model=model, device=args.device,
         val_loader=val_loader, val_every=val_every, hooks=hooks,
         freeze_prefix=freeze_prefixes(str(args.freeze)),
+        resume_dir=args.resume_file, start_step=args.start_step,
+        grad_dtype="bfloat16" if args.bf16_grads else "",
     )
 
 

@@ -11,7 +11,9 @@ train_tasks.py and ``vilbert_tpu.cli.train_tasks``).
       --device cpu --num_iterations 2
 
 Writes ``params_final.npz`` (flat, keyed by flax path) into
-``--output_dir``. ``freeze_prefixes`` and ``_synthetic_world`` are copies of
+``--output_dir``; with ``--checkpoint_every`` a full-state checkpoint at the
+end of every epoch into ``<output_dir>/ckpt``, which ``--resume_file``
+resumes. ``freeze_prefixes`` and ``_synthetic_world`` are copies of
 the JAX CLI's (``tests/test_torch_host.py`` holds them to it); the other
 CLIs of the port use them too. ``--tasks_yml`` needs PyYAML; ``train``
 also takes the ``TaskConfig``s and loaders from its caller.
@@ -27,9 +29,6 @@ from typing import Optional, Sequence
 #: flags of the JAX CLI that the port refuses, and the ROADMAP item of each
 _REFUSED = {
     "baseline": "the single-stream baseline (ROADMAP A11)",
-    "bf16_grads": "bf16 gradients (ROADMAP A5)",
-    "bf16_adam_state": "bf16 Adam moments (ROADMAP A5)",
-    "resume_file": "full-state resume (ROADMAP A6)",
     "coordinator": "multi-GPU training (ROADMAP A12)",
 }
 
@@ -55,15 +54,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Adam bias correction (the reference runs without it)")
     p.add_argument("--clip_grad_norm", type=float, default=0.0,
                    help="global grad-norm clip before the optimizer; 0 = off")
-    p.add_argument("--bf16_adam_state", action="store_true", help="not ported yet")
-    p.add_argument("--bf16_grads", action="store_true", help="not ported yet")
+    p.add_argument("--bf16_adam_state", action="store_true",
+                   help="store the Adam moments in bfloat16 (they accumulate in fp32)")
+    p.add_argument("--bf16_grads", action="store_true",
+                   help="differentiate with respect to bf16 copies of the parameters")
     p.add_argument("--lr_scheduler", default="mannul",
                    choices=["mannul", "automatic", "cosine", "cosine_warm",
                             "warmup_linear", "warmup_constant", "constant"])
-    p.add_argument("--optim", default="adamw", choices=["adamw", "radam"],
-                   help="radam is not ported yet")
+    p.add_argument("--optim", default="adamw", choices=["adamw", "radam"])
     p.add_argument("--baseline", action="store_true", help="not ported yet")
-    p.add_argument("--resume_file", default="", help="not ported yet")
+    p.add_argument("--resume_file", default="",
+                   help="checkpoint directory to resume the full training state from")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="nonzero: a full-state checkpoint at every epoch end "
+                        "(TrainConfig.checkpoint_every)")
     p.add_argument("--freeze", default="",
                    help="param path prefix(es, comma-separated) to freeze; an INTEGER N "
                         "freezes the text embeddings + text layers 0..N (-1 = nothing)")
@@ -100,16 +104,15 @@ def check_flags(args: argparse.Namespace) -> None:
     for flag, what in _REFUSED.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {what} is not ported yet")
-    if args.optim != "adamw":
-        raise NotImplementedError(f"--optim {args.optim} is not ported yet (ROADMAP A5)")
     if args.num_processes > 1 or args.process_id > 0:
         raise NotImplementedError(f"--num_processes/--process_id: {_REFUSED['coordinator']}")
 
 
 def optimizer_config(args: argparse.Namespace, base_lr: float):
-    """The CLI's AdamW settings (as the JAX CLI builds them)."""
+    """The CLI's optimizer settings (as the JAX CLI builds them)."""
     from vilbert_tpu_torch.core.config import OptimizerConfig
 
+    moments = "bfloat16" if args.bf16_adam_state else "float32"
     return OptimizerConfig(
         name=args.optim,
         learning_rate=args.learning_rate or base_lr,
@@ -119,18 +122,19 @@ def optimizer_config(args: argparse.Namespace, base_lr: float):
         vision_scratch=args.vision_scratch,
         correct_bias=args.adam_correct_bias,
         grad_clip_norm=args.clip_grad_norm or None,
+        first_moment_dtype=moments,
+        second_moment_dtype=moments,
     )
 
 
-def train(args: argparse.Namespace, task_cfgs=None, loaders=None, hooks: Optional[list] = None,
-          *, val_loaders=None, task_hooks: Optional[list] = None):
-    """The CLI's body without the final save: tasks, data, the
-    ``MultiTaskTrainer`` and its loop for parsed flags; returns the trainer.
+def build_trainer(args: argparse.Namespace, task_cfgs=None, loaders=None, *,
+                  val_loaders=None):
+    """The ``MultiTaskTrainer`` for parsed flags, with its logger attached
+    and, with ``--resume_file``, the checkpoint restored; not trained.
 
     ``task_cfgs`` ({"TASKn": TaskConfig}) replaces ``--tasks_yml`` and
     ``--tasks``; ``loaders`` (and ``val_loaders``) replace the data the
-    flags name. ``hooks`` and ``task_hooks`` go to ``MultiTaskTrainer.train``.
-    """
+    flags name."""
     check_flags(args)
 
     from vilbert_tpu_torch.core.config import ModelConfig, TrainConfig, load_task_configs
@@ -175,7 +179,9 @@ def train(args: argparse.Namespace, task_cfgs=None, loaders=None, hooks: Optiona
             train_iter_gap=args.train_iter_gap,
             train_iter_multiplier=args.train_iter_multiplier,
             gradient_accumulation_steps=args.gradient_accumulation_steps,
-            checkpoint_dir=f"{args.output_dir}/ckpt"),
+            grad_dtype="bfloat16" if args.bf16_grads else "",
+            checkpoint_dir=f"{args.output_dir}/ckpt",
+            checkpoint_every=args.checkpoint_every),
         val_loaders=val_loaders,
         seed=args.seed,
         num_train_epochs=args.num_epochs,
@@ -183,6 +189,19 @@ def train(args: argparse.Namespace, task_cfgs=None, loaders=None, hooks: Optiona
         device=args.device,
     )
     trainer.attach_logger(f"{args.output_dir}/logs")
+    if args.resume_file:
+        step = trainer.restore_checkpoint(directory=args.resume_file)
+        logging.info("resumed from %s at step %d (epoch %d)", args.resume_file, step,
+                     trainer.epoch)
+    return trainer
+
+
+def train(args: argparse.Namespace, task_cfgs=None, loaders=None, hooks: Optional[list] = None,
+          *, val_loaders=None, task_hooks: Optional[list] = None):
+    """The CLI's body without the final save: ``build_trainer`` and its loop
+    for parsed flags; returns the trainer. ``hooks`` and ``task_hooks`` go
+    to ``MultiTaskTrainer.train``."""
+    trainer = build_trainer(args, task_cfgs, loaders, val_loaders=val_loaders)
     trainer.train(args.num_epochs, eval_cadence=args.eval_cadence, hooks=hooks,
                   task_hooks=task_hooks, max_iterations=args.num_iterations)
     return trainer

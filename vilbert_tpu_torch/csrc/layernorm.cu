@@ -4,7 +4,10 @@
 // with the same arithmetic: the residual is added in fp32; the mean first,
 // then the mean of the squared deviations, both over values held in
 // registers (two passes, never a sum and a sum of squares); eps (1e-12)
-// inside the rsqrt; fp32 weight and bias; one rounding to x's dtype.
+// inside the rsqrt; weight and bias widened to fp32; one rounding to x's
+// dtype. Weight and bias are fp32 or bf16 (a template parameter: the bf16
+// ones are what a step that differentiates with respect to bf16 copies of
+// the parameters hands in); a thread widens its share once, in registers.
 //
 // What bounds it on the H100: a few flops per element against two or three
 // elements read and one written, so device-memory bytes alone. The design:
@@ -93,13 +96,18 @@ __device__ __forceinline__ void store_vec(T* p, const float* v) {
   *reinterpret_cast<Raw<T, N>*>(p) = r;
 }
 
-// N fp32 values (N a multiple of 4) in 16-byte loads
-template <int N>
-__device__ __forceinline__ void load_f32(const float* p, float* v) {
+// N weight or bias values of type W (N a multiple of 4) as fp32: fp32 in
+// 16-byte loads, bf16 in one 8- or 16-byte load widened in registers
+template <typename W, int N>
+__device__ __forceinline__ void load_param(const W* p, float* v) {
+  if constexpr (sizeof(W) == 4) {
 #pragma unroll
-  for (int j = 0; j < N / 4; ++j) {
-    const float4 t = reinterpret_cast<const float4*>(p)[j];
-    v[4 * j] = t.x; v[4 * j + 1] = t.y; v[4 * j + 2] = t.z; v[4 * j + 3] = t.w;
+    for (int j = 0; j < N / 4; ++j) {
+      const float4 t = reinterpret_cast<const float4*>(p)[j];
+      v[4 * j] = t.x; v[4 * j + 1] = t.y; v[4 * j + 2] = t.z; v[4 * j + 3] = t.w;
+    }
+  } else {
+    widen<W, N>(load_raw<W, N>(p), v);
   }
 }
 
@@ -129,10 +137,10 @@ __device__ __forceinline__ float block_sum(float s, float* slots) {
 // Row blockIdx.x ("block"), or rows blockIdx.x, + gridDim.x, ...
 // ("persistent"), one vector a thread: thread t holds columns
 // [t * kVec, (t + 1) * kVec). The grid has at most `rows` blocks.
-template <typename T, int H, bool kPersistent>
+template <typename T, typename W, int H, bool kPersistent>
 __global__ void __launch_bounds__(32 * Row<T, H>::kWarps)
 layer_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                      const float* __restrict__ weight, const float* __restrict__ bias,
+                      const W* __restrict__ weight, const W* __restrict__ bias,
                       T* __restrict__ out, int rows, float eps) {
   constexpr int kVec = Row<T, H>::kVec;
   constexpr int kWarps = Row<T, H>::kWarps;
@@ -146,8 +154,8 @@ layer_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
   xv = load_raw<T, kVec>(x + row * H + col);
   if (res) rv = load_raw<T, kVec>(res + row * H + col);
   float w[kVec], b[kVec];
-  load_f32<kVec>(weight + col, w);
-  load_f32<kVec>(bias + col, b);
+  load_param<W, kVec>(weight + col, w);
+  load_param<W, kVec>(bias + col, b);
 
   while (true) {
     float v[kVec];
@@ -201,10 +209,10 @@ int resident_blocks(Kernel kernel, int threads) {
   return sms * per_sm;
 }
 
-template <typename T, int H, bool kPersistent>
+template <typename T, typename W, int H, bool kPersistent>
 cudaError_t launch(const Args& a) {
   constexpr int kThreads = 32 * Row<T, H>::kWarps;
-  const auto kernel = layer_norm_fwd_kernel<T, H, kPersistent>;
+  const auto kernel = layer_norm_fwd_kernel<T, W, H, kPersistent>;
   int blocks = a.rows;
   if constexpr (kPersistent) {
     static const int resident = resident_blocks(kernel, kThreads);
@@ -213,49 +221,59 @@ cudaError_t launch(const Args& a) {
   }
   kernel<<<blocks, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.res),
-      static_cast<const float*>(a.weight), static_cast<const float*>(a.bias),
+      static_cast<const W*>(a.weight), static_cast<const W*>(a.bias),
       static_cast<T*>(a.out), a.rows, a.eps);
   return cudaGetLastError();
 }
 
 // the instantiation for H = 128 * K (K = 1 .. kMaxH / 128)
-template <typename T, bool kPersistent, int K = 1>
+template <typename T, typename W, bool kPersistent, int K = 1>
 cudaError_t launch_h(int h, const Args& a) {
   if constexpr (K * 128 > kMaxH) {
     return cudaErrorInvalidValue;
   } else {
-    if (h != K * 128) return launch_h<T, kPersistent, K + 1>(h, a);
-    return launch<T, K * 128, kPersistent>(a);
+    if (h != K * 128) return launch_h<T, W, kPersistent, K + 1>(h, a);
+    return launch<T, W, K * 128, kPersistent>(a);
   }
+}
+
+template <typename T, bool kPersistent>
+cudaError_t launch_w(int wdtype, int h, const Args& a) {
+  if (wdtype == 0) return launch_h<T, float, kPersistent>(h, a);
+  if (wdtype == 1) return launch_h<T, __nv_bfloat16, kPersistent>(h, a);
+  return cudaErrorInvalidValue;
 }
 
 template <bool kPersistent>
 int layer_norm_fwd(const void* x, const void* residual, const void* weight, const void* bias,
-                   void* out, int dtype, int rows, int h, float eps, void* stream) {
+                   void* out, int dtype, int wdtype, int rows, int h, float eps,
+                   void* stream) {
   if (rows < 1 || h < 128 || h > kMaxH || h % 128 != 0) return (int)cudaErrorInvalidValue;
   const Args a{x, residual, weight, bias, out, rows, eps, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)launch_h<float, kPersistent>(h, a);
-  if (dtype == 1) return (int)launch_h<__nv_bfloat16, kPersistent>(h, a);
+  if (dtype == 0) return (int)launch_w<float, kPersistent>(wdtype, h, a);
+  if (dtype == 1) return (int)launch_w<__nv_bfloat16, kPersistent>(wdtype, h, a);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The two variants, one entry point each. dtype: 0 = float32, 1 = bfloat16
-// (x, residual and out); weight and bias are float32. residual may be null.
+// The two variants, one entry point each. dtype (x, residual and out) and
+// wdtype (weight and bias): 0 = float32, 1 = bfloat16. residual may be null.
 // h must be a multiple of 128 and at most 2048, and every pointer 16-byte
 // aligned (the Python wrapper checks this first). Returns a cudaError_t.
 extern "C" int vt_layer_norm_fwd_block(const void* x, const void* residual, const void* weight,
-                                       const void* bias, void* out, int dtype, int rows, int h,
-                                       float eps, void* stream) {
-  return layer_norm_fwd<false>(x, residual, weight, bias, out, dtype, rows, h, eps, stream);
+                                       const void* bias, void* out, int dtype, int wdtype,
+                                       int rows, int h, float eps, void* stream) {
+  return layer_norm_fwd<false>(x, residual, weight, bias, out, dtype, wdtype, rows, h, eps,
+                               stream);
 }
 
 extern "C" int vt_layer_norm_fwd_persistent(const void* x, const void* residual,
                                             const void* weight, const void* bias, void* out,
-                                            int dtype, int rows, int h, float eps,
+                                            int dtype, int wdtype, int rows, int h, float eps,
                                             void* stream) {
-  return layer_norm_fwd<true>(x, residual, weight, bias, out, dtype, rows, h, eps, stream);
+  return layer_norm_fwd<true>(x, residual, weight, bias, out, dtype, wdtype, rows, h, eps,
+                              stream);
 }
 
 // Message for a cudaError_t returned by the entry points of this library.

@@ -55,8 +55,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class TextEmbeddings(nn.Module):
-    """Word + position + type embeddings, optional task token, LN — in fp32,
-    cast to the compute dtype at the end (reference BertEmbeddings)."""
+    """Word + position + type embeddings, optional task token, LN — summed in
+    fp32, normalised in the tables' dtype, cast to the compute dtype at the
+    end (reference BertEmbeddings)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -74,15 +75,18 @@ class TextEmbeddings(nn.Module):
         # offset is dead code, see the JAX TextEmbeddings)
         positions = torch.arange(input_ids.shape[1], device=input_ids.device)
         emb = (
-            self.word_embeddings(input_ids.long())
-            + self.position_embeddings(positions)[None]
-            + self.token_type_embeddings(token_type_ids.long())
+            self.word_embeddings(input_ids.long()).float()
+            + self.position_embeddings(positions).float()[None]
+            + self.token_type_embeddings(token_type_ids.long()).float()
         )
         if self.cfg.task_specific_tokens:
             if task_ids is None:
                 raise ValueError("task_ids required with task_specific_tokens")
-            task_emb = self.task_embeddings(task_ids.long())  # [B, 1, H]
+            task_emb = self.task_embeddings(task_ids.long()).float()  # [B, 1, H]
             emb = torch.cat([emb[:, :1], task_emb, emb[:, 1:]], dim=1)
+        # summed in fp32 and rounded once to the tables' dtype (bf16 tables
+        # under bf16 gradients), as XLA fuses the JAX sum before its LN
+        emb = emb.to(self.word_embeddings.weight.dtype)
         emb = self.dropout(self.LayerNorm(emb))
         return emb.to(compute_dtype(self.cfg))
 

@@ -60,10 +60,10 @@ _SIGNATURES = {
     "vt_attention_bwd_long": [_P] * 9 + [_I] * 6 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # ... and on the tensor cores: the same without the dtype (bf16 only)
     "vt_attention_bwd_long_tc": [_P] * 9 + [_I] * 5 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
-    # x, residual, weight, bias, out, dtype, rows, h, eps, stream: one
-    # entry point a LayerNorm variant ("block", "persistent")
-    "vt_layer_norm_fwd_block": [_P] * 5 + [_I] * 3 + [_F, _P],
-    "vt_layer_norm_fwd_persistent": [_P] * 5 + [_I] * 3 + [_F, _P],
+    # x, residual, weight, bias, out, dtype, weight dtype, rows, h, eps,
+    # stream: one entry point a LayerNorm variant ("block", "persistent")
+    "vt_layer_norm_fwd_block": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "vt_layer_norm_fwd_persistent": [_P] * 5 + [_I] * 4 + [_F, _P],
 }
 
 #: dtype codes of the C entry points

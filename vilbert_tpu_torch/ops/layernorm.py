@@ -3,12 +3,15 @@
 Counterpart of ``vilbert_tpu/ops/layernorm.py`` and of the TPU kernel
 ``vilbert_tpu/ops/pallas_layernorm.py::_ln_kernel``: TF-style LayerNorm
 (eps inside the sqrt, 1e-12), fp32 statistics, the residual added in fp32,
-fp32 weight and bias, output in x's dtype. The kernel (``csrc/layernorm.cu``)
-is bound by device-memory bytes; its source note says how it keeps to one
-read and one write of each element. It has two variants (``VARIANTS``),
+weight and bias (fp32 or bf16) widened to fp32, output in x's dtype. The
+kernel (``csrc/layernorm.cu``) is bound by device-memory bytes; its source
+note says how it keeps to one read and one write of each element. It has two variants (``VARIANTS``),
 both a row split over the warps of a block: "block", one row a block, and
 "persistent", a grid the card holds at once striding over the rows;
-``ln_variant`` picks one by row count.
+``ln_variant`` picks one by row count. Each variant is built for fp32 and
+for bf16 weight and bias (``--bf16_grads`` differentiates with respect to
+bf16 copies of every parameter, LayerNorm's included); the kernel widens
+them in registers, so the wrapper casts nothing.
 
 ``layer_norm`` is the entry point, differentiable through an
 ``autograd.Function``. Its forward runs ``layer_norm_ref`` on a CPU tensor
@@ -110,8 +113,8 @@ def kernel_rows(
 
     Raises ValueError for anything the kernel does not take: x and residual
     of one shape and one dtype (float32 or bfloat16), contiguous and 16-byte
-    aligned; fp32 contiguous weight and bias of length H; H a multiple of
-    128 and at most 2048.
+    aligned; weight and bias of one dtype (float32 or bfloat16), contiguous,
+    of length H; H a multiple of 128 and at most 2048.
     """
     h = x.shape[-1]
     if x.dtype not in _build.DTYPE_CODES:
@@ -130,8 +133,9 @@ def kernel_rows(
             )
         operands.append(("residual", residual))
     for name, t in (("weight", weight), ("bias", bias)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (h,):
-            raise ValueError(f"{name} must be float32 [{h}], got {t.dtype} {tuple(t.shape)}")
+        if t.dtype != weight.dtype or t.dtype not in _build.DTYPE_CODES or tuple(t.shape) != (h,):
+            raise ValueError(f"{name} must be float32 or bfloat16 [{h}], of the weight's dtype; "
+                             f"got {t.dtype} {tuple(t.shape)}")
         operands.append((name, t))
     for name, t in operands:
         if not t.is_contiguous():
@@ -150,7 +154,8 @@ def _check_devices(x, weight, bias, residual) -> None:
 
 
 def _fwd_cuda(x, weight, bias, eps, residual, variant=None):
-    """Launch ``variant`` (``ln_variant``'s pick when None) and count it."""
+    """Launch ``variant`` (``ln_variant``'s pick when None) and count it, and
+    on ``launches_bf16_weight`` when the weight and bias are bf16."""
     rows = kernel_rows(x, weight, bias, residual)
     h = x.shape[-1]
     variant = variant or ln_variant(rows, h, x.dtype)
@@ -163,13 +168,15 @@ def _fwd_cuda(x, weight, bias, eps, residual, variant=None):
             x.data_ptr(),
             residual.data_ptr() if residual is not None else None,
             weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            _build.DTYPE_CODES[x.dtype], rows, h, eps,
+            _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[weight.dtype], rows, h, eps,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, f"layer_norm kernel ({variant})")
     layer_norm.launches += 1
     name = f"launches_{variant}"
     setattr(layer_norm, name, getattr(layer_norm, name) + 1)
+    if weight.dtype == torch.bfloat16:
+        layer_norm.launches_bf16_weight += 1
     return out
 
 
@@ -204,8 +211,9 @@ def layer_norm(
     differentiable.
 
     CPU tensors take ``layer_norm_ref``. CUDA tensors launch the variant
-    ``ln_variant`` picks and add one to ``layer_norm.launches`` and to
-    ``layer_norm.launches_<variant>``; anything the kernel does not take
+    ``ln_variant`` picks and add one to ``layer_norm.launches``, to
+    ``layer_norm.launches_<variant>`` and, with bf16 weight and bias, to
+    ``layer_norm.launches_bf16_weight``; anything the kernel does not take
     raises.
     """
     return _LayerNorm.apply(x, residual, weight, bias, eps)
@@ -227,9 +235,10 @@ def layer_norm_kernel(
     return _fwd_cuda(x, weight, bias, eps, residual, variant)
 
 
-#: kernel launches since the last reset, in all and by variant (CPU calls
-#: do not count)
+#: kernel launches since the last reset, in all, by variant and of the
+#: bf16-weight instantiation (CPU calls do not count)
 layer_norm.launches = 0
 for _variant in VARIANTS:
     setattr(layer_norm, f"launches_{_variant}", 0)
 del _variant
+layer_norm.launches_bf16_weight = 0

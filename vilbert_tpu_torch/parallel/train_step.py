@@ -14,7 +14,14 @@ without a gradient (outside the loss's graph, or behind a ``detach``)
 takes a zero gradient, as in JAX, where it participates; where it does
 not, it gets no update at all.
 
-``grad_dtype="bfloat16"`` (bf16 gradients) raises (ROADMAP A5).
+``grad_dtype="bfloat16"`` differentiates with respect to bf16 copies of
+every fp32 parameter (``torch.func.functional_call`` over bf16 leaves), as
+the JAX step casts its parameters before ``value_and_grad``: the forward
+runs on the rounded weights (LayerNorm scales and biases included, which
+K4 then takes as bf16) and the gradients come out in bf16. One microbatch
+keeps them bf16; with ``grad_accum > 1`` they are summed into fp32 zeros,
+as the JAX ``scan`` does, and stay fp32. The optimizer's fp32 parameters
+are the ones updated.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from vilbert_tpu_torch.train.optim import ReferenceAdamW, global_norm
+from vilbert_tpu_torch.train.optim import global_norm
 
 #: loss_fn(model, batch) -> (scalar loss, metrics dict)
 LossFn = Callable[[nn.Module, Dict[str, torch.Tensor]],
@@ -34,12 +41,56 @@ LossFn = Callable[[nn.Module, Dict[str, torch.Tensor]],
 class TrainState(NamedTuple):
     step: int
     model: nn.Module
-    optimizer: ReferenceAdamW
+    optimizer: Any  # ReferenceAdamW or ReferenceRAdam
+
+
+def train_state_dict(state: TrainState) -> Dict[str, Any]:
+    """What a full-state checkpoint holds: the step, the parameters under
+    the model's ``state_dict`` names and the optimizer's state (live
+    tensors; ``core.checkpoint`` saves them)."""
+    return {"step": state.step, "params": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict()}
+
+
+def load_train_state(state: TrainState, saved: Mapping[str, Any]) -> TrainState:
+    """Copy a ``train_state_dict`` (of the same names and dtypes) into the
+    model and the optimizer in place; returns the state at the saved step."""
+    state.model.load_state_dict(saved["params"])
+    state.optimizer.load_state_dict(saved["optimizer"])
+    return state._replace(step=int(saved["step"]))
+
+
+class _Loss(nn.Module):
+    """``loss_fn(model, batch)`` as a module over the model's parameters, for
+    ``functional_call`` (which swaps them for the bf16 leaves)."""
+
+    def __init__(self, model: nn.Module, loss_fn: LossFn):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, batch):
+        return self.loss_fn(self.model, batch)
+
+
+def bf16_grads(model: nn.Module, loss_fn: LossFn, batch, names) -> Tuple[Any, Any, Dict]:
+    """(loss, metrics, {name: gradient}) of ``loss_fn`` with respect to bf16
+    copies of the model's fp32 parameters; a parameter outside the graph
+    gets bf16 zeros."""
+    leaves = {n: (p.detach().to(torch.bfloat16) if p.dtype == torch.float32 else p.detach())
+              .requires_grad_() for n, p in model.named_parameters()}
+    loss, metrics = torch.func.functional_call(
+        _Loss(model, loss_fn), {f"model.{n}": t for n, t in leaves.items()}, (batch,),
+        tie_weights=False)
+    wanted = [leaves[n] for n in names]
+    grads = torch.autograd.grad(loss, wanted, allow_unused=True)
+    return loss, metrics, {n: g if g is not None else torch.zeros_like(t)
+                           for n, t, g in zip(names, wanted, grads)}
 
 
 def make_train_step(
     loss_fn: LossFn,
-    optimizer: ReferenceAdamW,
+    optimizer,
     *,
     grad_accum: int = 1,
     loss_scale: float = 1.0,
@@ -50,8 +101,9 @@ def make_train_step(
     """step(model, batch[, lr]) -> metrics (``loss``, ``grad_norm`` and the
     loss function's own), updating the optimizer's parameters in place;
     ``lr`` is required with ``external_lr`` and refused without it."""
-    if grad_dtype:
-        raise NotImplementedError("bf16 gradients are not ported yet (ROADMAP A5)")
+    if grad_dtype not in (None, "", "float32", "bfloat16"):
+        raise ValueError(f"grad_dtype {grad_dtype!r}")
+    bf16 = grad_dtype == "bfloat16"
     params = optimizer.params
     mask = optimizer.update_mask if update_mask is None else update_mask
 
@@ -61,26 +113,40 @@ def make_train_step(
             raise ValueError("an external_lr step takes the learning rate: step(model, batch, lr)")
         if lr is not None and not external_lr:
             raise ValueError("this step has its own schedule and takes no lr")
-        for p in params.values():
-            p.grad = None
-        if grad_accum == 1:
-            loss, metrics = loss_fn(model, batch)
-            loss.backward()
+        micro = [batch] if grad_accum == 1 else [
+            {k: v[i] for k, v in batch.items()} for i in range(grad_accum)]
+        if bf16:
+            # every parameter gets a gradient (zeros outside the graph), as
+            # the JAX step differentiates the whole tree
+            grads, loss, metrics = None, 0.0, {}
+            for mb in micro:
+                loss_i, metrics_i, g_i = bf16_grads(model, loss_fn, mb, list(params))
+                if grad_accum == 1:
+                    grads = g_i
+                else:  # summed into fp32 zeros (the JAX scan's carry)
+                    grads = grads or {n: torch.zeros_like(p, dtype=torch.float32)
+                                      for n, p in params.items()}
+                    torch._foreach_add_(list(grads.values()), list(g_i.values()))
+                loss = loss + loss_i.detach()
+                metrics = {k: metrics.get(k, 0.0) + v.detach() for k, v in metrics_i.items()}
         else:
+            for p in params.values():
+                p.grad = None
             loss, metrics = 0.0, {}
-            for i in range(grad_accum):
-                loss_i, metrics_i = loss_fn(model, {k: v[i] for k, v in batch.items()})
+            for mb in micro:
+                loss_i, metrics_i = loss_fn(model, mb)
                 loss_i.backward()  # sums into .grad
                 loss = loss + loss_i.detach()
                 metrics = {k: metrics.get(k, 0.0) + v.detach() for k, v in metrics_i.items()}
+            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for n, p in params.items()
+                     if p.grad is not None or mask is None or mask[n]}
+        if grad_accum > 1:
             loss = loss / grad_accum
             metrics = {k: v / grad_accum for k, v in metrics.items()}
-        scale = loss_scale / grad_accum
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()
-                 if p.grad is not None or mask is None or mask[n]}
-        if scale != 1.0:
-            torch._foreach_mul_(list(grads.values()), scale)
+            torch._foreach_mul_(list(grads.values()), 1.0 / grad_accum)
+        if loss_scale != 1.0:
+            torch._foreach_mul_(list(grads.values()), loss_scale)
         out = {k: v.detach() for k, v in metrics.items()}
         out["loss"] = loss.detach()
         out["grad_norm"] = global_norm(list(grads.values()))

@@ -20,9 +20,8 @@ Counterpart of ``vilbert_tpu/train/multitask.py`` (reference train_tasks.py
 The model runs in train mode (dropout at every site, seeds from the
 trainer's ``torch.Generator``, see ``models.layers.set_dropout_generator``)
 and, on a CUDA device, through the port's kernels. Batches reach the device
-through ``data.prefetch`` (pinned, ``non_blocking``). Multi-process meshes,
-the single-stream baseline, full-state checkpoints and radam raise
-``NotImplementedError``.
+through ``data.prefetch`` (pinned, ``non_blocking``). Multi-process meshes
+and the single-stream baseline raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -194,7 +193,7 @@ class TaskRuntime:
     loader: Any                      # train loader (numpy batches)
     val_loader: Optional[Any]
     loss_scale: float
-    mask: Dict[str, bool]            # the task's participation mask
+    mask: Optional[Dict[str, bool]]  # the task's participation mask (adamw)
     step_fn: Callable                # step(model, batch, lr) -> metrics
     eval_fn: Callable                # per-sample (loss[rows], score[rows])
     device: Any = "cuda"
@@ -300,9 +299,11 @@ class MultiTaskTrainer:
         )
         self.tasks: Dict[str, TaskRuntime] = {}
         for key, tcfg in tasks.items():
-            # params outside the task's backward graph (other heads, cls, the
-            # poolers for V-logit) take no moment update or weight decay
-            mask = task_update_mask(params, tcfg.type)
+            # adamw: params outside the task's backward graph (other heads,
+            # cls, the poolers for V-logit) take no moment update or weight
+            # decay; radam has no mask (a zero gradient steps them)
+            mask = (task_update_mask(params, tcfg.type) if self.opt_cfg.name == "adamw"
+                    else None)
             self.tasks[key] = TaskRuntime(
                 key=key, cfg=tcfg, loader=loaders[key], val_loader=val_loaders.get(key),
                 loss_scale=self.loss_scales[key], mask=mask,
@@ -322,6 +323,7 @@ class MultiTaskTrainer:
         self.epoch = 0
         self._last_val_scores: Dict[str, float] = {}
         self.metrics_logger = None  # optional MetricsLogger (attach_logger)
+        self._ckpt = None
 
     # -- observability / checkpointing --------------------------------------
 
@@ -331,12 +333,55 @@ class MultiTaskTrainer:
         self.metrics_logger = MetricsLogger(log_dir, list(self.tasks))
         return self.metrics_logger
 
-    def save_checkpoint(self, step: Optional[int] = None, *, wait: bool = True) -> None:
-        raise NotImplementedError("full-state checkpoints are not ported yet (ROADMAP A6)")
+    def _ckpt_manager(self):
+        if self._ckpt is None:
+            from vilbert_tpu_torch.core.checkpoint import CheckpointManager
+
+            self._ckpt = CheckpointManager(self.train_cfg.checkpoint_dir)
+        return self._ckpt
+
+    def _state(self) -> Dict[str, Any]:
+        return {"params": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
+
+    def save_checkpoint(self, step: Optional[int] = None) -> str:
+        """Full training state into ``train_cfg.checkpoint_dir`` at ``step``
+        (default ``global_step``): parameters and optimizer state, and as
+        host state the controllers, ``global_step``, ``epoch``, the schedule
+        and the logger (reference train_tasks.py:612-635). Returns the step
+        directory."""
+        host = {
+            "controllers": self.controller.state_dict(),
+            "global_step": self.global_step,
+            "epoch": self.epoch,
+        }
+        if hasattr(self.schedule, "state_dict"):
+            host["schedule"] = self.schedule.state_dict()
+        if self.metrics_logger is not None:
+            host["logger"] = self.metrics_logger.state_dict()
+        return self._ckpt_manager().save(
+            self.global_step if step is None else step, self._state(), host_state=host)
 
     def restore_checkpoint(self, step: Optional[int] = None,
                            directory: Optional[str] = None) -> int:
-        raise NotImplementedError("full-state resume is not ported yet (ROADMAP A6)")
+        """Resume the state ``save_checkpoint`` wrote (reference
+        train_tasks.py:463-481), the latest step unless ``step`` is given;
+        ``directory`` overrides the configured one (``--resume_file``).
+        Returns the step restored."""
+        from vilbert_tpu_torch.core.checkpoint import CheckpointManager
+
+        mngr = CheckpointManager(directory) if directory else self._ckpt_manager()
+        saved, host, step = mngr.restore(self._state(), step=step)
+        self.model.load_state_dict(saved["params"])
+        self.optimizer.load_state_dict(saved["optimizer"])
+        if host:
+            self.controller.load_state_dict(host.get("controllers", {}))
+            self.global_step = host.get("global_step", 0)
+            self.epoch = host.get("epoch", 0)
+            if "schedule" in host and hasattr(self.schedule, "load_state_dict"):
+                self.schedule.load_state_dict(host["schedule"])
+            if self.metrics_logger is not None and "logger" in host:
+                self.metrics_logger.load_state_dict(host["logger"])
+        return step
 
     # -- loops --------------------------------------------------------------
 
@@ -500,7 +545,7 @@ class MultiTaskTrainer:
                 # epochs (train_tasks.py:607-610)
                 self.controller.reset_all()
             if self.train_cfg.checkpoint_every:
-                self.save_checkpoint(wait=False)
+                self.save_checkpoint()
             logger.info("epoch %d done in %.1fs", epoch, time.perf_counter() - t0)
         return self.model
 

@@ -5,8 +5,8 @@ Counterpart of ``vilbert_tpu/train/optim.py`` (which imports jax and optax,
 so it is mirrored here, not imported): the warmup schedules, the
 epoch-level ``HostLRScheduler`` of the multi-task trainer (a verbatim copy:
 it is plain Python), ``_decay_mask`` and ``label_params``,
-``task_update_mask``, ``reference_adamw`` and ``build_optimizer``. Its
-update is
+``task_update_mask``, ``reference_adamw`` (``ReferenceAdamW``), RAdam
+(``ReferenceRAdam``) and ``build_optimizer``. The AdamW update is
 
     p <- p - lr_t * ratio_p * (scale * m / (sqrt(v) + eps) + wd_p * p),
     scale = sqrt(1 - b2^t) / (1 - b1^t)   (correct_bias)
@@ -14,7 +14,17 @@ update is
 which is NOT ``torch.optim.AdamW``: eps is added before the bias
 correction, weight decay joins the update, one step count is shared by all
 parameters (ROADMAP C3), the schedule is read at ``count + step_offset``,
-frozen parameters keep their moments, and the moments accumulate in fp32.
+frozen parameters keep their moments, and the moments accumulate in fp32:
+the gradient is widened before ``(1 - b1) * g``, and with
+``first_moment_dtype``/``second_moment_dtype`` "bfloat16" the moments are
+stored in bf16, rounded once a step and only where a parameter takes part.
+
+RAdam is ``optax.radam`` under ``optax.multi_transform``, as the JAX
+``build_optimizer(name="radam")`` chains it: coupled weight decay
+(``add_decayed_weights`` before the rectified moments, so the decay enters
+them), one state and one step count per label ("base", "head",
+"pretrained_scaled"; "frozen" is set to zero), and no participation mask:
+a parameter outside a step's graph steps on a zero gradient.
 
 With ``external_lr`` the optimizer has no schedule: the per-group ratios
 are relative to a unit base and ``step(grads, lr=...)`` takes the learning
@@ -37,7 +47,7 @@ its float32 reciprocal: the learning rates match bit for bit.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Mapping, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -306,28 +316,49 @@ def task_update_mask(names: Iterable[str], task_type: str) -> Dict[str, bool]:
 
 class AdamState(NamedTuple):
     count: int                     # updates taken, shared by every parameter
-    mu: Dict[str, torch.Tensor]    # fp32 first moments
-    nu: Dict[str, torch.Tensor]    # fp32 second moments
+    mu: Dict[str, torch.Tensor]    # first moments, in cfg.first_moment_dtype
+    nu: Dict[str, torch.Tensor]    # second moments, in cfg.second_moment_dtype
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (``optax.global_norm``)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    """sqrt of the sum of squares of every element (``optax.global_norm``).
+    fp32 for fp32 tensors; bf16 tensors, as optax reduces them, give a bf16
+    norm: each tensor's sum of squares (accumulated in fp32) is rounded to
+    bf16, and so is their total."""
+    norms = torch.stack(torch._foreach_norm(tensors, dtype=torch.float32))
+    if all(t.dtype == torch.bfloat16 for t in tensors):
+        total = norms.square().to(torch.bfloat16).float().sum()
+        return total.to(torch.bfloat16).sqrt()
+    return torch.linalg.vector_norm(norms)
+
+
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: Optional[float]
+                        ) -> Dict[str, torch.Tensor]:
+    """``optax.clip_by_global_norm``: every gradient t becomes t / norm *
+    max_norm where the global norm reaches max_norm (no clip for None or 0),
+    in the gradients' dtype; decided on the device."""
+    if not max_norm:
+        return dict(grads)
+    gs = list(grads.values())
+    norm = global_norm(gs)
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    out = torch._foreach_div(gs, torch.where(keep, one, norm))
+    torch._foreach_mul_(out, torch.where(keep, one, torch.full_like(norm, max_norm)))
+    return dict(zip(grads, out))
 
 
 class ReferenceAdamW:
     """``reference_adamw`` + optional ``clip_by_global_norm``, over a
     {name: parameter} mapping. ``step(grads)`` applies one update in place;
-    the state (count, fp32 moments) is in ``state``. ``schedule=None`` is
-    the external-lr mode: ``step(grads, lr=...)``. ``update_mask`` is the
-    default participation mask; ``step(..., mask=...)`` overrides it."""
+    the state (count, moments in their storage dtypes) is in ``state``.
+    ``schedule=None`` is the external-lr mode: ``step(grads, lr=...)``.
+    ``update_mask`` is the default participation mask; ``step(...,
+    mask=...)`` overrides it."""
 
     def __init__(self, cfg: OptimizerConfig, params: Mapping[str, torch.Tensor], *,
                  ratios: Mapping[str, float], schedule: Optional[Schedule],
                  step_offset: int = 0, update_mask: Optional[Mapping[str, bool]] = None):
-        if cfg.first_moment_dtype != "float32" or cfg.second_moment_dtype != "float32":
-            raise NotImplementedError(
-                "bf16 Adam moments are not ported yet (ROADMAP A5)")
         self.cfg = cfg
         self.params = dict(params)
         self.schedule = schedule
@@ -339,14 +370,28 @@ class ReferenceAdamW:
         for n in self.params:
             if ratios[n] != 0.0:
                 self.groups.setdefault((ratios[n], decay[n]), []).append(n)
+        mdt, vdt = (getattr(torch, d) for d in (cfg.first_moment_dtype, cfg.second_moment_dtype))
         self.state = AdamState(
             0,
-            {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()},
-            {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()},
+            {n: torch.zeros_like(p, dtype=mdt) for n, p in self.params.items()},
+            {n: torch.zeros_like(p, dtype=vdt) for n, p in self.params.items()},
         )
 
     def lr(self, count: int) -> np.float32:
         return self.schedule(count + self.step_offset)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{"count", "mu", "nu"}: the shared count and the moments (live
+        tensors, in their storage dtypes)."""
+        count, mu, nu = self.state
+        return {"count": count, "mu": mu, "nu": nu}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Copy a ``state_dict`` of the same names and dtypes into the state."""
+        for name in ("mu", "nu"):
+            _copy_into(getattr(self.state, name), state[name], name)
+        self.state = AdamState(int(state["count"]), self.state.mu, self.state.nu)
 
     @torch.no_grad()
     def step(self, grads: Mapping[str, torch.Tensor], *, lr: Optional[float] = None,
@@ -360,12 +405,7 @@ class ReferenceAdamW:
         mask = self.update_mask if mask is None else mask
         cfg = self.cfg
         b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
-        if cfg.grad_clip_norm:
-            gs = list(grads.values())
-            norm = global_norm(gs)
-            coef = torch.where(norm < cfg.grad_clip_norm, torch.ones_like(norm),
-                               cfg.grad_clip_norm / norm)
-            grads = dict(zip(grads, torch._foreach_mul(gs, coef)))
+        grads = clip_by_global_norm(grads, cfg.grad_clip_norm)
         count, mu, nu = self.state
         lr_t = self.lr(count) if lr is None else np.float32(lr)
         count += 1
@@ -381,8 +421,10 @@ class ReferenceAdamW:
                 if not names:
                     continue
             g = [grads[n].float() for n in names]
-            m = [mu[n] for n in names]
-            v = [nu[n] for n in names]
+            # fp32 moments are updated in place; bf16 ones through fp32
+            # copies, rounded back below
+            m = [mu[n].float() for n in names]
+            v = [nu[n].float() for n in names]
             p = [self.params[n] for n in names]
             torch._foreach_mul_(m, b1)
             torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - b1))
@@ -396,7 +438,124 @@ class ReferenceAdamW:
                 torch._foreach_add_(u, torch._foreach_mul([x.float() for x in p], wd))
             torch._foreach_mul_(u, float(np.float32(-lr_t) * np.float32(ratio)))
             torch._foreach_add_(p, u)
+            for store, acc in ((mu, m), (nu, v)):  # round to the storage dtype
+                if acc[0].dtype != store[names[0]].dtype:
+                    torch._foreach_copy_([store[n] for n in names], acc)
         self.state = AdamState(count, mu, nu)
+
+
+def _copy_into(dst: Dict[str, torch.Tensor], src: Mapping[str, torch.Tensor], what: str) -> None:
+    if set(dst) != set(src):
+        raise ValueError(f"{what}: the state names differ: {sorted(set(dst) ^ set(src))[:5]}")
+    for n, t in dst.items():
+        if src[n].dtype != t.dtype or src[n].shape != t.shape:
+            raise ValueError(f"{what}.{n}: {src[n].dtype} {tuple(src[n].shape)} into "
+                             f"{t.dtype} {tuple(t.shape)}")
+        t.copy_(src[n])
+
+
+class RAdamGroupState(NamedTuple):
+    count: int                     # updates of this label
+    mu: Dict[str, torch.Tensor]    # fp32 first moments of the label's parameters
+    nu: Dict[str, torch.Tensor]    # fp32 second moments
+
+
+class ReferenceRAdam:
+    """``build_optimizer(name="radam")`` over a {name: parameter} mapping:
+    optional ``clip_by_global_norm``, then per label
+    ``chain(add_decayed_weights(wd, decay mask), scale_by_radam,
+    scale_by_learning_rate(group lr))``, with optax's arithmetic (rho_inf,
+    the threshold 5.0, the un-rectified branch, eps_root 0, fp32 scalars).
+
+    ``schedules`` maps each label to its schedule (the internal mode: the
+    label's lr at ``count + step_offset``) or, with ``external_lr``, to its
+    constant ratio to cfg.learning_rate, and ``step(grads, lr=...)`` then
+    multiplies by the host's learning rate. The state is one
+    ``RAdamGroupState`` a label, in ``state``."""
+
+    def __init__(self, cfg: OptimizerConfig, params: Mapping[str, torch.Tensor], *,
+                 labels: Mapping[str, str], schedules: Mapping[str, Any], external_lr: bool,
+                 step_offset: int = 0):
+        self.cfg = cfg
+        self.params = dict(params)
+        self.schedules = dict(schedules)
+        self.external_lr = external_lr
+        self.step_offset = step_offset
+        self.update_mask = None  # every parameter of a label steps, on a zero gradient if unused
+        self.decay = decay_mask(self.params)
+        #: label -> its parameters' names, in parameter order
+        self.labels: Dict[str, List[str]] = {}
+        for n, lb in labels.items():
+            if lb != "frozen":
+                self.labels.setdefault(lb, []).append(n)
+        self.state: Dict[str, RAdamGroupState] = {
+            lb: RAdamGroupState(0, {n: torch.zeros_like(self.params[n]) for n in names},
+                                {n: torch.zeros_like(self.params[n]) for n in names})
+            for lb, names in self.labels.items()}
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{"groups": {label: {"count", "mu", "nu"}}} (live tensors)."""
+        return {"groups": {lb: st._asdict() for lb, st in self.state.items()}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        groups = state["groups"]
+        if set(groups) != set(self.state):
+            raise ValueError(f"radam labels {sorted(groups)} != {sorted(self.state)}")
+        for lb, st in self.state.items():
+            for name in ("mu", "nu"):
+                _copy_into(getattr(st, name), groups[lb][name], f"{lb}.{name}")
+            self.state[lb] = st._replace(count=int(groups[lb]["count"]))
+
+    @torch.no_grad()
+    def step(self, grads: Mapping[str, torch.Tensor], *, lr: Optional[float] = None,
+             mask: Optional[Mapping[str, bool]] = None) -> None:
+        """One update from ``grads`` (every parameter of a label); ``lr`` is
+        the host learning rate with ``external_lr`` and None otherwise.
+        ``mask`` must be None: optax's radam has no participation mask."""
+        if (lr is None) == self.external_lr:
+            raise ValueError("an external-lr optimizer takes step(grads, lr=...); "
+                             "one with a schedule takes no lr")
+        if mask is not None:
+            raise ValueError("radam takes no update mask")
+        cfg = self.cfg
+        b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        grads = clip_by_global_norm(grads, cfg.grad_clip_norm)
+        for lb, names in self.labels.items():
+            count, mu, nu = self.state[lb]
+            p = [self.params[n] for n in names]
+            g = [grads[n] for n in names]
+            if wd:  # add_decayed_weights: g + wd * p on the decayed parameters
+                g = [gi + wd * pi if self.decay[n] else gi for n, gi, pi in zip(names, g, p)]
+            m = [mu[n] for n in names]
+            v = [nu[n] for n in names]
+            # update_moment: (1 - b) * g^order + b * moment
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - b1))
+            torch._foreach_mul_(v, b2)
+            torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - b2))
+            count += 1
+            c = np.float32(count)
+            b2t = np.float32(b2) ** c
+            ro = np.float32(ro_inf) - np.float32(2 * count) * b2t / (np.float32(1.0) - b2t)
+            m_hat = torch._foreach_div(m, float(np.float32(1.0) - np.float32(b1) ** c))
+            if ro >= np.float32(5.0):
+                r = np.sqrt((ro - np.float32(4.0)) * (ro - np.float32(2.0)) * np.float32(ro_inf)
+                            / (np.float32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro))
+                v_hat = torch._foreach_div(v, float(np.float32(1.0) - b2t))
+                u = torch._foreach_mul(m_hat, float(r))
+                torch._foreach_div_(u, torch._foreach_add(torch._foreach_sqrt(v_hat), eps))
+            else:
+                u = m_hat
+            if self.external_lr:  # scale(-ratio), then the host's lr
+                torch._foreach_mul_(u, float(np.float32(-self.schedules[lb])))
+                torch._foreach_mul_(u, float(np.float32(lr)))
+            else:  # scale_by_schedule(-lr(count + step_offset)), before the increment
+                torch._foreach_mul_(
+                    u, float(-np.float32(self.schedules[lb](count - 1 + self.step_offset))))
+            torch._foreach_add_(p, u)
+            self.state[lb] = RAdamGroupState(count, mu, nu)
 
 
 def build_optimizer(
@@ -408,13 +567,15 @@ def build_optimizer(
     step_offset: int = 0,
     external_lr: bool = False,
     update_mask: Optional[Mapping[str, bool]] = None,
-) -> Tuple[ReferenceAdamW, Union[Schedule, HostLRScheduler]]:
-    """``build_optimizer`` for adamw: returns the optimizer and its schedule
-    (for logging, and with ``external_lr`` for the caller to drive: the
-    optimizer then has no schedule and unit-base group ratios).
-    ``update_mask`` is the optimizer's default participation mask."""
-    if cfg.name != "adamw":
-        raise NotImplementedError(f"optimizer {cfg.name!r} is not ported yet (ROADMAP A5)")
+) -> Tuple[Union[ReferenceAdamW, ReferenceRAdam], Union[Schedule, HostLRScheduler]]:
+    """``build_optimizer``: returns the optimizer (adamw or radam) and its
+    schedule (for logging, and with ``external_lr`` for the caller to drive:
+    the optimizer then has no schedule and unit-base group ratios).
+    ``update_mask`` is adamw's default participation mask."""
+    if cfg.name not in ("adamw", "radam"):
+        raise ValueError(cfg.name)
+    if cfg.name == "radam" and update_mask is not None:
+        raise ValueError("update_mask is only supported for adamw")
     if cfg.schedule in EPOCH_SCHEDULES and not external_lr:
         raise ValueError(
             f"schedule {cfg.schedule!r} carries host state (epoch-level LR transitions) "
@@ -431,6 +592,17 @@ def build_optimizer(
         "frozen": 0.0,
     }
     schedule = make_schedule(cfg, cfg.learning_rate, total_steps)
+    if cfg.name == "radam":
+        # each label its own schedule at its own lr (internal mode) or the
+        # constant ratio lr / learning_rate (external mode), as group_lr
+        group_lr = {"base": cfg.learning_rate,
+                    "head": cfg.head_lr if cfg.head_lr is not None else cfg.learning_rate,
+                    "pretrained_scaled": cfg.learning_rate * cfg.pretrained_lr_scale}
+        schedules = {lb: lr / cfg.learning_rate if external_lr else
+                     make_schedule(cfg, lr, total_steps) for lb, lr in group_lr.items()}
+        opt = ReferenceRAdam(cfg, params, labels=labels, schedules=schedules,
+                             external_lr=external_lr, step_offset=step_offset)
+        return opt, schedule
     ratios = {n: ratio_of[lb] for n, lb in labels.items()}
     opt = ReferenceAdamW(cfg, params, ratios=ratios,
                          schedule=None if external_lr else schedule,

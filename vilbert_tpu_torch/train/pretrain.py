@@ -12,6 +12,13 @@ Dropout seeds come from one CPU ``torch.Generator`` seeded from ``seed``,
 which also draws the initial weights; the same seed gives the same steps.
 The JAX package's threefry stream cannot be reproduced, so a run matches
 the JAX trajectory only with dropout off.
+
+``run_pretraining(resume_dir=...)`` restores a full-state checkpoint
+(``core.checkpoint``: parameters, optimizer state, step) and runs from its
+step. As in the JAX package, the dropout stream and the loader start again
+from ``seed`` on resume: a resumed run repeats the batches and masks of the
+first steps, and equals the uninterrupted run only when every step sees the
+same batch with dropout off.
 """
 
 from __future__ import annotations
@@ -32,7 +39,12 @@ from vilbert_tpu_torch.data.prefetch import (
 )
 from vilbert_tpu_torch.models.layers import set_dropout_generator
 from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
-from vilbert_tpu_torch.parallel.train_step import TrainState, make_train_step
+from vilbert_tpu_torch.parallel.train_step import (
+    TrainState,
+    load_train_state,
+    make_train_step,
+    train_state_dict,
+)
 from vilbert_tpu_torch.train.losses import pretrain_losses
 from vilbert_tpu_torch.train.optim import build_optimizer
 
@@ -177,13 +189,22 @@ def run_pretraining(
     val_every: int = 0,
     hooks: Optional[list] = None,
     freeze_prefix="",
+    resume_dir: str = "",
+    start_step: int = -1,
+    grad_dtype: str = "",
 ) -> TrainState:
     """The pretraining driver (``vilbert_tpu.train.pretrain.run_pretraining``)
     on one device. The model is ``model`` if given, else drawn from ``seed``.
     With ``val_loader``, a validation pass runs every ``val_every`` steps
     (default once after the last) and is logged. ``hooks`` are called as
     hook(step, state, metrics) after every step. Raises FloatingPointError
-    on a non-finite loss at a logging step."""
+    on a non-finite loss at a logging step.
+
+    ``resume_dir`` restores the latest full-state checkpoint there and runs
+    from its step (``start_step`` >= 0 overrides it); the loader and the
+    dropout stream start again from ``seed`` (module docstring).
+    ``grad_dtype="bfloat16"`` takes the gradients in bf16
+    (``parallel.train_step``)."""
     generator = torch.Generator().manual_seed(seed)
     if model is None:
         model = ViLBERTForPretraining(model_cfg, generator=generator)
@@ -196,8 +217,17 @@ def run_pretraining(
                                     step_offset=1, freeze_prefix=freeze_prefix)
     loss_fn = make_pretrain_loss_fn(model_cfg, img_weight=img_weight,
                                     lm_gather=lm_gather, img_gather=img_gather)
-    step_fn = make_train_step(loss_fn, opt, grad_accum=grad_accum)
+    step_fn = make_train_step(loss_fn, opt, grad_accum=grad_accum,
+                              grad_dtype=grad_dtype or None)
     state = TrainState(0, model, opt)
+    first_step = 0
+    if resume_dir:
+        from vilbert_tpu_torch.core.checkpoint import CheckpointManager
+
+        saved, _, ckpt_step = CheckpointManager(resume_dir).restore(train_state_dict(state))
+        state = load_train_state(state, saved)
+        first_step = start_step if start_step >= 0 else ckpt_step
+        logger.info("resumed from %s at step %d", resume_dir, first_step)
 
     def run_validation(step: int) -> None:
         metrics = evaluate_pretraining(model_cfg, model, val_loader, img_weight=img_weight,
@@ -210,7 +240,7 @@ def run_pretraining(
 
     batches = repeat_iterator(lambda: iter(train_loader))
     t0 = time.perf_counter()
-    for step in range(num_steps):
+    for step in range(first_step, num_steps):
         batch = to_device(host_batch(next(batches), model_cfg, grad_accum), device)
         metrics = step_fn(model, batch)
         state = TrainState(step + 1, model, opt)
