@@ -11,7 +11,10 @@ weights drawn from a seed: VQA evaluation (TASK1 of configs/tasks.yml),
 the Conceptual Captions pretraining step, the 12-in-1 multi-task trainer
 on the flagship recipe (tasks 1-2-4-7-8-9-10-11-12-13-15-17, task
 tokens), image-text retrieval and the demo, and the training options
-(bf16 gradients and moments, RAdam, checkpoints and resume).
+(bf16 gradients and moments, RAdam, checkpoints and resume); then the
+single-stream baseline at the full width of configs/bert_base_baseline.json
+(VQA eval, the CC step, the flagship tasks it has heads for, retrieval),
+the CC step with NCE, and K1 and K2 to 1,024 keys.
 
 1. device: the card's name and power limit; TF32 off for fp32 comparisons;
 2. build: nvcc for sm_90a, one process per source, timed;
@@ -34,8 +37,10 @@ tokens), image-text retrieval and the demo, and the training options
    misaligned operand (refused).
    Forward (K1 at rate 0 and 0.1, K4): fp32 1e-4 absolute (1e-3 on a row
    whose keys are all padded), bf16 2^-7 * max|ref| plus one bf16 ulp.
-   Backward (K2 at rate 0 and 0.1): fp32 1e-4 * max|ref|, bf16 as the
-   forward. The K3 entry (``fused_attention``, served by K1 and K2 at rate
+   Backward (K2 at rate 0 and 0.1): fp32 1e-4 * max|ref| (and on a batch
+   element whose keys are all padded, 2^-9 of its own max|ref| on top: its
+   scores sit at -10000, where a summation order flips one by a whole fp32
+   step, ``_bwd_errors``), bf16 as the forward. The K3 entry (``fused_attention``, served by K1 and K2 at rate
    0) likewise;
 4. VQA slice: ``run_eval`` (the eval CLI's function) on synthetic TASK1 at
    T=23, R=101, with the launch counters reset just before and read just
@@ -116,7 +121,40 @@ tokens), image-text retrieval and the demo, and the training options
    (fp32, dropout off, one held batch; bitwise, or within 1e-6 of each
    tensor's max); the flagship trainer of phases 8-9 saved and restored
    into a new one (parameters, moments and host state equal), the
-   checkpoint's size and its save and restore seconds.
+   checkpoint's size and its save and restore seconds;
+12. K1 and K2 past 512 keys: the long variants (K1 "long_tc" bf16 and "cc"
+   fp32, K2 "long_tc" bf16 and "long" fp32) at Sq x Sk edges of 511, 512,
+   513, 562 and 1024 (LONG_1024_CASES), h12 d64 and h8 d128, rates 0 and
+   0.1, against the plain versions within phase 3's bounds, each call on
+   its variant's counter; a length past KERNEL_MAX_KEYS refused;
+13. the single-stream baseline (``--baseline``, configs/bert_base_baseline
+   .json: 12 layers of 768) through ``run_eval`` on synthetic TASK1 at
+   B=1024, T=23, R=101 (124 keys, K1 on "tc"; K1 and K4 launches, K4 by
+   shape), fp32 logits against the plain ops within 1e-3 and bf16 within
+   phase 4's bound, questions/s;
+14. the baseline's CC step through ``train_concap.train --baseline``
+   (``run_pretraining``, ``model_family="basebert"``) at B=256, T=36, R=37
+   (73 keys), ``lm_gather`` 12, dropout 0.1: 12 K1 and 12 K2 a step on
+   "tc", K4 by shape; an fp32 step with dropout, kernels against plain ops
+   within phase 6's bounds; samples/s;
+15. the two-stream CC step with ``--visual_target 2`` (NCE, 128 negatives)
+   at the same geometry: finite losses, two runs from one seed equal,
+   samples/s and peak memory of the step;
+16. one iteration of ``cli/train_tasks.py::train --baseline`` over the
+   flagship tasks the baseline has heads for (all but NLVR2, Visual
+   Entailment and GQA), no task token: K1 and K2 launches by variant
+   (GuessWhatPointing's 256 + 306 = 562 keys on "long_tc"), K4's by shape,
+   each task's step time;
+17. baseline retrieval through ``cli/eval_retrieval.py``'s ``run``
+   (``--baseline``), phase 10's pool of 1,000 images in chunks of 500 with
+   4 captions fine-tuned and 2 zero-shot (131 keys, K1 on "long_tc";
+   launches and K4 shapes), bf16 scores against the plain ops, captions/s;
+18. K1 and K2 at the baseline's shapes (124 x 124 at B=1024, 73 x 73 at
+   B=256 with and without dropout, 131 keys at B=500, and every (batch,
+   T + R) of phase 16's tasks, 121 to 562 keys, at rates 0 and 0.1 with
+   the backward) and K4 at the row counts of phases 13, 14 and 16, against
+   the plain versions, SDPA (``F.layer_norm(x + residual)``) and the
+   bounds.
 
 Times: a kernel's ``ms`` (and its plain version's, the library call's,
 another variant's) is device time, calls run back to back behind a
@@ -431,15 +469,36 @@ def _fwd_error(got, want, dtype) -> tuple:
     return e, 1e-4, float(diff[:-1].max()) <= 1e-4 and float(diff[-1].max()) <= 1e-3
 
 
-def _bwd_errors(got, want, dtype) -> tuple:
+def _bwd_errors(got, want, dtype, bias=None) -> tuple:
     """(max|err| over dq, dk, dv, ok): fp32 within 1e-4 * max|ref|, bf16
-    within one bf16 rounding of max|ref|, each gradient on its own."""
+    within one bf16 rounding of max|ref|, each gradient on its own.
+
+    With ``bias``, an fp32 batch element whose keys are all padded is held
+    to 2^-9 of its own max|ref| on top: its scores sit at -10000, where fp32
+    spacing is 2^-10, and q.k summed in another order than the plain
+    version's moves a score across a rounding boundary about once in 10^4
+    scores; that score then differs by a whole 2^-10, its P by 2^-10
+    relative, and each gradient term it feeds likewise (two such terms'
+    worth). At Sq=1, Sk=128 such an element crosses the 1e-4 * max|ref|
+    bound on some draws; scripts/probe_k2_padded.py measures both bounds
+    over many."""
+    padded = None
+    if bias is not None and dtype == "float32":
+        padded = (bias.reshape(bias.shape[0], -1) <= -10000.0).all(-1)
     worst, ok = 0.0, True
     for a, b in zip(got, want):
-        e = float((a.float() - b.float()).abs().max())
-        m = float(b.float().abs().max())
-        bound = 1e-4 * m if dtype == "float32" else bf16_bound(b.float())
-        worst, ok = max(worst, e), ok and e <= bound
+        diff = (a.float() - b.float()).abs()
+        worst = max(worst, float(diff.max()))
+        if dtype != "float32":
+            ok = ok and float(diff.max()) <= bf16_bound(b.float())
+            continue
+        bound = 1e-4 * float(b.float().abs().max())
+        if padded is None or not bool(padded.any()):
+            ok = ok and float(diff.max()) <= bound
+            continue
+        pad_bound = 2.0 ** -9 * float(b[padded].float().abs().max()) + bound
+        valid_ok = bool(padded.all()) or float(diff[~padded].max()) <= bound
+        ok = ok and valid_ok and float(diff[padded].max()) <= pad_bound
     return worst, ok
 
 
@@ -489,7 +548,7 @@ def phase_training_kernels(checks: Checks, g, err: dict) -> None:
                                           lambda: attention_bwd(q, k, v, bias, cot, **kw))
                 want = attention_bwd_ref(q, k, v, bias, cot, **kw)
                 torch.cuda.synchronize()
-                e, ok = _bwd_errors(got, want, name)
+                e, ok = _bwd_errors(got, want, name, bias)
                 track_error(err, "attention_bwd", variant, e)
                 checks.expect(ok and on_variant,
                               f"attention bwd rate {rate} {shape} [{variant}]: max|err| {e:.3e}")
@@ -501,7 +560,8 @@ def phase_training_kernels(checks: Checks, g, err: dict) -> None:
             e, bound, ok = _fwd_error(out.detach(), attention_ref(q, k, v, bias, num_heads=heads),
                                       name)
             eb, okb = _bwd_errors((qt.grad, kt.grad, vt.grad),
-                                  attention_bwd_ref(q, k, v, bias, cot, num_heads=heads), name)
+                                  attention_bwd_ref(q, k, v, bias, cot, num_heads=heads), name,
+                                  bias)
             err["fused_attention"] = max(err["fused_attention"], e, eb)
             checks.expect(ok and okb, f"fused_attention fwd+bwd {shape}: max|err| {e:.3e}, "
                                       f"grads {eb:.3e}")
@@ -1680,25 +1740,9 @@ def phase_multitask_timing(checks: Checks, trainer, card: str, err: dict) -> dic
         fwd_variant,
     )
 
-    times = {}
     # each task's step, one batch held on the card
-    lr = float(trainer.schedule(trainer.global_step))
-    total_ms = total_samples = 0.0
-    for key, task in trainer.tasks.items():
-        batch = task.next_batch()
-        task.step_fn(trainer.model, batch, lr)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            metrics = task.step_fn(trainer.model, batch, lr)
-        loss = float(metrics["loss"])
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / 3 * 1e3
-        samples = task.cfg.batch_size
-        total_ms, total_samples = total_ms + ms, total_samples + samples
-        times[("multitask_step", key)] = {"ms": ms, "samples_per_s": samples / ms * 1e3}
-        log(f"  step {key} B={samples} bf16 kernels: {ms:.2f} ms = {samples / ms * 1e3:.1f} "
-            f"samples/s (loss {loss:.4f}) [{card}]")
+    step_times, total_ms, total_samples = time_task_steps(trainer, card)
+    times = {("multitask_step", key): row for key, row in step_times.items()}
     log(f"  steps of the twelve tasks: {total_ms:.1f} ms = {total_samples / total_ms * 1e3:.1f} "
         f"samples/s, batches on the card [{card}]")
     # whole iterations through the host loader (pinned copies included)
@@ -1793,11 +1837,11 @@ RET_ATTENTIONS = (
 )
 
 
-def retrieval_args(tmp: str, extra=()):
+def retrieval_args(tmp: str, extra=(), config: str = CONFIG):
     from vilbert_tpu_torch.cli.eval_retrieval import build_parser
 
     return build_parser().parse_args([
-        "--config", CONFIG, "--pool_size", str(RET_POOL), "--chunk", str(RET_CHUNK),
+        "--config", config, "--pool_size", str(RET_POOL), "--chunk", str(RET_CHUNK),
         "--max_seq_length", str(RET_T), "--max_region_num", str(RET_R), "--device", DEVICE,
         "--output", os.path.join(tmp, "retrieval.json"), *extra,
     ])
@@ -2247,8 +2291,657 @@ def phase_training_options(checks: Checks, trainer, tmp: str, card: str, err: di
     return times, out
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+#: K1 and K2 past 512 keys (the single-stream baseline's GuessWhatPointing
+#: is 256 + 306 = 562): the long variants at Sq x Sk edges of 511, 512, 513,
+#: 562 and 1024 (KERNEL_MAX_KEYS), one query or key against 1024, at both
+#: head widths
+LONG_1024_CASES = [
+    (12, 64, 511, 511), (8, 128, 512, 512), (12, 64, 513, 513), (8, 128, 562, 562),
+    (12, 64, 562, 562), (8, 128, 1024, 1024), (12, 64, 1024, 1024), (12, 64, 1, 1024),
+    (8, 128, 1024, 1), (8, 128, 511, 1024), (12, 64, 1024, 513), (8, 128, 562, 512),
+]
+
+
+def phase_long_kernels(checks: Checks, err: dict) -> None:
+    """(a) The long K1 (``long_tc`` bf16, ``cc`` fp32) and K2 (``long_tc``
+    bf16, ``long`` fp32) at LONG_1024_CASES, rates 0 and 0.1, against the
+    plain versions within phase 3's bounds, each call on its variant's
+    counter; a length past the cap refused in both directions."""
+    import torch
+
+    from vilbert_tpu_torch.ops.attention import (
+        KERNEL_MAX_KEYS,
+        attention,
+        attention_bwd,
+        attention_bwd_ref,
+        attention_ref,
+        bwd_variant,
+        fwd_variant,
+    )
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    B = 2
+    for heads, d, sq, sk in LONG_1024_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            q, k, v, cot, bias = _attention_operands(g, B, heads, d, sq, sk, dtype)
+            for rate in (0.0, 0.1):
+                kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
+                fv, bv = fwd_variant(dtype, sk), bwd_variant(dtype, sq, sk)
+                got, on_fv = counted(attention, fv, lambda: attention(q, k, v, bias, **kw))
+                e, bnd, ok = _fwd_error(got, attention_ref(q, k, v, bias, **kw), name)
+                got, on_bv = counted(attention_bwd, bv,
+                                     lambda: attention_bwd(q, k, v, bias, cot, **kw))
+                eb, okb = _bwd_errors(got, attention_bwd_ref(q, k, v, bias, cot, **kw), name,
+                                      bias)
+                torch.cuda.synchronize()
+                track_error(err, "attention_fwd", fv, e)
+                track_error(err, "attention_bwd", bv, eb)
+                checks.expect(ok and okb and on_fv and on_bv,
+                              f"attention h={heads} d={d} Sq={sq} Sk={sk} {name} rate {rate} "
+                              f"[{fv}, {bv}]: fwd max|err| {e:.3e} (<= {bnd:.3e}), bwd max|err| "
+                              f"{eb:.3e}")
+    over = KERNEL_MAX_KEYS + 1
+    for sq, sk in ((over, 20), (20, over)):
+        q, k, v, cot, bias = _attention_operands(g, 1, 12, 64, sq, sk, torch.bfloat16)
+        refused = []
+        for fn in (lambda: attention(q, k, v, bias, num_heads=12),
+                   lambda: attention_bwd(q, k, v, bias, cot, num_heads=12)):
+            try:
+                fn()
+                refused.append(False)
+            except ValueError:
+                refused.append(True)
+        checks.expect(refused == [sk == over, True],
+                      f"Sq={sq} Sk={sk}: K1 refused {refused[0]} (past the cap only in Sk), "
+                      f"K2 refused {refused[1]}")
+    checks.end_phase("K1 and K2 past 512 keys")
+
+
+# -- phase 13 ----------------------------------------------------------------
+
+#: the single-stream baseline (``--baseline``) at its published width: 12
+#: layers of 768, 12 heads of 64, intermediate 3072, regions by Linear(2048,
+#: 768); one sequence of T + R tokens
+BASELINE_CONFIG = "configs/bert_base_baseline.json"
+BASE_VQA_BATCH = TIME_BATCH  # TASK1's eval batch size
+#: the baseline's retrieval sequence: a caption of 30 tokens and 101 regions
+BASE_RET_CAPTIONS, BASE_RET_ZERO_SHOT = 4, 2
+
+
+def baseline_ln_forward(cfg, B: int, T: int, R: int, heads=()) -> dict:
+    """K4's launches in one forward of the baseline, {(rows, H, dtype name,
+    residual): count}: the text embedding's and the image embedding's in
+    fp32 (the type embedding's fp32 table promotes the image sum), two a
+    layer over the B (T + R) rows in the compute dtype with the residual;
+    ``heads`` adds (rows, H) of the heads' LayerNorms in the compute
+    dtype."""
+    dt, h = cfg.compute_dtype, cfg.hidden_size
+    out = collections.Counter()
+    out[(B * T, h, "float32", False)] += 1
+    out[(B * R, h, "float32", False)] += 1
+    out[(B * (T + R), h, dt, True)] += 2 * cfg.num_hidden_layers
+    for rows, hh in heads:
+        out[(rows, hh, dt, False)] += 1
+    return dict(out)
+
+
+def phase_baseline_vqa(checks: Checks, card: str) -> tuple:
+    """(b) ``run_eval`` with the baseline (``--baseline``) on synthetic TASK1
+    at B=1024, T=23, R=101 (124 keys: K1 on "tc"), launches and K4 shapes;
+    bf16 and fp32 logits against the plain ops at B=256; questions/s."""
+    import torch
+
+    from vilbert_tpu_torch.cli.eval_tasks import build_model, run_eval, synthetic_vqa_loader
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.models.basebert import BaseBertForVLTasks
+    from vilbert_tpu_torch.models.layers import use_plain_ops
+
+    cfg = ModelConfig.from_json_file(BASELINE_CONFIG)
+    task = task1()
+    t0 = time.time()
+    model = build_model(cfg, seed=SEED, device=DEVICE, baseline=True)
+    log(f"  model {BASELINE_CONFIG} (--baseline): {sum(p.numel() for p in model.parameters())} "
+        f"params, compute {cfg.compute_dtype}, built in {time.time() - t0:.1f} s")
+    loader = synthetic_vqa_loader(cfg, task, num=BASE_VQA_BATCH, batch_size=BASE_VQA_BATCH)
+    with tempfile.TemporaryDirectory() as out_dir, recording_ln_shapes() as ln_seen:
+        reset_launches()
+        t0 = time.time()
+        metrics, records = run_eval(model, cfg, {"TASK1": task}, {"TASK1": loader},
+                                    output_dir=out_dir, split=task.val_split)["TASK1"]
+        torch.cuda.synchronize()
+        launches = read_launches()
+    log(f"  run_eval --baseline TASK1 B={BASE_VQA_BATCH}: loss {metrics['loss']:.6f} score "
+        f"{metrics['score']:.6f} records {len(records)} in {time.time() - t0:.1f} s; launches "
+        f"{launches}")
+    n = cfg.num_hidden_layers
+    checks.expect(launches["attention"] == launches["attention_tc"] == n
+                  and launches["attention_bwd"] == 0,
+                  f"K1 launches {launches['attention']} == tensor-core {launches['attention_tc']} "
+                  f"== {n} (124 keys), no K2")
+    check_ln_recording(checks, "run_eval --baseline", ln_seen,
+                       baseline_ln_forward(cfg, BASE_VQA_BATCH, T, R), launches)
+    checks.expect(math.isfinite(metrics["loss"]) and len(records) == BASE_VQA_BATCH
+                  and all(0 <= r["answer"] < 3129 for r in records),
+                  "loss finite, one record per question, answers in the 3129 labels")
+
+    x = random_batch(cfg, CHECK_BATCH, SEED + 16)
+    head = ("vil_prediction",)
+    model32 = BaseBertForVLTasks(cfg.replace(compute_dtype="float32"))
+    model32.load_state_dict(model.state_dict())
+    model32 = model32.to(DEVICE).eval()
+    logits = {}
+    for name, m in (("fp32", model32), ("bf16", model)):
+        with torch.inference_mode():
+            logits[name, "kernels"] = m(**x, heads=head).vil_prediction
+            logits[name, "plain"] = use_plain_ops(m)(**x, heads=head).vil_prediction
+            use_plain_ops(m, False)
+    del model32
+    scale = max(1.0, float(logits["fp32", "plain"].abs().max()))
+    for name, bound in (("fp32", 1e-3), ("bf16", 5e-2 * scale)):
+        kern, plain = logits[name, "kernels"], logits[name, "plain"]
+        e = float((kern - plain).abs().max())
+        checks.expect(bool(torch.isfinite(kern).all()) and e <= bound,
+                      f"baseline B={CHECK_BATCH} {name} logits, kernels vs plain ops: max|err| "
+                      f"{e:.3e} <= {bound:.3e}")
+    x = random_batch(cfg, BASE_VQA_BATCH, SEED + 17)
+    with torch.inference_mode():
+        ms = cuda_time_ms(lambda: model(**x, heads=head), iters=10, warmup=2)
+    rate = BASE_VQA_BATCH / ms * 1e3
+    log(f"  baseline forward B={BASE_VQA_BATCH} T={T} R={R} bf16 kernels: {ms:.3f} ms = "
+        f"{rate:.1f} questions/s [{card}]")
+    checks.end_phase("baseline VQA")
+    return launches, rate
+
+
+# -- phase 14 ----------------------------------------------------------------
+
+def phase_baseline_train(checks: Checks, tmp: str, card: str) -> tuple:
+    """(c) The baseline's CC step through ``train_concap.train --baseline``
+    (``run_pretraining`` with ``model_family="basebert"``) at B=256, T=36,
+    R=37 (73 keys), ``lm_gather`` 12, dropout 0.1: launches a step, K1 and
+    K2 on "tc"; an fp32 step with dropout through the kernels and the plain
+    ops (phase 6's bounds); samples/s of the bf16 step."""
+    import torch
+
+    from vilbert_tpu_torch.cli.train_concap import build_parser, optimizer_config, train
+    from vilbert_tpu_torch.data.prefetch import to_device
+    from vilbert_tpu_torch.models.basebert import BaseBertForPretraining
+    from vilbert_tpu_torch.models.layers import set_dropout_generator, use_plain_ops
+    from vilbert_tpu_torch.parallel.train_step import make_train_step
+    from vilbert_tpu_torch.train.optim import build_optimizer
+    from vilbert_tpu_torch.train.pretrain import host_batch, make_pretrain_loss_fn
+
+    args = build_parser().parse_args([
+        "--synthetic", "--baseline", "--config", BASELINE_CONFIG, "--batch_size",
+        str(TRAIN_BATCH), "--num_steps", str(TRAIN_STEPS), "--seed", str(SEED), "--device",
+        DEVICE, "--output_dir", os.path.join(tmp, "cc_baseline"),
+    ])
+    losses = []
+    with recording_ln_shapes() as ln_seen:
+        reset_launches()
+        state = train(args, hooks=[lambda step, st, m: losses.append(float(m["loss"]))])
+        torch.cuda.synchronize()
+        launches = read_launches()
+    model, cfg = state.model, state.model.cfg
+    log(f"  train --baseline {BASELINE_CONFIG}: {type(model).__name__}, "
+        f"{sum(p.numel() for p in model.parameters())} params, losses "
+        f"{[round(v, 6) for v in losses]}; launches {launches}")
+    n = cfg.num_hidden_layers
+    checks.expect(type(model) is BaseBertForPretraining and cfg.hidden_dropout_prob == 0.1
+                  == cfg.attention_probs_dropout_prob and len(losses) == TRAIN_STEPS
+                  and all(math.isfinite(v) for v in losses),
+                  "BaseBertForPretraining, dropout 0.1, losses finite")
+    for name in ("attention", "attention_bwd"):
+        checks.expect(launches[name] == launches[f"{name}_tc"] == TRAIN_STEPS * n,
+                      f"{name} launches {launches[name]} == tensor-core "
+                      f"{launches[f'{name}_tc']} == {TRAIN_STEPS} x {n} (73 keys)")
+    B = TRAIN_BATCH
+    shapes = baseline_ln_forward(cfg, B, TRAIN_T, TRAIN_R, [
+        (B * LM_GATHER, cfg.hidden_size), (B * TRAIN_R, cfg.hidden_size)])
+    check_ln_recording(checks, f"{TRAIN_STEPS} baseline CC steps", ln_seen, shapes, launches,
+                       TRAIN_STEPS)
+
+    cfg32 = cfg.replace(compute_dtype="float32")
+    m32 = BaseBertForPretraining(cfg32)
+    m32.load_state_dict(model.state_dict())
+    m32 = m32.to(DEVICE)
+    batch = to_device(host_batch(bench_batch(cfg32, TRAIN_CHECK_BATCH, SEED + 5), cfg32), DEVICE)
+    loss_fn = make_pretrain_loss_fn(cfg32, lm_gather=LM_GATHER)
+    result = {}
+    for plain in (False, True):
+        use_plain_ops(m32, plain)
+        set_dropout_generator(m32, torch.Generator().manual_seed(SEED + 7))
+        m32.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(m32, batch)
+        loss.backward()
+        result[plain] = (loss.item(), {k: p.grad.clone() for k, p in m32.named_parameters()})
+    (lk, gk), (lp, gp) = result[False], result[True]
+    top = max(float(g.abs().max()) for g in gp.values())
+    worst = max(float((gk[k] - gp[k]).abs().max())
+                / (1e-3 * float(gp[k].abs().max()) + 1e-6 * top) for k in gp)
+    loss_err = abs(lk - lp) / abs(lp)
+    checks.expect(math.isfinite(lk) and loss_err <= 1e-5 and worst <= 1.0,
+                  f"baseline B={TRAIN_CHECK_BATCH} fp32 step with dropout, kernels vs plain ops: "
+                  f"loss {lk:.6f} vs {lp:.6f} (rel {loss_err:.3e} <= 1e-5), worst gradient at "
+                  f"{worst:.3e} of its bound (<= 1)")
+    del m32, result, gk, gp
+
+    opt, _ = build_optimizer(optimizer_config(args, schedule="constant"),
+                             dict(model.named_parameters()), 1000, family=model.family)
+    step = make_train_step(make_pretrain_loss_fn(cfg, lm_gather=LM_GATHER), opt)
+    batch = to_device(host_batch(bench_batch(cfg, B, SEED + 6), cfg), DEVICE)
+    set_dropout_generator(model, torch.Generator().manual_seed(SEED))
+    step(model, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        metrics = step(model, batch)
+    loss = float(metrics["loss"])
+    dt = (time.perf_counter() - t0) / 4
+    rate = B / dt
+    log(f"  baseline train step B={B} T={TRAIN_T} R={TRAIN_R} bf16 kernels: {dt * 1e3:.2f} "
+        f"ms/step = {rate:.1f} samples/s (loss {loss:.4f}) [{card}]")
+    del state, model, opt, batch
+    checks.end_phase("baseline CC step")
+    return launches, rate
+
+
+# -- phase 15 ----------------------------------------------------------------
+
+def phase_nce(checks: Checks, tmp: str, card: str) -> dict:
+    """(d) The two-stream CC step with ``--visual_target 2`` (NCE over 128
+    negatives) at B=256, T=36, R=37: two runs of 2 steps from one seed give
+    the same finite losses; samples/s and peak memory of the step."""
+    import torch
+
+    from vilbert_tpu_torch.cli.train_concap import build_parser, optimizer_config, train
+    from vilbert_tpu_torch.data.prefetch import to_device
+    from vilbert_tpu_torch.models.layers import set_dropout_generator
+    from vilbert_tpu_torch.parallel.train_step import make_train_step
+    from vilbert_tpu_torch.train.optim import build_optimizer
+    from vilbert_tpu_torch.train.pretrain import host_batch, make_pretrain_loss_fn
+
+    args = build_parser().parse_args([
+        "--synthetic", "--config", CONFIG, "--visual_target", "2", "--batch_size",
+        str(TRAIN_BATCH), "--num_steps", "2", "--seed", str(SEED), "--device", DEVICE,
+        "--output_dir", os.path.join(tmp, "cc_nce"),
+    ])
+    runs = []
+    for _ in range(2):
+        losses = []
+        reset_launches()
+        state = train(args, hooks=[lambda step, st, m: losses.append(
+            (float(m["loss"]), float(m["masked_loss_v"])))])
+        torch.cuda.synchronize()
+        runs.append(losses)
+    launches = read_launches()
+    model, cfg = state.model, state.model.cfg
+    log(f"  train --visual_target 2 (num_negative {cfg.num_negative}): (loss, NCE loss) a step "
+        f"{runs[0]} and again from the seed {runs[1]}; launches {launches}")
+    checks.expect(cfg.visual_target == 2 and cfg.v_target_size == cfg.v_feature_size
+                  and len(runs[0]) == 2 and runs[0] == runs[1]
+                  and all(math.isfinite(v) for pair in runs[0] for v in pair),
+                  "NCE: losses finite, two runs from one seed equal")
+    opt, _ = build_optimizer(optimizer_config(args, schedule="constant"),
+                             dict(model.named_parameters()), 1000)
+    generator = torch.Generator().manual_seed(SEED)
+    step = make_train_step(make_pretrain_loss_fn(cfg, lm_gather=LM_GATHER,
+                                                 nce_generator=generator), opt)
+    b = bench_batch(cfg, TRAIN_BATCH, SEED + 18)
+    b["image_target"] = b["image_feat"][:, 1:].copy()  # NCE scores features
+    batch = to_device(host_batch(b, cfg), DEVICE)
+    set_dropout_generator(model, generator)
+    step(model, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        metrics = step(model, batch)
+    loss = float(metrics["loss"])
+    dt = (time.perf_counter() - t0) / 3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  NCE train step B={TRAIN_BATCH} T={TRAIN_T} R={TRAIN_R} bf16 kernels: "
+        f"{dt * 1e3:.2f} ms/step = {TRAIN_BATCH / dt:.1f} samples/s, peak memory {peak:.2f} GB "
+        f"(loss {loss:.4f}) [{card}]")
+    checks.expect(math.isfinite(loss), "NCE held-batch steps finite")
+    del state, model, opt, batch
+    checks.end_phase("NCE")
+    return {"samples_per_s": TRAIN_BATCH / dt, "peak_gb": peak, "launches": launches}
+
+
+# -- phase 16 ----------------------------------------------------------------
+
+def baseline_tasks() -> dict:
+    """The flagship tasks the baseline has heads for: all but NLVR2, Visual
+    Entailment and GQA (``train.multitask.BASELINE_REFUSED_TYPES``)."""
+    from vilbert_tpu_torch.train.multitask import BASELINE_REFUSED_TYPES
+
+    return {k: t for k, t in flagship_tasks().items() if t.type not in BASELINE_REFUSED_TYPES}
+
+
+def baseline_task_geometry(task) -> tuple:
+    """(model batch, sequence length) of a baseline task's step: its batch
+    (x4 for retrieval's pairs) over T + R tokens."""
+    return (task.batch_size * (4 if task.process == "retrieval" else 1),
+            task.max_seq_length + task.max_region_num)
+
+
+def baseline_task_ln_shapes(tasks: dict, cfg) -> dict:
+    """``baseline_ln_forward`` of one step of each of ``tasks`` (no head has
+    a LayerNorm), summed: K4's launches in one baseline iteration."""
+    out = collections.Counter()
+    for task in tasks.values():
+        out.update(baseline_ln_forward(cfg, baseline_task_geometry(task)[0], task.max_seq_length,
+                                       task.max_region_num))
+    return dict(out)
+
+
+def baseline_multitask_launches(tasks: dict, cfg, steps: int) -> dict:
+    """K1 and K2 of ``steps`` baseline steps of every task: one a layer,
+    over T + R keys: "tc" at <= 128, "long_tc" above."""
+    from vilbert_tpu_torch.ops.attention import TC_MAX_SEQ
+
+    out = collections.Counter()
+    for task in tasks.values():
+        s = baseline_task_geometry(task)[1]
+        variant = "tc" if s <= TC_MAX_SEQ else "long_tc"
+        for name in ("attention", "attention_bwd"):
+            out[name] += steps * cfg.num_hidden_layers
+            out[f"{name}_{variant}"] += steps * cfg.num_hidden_layers
+    return dict(out)
+
+
+def time_task_steps(trainer, card: str, label: str = "") -> tuple:
+    """Each task's step on ``trainer``'s model (device-synced, one batch held
+    on the card, one warm-up and 3 timed): ({task: row}, ms, samples)."""
+    import torch
+
+    times, total_ms, total_samples = {}, 0.0, 0
+    lr = float(trainer.schedule(trainer.global_step))
+    for key, task in trainer.tasks.items():
+        batch = task.next_batch()
+        task.step_fn(trainer.model, batch, lr)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            metrics = task.step_fn(trainer.model, batch, lr)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        samples = task.cfg.batch_size
+        total_ms, total_samples = total_ms + ms, total_samples + samples
+        times[key] = {"ms": ms, "samples_per_s": samples / ms * 1e3}
+        log(f"  {label}step {key} B={samples} bf16 kernels: {ms:.2f} ms = "
+            f"{samples / ms * 1e3:.1f} samples/s (loss {loss:.4f}) [{card}]")
+    return times, total_ms, total_samples
+
+
+def phase_baseline_multitask(checks: Checks, tmp: str, card: str) -> tuple:
+    """(e) One iteration of ``cli/train_tasks.py::train --baseline`` over the
+    flagship tasks it has heads for, each at its batch size and geometry
+    (no task token: the baseline takes none), bf16, dropout 0.1: launches
+    by variant (GuessWhatPointing's 562 keys on "long_tc"), K4's by shape,
+    finite losses, each task's step time."""
+    import torch
+
+    from vilbert_tpu_torch.cli.train_tasks import build_parser, train
+
+    tasks = baseline_tasks()
+    loaders, _ = multitask_loaders(tasks, 30522)
+    args = build_parser().parse_args([
+        "--config", BASELINE_CONFIG, "--baseline", "--lr_scheduler", "mannul", "--head_lr",
+        "1e-4", "--seed", str(SEED), "--device", DEVICE, "--num_iterations", "1",
+        "--output_dir", os.path.join(tmp, "mt_baseline"),
+    ])
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_ln_shapes() as ln_seen:
+        reset_launches()
+        t0 = time.time()
+        trainer = train(args, tasks, loaders, hooks=[
+            lambda e, it, tr, m: losses.extend((k, float(v["loss"])) for k, v in m.items())])
+        torch.cuda.synchronize()
+        launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  train --baseline {BASELINE_CONFIG}, {len(tasks)} tasks ({', '.join(tasks)}) in "
+        f"{time.time() - t0:.1f} s, peak memory {peak:.2f} GB: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in losses) + f"; launches {launches}")
+    checks.expect(trainer.model.family == "basebert" and len(losses) == len(tasks)
+                  and all(math.isfinite(v) for _, v in losses),
+                  f"{len(losses)} task steps of the baseline, every loss finite")
+    want = baseline_multitask_launches(tasks, trainer.model_cfg, 1)
+    got = {k: launches.get(k, 0) for k in ("attention", "attention_tc", "attention_long_tc",
+                                          "attention_cc", "attention_bwd", "attention_bwd_tc",
+                                          "attention_bwd_long_tc", "attention_bwd_long")}
+    checks.expect(got == {k: want.get(k, 0) for k in got},
+                  f"K1 and K2 launches by variant {got} == {want} (GuessWhatPointing's "
+                  f"{tasks['TASK17'].max_seq_length + tasks['TASK17'].max_region_num} keys on "
+                  f"long_tc)")
+    check_ln_recording(checks, "train --baseline, one iteration", ln_seen,
+                       baseline_task_ln_shapes(tasks, trainer.model_cfg), launches)
+    times, total_ms, total = time_task_steps(trainer, card, "baseline ")
+    log(f"  baseline steps of the {len(tasks)} tasks: {total_ms:.1f} ms = "
+        f"{total / total_ms * 1e3:.1f} samples/s [{card}]")
+    del trainer
+    checks.end_phase("baseline multi-task")
+    return launches, times
+
+
+# -- phase 17 ----------------------------------------------------------------
+
+def phase_baseline_retrieval(checks: Checks, tmp: str, card: str) -> tuple:
+    """(f) Retrieval with the baseline through ``cli/eval_retrieval.py``'s
+    ``run`` (``--baseline``): phase 10's pool (1,000 images in chunks of 500,
+    captions of 30 tokens), fine-tuned (``BaseBertForVLTasks``; no
+    ``--fast_mode``, which the baseline refuses) over BASE_RET_CAPTIONS
+    captions and zero-shot over BASE_RET_ZERO_SHOT: 131 keys, so K1 runs
+    "long_tc"; launches and K4 shapes; bf16 scores against the plain ops;
+    captions/s."""
+    import numpy as np
+    import torch
+
+    from vilbert_tpu_torch.cli.eval_retrieval import run
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.models.basebert import BaseBertForPretraining, BaseBertForVLTasks
+    from vilbert_tpu_torch.models.layers import use_plain_ops
+
+    store, keys, entries = retrieval_world()
+    cfg = ModelConfig.from_json_file(BASELINE_CONFIG)
+    chunks = RET_POOL // RET_CHUNK
+    n = cfg.num_hidden_layers
+    out, launches = {}, {}
+    for mode, cls, captions in (("fine-tuned", BaseBertForVLTasks, BASE_RET_CAPTIONS),
+                                ("zero-shot", BaseBertForPretraining, BASE_RET_ZERO_SHOT)):
+        model = cls(cfg, generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+        extra = ["--baseline"] + (["--zero_shot"] if mode == "zero-shot" else [])
+        args = retrieval_args(tmp, extra, config=BASELINE_CONFIG)
+        with recording_ln_shapes() as ln_seen:
+            reset_launches()
+            t0 = time.perf_counter()
+            metrics = run(args, store=store, keys=keys, caption_entries=entries[:captions],
+                          model=model)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches[mode] = read_launches()
+        forwards = captions * chunks
+        out[mode] = {"captions_per_s": captions / dt, **metrics}
+        log(f"  eval_retrieval --baseline ({mode}): {metrics} in {dt:.1f} s = "
+            f"{captions / dt:.3f} captions/s (pool load included) [{card}]; launches "
+            f"{launches[mode]}")
+        checks.expect(metrics["num_captions"] == captions and metrics["pool_size"] == RET_POOL
+                      and all(math.isfinite(v) for v in metrics.values()),
+                      f"{mode}: {captions} captions ranked against {RET_POOL} images, finite")
+        lt = launches[mode]
+        checks.expect(lt["attention"] == lt["attention_long_tc"] == forwards * n
+                      and lt["attention_bwd"] == 0,
+                      f"{mode}: K1 launches {lt['attention']} == long tensor-core "
+                      f"{lt['attention_long_tc']} == {forwards} forwards x {n} (131 keys)")
+        heads = [] if mode == "fine-tuned" else [(RET_CHUNK * RET_T, cfg.hidden_size),
+                                                  (RET_CHUNK * RET_R, cfg.hidden_size)]
+        check_ln_recording(checks, f"eval_retrieval --baseline {mode}", ln_seen,
+                           baseline_ln_forward(cfg, RET_CHUNK, RET_T, RET_R, heads), lt,
+                           forwards)
+        if mode == "fine-tuned":
+            fine_tuned = model  # checked against the plain ops below
+        del model
+    # bf16 scores, kernels against the plain ops, 2 captions
+    from vilbert_tpu_torch.cli.eval_retrieval import load_pool
+    from vilbert_tpu_torch.data.tasks import _pad_text
+    from vilbert_tpu_torch.data.tokenization import add_special_single, load_tokenizer
+    from vilbert_tpu_torch.eval.retrieval import make_vil_logit_scorer, score_matrix
+
+    model = fine_tuned
+    tokenizer = load_tokenizer(None, cfg.vocab_size)
+    pool = load_pool(store, keys, RET_R, cfg.v_feature_size)
+    caps = []
+    for text, _ in entries[:RET_CHECK_CAPTIONS]:
+        q, m, sg = _pad_text(add_special_single(
+            tokenizer, list(tokenizer.encode(text))[:RET_T - 2]), RET_T)
+        caps.append({"question": q, "input_mask": m, "segment_ids": sg})
+    scores = {}
+    for plain in (False, True):
+        scores[plain] = score_matrix(make_vil_logit_scorer(use_plain_ops(model, plain)), caps,
+                                     pool, chunk=RET_CHUNK, device=DEVICE)
+    use_plain_ops(model, False)
+    scale = max(1.0, float(np.abs(scores[True]).max()))
+    e = float(np.abs(scores[False] - scores[True]).max())
+    checks.expect(np.isfinite(scores[False]).all() and e <= 5e-2 * scale,
+                  f"baseline bf16 retrieval scores, kernels vs plain ops: max|err| {e:.3e} <= "
+                  f"{5e-2 * scale:.3e} (5e-2 per unit of logit scale)")
+    del model, fine_tuned, pool
+    checks.end_phase("baseline retrieval")
+    return launches, out
+
+
+# -- phase 18 ----------------------------------------------------------------
+
+#: (label, heads, head_dim, Sq, Sk, B, rates, backward) of the baseline's
+#: attention shapes off the multi-task path: VQA eval (124 keys), the CC
+#: step (73, with dropout), retrieval (131: long_tc); the backward where
+#: the path trains
+BASELINE_ATTENTIONS = (
+    ("baseline VQA self", 12, 64, T + R, T + R, BASE_VQA_BATCH, (0.0,), False),
+    ("baseline CC self", 12, 64, TRAIN_T + TRAIN_R, TRAIN_T + TRAIN_R, TRAIN_BATCH, (0.0, 0.1),
+     True),
+    ("baseline retrieval self", 12, 64, RET_T + RET_R, RET_T + RET_R, RET_CHUNK, (0.0,), False),
+)
+#: the baseline's paths whose K4 shapes phase 18 times
+BASELINE_LN_PATHS = ("baseline_vqa", "baseline_cc", "baseline_multitask")
+
+
+def baseline_attentions() -> tuple:
+    """BASELINE_ATTENTIONS and the multi-task path's: one entry for each
+    (model batch, T + R) of the tasks the baseline trains (tasks of one
+    geometry share it), rates 0 and 0.1, with the backward."""
+    by_shape = {}
+    for task in baseline_tasks().values():
+        by_shape.setdefault(baseline_task_geometry(task), []).append(task.name)
+    return BASELINE_ATTENTIONS + tuple(
+        (f"baseline {', '.join(names)} step self", 12, 64, s, s, b, (0.0, 0.1), True)
+        for (b, s), names in by_shape.items())
+
+
+def baseline_ln_shapes() -> dict:
+    """K4's distinct shapes on the baseline's VQA forward (B=1024), CC step
+    (B=256) and multi-task iteration (a step of each task it trains), in
+    ``ln_shapes()``'s form under BASELINE_LN_PATHS."""
+    from vilbert_tpu_torch.core.config import ModelConfig
+
+    cfg = ModelConfig.from_json_file(BASELINE_CONFIG)
+    h = cfg.hidden_size
+    per_path = {
+        "baseline_vqa": [("baseline VQA", baseline_ln_forward(cfg, BASE_VQA_BATCH, T, R))],
+        "baseline_cc": [("baseline CC", baseline_ln_forward(
+            cfg, TRAIN_BATCH, TRAIN_T, TRAIN_R,
+            [(TRAIN_BATCH * LM_GATHER, h), (TRAIN_BATCH * TRAIN_R, h)]))],
+        "baseline_multitask": [(f"baseline {key}", baseline_task_ln_shapes({key: task}, cfg))
+                               for key, task in baseline_tasks().items()],
+    }
+    out = {}
+    for path, sources in per_path.items():
+        for who, shapes in sources:
+            for key, n in shapes.items():
+                row = out.setdefault(key, {"label": [], **{p: 0 for p in BASELINE_LN_PATHS}})
+                row["label"].append(who)
+                row[path] += n
+    return {key: dict(row, label=" + ".join(row["label"])) for key, row in out.items()}
+
+
+def phase_baseline_timing(checks: Checks, card: str, err: dict) -> dict:
+    """K1 (and K2 where a path trains) at ``baseline_attentions()`` against the
+    plain versions (outputs within phase 3's bounds, each call on its
+    variant's counter), SDPA and the bound; K4 at ``baseline_ln_shapes``."""
+    import torch
+
+    from vilbert_tpu_torch.ops.attention import (
+        attention,
+        attention_bwd,
+        attention_bwd_ref,
+        attention_ref,
+        bwd_variant,
+        fwd_variant,
+    )
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    times = {}
+    for label, heads, d, sq, sk, B, rates, backward in baseline_attentions():
+        q, k, v, cot = (torch.randn(B, s, heads * d, generator=g, device=DEVICE).bfloat16()
+                        for s in (sq, sk, sk, sq))
+        mask = torch.ones(B, sk, dtype=torch.long, device=DEVICE)
+        mask[:, sk - sk // 4:] = 0
+        b = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+        cost = attention_cost(B, heads, d, sq, sk)
+        fv, bv = fwd_variant(torch.bfloat16, sk), bwd_variant(torch.bfloat16, sq, sk)
+        for rate in rates:
+            kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
+            with torch.inference_mode():
+                got, on_fv = counted(attention, fv, lambda: attention(q, k, v, b, **kw))
+                e, bnd, ok = _fwd_error(got, attention_ref(q, k, v, b, **kw), "bfloat16")
+                eb, okb, on_bv = 0.0, True, True
+                if backward:
+                    got, on_bv = counted(attention_bwd, bv,
+                                         lambda: attention_bwd(q, k, v, b, cot, **kw))
+                    eb, okb = _bwd_errors(got, attention_bwd_ref(q, k, v, b, cot, **kw),
+                                          "bfloat16")
+            track_error(err, "attention_fwd", fv, e)
+            track_error(err, "attention_bwd", bv, eb)
+            checks.expect(ok and okb and on_fv and on_bv,
+                          f"{label} B={B} bf16 rate {rate} [{fv}, {bv}]: fwd max|err| {e:.3e} "
+                          f"(<= {bnd:.3e}), bwd max|err| {eb:.3e}")
+            lib = library_attention_fns(q, k, v, b, cot, heads, d) if rate == 0.0 else {}
+            fwd = {"kernel": lambda: attention(q, k, v, b, **kw),
+                   "plain": lambda: attention_ref(q, k, v, b, **kw)}
+            with torch.inference_mode():
+                rows = {"fwd": timed_row({**fwd, **({"library": lib["library"]} if lib else {})},
+                                         "kernel", "plain", *cost["fwd"], BF16_TC_FLOPS,
+                                         library="library" if lib else None, iters=10)}
+            if backward:
+                bwd = {"kernel": lambda: attention_bwd(q, k, v, b, cot, **kw),
+                       "plain": lambda: attention_bwd_ref(q, k, v, b, cot, **kw), **lib}
+                rows["bwd"] = timed_row(
+                    bwd, "kernel", "plain", *cost["bwd"], BF16_TC_FLOPS, iters=10,
+                    library=(lambda dev: dev["library_fwd_bwd"] - dev["library"]) if lib
+                    else None)
+            rows["fwd"]["variant"] = fv
+            if "bwd" in rows:
+                rows["bwd"]["variant"] = bv
+            for kind, row in rows.items():
+                times[(f"attention_{kind}", label, rate)] = row
+                log(f"  attention {kind} {label} B={B} h={heads} d={d} {sq}x{sk} bf16 rate "
+                    f"{rate} [{row['variant']}]: {row_text(row)} [{card}]")
+    times.update(time_layer_norm(checks, baseline_ln_shapes(), card, err, g,
+                                 paths=BASELINE_LN_PATHS))
+    checks.end_phase("baseline timing")
+    return times
+
+
 def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: dict,
-                  mt_launches: dict, fp32_launches: dict, ret: dict, opts: dict) -> list:
+                  mt_launches: dict, fp32_launches: dict, ret: dict, opts: dict,
+                  base: dict) -> list:
     """The kernels line. Each kernel's numbers (device ms, ``device_ms``;
     ``wall_ms`` with the host's gaps) at its headline shape: K1 at VQA image
     self-attention, where it costs most; K2 at CC image self-attention;
@@ -2264,10 +2957,14 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
     K4 also carry their launches in phase 10's retrieval runs and demo; K4's
     bf16-weight instantiation is an entry of its own, with its launches in
     phase 11's CC steps with bf16 gradients and its times at the CC and
-    multi-task shapes."""
+    multi-task shapes. The baseline's and NCE's paths (phases 13-17) add
+    their launches under ``launches_by_path``, and phase 18's shapes join
+    ``shapes`` (the long ones, past 128 keys, those of the long variants)."""
+    from vilbert_tpu_torch.ops.attention import TC_MAX_SEQ
     from vilbert_tpu_torch.ops.layernorm import VARIANTS as LN_VARIANTS
 
-    long_labels = tuple(label for label, *_ in MT_ATTENTIONS)
+    long_labels = tuple(label for label, *_ in MT_ATTENTIONS) + tuple(
+        label for label, _, _, _, sk, *_ in baseline_attentions() if sk > TC_MAX_SEQ)
 
     def entry(name, source, replaces, counter, key, library, variant=None):
         row = times[key]
@@ -2340,7 +3037,8 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
               **{k: fwd_long[k] for k in (*cc_keys, "bound", "library", "shape")},
               "long_tc_ms": fwd_long["ms"],
               "shapes": [{"shape": s["shape"], "ms": s["cc_ms"], "long_tc_ms": s["ms"],
-                          **{k: s[k] for k in cc_keys}} for s in fwd_long["shapes"]],
+                          **{k: s[k] for k in cc_keys}} for s in fwd_long["shapes"]
+                         if "cc_ms" in s],
               "variant": "cc: CUDA cores, fp32 (bf16 when named), bf16 times here"}
     bwd_long = entry("attention_bwd_long_tc", "vilbert_tpu_torch/csrc/attention_bwd.cu",
                      "vilbert_tpu/ops/pallas_attention_train.py:81", "attention_bwd_long_tc",
@@ -2350,6 +3048,13 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
     for out, counter in ((fwd, "attention"), (ln, "layer_norm")):
         out["launches_by_path"].update({f"retrieval_{k}" if k != "demo" else k: ret[k][counter]
                                         for k in ("fast", "zero_shot", "demo")})
+    for out, counter in ((fwd, "attention"), (bwd, "attention_bwd"), (ln, "layer_norm"),
+                         (fwd_long, "attention_long_tc"), (bwd_long, "attention_bwd_long_tc")):
+        out["launches_by_path"].update({
+            "baseline_vqa_eval": base["vqa"][counter], "baseline_cc_train": base["cc"][counter],
+            "baseline_multitask_train": base["multitask"][counter],
+            "baseline_retrieval": sum(lt[counter] for lt in base["retrieval"].values()),
+            "nce_cc_train": base["nce"]["launches"][counter]})
     bf16w = {k: v for k, v in times.items() if k[0] == "layer_norm_bf16_weight"}
     head = max(bf16w, key=lambda k: bf16w[k]["launches_by_path"]["cc"])  # CC text + residual
     row = bf16w[head]
@@ -2424,13 +3129,38 @@ def main() -> int:
         opt_times, opts = phase_training_options(checks, trainer, tmp, card, err)
         times.update(opt_times)
         del trainer
-    phase(f"[done] phases 1-11 in {time.time() - t_start:.1f} s; multi-task peak memory "
+        torch.cuda.empty_cache()
+        phase("[12 K1 and K2 past 512 keys]")
+        phase_long_kernels(checks, err)
+        base = {}
+        phase("[13 baseline VQA eval]")
+        base["vqa"], base["vqa_questions_per_s"] = phase_baseline_vqa(checks, card)
+        torch.cuda.empty_cache()
+        phase("[14 baseline CC step]")
+        base["cc"], base["cc_samples_per_s"] = phase_baseline_train(checks, tmp, card)
+        torch.cuda.empty_cache()
+        phase("[15 NCE CC step]")
+        base["nce"] = phase_nce(checks, tmp, card)
+        torch.cuda.empty_cache()
+        phase("[16 baseline multi-task]")
+        base["multitask"], _ = phase_baseline_multitask(checks, tmp, card)
+        torch.cuda.empty_cache()
+        phase("[17 baseline retrieval]")
+        base["retrieval"], base_ret = phase_baseline_retrieval(checks, tmp, card)
+        torch.cuda.empty_cache()
+        phase("[18 baseline timing]")
+        times.update(phase_baseline_timing(checks, card, err))
+    phase(f"[done] phases 1-18 in {time.time() - t_start:.1f} s; multi-task peak memory "
           f"{peak_gb:.2f} GB; retrieval captions/s {ret['captions_per_s']}; flagship "
           f"checkpoint {opts['checkpoint_gb']:.3f} GB saved in {opts['save_s']:.2f} s, restored "
-          f"in {opts['restore_s']:.2f} s [{card}]")
+          f"in {opts['restore_s']:.2f} s; baseline: {base['vqa_questions_per_s']:.1f} VQA "
+          f"questions/s, {base['cc_samples_per_s']:.1f} CC samples/s, retrieval captions/s "
+          f"{ {k: round(v['captions_per_s'], 3) for k, v in base_ret.items()} }; NCE CC "
+          f"{base['nce']['samples_per_s']:.1f} samples/s, peak {base['nce']['peak_gb']:.2f} GB "
+          f"[{card}]")
 
     kernels = kernel_report(times, err, vqa_launches, train_launches, mt_launches, fp32_launches,
-                            ret, opts)
+                            ret, opts, base)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the device time goes in the PyTorch port's three paths, on one card.
+"""Where the device time goes in the PyTorch port's paths, on one card.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
     python3 scripts/profile_torch.py [--out profile.json] [--paths vqa,cc,multitask]
+    python3 scripts/profile_torch.py --paths base_vqa,base_cc,base_multitask,nce_cc
 
 At the full width of configs/bert_base_6layer_6conect.json, weights from
 seed 0, bf16 compute, it profiles with ``torch.profiler`` (CPU and CUDA
@@ -14,7 +15,11 @@ activities) after warm-up:
   T=36, R=37, dropout 0.1, lm_gather 12, one batch held on the card;
 - one round-robin iteration of the multi-task trainer on the flagship
   recipe (chip_smoke.py's twelve tasks and synthetic loaders, task tokens,
-  dropout 0.1), through the host loader.
+  dropout 0.1), through the host loader;
+- with ``--paths base_vqa,base_cc,base_multitask,nce_cc``: the same three
+  for the single-stream baseline at configs/bert_base_baseline.json (the
+  iteration over the nine flagship tasks it has heads for, no task token),
+  and the two-stream CC step with NCE (visual target 2).
 
 For each it prints the untraced time of one forward or step (host clock
 around work that ends in a synchronize), the device time per forward or
@@ -126,7 +131,8 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="", help="also write the numbers here as JSON")
     p.add_argument("--calls", type=int, default=3, help="forwards or steps profiled")
     p.add_argument("--paths", default="vqa,cc,multitask",
-                   help="comma-separated: vqa, cc, multitask (one iteration profiled)")
+                   help="comma-separated: vqa, cc, multitask (one iteration profiled), "
+                        "base_vqa, base_cc, base_multitask, nce_cc")
     args = p.parse_args(argv)
     paths = set(args.paths.split(","))
     if not torch.cuda.is_available():
@@ -139,52 +145,74 @@ def main(argv=None) -> int:
     from vilbert_tpu_torch.core.config import ModelConfig
     from vilbert_tpu_torch.data.prefetch import to_device
     from vilbert_tpu_torch.models.layers import set_dropout_generator
-    from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
     from vilbert_tpu_torch.parallel.train_step import make_train_step
     from vilbert_tpu_torch.train.optim import build_optimizer
-    from vilbert_tpu_torch.train.pretrain import host_batch, make_pretrain_loss_fn
+    from vilbert_tpu_torch.train.pretrain import host_batch, make_pretrain_loss_fn, pretrain_model
 
     card = smoke.card_line()
     out = {"card": card}
-    cfg = ModelConfig.from_json_file(CONFIG)
-    if "vqa" in paths:
-        model = build_model(cfg, seed=smoke.SEED, device="cuda")
+    for name, config, baseline in (("vqa", CONFIG, False), ("base_vqa", smoke.BASELINE_CONFIG,
+                                                              True)):
+        if name not in paths:
+            continue
+        cfg = ModelConfig.from_json_file(config)
+        model = build_model(cfg, seed=smoke.SEED, device="cuda", baseline=baseline)
         x = smoke.random_batch(cfg, smoke.TIME_BATCH, smoke.SEED + 2)
         with torch.inference_mode():
-            out["vqa_forward"] = profile(lambda: model(**x, heads=("vil_prediction",)),
-                                         args.calls)
-        report(f"VQA forward B={smoke.TIME_BATCH} T={smoke.T} R={smoke.R} bf16",
-               out["vqa_forward"], card)
+            out[f"{name}_forward"] = profile(lambda: model(**x, heads=("vil_prediction",)),
+                                             args.calls)
+        report(f"{name} forward B={smoke.TIME_BATCH} T={smoke.T} R={smoke.R} bf16",
+               out[f"{name}_forward"], card)
         del model, x
 
-    if "cc" in paths:
-        train_args = build_parser().parse_args(["--synthetic", "--config", CONFIG])
-        model = ViLBERTForPretraining(cfg, generator=torch.Generator().manual_seed(smoke.SEED))
-        model = model.to("cuda").train()
+    for name, config, family, visual_target in (
+            ("cc", CONFIG, "vilbert", 0), ("base_cc", smoke.BASELINE_CONFIG, "basebert", 0),
+            ("nce_cc", CONFIG, "vilbert", 2)):
+        if name not in paths:
+            continue
+        cfg = ModelConfig.from_json_file(config, visual_target=visual_target)
+        train_args = build_parser().parse_args(["--synthetic", "--config", config])
+        generator = torch.Generator().manual_seed(smoke.SEED)
+        model = pretrain_model(cfg, family, generator=generator).to("cuda").train()
         opt, _ = build_optimizer(optimizer_config(train_args, schedule="constant"),
-                                 dict(model.named_parameters()), 1000)
-        step = make_train_step(make_pretrain_loss_fn(cfg, lm_gather=smoke.LM_GATHER), opt)
-        batch = to_device(host_batch(smoke.bench_batch(cfg, smoke.TRAIN_BATCH, smoke.SEED + 6),
-                                     cfg), "cuda")
-        set_dropout_generator(model, torch.Generator().manual_seed(smoke.SEED))
-        out["cc_step"] = profile(lambda: float(step(model, batch)["loss"]), args.calls)
-        report(f"CC step B={smoke.TRAIN_BATCH} T={smoke.TRAIN_T} R={smoke.TRAIN_R} bf16",
-               out["cc_step"], card)
+                                 dict(model.named_parameters()), 1000, family=model.family)
+        step = make_train_step(make_pretrain_loss_fn(cfg, lm_gather=smoke.LM_GATHER,
+                                                     nce_generator=generator), opt)
+        b = smoke.bench_batch(cfg, smoke.TRAIN_BATCH, smoke.SEED + 6)
+        if visual_target:  # NCE scores the region features
+            b["image_target"] = b["image_feat"][:, 1:].copy()
+        batch = to_device(host_batch(b, cfg), "cuda")
+        set_dropout_generator(model, generator)
+        out[f"{name}_step"] = profile(lambda: float(step(model, batch)["loss"]), args.calls)
+        report(f"{name} step B={smoke.TRAIN_BATCH} T={smoke.TRAIN_T} R={smoke.TRAIN_R} bf16",
+               out[f"{name}_step"], card)
         del model, opt, step, batch
 
-    if "multitask" in paths:
+    for name in ("multitask", "base_multitask"):
+        if name not in paths:
+            continue
         import tempfile
 
+        from vilbert_tpu_torch.cli.train_tasks import build_parser as tasks_parser
         from vilbert_tpu_torch.cli.train_tasks import train
 
-        tasks = smoke.flagship_tasks()
-        loaders, _ = smoke.multitask_loaders(tasks, cfg.vocab_size)
+        baseline = name == "base_multitask"
+        tasks = smoke.baseline_tasks() if baseline else smoke.flagship_tasks()
+        loaders, _ = smoke.multitask_loaders(tasks, 30522)
         with tempfile.TemporaryDirectory() as tmp:
-            trainer = train(smoke.multitask_args(tmp, ["--num_iterations", "1"]), tasks, loaders)
-            out["multitask_iteration"] = profile(
+            if baseline:
+                targs = tasks_parser().parse_args([
+                    "--config", smoke.BASELINE_CONFIG, "--baseline", "--lr_scheduler",
+                    "mannul", "--head_lr", "1e-4", "--seed", str(smoke.SEED),
+                    "--num_iterations", "1", "--output_dir", tmp])
+            else:
+                targs = smoke.multitask_args(tmp, ["--num_iterations", "1"])
+            trainer = train(targs, tasks, loaders)
+            out[f"{name}_iteration"] = profile(
                 lambda: trainer.train_iteration(trainer.global_step), 1, warmup=1)
-        report(f"multi-task iteration, {len(tasks)} flagship tasks, bf16",
-               out["multitask_iteration"], card)
+        report(f"{name} iteration, {len(tasks)} flagship tasks, bf16",
+               out[f"{name}_iteration"], card)
+        del trainer
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

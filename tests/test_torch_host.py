@@ -414,6 +414,45 @@ def test_chip_smoke_ln_shapes_are_each_paths_launches(monkeypatch):
     assert shapes[(9472, 1024, "bfloat16", False)]["cc"] == 2  # embedding + image transform
 
 
+def test_chip_smoke_baseline_shapes_and_launches(monkeypatch):
+    """chip_smoke.py's expectations of the single-stream baseline: K4 26
+    launches a VQA forward (the two embeddings in fp32, two a layer with
+    the residual), 28 a CC step (and the LM and image transforms), 26 a
+    step of each task; K1 and K2 one a layer over T + R keys, on
+    "long_tc" past 128 (GuessWhatPointing's 562), over the nine flagship
+    tasks the baseline has heads for."""
+    import importlib.util
+
+    from vilbert_tpu_torch.core.config import ModelConfig
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.chdir(REPO)
+    shapes = smoke.baseline_ln_shapes()
+    total = {p: sum(row[p] for row in shapes.values()) for p in smoke.BASELINE_LN_PATHS}
+    assert total == {"baseline_vqa": 26, "baseline_cc": 28, "baseline_multitask": 9 * 26}
+    assert shapes[(1024 * 124, 768, "bfloat16", True)]["baseline_vqa"] == 24
+    assert shapes[(1024 * 101, 768, "float32", False)]["label"] == "baseline VQA"
+    # Visual7w's 256 x 220 rows, retrieval's 128 x 4 pairs x 131, GuessWhatPointing's 64 x 562
+    assert shapes[(256 * 220, 768, "bfloat16", True)]["label"] == "baseline TASK4"
+    assert shapes[(512 * 131, 768, "bfloat16", True)]["baseline_multitask"] == 48
+    assert shapes[(64 * 562, 768, "bfloat16", True)]["baseline_multitask"] == 24
+    tasks = smoke.baseline_tasks()
+    assert sorted(tasks, key=lambda k: int(k[4:])) == [
+        "TASK1", "TASK2", "TASK4", "TASK7", "TASK8", "TASK9", "TASK10", "TASK11", "TASK17"]
+    # every (model batch, T + R) of the tasks checked and timed, with the backward
+    steps = {(a[5], a[4]) for a in smoke.baseline_attentions() if a[7] and a[6] == (0.0, 0.1)}
+    assert {smoke.baseline_task_geometry(t) for t in tasks.values()} <= steps
+    assert len({a[0] for a in smoke.baseline_attentions()}) == len(smoke.baseline_attentions())
+    cfg = ModelConfig.from_json_file(smoke.BASELINE_CONFIG)
+    want = smoke.baseline_multitask_launches(tasks, cfg, 1)
+    # TASK4 (220 keys), TASK7 and TASK8 (131) and TASK17 (562) past 128
+    assert want == {"attention": 108, "attention_bwd": 108, "attention_tc": 60,
+                    "attention_bwd_tc": 60, "attention_long_tc": 48,
+                    "attention_bwd_long_tc": 48}
+
+
 def test_vcr_copy_matches(tmp_path):
     """``eval/vcr.py``: joint Q->AR accuracy and the submission CSV equal the
     original's on the same results (a question missing from QA->R, one

@@ -98,12 +98,18 @@ trainer = main(sys.argv[1:])
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
 assert not leaked, leaked
 assert trainer.global_step == 2, trainer.global_step
+cfg, out = sys.argv[sys.argv.index("--config") + 1], sys.argv[sys.argv.index("--output_dir") + 1]
+base = main(["--synthetic", "--device", "cpu", "--baseline", "--tasks", "1-4-7-9",
+             "--num_iterations", "1", "--config", cfg, "--output_dir", out + "_baseline"])
+assert base.global_step == 1 and base.model.family == "basebert", base.model.family
 try:
-    main(["--synthetic", "--device", "cpu", "--baseline"])
+    main(["--synthetic", "--device", "cpu", "--coordinator", "x"])
 except NotImplementedError as e:
     assert "ROADMAP" in str(e), e
 else:
-    raise AssertionError("--baseline was not refused")
+    raise AssertionError("--coordinator was not refused")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
 print("JAX_FREE_OK")
 """
 
@@ -111,8 +117,9 @@ print("JAX_FREE_OK")
 def test_multitask_cli_runs_without_jax(tmp_path):
     """The multi-task slice (task heads and losses, masks, the host LR
     schedule, the trainer, controllers, logger) through the CLI on the CPU:
-    two round-robin iterations over six task types with task tokens, with
-    no jax, flax or optax loaded; a refused flag raises."""
+    two round-robin iterations over six task types with task tokens, and
+    one of the single-stream baseline over four, with no jax, flax or optax
+    loaded; a refused flag raises."""
     import numpy as np
 
     cfg = tmp_path / "tiny.json"
@@ -130,6 +137,9 @@ def test_multitask_cli_runs_without_jax(tmp_path):
     with np.load(out / "params_final.npz") as z:
         assert "vil_prediction.dense1.kernel" in z.files
         assert "bert.embeddings.task_embeddings.embedding" in z.files
+    with np.load(f"{out}_baseline/params_final.npz") as z:
+        assert "bert.layer_1.attention_self.query.kernel" in z.files
+        assert "vil_prediction_1.kernel" in z.files
 
 
 def test_no_jax_import_statement_in_port():

@@ -338,6 +338,45 @@ class TestSlice:
         assert b["target"].shape == (4, 3129)
 
 
+class TestInBatchPairs:
+    @pytest.mark.parametrize("fast_mode", [False, True])
+    def test_matches_flax(self, tiny_config, fast_mode):
+        """in_batch_pairs as tests/test_encoder_modes.py sets it up: B texts
+        and B images become the B^2 (text i, image j) pairs before the first
+        connection layer; the encoder's four outputs within 1e-4 of the flax
+        ``BertModel``, and pair (i, i) equals the plain run. With fast_mode
+        (one text for the images) the expansion comes first and is a no-op,
+        then the broadcast, as in the JAX encoder."""
+        from vilbert_tpu.models.vilbert import BertModel as JaxModel
+        from vilbert_tpu_torch.core.weights import flax_from_state_dict
+
+        cfg = tiny_config.replace(in_batch_pairs=True, fast_mode=fast_mode)
+        whole = _port_model(cfg, seed=8)
+        model, plain = whole.bert, _port_model(tiny_config, seed=8).bert
+        params = flax_from_state_dict(whole.state_dict())["bert"]
+        x = _inputs(cfg, B=3, seed=8)
+        args = [x["input_txt"], x["input_imgs"], x["image_loc"], x["token_type_ids"],
+                x["attention_mask"], x["image_attention_mask"]]
+        if fast_mode:
+            for i in (0, 3, 4):
+                args[i] = args[i][:1]
+        want = jax.jit(JaxModel(_pallas(cfg)).apply)({"params": params}, *args)
+        with torch.inference_mode():
+            got = model(*map(torch.from_numpy, args))
+            base = plain(*map(torch.from_numpy, args))
+        pairs = 3 if fast_mode else 9
+        for name in want._fields:
+            assert getattr(got, name).shape[0] == pairs, name
+            np.testing.assert_allclose(getattr(got, name).numpy(),
+                                       np.asarray(getattr(want, name)), atol=1e-4, rtol=1e-4,
+                                       err_msg=name)
+        if not fast_mode:
+            diag = got.sequence_t.reshape(3, 3, *got.sequence_t.shape[1:])
+            for i in range(3):
+                torch.testing.assert_close(diag[i, i], base.sequence_t[i], atol=1e-5,
+                                           rtol=1e-5)
+
+
 class TestTaskLosses:
     @pytest.mark.parametrize("task_type", [
         "VL-classifier", "VL-classifier-GQA", "VL-logit", "V-logit", "V-logit-mc",
@@ -395,8 +434,7 @@ class TestProcessBatch:
 
 
 class TestRefusedKnobs:
-    @pytest.mark.parametrize("knob", ["int8_matmul", "int8_static", "visualization",
-                                      "in_batch_pairs"])
+    @pytest.mark.parametrize("knob", ["int8_matmul", "int8_static", "visualization"])
     def test_refused_at_construction(self, tiny_config, knob):
         with pytest.raises(NotImplementedError):
             _port_model(tiny_config.replace(**{knob: True}))

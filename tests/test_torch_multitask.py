@@ -490,8 +490,7 @@ def test_each_task_step_leaves_the_other_heads_unchanged(tiny_config):
 def test_cli_refuses_what_is_not_ported():
     from vilbert_tpu_torch.cli.train_tasks import main
 
-    for flag in (["--baseline"], ["--coordinator", "x"], ["--num_processes", "2"],
-                 ["--process_id", "1"]):
+    for flag in (["--coordinator", "x"], ["--num_processes", "2"], ["--process_id", "1"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(["--synthetic", "--device", "cpu", *flag])
 
@@ -502,14 +501,121 @@ def test_trainer_refuses_what_is_not_ported(tiny_config, tmp_path):
 
     tasks = {"TASK1": _tasks(port_config)["TASK1"]}
     loaders = {"TASK1": _FakeLoader(_task_batches(tiny_config, n=1)["TASK1"], B)}
-    for kw in (dict(mesh=object()), dict(model_family="basebert")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MultiTaskTrainer(tiny_config, tasks, loaders, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MultiTaskTrainer(tiny_config, tasks, loaders, device="cpu", mesh=object())
     trainer = MultiTaskTrainer(
         tiny_config, tasks, loaders, device="cpu", num_labels=NUM_LABELS,
         train_cfg=port_config.TrainConfig(checkpoint_dir=str(tmp_path / "ckpt")))
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         trainer.restore_checkpoint()  # full-state resume is ported: nothing saved yet
+
+
+def test_baseline_three_iterations_match_jax_trainer(tiny_config, monkeypatch):
+    """The single-stream baseline (``model_family="basebert"``) through three
+    round-robin iterations of a normal, a V-logit-mc and a retrieval task,
+    against the JAX trainer from the same weights: each task's loss and
+    score, every parameter and both Adam moments (no participation masks
+    in either), with the bounds of ``test_three_iterations_match_jax_trainer``."""
+    import vilbert_tpu.train.multitask as jax_multitask
+    from vilbert_tpu.core import config as jax_config
+    from vilbert_tpu_torch.core import config as port_config
+    from vilbert_tpu_torch.core.weights import flax_from_state_dict
+    from vilbert_tpu_torch.models.basebert import BaseBertForVLTasks
+    from vilbert_tpu_torch.train.multitask import MultiTaskTrainer
+
+    cfg = tiny_config
+    keys = ("TASK1", "TASK4", "TASK7")
+    batches = {k: v for k, v in _task_batches(cfg).items() if k in keys}
+    model = BaseBertForVLTasks(cfg, num_labels=NUM_LABELS, dropout_prob=0.0,
+                               generator=torch.Generator().manual_seed(3))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_kw = dict(schedule="mannul", warmup_proportion=0.05, head_lr=1e-3, correct_bias=False,
+                  weight_decay=0.01, eps=1e-6)
+    monkeypatch.setattr(jax_multitask, "make_task_loss_fn", functools.partial(
+        jax_multitask.make_task_loss_fn, deterministic=True))
+    jax_tasks = {k: t for k, t in _tasks(jax_config).items() if k in keys}
+    ref = jax_multitask.MultiTaskTrainer(
+        cfg, jax_tasks, {k: _FakeLoader(v, B) for k, v in batches.items()},
+        opt_cfg=jax_config.OptimizerConfig(**opt_kw), num_labels=NUM_LABELS,
+        init_params=jax.tree.map(np.asarray, flax_from_state_dict(init, "basebert")),
+        model_family="basebert")
+    port = MultiTaskTrainer(
+        cfg, {k: t for k, t in _tasks(port_config).items() if k in keys},
+        {k: _FakeLoader(v, B) for k, v in batches.items()},
+        opt_cfg=port_config.OptimizerConfig(**opt_kw), init_model=model,
+        model_family="basebert", device="cpu")
+    assert all(t.mask is None for t in port.tasks.values())
+    for it in range(3):
+        want = ref.train_iteration(it)
+        got = port.train_iteration(it)
+        assert list(got) == list(want) == list(batches)
+        for k in batches:
+            np.testing.assert_allclose(got[k]["loss"].item(), float(want[k]["loss"]),
+                                       rtol=1e-4, err_msg=f"iteration {it} {k}")
+            np.testing.assert_allclose(got[k]["score"].item(), float(want[k]["score"]),
+                                       atol=1e-6, err_msg=f"iteration {it} {k}")
+    got_p = _flatten(flax_from_state_dict(dict(port.model.named_parameters()), "basebert"))
+    want_p = _flatten(ref.state.params)
+    assert set(got_p) == set(want_p)
+    for path, w in want_p.items():
+        np.testing.assert_allclose(got_p[path], np.asarray(w), rtol=1e-4, atol=1e-5,
+                                   err_msg=path)
+    for got, want in ((port.optimizer.state.mu, ref.state.opt_state.mu),
+                      (port.optimizer.state.nu, ref.state.opt_state.nu)):
+        got = _flatten(flax_from_state_dict(got, "basebert"))
+        want = {k: np.asarray(w) for k, w in _flatten(want).items()}
+        top = max(np.abs(w).max() for w in want.values())
+        for path, w in want.items():
+            np.testing.assert_allclose(got[path], w, rtol=0,
+                                       atol=1e-4 * np.abs(w).max() + 1e-6 * top, err_msg=path)
+
+
+def _headless_task(config_module, task_type):
+    """(key, task, batch) of a task type BaseBertForVLTasks has no head for:
+    GQA's 1,533 soft labels and the three-way classifier on TASK1's rows,
+    NLVR2 as TASK12 (its [B, 2R] image pairs)."""
+    rng = np.random.RandomState(5)
+    tasks = _tasks(config_module)
+    if task_type == "VL-binary-classifier":
+        return "TASK12", tasks["TASK12"], None
+    task = dataclasses.replace(tasks["TASK1"], type=task_type)
+    if task_type == "VL-tri-classifier":
+        return "TASK1", task, rng.randint(0, 3, (B,)).astype(np.int64)
+    target = np.zeros((B, 1533), np.float32)
+    target[np.arange(B), rng.randint(0, 1533, B)] = 1.0
+    return "TASK1", task, target
+
+
+@pytest.mark.parametrize("task_type,jax_error", [
+    ("VL-classifier-GQA", (AttributeError, "vil_prediction_gqa")),
+    ("VL-tri-classifier", (AttributeError, "vil_tri_prediction")),
+    ("VL-binary-classifier", (ValueError, "broadcasting")),
+])
+def test_baseline_refuses_task_types_without_a_head(tiny_config, task_type, jax_error):
+    """BaseBertForVLTasks has 7 heads: none for GQA or the three-way
+    classifier, and a binary head over single (text, image) rows where NLVR2
+    scores pairs. The port refuses these at construction; the JAX trainer
+    with ``model_family="basebert"`` fails on the same task at its first
+    iteration (no such output, or NLVR2's [2B] rows against its [B]
+    targets)."""
+    import vilbert_tpu.train.multitask as jax_multitask
+    from vilbert_tpu.core import config as jax_config
+    from vilbert_tpu_torch.core import config as port_config
+    from vilbert_tpu_torch.train.multitask import MultiTaskTrainer
+
+    key, _, target = _headless_task(port_config, task_type)
+    batch = dict(_task_batches(tiny_config, n=1)[key][0])
+    if target is not None:
+        batch["target"] = target
+    with pytest.raises(ValueError, match="no head"):
+        MultiTaskTrainer(tiny_config, {key: _headless_task(port_config, task_type)[1]},
+                         {key: _FakeLoader([batch], B)}, device="cpu",
+                         model_family="basebert")
+    ref = jax_multitask.MultiTaskTrainer(
+        tiny_config, {key: _headless_task(jax_config, task_type)[1]},
+        {key: _FakeLoader([batch], B)}, num_labels=NUM_LABELS, model_family="basebert")
+    with pytest.raises(jax_error[0], match=jax_error[1]):
+        ref.train_iteration(0)
 
 
 def test_from_pretrained_npz_keeps_heads_of_other_shapes(tmp_path, tiny_config):
@@ -520,7 +626,7 @@ def test_from_pretrained_npz_keeps_heads_of_other_shapes(tmp_path, tiny_config):
     from vilbert_tpu_torch.train.multitask import load_pretrained
 
     pre = ViLBERTForPretraining(tiny_config, generator=torch.Generator().manual_seed(1))
-    save_params_npz(str(tmp_path / "pre.npz"), pre.state_dict())
+    save_params_npz(str(tmp_path / "pre.npz"), pre)
     model = ViLBERTForVLTasks(tiny_config, num_labels=NUM_LABELS,
                               generator=torch.Generator().manual_seed(2))
     init = {k: v.clone() for k, v in model.state_dict().items()}

@@ -101,7 +101,7 @@ class TestAttentionKernelOperands:
         if case == "head_dim":
             heads = 32  # d = 32
         elif case == "too_many_keys":
-            q, k, v, bias = _qkv(sk=513)
+            q, k, v, bias = _qkv(sk=1025)
         elif case == "fp16":
             q, k, v, bias = _qkv(dtype=torch.float16)
         elif case == "mixed_dtype":
@@ -124,6 +124,8 @@ class TestAttentionVariants:
         (torch.bfloat16, 1, "tc"), (torch.bfloat16, 101, "tc"), (torch.bfloat16, 128, "tc"),
         (torch.bfloat16, 129, "long_tc"), (torch.bfloat16, 512, "long_tc"),
         (torch.float32, 23, "cc"), (torch.float32, 129, "cc"), (torch.float32, 512, "cc"),
+        (torch.bfloat16, 562, "long_tc"), (torch.bfloat16, 1024, "long_tc"),
+        (torch.float32, 1024, "cc"),
         (torch.bfloat16, 200, "long_tc"), (torch.bfloat16, 257, "long_tc"),
         (torch.bfloat16, 306, "long_tc"),
     ])
@@ -142,7 +144,7 @@ class TestAttentionVariants:
                     bwd_variant(torch.float32, sq, sk)) == ("tc", "cc")
 
     @pytest.mark.parametrize("sq,sk", [(129, 1), (1, 129), (21, 200), (200, 21), (257, 306),
-                                       (512, 512)])
+                                       (512, 512), (562, 562), (1024, 1)])
     @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "long_tc"), (torch.float32, "long")])
     def test_backward_variant_past_128_is_long(self, sq, sk, dtype, want):
         """Past 128 queries or keys, bf16 runs the long variant on the tensor
@@ -151,9 +153,12 @@ class TestAttentionVariants:
 
         assert bwd_variant(dtype, sq, sk) == want
 
-    @pytest.mark.parametrize("sq,sk,ok", [(512, 512, True), (306, 257, True), (513, 20, False),
-                                          (20, 513, False)])
+    @pytest.mark.parametrize("sq,sk,ok", [(512, 512, True), (306, 257, True), (513, 20, True),
+                                          (20, 513, True), (562, 562, True), (1024, 1024, True),
+                                          (1025, 20, False), (20, 1025, False)])
     def test_backward_geometry_takes_up_to_512(self, sq, sk, ok):
+        """Up to BWD_KERNEL_MAX_SEQ (1024; 512 before the single-stream
+        baseline needed 562) queries and keys, and no further."""
         from vilbert_tpu_torch.ops.attention import bwd_kernel_geometry
 
         q, k, v, bias = _qkv(sq=sq, sk=sk, hd=256)

@@ -161,11 +161,50 @@ def test_cli_metrics_equal_the_jax_clis(tmp_path, flags):
     assert want["num_captions"] == 40 and want["pool_size"] == 8
 
 
-def test_cli_refuses_the_baseline():
+@pytest.mark.parametrize("flags", [[], ["--zero_shot"], ["--zero_shot", "--fast_mode"]])
+def test_baseline_cli_metrics_equal_the_jax_clis(tmp_path, flags):
+    """--baseline --synthetic with a JAX-saved single-stream .npz
+    (``BaseBertForVLTasks``, or ``BaseBertForPretraining`` zero-shot, where
+    both CLIs ignore --fast_mode): the port's metrics JSON equals the JAX
+    CLI's. Every weight matrix and table of the JAX initialisation is scaled
+    by 10: at the initialiser's 0.02 the single stream's pooled [CLS] row
+    barely sees the image, and two images' scores tie within 1e-8, where
+    fp32 rounding decides the rank."""
+    from vilbert_tpu.cli.eval_retrieval import main as jax_main
+    from vilbert_tpu.core.checkpoint import load_params, save_params
+    from vilbert_tpu.core.importer import _flatten, _unflatten
+    from vilbert_tpu.models.basebert import BaseBertForPretraining, BaseBertForVLTasks
     from vilbert_tpu_torch.cli.eval_retrieval import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        main(["--synthetic", "--device", "cpu", "--baseline"])
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(_TINY))
+    params = _jax_npz(tmp_path, cfg, BaseBertForPretraining if "--zero_shot" in flags
+                      else BaseBertForVLTasks)
+    save_params(params, _unflatten({k: v * 10 if k.endswith(("kernel", "embedding")) else v
+                                    for k, v in _flatten(load_params(params)).items()}))
+    common = ["--synthetic", "--baseline", "--config", str(cfg), "--params", params, *flags]
+    jax_main([*common, "--output", str(tmp_path / "jax.json")])
+    got = main([*common, "--device", "cpu", "--output", str(tmp_path / "port.json")])
+    want = json.loads((tmp_path / "jax.json").read_text())
+    assert json.loads((tmp_path / "port.json").read_text()) == want == got
+    assert want["num_captions"] == 40 and want["pool_size"] == 8
+
+
+def test_baseline_fast_mode_fails_in_both_clis(tmp_path):
+    """Fine-tuned --baseline --fast_mode: the JAX CLI fails where it
+    concatenates the caption at batch 1 with the image chunk; the port
+    refuses the flags up front."""
+    from vilbert_tpu.cli.eval_retrieval import main as jax_main
+    from vilbert_tpu_torch.cli.eval_retrieval import main
+
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(_TINY))
+    argv = ["--synthetic", "--baseline", "--fast_mode", "--config", str(cfg),
+            "--output", str(tmp_path / "r.json")]
+    with pytest.raises(TypeError, match="concatenate"):
+        jax_main(argv)
+    with pytest.raises(ValueError, match="--baseline --fast_mode"):
+        main([*argv, "--device", "cpu"])
 
 
 def test_demo_prints_the_jax_demos_lines(tmp_path, monkeypatch):

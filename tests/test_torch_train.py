@@ -195,12 +195,21 @@ class TestLosses:
         for name, g, w in zip(want._fields, got, want):
             np.testing.assert_allclose(g.item(), float(w), rtol=1e-6, err_msg=name)
 
-    def test_nce_is_refused(self):
+    def test_nce_is_refused(self, tiny_config):
+        """What NCE still refuses, as the JAX package does: gathered rows
+        (its negatives come from every region), and a draw without a
+        generator."""
         from vilbert_tpu_torch.train.losses import masked_image_loss
+        from vilbert_tpu_torch.train.pretrain import make_pretrain_loss_fn
 
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            masked_image_loss(torch.zeros(1, 3, 4), torch.ones(1, 2), torch.zeros(1, 2, 4),
-                              visual_target=2)
+        args = (torch.zeros(1, 3, 4), torch.ones(1, 2), torch.zeros(1, 2, 4))
+        with pytest.raises(ValueError, match="NCE"):
+            masked_image_loss(args[0][:, 1:], *args[1:], visual_target=2, gathered=True,
+                              generator=torch.Generator())
+        with pytest.raises(ValueError, match="generator"):
+            masked_image_loss(*args, visual_target=2)
+        with pytest.raises(ValueError, match="nce_generator"):
+            make_pretrain_loss_fn(tiny_config.replace(visual_target=2))
 
     @pytest.mark.parametrize("objective", [0, 1, 2])
     def test_gathers_and_labels_match_as_integers(self, tiny_config, objective, monkeypatch):
@@ -288,46 +297,21 @@ class TestStep:
         side is its run_pretraining's loop (build_optimizer with
         step_offset=1, make_train_step) over the deterministic loss."""
         from vilbert_tpu.models.vilbert import ViLBERTForPretraining as JaxModel
-        from vilbert_tpu.parallel.train_step import TrainState, make_train_step
-        from vilbert_tpu.train.optim import build_optimizer as jax_build
-        from vilbert_tpu.train.pretrain import make_pretrain_loss_fn as jax_loss_fn
-        from vilbert_tpu_torch.train.pretrain import run_pretraining
 
-        cfg = tiny_config
-        opt_cfg = OptimizerConfig(learning_rate=1e-3, beta2=0.98, eps=1e-8,
-                                  schedule="warmup_linear", warmup_proportion=0.3)
-        batches = [_batch(cfg, 10 + i) for i in range(5)]
-        model = _port_model(cfg)
-        params = _jax_params(model)
+        _five_steps_match_jax(tiny_config, JaxModel, _port_model(tiny_config), "vilbert")
 
-        tx, _ = jax_build(opt_cfg, params, 5, step_offset=1)
-        state = TrainState.create(params, tx)
-        step_fn = make_train_step(
-            jax_loss_fn(JaxModel(_pallas(cfg)), cfg, deterministic=True, lm_gather=K), tx)
-        want_losses, want_moments = [], None
-        for i, b in enumerate(batches):
-            state, m = step_fn(state, b, jax.random.PRNGKey(i))
-            want_losses.append(float(m["loss"]))
-            if i == 0:  # copied: the next step donates the state
-                want_moments = [{k: np.array(v) for k, v in _flatten(t).items()}
-                                 for t in (state.opt_state.mu, state.opt_state.nu)]
+    def test_five_steps_of_basebert_run_pretraining_match_jax(self, tiny_config):
+        """The same for the single-stream baseline (``model_family=
+        "basebert"``): its flax paths through the bridge, its losses, its
+        moments; a first moment summed from cancelling terms (the LM
+        transform's, over every gathered token) carries the rounding of the
+        larger ones, so each moment is held within 1e-6 of its tensor's
+        largest entry too."""
+        from vilbert_tpu.models.basebert import BaseBertForPretraining as JaxModel
+        from vilbert_tpu_torch.models.basebert import BaseBertForPretraining
 
-        got_losses, got_moments = [], []
-
-        def hook(step, st, metrics):
-            got_losses.append(float(metrics["loss"]))
-            if step == 0:
-                mu, nu = st.optimizer.state.mu, st.optimizer.state.nu
-                got_moments.extend([_flax(mu), _flax(nu)])
-
-        state = run_pretraining(cfg, opt_cfg, batches, num_steps=5, model=model, device="cpu",
-                                lm_gather=K, log_every=0, hooks=[hook])
-        assert state.step == 5 and state.optimizer.state.count == 5
-        np.testing.assert_allclose(got_losses, want_losses, rtol=1e-5)
-        for got, want in zip(got_moments, want_moments):
-            for path, w in want.items():
-                np.testing.assert_allclose(got[path], np.asarray(w), rtol=1e-4, atol=1e-9,
-                                           err_msg=path)
+        model = BaseBertForPretraining(tiny_config, generator=torch.Generator().manual_seed(0))
+        _five_steps_match_jax(tiny_config, JaxModel, model, "basebert", moment_floor=1e-6)
 
     def test_grad_accumulation_is_the_mean(self, tiny_config):
         """Two microbatches of 2 give the mean of their gradients and losses."""
@@ -353,6 +337,55 @@ class TestStep:
             torch.testing.assert_close(p.grad, want[n], rtol=1e-5, atol=1e-7)
 
 
+
+
+def _five_steps_match_jax(cfg, jax_model_cls, model, family, moment_floor=0.0):
+    """5 steps of the port's run_pretraining against the JAX loop from the
+    same weights: losses within 1e-5 relative, the moments after step 1
+    within 1e-4 relative or 1e-9 absolute, plus ``moment_floor`` of their
+    tensor's largest entry."""
+    from vilbert_tpu.parallel.train_step import TrainState, make_train_step
+    from vilbert_tpu.train.optim import build_optimizer as jax_build
+    from vilbert_tpu.train.pretrain import make_pretrain_loss_fn as jax_loss_fn
+    from vilbert_tpu_torch.core.weights import flax_from_state_dict
+    from vilbert_tpu_torch.train.pretrain import run_pretraining
+
+    JaxModel = jax_model_cls
+    opt_cfg = OptimizerConfig(learning_rate=1e-3, beta2=0.98, eps=1e-8,
+                              schedule="warmup_linear", warmup_proportion=0.3)
+    batches = [_batch(cfg, 10 + i) for i in range(5)]
+    params = flax_from_state_dict(model.state_dict(), family)
+    tx, _ = jax_build(opt_cfg, params, 5, step_offset=1)
+    state = TrainState.create(params, tx)
+    step_fn = make_train_step(
+        jax_loss_fn(JaxModel(_pallas(cfg)), cfg, deterministic=True, lm_gather=K), tx)
+    want_losses, want_moments = [], None
+    for i, b in enumerate(batches):
+        state, m = step_fn(state, b, jax.random.PRNGKey(i))
+        want_losses.append(float(m["loss"]))
+        if i == 0:  # copied: the next step donates the state
+            want_moments = [{k: np.array(v) for k, v in _flatten(t).items()}
+                            for t in (state.opt_state.mu, state.opt_state.nu)]
+
+    got_losses, got_moments = [], []
+
+    def hook(step, st, metrics):
+        got_losses.append(float(metrics["loss"]))
+        if step == 0:
+            mu, nu = st.optimizer.state.mu, st.optimizer.state.nu
+            got_moments.extend(_flatten(flax_from_state_dict(t, family)) for t in (mu, nu))
+
+    state = run_pretraining(cfg, opt_cfg, batches, num_steps=5, model=model, device="cpu",
+                            lm_gather=K, log_every=0, hooks=[hook], model_family=family)
+    assert state.step == 5 and state.optimizer.state.count == 5
+    np.testing.assert_allclose(got_losses, want_losses, rtol=1e-5)
+    for got, want in zip(got_moments, want_moments):
+        for path, w in want.items():
+            w = np.asarray(w)
+            np.testing.assert_allclose(got[path], w, rtol=1e-4,
+                                       atol=1e-9 + moment_floor * np.abs(w).max(), err_msg=path)
+
+
 class TestDropoutOn:
     def test_same_seed_same_steps(self, tiny_config):
         """Two runs from one seed give bit-identical losses; another seed
@@ -373,6 +406,32 @@ class TestDropoutOn:
 
         a, b, c = losses(0), losses(0), losses(1)
         assert a == b and a != c and all(np.isfinite(a))
+
+    @pytest.mark.parametrize("family", ["vilbert", "basebert"])
+    def test_nce_same_seed_same_steps(self, tiny_config, family):
+        """Visual target 2 with dropout: the negatives follow the run's seed
+        (two runs of one seed give bit-identical losses, another seed other
+        losses), and the validation pass draws the same negatives each
+        time it runs."""
+        from vilbert_tpu_torch.train.pretrain import evaluate_pretraining, run_pretraining
+
+        cfg = tiny_config.replace(visual_target=2, num_negative=6, hidden_dropout_prob=0.1,
+                                  attention_probs_dropout_prob=0.1)
+        batches = [_batch(cfg, 30 + i, visual_target=2) for i in range(2)]
+        opt_cfg = OptimizerConfig(learning_rate=1e-3, schedule="constant")
+
+        def run(seed):
+            out = []
+            state = run_pretraining(cfg, opt_cfg, batches, num_steps=2, seed=seed, device="cpu",
+                                    lm_gather=K, log_every=0, model_family=family,
+                                    hooks=[lambda s, st, m: out.append(m["loss"].item())])
+            return out, state.model
+
+        (a, model), (b, _), (c, _) = run(0), run(0), run(1)
+        assert a == b and a != c and all(np.isfinite(a))
+        v1, v2 = (evaluate_pretraining(cfg, model, batches, lm_gather=K, device="cpu")
+                  for _ in range(2))
+        assert v1 == v2 and np.isfinite(v1["masked_loss_v"])
 
 
 class TestCLI:
@@ -412,9 +471,54 @@ class TestCLI:
         for path, want in _flatten(jax_tree).items():
             np.testing.assert_array_equal(_flax(state.model.state_dict())[path], want)
 
-    @pytest.mark.parametrize("flag", [["--baseline"], ["--coordinator", "x"],
-                                      ["--num_processes", "2"], ["--num_shards", "2"],
-                                      ["--visual_target", "2"]])
+    @pytest.mark.parametrize("flags", [["--baseline"], ["--visual_target", "2"],
+                                       ["--baseline", "--visual_target", "2"]])
+    def test_baseline_and_nce_params_final_have_the_jax_tree(self, tmp_path, flags,
+                                                              monkeypatch):
+        """train_concap --synthetic with --baseline and/or --visual_target 2
+        (NCE over 128 negatives) runs 2 steps with finite losses and writes
+        a params_final.npz of exactly the JAX model's tree (paths and
+        shapes: BaseBertForPretraining for the baseline, the image head
+        predicting 2048-d features under NCE)."""
+        from vilbert_tpu.core.checkpoint import load_params
+        from vilbert_tpu.core.config import ModelConfig
+        from vilbert_tpu.models.basebert import BaseBertForPretraining
+        from vilbert_tpu.models.vilbert import ViLBERTForPretraining as JaxModel
+        from vilbert_tpu_torch.cli.train_concap import main
+
+        cfg_path = tmp_path / "tiny.json"
+        cfg_path.write_text(json.dumps(dict(
+            vocab_size=99, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+            intermediate_size=64, max_position_embeddings=64, v_feature_size=2048,
+            v_hidden_size=24, v_num_hidden_layers=2, v_num_attention_heads=4,
+            v_intermediate_size=48, v_target_size=1601, bi_hidden_size=32,
+            bi_num_attention_heads=4, v_biattention_id=[0, 1], t_biattention_id=[0, 1])))
+        losses = []
+        import vilbert_tpu_torch.train.pretrain as port_pretrain
+
+        run = port_pretrain.run_pretraining
+
+        def spy(*a, hooks=None, **kw):
+            hooks = [*(hooks or ()), lambda s, st, m: losses.append(float(m["loss"]))]
+            return run(*a, hooks=hooks, **kw)
+
+        monkeypatch.setattr(port_pretrain, "run_pretraining", spy)
+        main(["--synthetic", "--device", "cpu", "--num_steps", "2", "--batch_size", "8",
+              "--config", str(cfg_path), "--output_dir", str(tmp_path / "out"), *flags])
+        assert len(losses) == 2 and all(np.isfinite(losses))
+        vt = 2 if "--visual_target" in flags else 0
+        cfg = ModelConfig.from_json_file(str(cfg_path), visual_target=vt)
+        model = BaseBertForPretraining(cfg) if "--baseline" in flags else JaxModel(cfg)
+        shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), np.zeros((1, 5), np.int32),
+                                np.zeros((1, 3, 2048), np.float32),
+                                np.zeros((1, 3, 5), np.float32))["params"]
+        got = _flatten(load_params(str(tmp_path / "out" / "params_final.npz")))
+        assert {k: v.shape for k, v in got.items()} == {
+            k: s.shape for k, s in _flatten(shapes).items()}
+        assert got["bert.embeddings.word_embeddings.embedding"].shape == (99, 32)
+
+    @pytest.mark.parametrize("flag", [["--coordinator", "x"], ["--num_processes", "2"],
+                                      ["--num_shards", "2"]])
     def test_refused_flags_name_their_roadmap_item(self, flag):
         from vilbert_tpu_torch.cli.train_concap import main
 

@@ -11,10 +11,14 @@ eval_retrieval.py and ``vilbert_tpu.cli.eval_retrieval``).
   python -m vilbert_tpu_torch.cli.eval_retrieval --synthetic --device cpu
 
 Writes the metrics (r1, r5, r10, medr, meanr, num_captions, pool_size) as
-JSON to ``--output``. ``--baseline`` raises: the single-stream baseline is
-not ported yet (ROADMAP A11). On a CUDA device the model runs the port's
-attention and LayerNorm kernels, built from ``vilbert_tpu_torch/csrc`` at
-first use.
+JSON to ``--output``. ``--baseline`` scores with the single-stream baseline
+(``BaseBertForPretraining`` under ``--zero_shot``, ``BaseBertForVLTasks``
+otherwise). The baseline has no text stream to run once: ``--baseline
+--fast_mode`` without ``--zero_shot`` raises a ValueError (the JAX CLI fails
+on it when it concatenates a caption at batch 1 with the image chunk),
+and zero-shot ignores ``--fast_mode`` in both. On a CUDA device the model
+runs the port's attention and LayerNorm kernels, built from
+``vilbert_tpu_torch/csrc`` at first use.
 """
 
 from __future__ import annotations
@@ -44,7 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab", default="")
     p.add_argument("--params", default="", help=".npz (flax param paths) or reference .bin")
     p.add_argument("--zero_shot", action="store_true")
-    p.add_argument("--baseline", action="store_true", help="not ported yet (ROADMAP A11)")
+    p.add_argument("--baseline", action="store_true",
+                   help="score with the single-stream baseline (reference eval_retrieval.py "
+                        "--baseline)")
     p.add_argument("--pool_size", type=int, default=1000)
     p.add_argument("--chunk", type=int, default=500)
     p.add_argument("--max_seq_length", type=int, default=30)
@@ -127,9 +133,10 @@ def run(args: argparse.Namespace, *, store=None, keys=None, caption_entries=None
     ``store``, ``keys`` and ``caption_entries`` ([(text, image id)]) replace
     the data the flags name; ``model`` replaces the one built from the
     flags (it must match ``--zero_shot`` and ``--fast_mode``)."""
-    if args.baseline:
-        raise NotImplementedError(
-            "--baseline: the single-stream baseline is not ported yet (ROADMAP A11)")
+    if args.baseline and args.fast_mode and not args.zero_shot:
+        raise ValueError(
+            "--baseline --fast_mode: the single-stream baseline has no text stream to run "
+            "once per caption; run it without --fast_mode")
 
     from vilbert_tpu_torch.core.config import ModelConfig
     from vilbert_tpu_torch.data.tasks import _pad_text
@@ -159,9 +166,12 @@ def run(args: argparse.Namespace, *, store=None, keys=None, caption_entries=None
 
     if model is None:
         from vilbert_tpu_torch.core.weights import load_weights
+        from vilbert_tpu_torch.models.basebert import BaseBertForPretraining, BaseBertForVLTasks
         from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining, ViLBERTForVLTasks
 
-        cls = ViLBERTForPretraining if args.zero_shot else ViLBERTForVLTasks
+        cls = {(False, True): ViLBERTForPretraining, (False, False): ViLBERTForVLTasks,
+               (True, True): BaseBertForPretraining,
+               (True, False): BaseBertForVLTasks}[args.baseline, args.zero_shot]
         model = cls(model_cfg, generator=torch.Generator().manual_seed(0))
         if args.params:
             load_weights(model, args.params)

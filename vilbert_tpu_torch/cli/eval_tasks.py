@@ -9,9 +9,10 @@ reference eval_tasks.py and ``vilbert_tpu.cli.eval_tasks``).
   # smoke test without data artifacts: --synthetic
 
 Writes, per task, ``metrics_<task>_<split>.json`` and
-``<task>_<split>_result.json`` into ``--output_dir``. On a CUDA device the
-attention and LayerNorm of the model run the port's kernels, built from
-``vilbert_tpu_torch/csrc`` at first use.
+``<task>_<split>_result.json`` into ``--output_dir``. ``--baseline``
+evaluates the single-stream baseline (``models.basebert.BaseBertForVLTasks``).
+On a CUDA device the attention and LayerNorm of the model run the port's
+kernels, built from ``vilbert_tpu_torch/csrc`` at first use.
 """
 
 from __future__ import annotations
@@ -24,10 +25,12 @@ import os
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
+from torch import nn
 
 from vilbert_tpu_torch.core.config import ModelConfig, TaskConfig
 from vilbert_tpu_torch.core.weights import load_weights
 from vilbert_tpu_torch.eval.evaluators import evaluate_task, save_results
+from vilbert_tpu_torch.models.basebert import BaseBertForVLTasks
 from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks
 
 
@@ -46,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--task_specific_tokens", action="store_true")
     p.add_argument("--dynamic_attention", action="store_true")
     p.add_argument("--baseline", action="store_true",
-                   help="single-stream baseline (not ported yet)")
+                   help="evaluate the single-stream baseline (reference eval_tasks.py --baseline)")
     p.add_argument("--batch_size", type=int, default=0,
                    help="override the per-task eval batch size")
     p.add_argument("--int8", action="store_true",
@@ -62,17 +65,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_model(
-    model_cfg: ModelConfig, *, params: str = "", seed: int = 0, device: str = "cuda"
-) -> ViLBERTForVLTasks:
-    """The VL-tasks model, seeded, with ``params`` loaded, on ``device``, in eval."""
-    model = ViLBERTForVLTasks(model_cfg, generator=torch.Generator().manual_seed(seed))
+    model_cfg: ModelConfig, *, params: str = "", seed: int = 0, device: str = "cuda",
+    baseline: bool = False,
+) -> nn.Module:
+    """The VL-tasks model (the single-stream baseline's with ``baseline``),
+    seeded, with ``params`` loaded, on ``device``, in eval."""
+    cls = BaseBertForVLTasks if baseline else ViLBERTForVLTasks
+    model = cls(model_cfg, generator=torch.Generator().manual_seed(seed))
     if params:
         load_weights(model, params)
     return model.to(device).eval()
 
 
 def run_eval(
-    model: ViLBERTForVLTasks,
+    model: nn.Module,
     model_cfg: ModelConfig,
     tasks: Mapping[str, TaskConfig],
     loaders: Mapping[str, Iterable],
@@ -137,9 +143,6 @@ def _label2ans(task: TaskConfig) -> Optional[List[str]]:
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    if args.baseline:
-        raise NotImplementedError(
-            "--baseline: the single-stream baseline is not ported yet (ROADMAP A11)")
     if args.int8:
         raise NotImplementedError("--int8: int8 inference is not ported yet (ROADMAP A13)")
 
@@ -173,7 +176,8 @@ def main(argv=None) -> None:
         _, loaders = load_datasets(selected, tokenizer, with_val=True)
         label2ans = {k: _label2ans(t) for k, t in selected.items()}
 
-    model = build_model(model_cfg, params=args.params, seed=args.seed, device=args.device)
+    model = build_model(model_cfg, params=args.params, seed=args.seed, device=args.device,
+                        baseline=args.baseline)
     run_eval(model, model_cfg, selected, loaders, output_dir=args.output_dir,
              split=args.split, label2ans=label2ans)
 

@@ -16,7 +16,11 @@ optimizer state, step; ``core.checkpoint``) every N steps into
 ``<output_dir>/ckpt``; ``--resume_file`` names such a directory to resume
 from (its latest step, or ``--start_step``). ``--bf16_grads`` takes the
 gradients in bf16, ``--bf16_adam_state`` stores the Adam moments in bf16.
-On a CUDA device the model runs the port's attention (forward with dropout,
+``--baseline`` pretrains the single-stream baseline
+(``models.basebert.BaseBertForPretraining``; ``--from_pretrained`` then maps
+reference names as the baseline's), and ``--visual_target 2`` trains the
+masked regions by NCE against ``--num_negative`` sampled negatives. On a
+CUDA device the model runs the port's attention (forward with dropout,
 backward) and LayerNorm kernels, built from ``vilbert_tpu_torch/csrc`` at
 first use.
 """
@@ -33,7 +37,6 @@ from vilbert_tpu_torch.core.config import ModelConfig, OptimizerConfig
 
 #: flags of the JAX CLI that the port refuses, and the ROADMAP item of each
 _REFUSED = {
-    "baseline": "the single-stream baseline (ROADMAP A11)",
     "coordinator": "multi-GPU training (ROADMAP A12)",
 }
 
@@ -64,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--visual_target", type=int, default=0)
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--pretrained_lr_scale", type=float, default=1.0)
-    p.add_argument("--baseline", action="store_true", help="not ported yet")
+    p.add_argument("--baseline", action="store_true",
+                   help="pretrain the single-stream baseline (reference --baseline)")
     p.add_argument("--adam_epsilon", type=float, default=1e-8)
     p.add_argument("--bf16_adam_state", action="store_true",
                    help="store the Adam moments in bfloat16 (they accumulate in fp32)")
@@ -113,8 +117,10 @@ def check_flags(args: argparse.Namespace) -> None:
             raise NotImplementedError(f"--{flag}: {what} is not ported yet")
     if args.num_processes > 1 or args.num_shards > 1:
         raise NotImplementedError(f"--num_processes/--num_shards: {_REFUSED['coordinator']}")
-    if args.visual_target == 2:
-        raise NotImplementedError("--visual_target 2 (NCE) is not ported yet (ROADMAP A4)")
+
+
+def model_family(args: argparse.Namespace) -> str:
+    return "basebert" if args.baseline else "vilbert"
 
 
 def synthetic_stores(batch_size: int):
@@ -216,9 +222,10 @@ def train(args: argparse.Namespace, hooks: Optional[list] = None):
         import torch
 
         from vilbert_tpu_torch.core.weights import load_weights
-        from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
+        from vilbert_tpu_torch.train.pretrain import pretrain_model
 
-        model = ViLBERTForPretraining(model_cfg, generator=torch.Generator().manual_seed(args.seed))
+        model = pretrain_model(model_cfg, model_family(args),
+                               generator=torch.Generator().manual_seed(args.seed))
         load_weights(model, args.from_pretrained)
 
     hooks = list(hooks or ())
@@ -238,7 +245,8 @@ def train(args: argparse.Namespace, hooks: Optional[list] = None):
         model_cfg, optimizer_config(args), loader, num_steps=num_steps, seed=args.seed,
         img_weight=args.img_weight, grad_accum=args.gradient_accumulation_steps,
         lm_gather=args.seq_len // 3 if args.lm_gather == -1 else args.lm_gather,
-        img_gather=args.img_gather, model=model, device=args.device,
+        img_gather=args.img_gather, model=model, model_family=model_family(args),
+        device=args.device,
         val_loader=val_loader, val_every=val_every, hooks=hooks,
         freeze_prefix=freeze_prefixes(str(args.freeze)),
         resume_dir=args.resume_file, start_step=args.start_step,
@@ -257,7 +265,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from vilbert_tpu_torch.core.weights import save_params_npz
 
     path = os.path.join(args.output_dir, "params_final.npz")
-    save_params_npz(path, state.model.state_dict())
+    save_params_npz(path, state.model)
     logging.info("saved %s", path)
     return state
 

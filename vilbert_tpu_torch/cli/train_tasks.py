@@ -28,7 +28,6 @@ from typing import Optional, Sequence
 
 #: flags of the JAX CLI that the port refuses, and the ROADMAP item of each
 _REFUSED = {
-    "baseline": "the single-stream baseline (ROADMAP A11)",
     "coordinator": "multi-GPU training (ROADMAP A12)",
 }
 
@@ -62,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["mannul", "automatic", "cosine", "cosine_warm",
                             "warmup_linear", "warmup_constant", "constant"])
     p.add_argument("--optim", default="adamw", choices=["adamw", "radam"])
-    p.add_argument("--baseline", action="store_true", help="not ported yet")
+    p.add_argument("--baseline", action="store_true",
+                   help="single-stream basebert model (train_tasks.py:232-237)")
     p.add_argument("--resume_file", default="",
                    help="checkpoint directory to resume the full training state from")
     p.add_argument("--checkpoint_every", type=int, default=0,
@@ -185,6 +185,7 @@ def build_trainer(args: argparse.Namespace, task_cfgs=None, loaders=None, *,
         val_loaders=val_loaders,
         seed=args.seed,
         num_train_epochs=args.num_epochs,
+        model_family="basebert" if args.baseline else "vilbert",
         from_pretrained=args.from_pretrained,
         device=args.device,
     )
@@ -217,7 +218,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from vilbert_tpu_torch.core.weights import save_params_npz
 
     path = os.path.join(args.output_dir, "params_final.npz")
-    save_params_npz(path, trainer.model.state_dict())
+    save_params_npz(path, trainer.model)
     logging.info("saved %s", path)
     return trainer
 

@@ -17,6 +17,13 @@ parameters are not transposed. The reference's tied LM decoder and dead
 - ``load_weights``: ``.npz`` or a reference ``.bin`` checkpoint into a model
   (the ``.bin`` path goes through the importer's key migration: ``module.``
   and ``bert.`` prefixes, gamma/beta, weight-norm folding).
+
+``family`` names the model family the parameter names belong to:
+``"vilbert"`` (the two-stream models) or ``"basebert"`` (the single-stream
+baseline, ``models.basebert``), whose reference names map onto other flax
+paths (``bert.encoder.layer.N`` to ``bert.layer_N``, ``cls.predictions``
+to ``predictions``, ...: the importer's ``_BASEBERT_REWRITES``). The
+functions that take a model read it from the model class's ``family``.
 """
 
 from __future__ import annotations
@@ -41,26 +48,37 @@ from vilbert_tpu_torch.core.importer import (
 logger = logging.getLogger(__name__)
 
 
-def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+FAMILIES = ("vilbert", "basebert")
+
+
+def _check_family(family: str) -> None:
+    if family not in FAMILIES:
+        raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
+
+
+def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                         family: str = "vilbert") -> Dict[str, Any]:
     """Port ``state_dict`` -> nested flax params tree of numpy arrays."""
+    _check_family(family)
     flat = {}
     for key, tensor in state_dict.items():
-        fkey = _to_flax_key(key)
+        fkey = _to_flax_key(key, family)
         if fkey is None:
             continue
         arr = tensor.detach().cpu().numpy().copy()
-        flat[fkey] = arr.T.copy() if _needs_transpose(key) else arr
+        flat[fkey] = arr.T.copy() if _needs_transpose(key, family) else arr
     return _unflatten(flat)
 
 
 def state_dict_from_flax(
-    params: Mapping[str, Any], keys: Iterable[str]
+    params: Mapping[str, Any], keys: Iterable[str], family: str = "vilbert"
 ) -> Dict[str, torch.Tensor]:
     """Flax params tree -> ``state_dict`` over the port parameter names
     ``keys`` (``model.state_dict().keys()``). Every key must be provided and
     every flax leaf used: a mismatch raises ValueError naming the keys."""
+    _check_family(family)
     flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
-    by_flax = {_to_flax_key(k): k for k in keys}
+    by_flax = {_to_flax_key(k, family): k for k in keys}
     missing = sorted(set(by_flax) - set(flat))
     unused = sorted(set(flat) - set(by_flax))
     if missing or unused:
@@ -70,7 +88,7 @@ def state_dict_from_flax(
         )
     out = {}
     for fkey, key in by_flax.items():
-        arr = flat[fkey].T if _needs_transpose(key) else flat[fkey]
+        arr = flat[fkey].T if _needs_transpose(key, family) else flat[fkey]
         out[key] = torch.tensor(np.ascontiguousarray(arr))
     return out
 
@@ -81,20 +99,22 @@ def load_params_npz(path: str) -> Dict[str, Any]:
         return _unflatten({k: z[k] for k in z.files})
 
 
-def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
-    """Port ``state_dict`` -> flat ``.npz`` keyed by dotted flax path."""
+def save_params_npz(path: str, model: nn.Module) -> None:
+    """``model``'s weights -> flat ``.npz`` keyed by dotted flax path."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez(path, **_flatten(flax_from_state_dict(state_dict)))
+    np.savez(path, **_flatten(flax_from_state_dict(model.state_dict(), model.family)))
 
 
 def load_weights(model: nn.Module, path: str) -> None:
     """Load ``.npz`` (flax paths) or a reference torch ``.bin`` into ``model``."""
+    family = model.family
     keys = list(model.state_dict().keys())
     if path.endswith(".npz"):
         params = load_params_npz(path)
     else:
-        target = flax_from_state_dict(model.state_dict())
-        params, report = import_torch_state_dict(load_torch_checkpoint(path), target)
+        target = flax_from_state_dict(model.state_dict(), family)
+        params, report = import_torch_state_dict(load_torch_checkpoint(path), target,
+                                                 family=family)
         logger.info("loaded %d params from %s (%d kept at init, %d without destination)",
                     len(report.loaded), path, len(report.missing), len(report.unexpected))
-    model.load_state_dict(state_dict_from_flax(params, keys))
+    model.load_state_dict(state_dict_from_flax(params, keys, family))

@@ -38,12 +38,14 @@
 //   past Sk set to -inf; the mask is hashed at each accumulator element's
 //   own (row, col); the normalized, dropped P is packed to bf16 in
 //   registers as the A operand of P V on the same mma.
-// * tensor cores past 128 keys (ltc::, bf16, 128 < Sk <= 512: Visual7w's
-//   200 regions, GuessWhatPointing's 257 tokens and 306 regions). The
+// * tensor cores past 128 keys (ltc::, bf16, 128 < Sk <= 1024: Visual7w's
+//   200 regions, GuessWhatPointing's 257 tokens and 306 regions, and the
+//   single-stream baseline's 256 + 306 = 562 tokens and regions). The
 //   whole key axis no longer fits beside the query tile, so K and V stream
 //   through shared memory in tiles of 64 keys, two stages deep: tile t + 1
 //   lands by cp.async while tile t's S, softmax and P V run, one barrier a
-//   tile (about 105 KB a block at d = 128, so two blocks share an SM). A
+//   tile (about 105 KB a block at d = 128, so two blocks share an SM): the
+//   shared memory does not grow with Sk, and the cap is a constant. A
 //   block is one (batch, head) and as few strips of 16 query rows, at most
 //   8, as cover Sq in evenly filled blocks. Per step of a key tile (the
 //   whole 64 keys at
@@ -65,10 +67,13 @@
 //   bound; exact normalization before P V would take a second walk over
 //   the keys and a third product. It takes Sk <= 128 too, for timing beside
 //   tc::, but the wrapper does not send those shapes here.
-// * CUDA cores (cc::, fp32 at any Sk <= 512): one block per (batch, head,
+// * CUDA cores (cc::, fp32 at any Sk <= 1024): one block per (batch, head,
 //   32 query rows), fp32 FMAs from fp32 tiles in shared memory, 4 x 4
-//   register tiles; keys walked in tiles of 64 rows, so Sk up to 512 fits
-//   (115 KB at d = 128, hence cudaFuncSetAttribute). It takes bf16 too and
+//   register tiles; keys walked in tiles of 64 rows. What grows with Sk is
+//   the fp32 score block [32][Sk + 1] beside the q tile and one key tile:
+//   at Sk = 1024 and d = 128, 32.8 + 16.5 + 33.0 K floats = 181 KB of the
+//   227 KB a block may take (hence cudaFuncSetAttribute), which is what
+//   caps it; one block an SM there. It takes bf16 too and
 //   served it before the tensor-core variants; its bf16 times on an H100
 //   80GB HBM3 at 700 W: 5.210 ms at VQA image self-attention (B 1024,
 //   101 x 101, h 8, d 128, rate 0), 0.327 ms at CC image self-attention
@@ -93,7 +98,7 @@ namespace cc {
 constexpr int kThreads = 128;
 constexpr int kBlockQ = 32;   // query rows per block
 constexpr int kBlockK = 64;   // key/value rows per shared-memory tile
-constexpr int kMaxKeys = 512;
+constexpr int kMaxKeys = 1024;  // the [32][Sk + 1] fp32 scores fill shared memory
 // thread (ty, tx), ty in [0, 8), tx in [0, 16): query rows 4 ty .. 4 ty + 3,
 // keys (and output columns) tx, tx + 16, ...
 constexpr int kTx = 16;
@@ -394,14 +399,14 @@ cudaError_t launch_keys(const Args& a, int batch, cudaStream_t stream) {
 
 }  // namespace tc
 
-// ---- tensor-core variant past 128 keys (bf16, Sk <= 512) -------------------
+// ---- tensor-core variant past 128 keys (bf16, Sk <= 1024) ------------------
 namespace ltc {
 
 constexpr int kMaxQWarps = 8;              // most warps a block, 16 query rows each
 constexpr int kBlockQ = 16 * kMaxQWarps;   // most query rows a block
 constexpr int kBlockK = 64;                // keys a streamed tile
 constexpr int kStages = 2;                 // key tiles in shared memory: in use, landing
-constexpr int kMaxKeys = 512;
+constexpr int kMaxKeys = 1024;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // q tile [q_rows][D + 8], then kStages of k [kBlockK][D + 8], of v (bf16)
@@ -636,7 +641,7 @@ extern "C" int vt_attention_fwd_tc(const void* q, const void* k, const void* v, 
 }
 
 // The tensor-core variant past 128 keys: bf16 q, k, v and out, fp32 bias,
-// 1 <= Sk <= 512 (Sk <= 128 too, for comparing it with vt_attention_fwd_tc),
+// 1 <= Sk <= 1024 (Sk <= 128 too, for comparing it with vt_attention_fwd_tc),
 // head_dim 64 or 128; the alignment and stride rules and the arguments of
 // vt_attention_fwd_tc; cudaErrorInvalidValue for what it does not take (the
 // Python wrapper checks these first).

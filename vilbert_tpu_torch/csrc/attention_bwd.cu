@@ -45,8 +45,10 @@
 //   CC text self-attention (36 x 36, h 12, d 64). chip_smoke.py times it
 //   beside the tensor-core variant.
 //
-// Past 128 (to 512) the work is cut into tiles of 64 queries and 64 keys
-// over two kernels and an fp32 workspace of row statistics:
+// Past 128 (to 1024) the work is cut into tiles of 64 queries and 64 keys
+// over two kernels and an fp32 workspace of row statistics [3][B h][Sq],
+// which the wrapper sizes: shared memory and registers do not grow with
+// the length, so the cap is a constant:
 //
 // * long, CUDA cores (lk::, fp32; it takes bf16 too), and
 // * long, tensor cores (lktc::, bf16), the same two kernels on mma.sync.
@@ -497,7 +499,7 @@ cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
 
 }  // namespace tc
 
-// ---- long-sequence variant (CUDA cores, 128 < Sq or Sk <= 512) -----------
+// ---- long-sequence variant (CUDA cores, 128 < Sq or Sk <= 1024) ----------
 //
 // A (batch, head) no longer fits one block, so the work is cut into tiles of
 // 64 queries and 64 keys and spread over two kernels, each tile walking the
@@ -525,7 +527,7 @@ namespace lk {
 constexpr int kTile = 64;            // queries and keys a tile
 constexpr int kR = kTile / cc::kT;   // rows (and columns) of a tile per thread
 constexpr int kPS = kTile + 1;       // row stride of the staged ds / P_drop tiles
-constexpr int kMaxSeq = 512;
+constexpr int kMaxSeq = 1024;
 
 // reductions over the 16 threads of one tile row (tx = lane % 16)
 __device__ __forceinline__ float row_max16(float x) {
@@ -1185,7 +1187,7 @@ extern "C" int vt_attention_bwd_tc(const void* q, const void* k, const void* v, 
   return (int)cudaErrorInvalidValue;
 }
 
-// The long-sequence variant: 1 <= Sq, Sk <= 512, fp32 or bf16 (dtype as for
+// The long-sequence variant: 1 <= Sq, Sk <= 1024, fp32 or bf16 (dtype as for
 // vt_attention_bwd), head_dim 64 or 128. stats is an fp32 workspace of
 // 3 * batch * num_heads * sq elements that the caller allocates; it holds
 // each row's softmax max, sum and D between the two kernels. Other
@@ -1217,7 +1219,7 @@ extern "C" int vt_attention_bwd_long(const void* q, const void* k, const void* v
 }
 
 // The long-sequence variant on the tensor cores: bf16 q, k, v, g and
-// outputs, fp32 bias and workspace, 1 <= Sq, Sk <= 512, head_dim 64 or 128;
+// outputs, fp32 bias and workspace, 1 <= Sq, Sk <= 1024, head_dim 64 or 128;
 // q, k, v and g 16-byte aligned with batch and row strides that are
 // multiples of 8 elements. Arguments as for vt_attention_bwd_long without
 // the dtype; cudaErrorInvalidValue for what it does not take (the Python

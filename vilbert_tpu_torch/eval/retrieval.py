@@ -46,7 +46,8 @@ def ranking_metrics(score_matrix: np.ndarray, target_indices: np.ndarray) -> Dic
 def make_vil_logit_scorer(model) -> Callable:
     """score(question, features, spatials, input_mask, segment_ids,
     image_mask) -> [chunk] fp32 scores through the ``vil_logit`` head of a
-    ``ViLBERTForVLTasks`` (fine-tuned mode), in eval mode, no gradients."""
+    ``ViLBERTForVLTasks`` or ``BaseBertForVLTasks`` (fine-tuned mode), in
+    eval mode, no gradients."""
 
     @torch.no_grad()
     def score(question, features, spatials, input_mask, segment_ids, image_mask):
@@ -60,7 +61,8 @@ def make_vil_logit_scorer(model) -> Callable:
 
 def make_alignment_scorer(model) -> Callable:
     """The same through softmax(seq_relationship)[:, 0] of a
-    ``ViLBERTForPretraining`` (zero-shot, reference eval_retrieval.py:281-296)."""
+    ``ViLBERTForPretraining`` or ``BaseBertForPretraining`` (zero-shot,
+    reference eval_retrieval.py:281-296)."""
 
     @torch.no_grad()
     def score(question, features, spatials, input_mask, segment_ids, image_mask):

@@ -8,8 +8,11 @@ embedding table, so there is no ``cls.predictions.decoder`` parameter); the
 co-attention mask is accepted and inert; heads are computed selectively
 (``heads=``), ``None`` computes all of them.
 
-Knobs this slice does not carry are refused at construction: int8 matmuls,
-``visualization`` and ``in_batch_pairs``. The pure-layout knobs
+Knobs this slice does not carry are refused at construction: int8 matmuls
+and ``visualization``. ``in_batch_pairs`` expands a batch of B texts and B
+images to the B^2 (text i, image j) pairs once, just before the first
+connection layer, and composes with ``fast_mode`` as in the JAX package
+(the expansion first, then the broadcast). The pure-layout knobs
 (``head_major_attention``, ``fused_qkv``, ``proj_impl``, ``remat``) and the
 kernel switches (``use_pallas_*``: the CUDA path always runs the kernels)
 change no parameter and no arithmetic and are ignored.
@@ -47,10 +50,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.visualization:
         raise NotImplementedError(
             "visualization (attention maps) is not ported yet (ROADMAP A13)"
-        )
-    if cfg.in_batch_pairs:
-        raise NotImplementedError(
-            "in_batch_pairs is training-only and not ported yet (ROADMAP A5)"
         )
 
 
@@ -134,17 +133,32 @@ class TwoStreamEncoder(nn.Module):
                 if idx < cfg.fixed_v_layer:
                     img = img.detach()
             else:
-                if cfg.fast_mode and not expanded:
-                    # one text row per image, broadcast once before the first
-                    # connection layer (reference FAST_MODE); the text stream
-                    # is materialised because LN kernels take contiguous rows
-                    bv = img.shape[0]
-                    txt = txt.expand(bv, -1, -1).contiguous()
-                    bias_t = bias_t.expand(bv, -1, -1, -1)
-                    txt_mask2 = txt_mask2.expand(bv, -1, -1)
-                expanded = True
+                if not expanded:
+                    txt, img, bias_t, txt_mask2, bias_v = self._expand(
+                        txt, img, bias_t, txt_mask2, bias_v)
+                    expanded = True
                 img, txt = self.c_layer[idx](img, bias_v, txt, bias_t)
         return txt, img
+
+
+    def _expand(self, txt, img, bias_t, txt_mask2, bias_v):
+        """The in_batch_pairs B^2 expansion, then the fast_mode broadcast,
+        applied once before the first connection layer (reference
+        vilbert.py:1008-1053, the JAX ``maybe_expand``)."""
+        if self.cfg.in_batch_pairs:
+            # row index = text sample, column index = image sample
+            b = txt.shape[0]
+            img, bias_v = img.repeat(b, 1, 1), bias_v.repeat(b, 1, 1, 1)
+            txt, bias_t, txt_mask2 = (t.repeat_interleave(b, dim=0)
+                                      for t in (txt, bias_t, txt_mask2))
+        if self.cfg.fast_mode:
+            # one text row per image (reference FAST_MODE); the text stream
+            # is materialised because LN kernels take contiguous rows
+            bv = img.shape[0]
+            txt = txt.expand(bv, -1, -1).contiguous()
+            bias_t = bias_t.expand(bv, -1, -1, -1)
+            txt_mask2 = txt_mask2.expand(bv, -1, -1)
+        return txt, img, bias_t, txt_mask2, bias_v
 
 
 class Pooler(nn.Module):
@@ -364,6 +378,9 @@ class ViLBERTForPretraining(nn.Module):
     those image rows through the image head, as the JAX model gathers them.
     """
 
+    #: the parameter names' family (``core.weights``)
+    family = "vilbert"
+
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
@@ -403,6 +420,9 @@ class ViLBERTForVLTasks(nn.Module):
     ``generator`` seeds the initialisation (CPU draws; move the model with
     ``.to(device)``). ``heads=`` in ``forward`` selects the heads to compute.
     """
+
+    #: the parameter names' family (``core.weights``)
+    family = "vilbert"
 
     def __init__(self, cfg: ModelConfig, num_labels: int = 3129,
                  num_labels_gqa: int = 1533, dropout_prob: float = 0.1, *,

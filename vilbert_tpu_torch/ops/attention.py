@@ -26,12 +26,12 @@ The wrapper picks a kernel variant by dtype and shape alone
 (``fwd_variant``, ``bwd_variant``), never by catching a failure. K1 has
 three: ``"tc"`` on the tensor cores for bf16 at Sk <= 128 (every shape of
 the VQA and CC paths, the whole key axis in shared memory), ``"long_tc"``
-on the tensor cores for bf16 at 128 < Sk <= 512 (K and V streamed in tiles
+on the tensor cores for bf16 at 128 < Sk <= 1024 (K and V streamed in tiles
 of 64 keys under an online softmax; it rounds exp(s - max) to bf16 before
 dividing by the row sum, where the TPU kernel rounds the normalized P), and
 ``"cc"`` on the CUDA cores for fp32. K2 has four: ``"tc"`` for bf16 at
 Sq, Sk <= 128, ``"cc"`` for fp32 there; when Sq or Sk is above 128, up to
-512, ``"long_tc"`` for bf16 and ``"long"`` (CUDA cores) for fp32, both
+1024, ``"long_tc"`` for bf16 and ``"long"`` (CUDA cores) for fp32, both
 tiles of 64 queries and keys over two kernels and an fp32 workspace of row
 statistics. ``"cc"`` and ``"long"`` take bf16 too, and ``"long_tc"`` K1
 takes Sk <= 128, when named (``attention_kernel``,
@@ -55,11 +55,14 @@ import torch
 from vilbert_tpu_torch.ops import _build
 from vilbert_tpu_torch.ops.dropout import attention_keep_mask, keep_threshold
 
-#: shapes the forward kernel takes
+#: shapes the forward kernel takes: the CUDA-core variant's fp32 score
+#: block [32][Sk + 1] fills shared memory at 1024 keys; the streaming
+#: variants take that cap too (the single-stream baseline's longest
+#: sequence is GuessWhatPointing's 256 + 306 = 562)
 KERNEL_HEAD_DIMS = (64, 128)
-KERNEL_MAX_KEYS = 512
+KERNEL_MAX_KEYS = 1024
 #: longest Sq and Sk the backward kernel takes
-BWD_KERNEL_MAX_SEQ = 512
+BWD_KERNEL_MAX_SEQ = 1024
 #: longest sequence of the "tc" variants, and of K2's "cc" variant, which
 #: keep a whole (batch, head) in shared memory
 TC_MAX_SEQ = 128
@@ -181,7 +184,7 @@ def kernel_geometry(
     Raises ValueError for anything the kernel does not take: q [B, Sq, H]
     and k, v [B, Sk, H] of one dtype (float32 or bfloat16) with unit stride
     along H (batch and row strides are free, so broadcast and sliced views
-    pass); d = H / heads in (64, 128); 1 <= Sk <= 512; an fp32 [B, Sk] bias
+    pass); d = H / heads in (64, 128); 1 <= Sk <= 1024; an fp32 [B, Sk] bias
     with unit stride along Sk.
     """
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
@@ -228,7 +231,7 @@ def bwd_kernel_geometry(
 ) -> tuple:
     """Validate the backward kernel's operands; return (B, Sq, Sk, d).
 
-    On top of the forward's rules: 1 <= Sq, Sk <= 512; no stride-0 (broadcast)
+    On top of the forward's rules: 1 <= Sq, Sk <= 1024; no stride-0 (broadcast)
     batch or row in q, k, v (their dk and dv would need a reduction); g of
     q's shape and dtype with unit stride along H.
     """

@@ -3,8 +3,9 @@
 Counterpart of ``vilbert_tpu/train/losses.py``: the three pretraining losses
 (``pretrain_losses``: masked-LM cross-entropy with ignore index -1, the
 masked-region loss for visual targets 0 (KL against the detector's soft
-classes) and 1 (feature MSE), the alignment cross-entropy), all reduced in
-fp32; the per-task losses and scores of training, ``task_loss_and_score``
+classes), 1 (feature MSE) and 2 (NCE against sampled negatives, drawn from
+an explicit ``torch.Generator``), the alignment cross-entropy), all reduced
+in fp32; the per-task losses and scores of training, ``task_loss_and_score``
 over ``bce_with_logits``, ``cross_entropy`` and ``compute_score_with_logits``
 (reference task_utils.py:325-374, :618-623); and their unreduced forms for
 evaluation, ``task_loss_and_score_per_sample`` /
@@ -14,7 +15,7 @@ batch loss and score.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -60,9 +61,16 @@ def masked_image_loss(
     *,
     visual_target: int,
     gathered: bool = False,
+    num_negative: int = 128,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Masked-region loss over the masked rows; row 0 (the global feature)
-    is skipped unless the model already gathered K rows (``gathered``)."""
+    is skipped unless the model already gathered K rows (``gathered``).
+    Visual target 2 (NCE) draws its negatives from ``generator``, a
+    generator on the predictions' device, and takes no ``gathered``."""
+    if gathered and visual_target == 2:
+        raise ValueError("img_gather is not supported with NCE (visual_target 2), as in "
+                         "the JAX package: its negatives come from every region")
     pred = (prediction_scores_v if gathered else prediction_scores_v[:, 1:]).float()
     if image_label.shape[1] != pred.shape[1]:
         raise ValueError(
@@ -76,10 +84,54 @@ def masked_image_loss(
         kl = kl_div_soft_targets(torch.log_softmax(pred, dim=-1), image_target)
         return (kl * masked[..., None]).sum() / masked.sum().clamp_min(1.0)
     if visual_target == 2:
-        raise NotImplementedError(
-            "visual_target 2 (NCE) draws its negatives from jax.random and is "
-            "not ported yet (ROADMAP A4)")
+        if generator is None:
+            raise ValueError("visual_target 2 (NCE) draws its negatives from a generator")
+        nll = _nce_nll(pred, image_target, num_negative, generator)
+        return (nll * masked).sum() / masked.sum().clamp_min(1.0)
     raise ValueError(f"unknown visual_target {visual_target}")
+
+
+def nce_index(b: int, r: int, num_negative: int, generator: torch.Generator,
+              device) -> torch.Tensor:
+    """[B, R, 1 + N] flat indices (row * R + column) into the [B R] region
+    rows of NCE's samples: the row's own first, then ``int(0.7 N)``
+    negatives from across the batch (another row, any column) and
+    ``int(0.3 N)`` from inside the row (another column), each uniform, drawn
+    from ``generator`` as ``vilbert_tpu/train/losses.py`` draws them from
+    its key (reference vilbert.py:1523-1575)."""
+    n_across, n_inside = int(num_negative * 0.7), int(num_negative * 0.3)
+
+    def draw(high: int, n: int) -> torch.Tensor:
+        # uniform on [0, high), and 0 where the range is empty, as jax.random.randint
+        return torch.randint(0, max(high, 1), (b, r, n), generator=generator, device=device)
+
+    rows = torch.arange(b, device=device)[:, None, None]
+    cols = torch.arange(r, device=device)[None, :, None]
+    across_row = draw(b - 1, n_across)
+    across_row = torch.where(across_row == rows, b - 1, across_row)  # row != self
+    across = across_row * r + draw(r, n_across)
+    inside_col = draw(r - 1, n_inside)
+    inside = rows * r + torch.where(inside_col == cols, r - 1, inside_col)  # col != self
+    return torch.cat([(rows * r + cols).expand(b, r, 1), across, inside], dim=2)
+
+
+def _nce_nll(pred: torch.Tensor, image_target: torch.Tensor, num_negative: int,
+             generator: torch.Generator) -> torch.Tensor:
+    """[B, R] NCE loss of every region row: the predicted feature scored
+    against its true feature and the negatives of ``nce_index``; the NLL of
+    the true one under the log-softmax over the 1 + N scores.
+
+    The scores are one fp32 product of every prediction with every target,
+    [B R, B R], from which each row's 1 + N columns are gathered: the same
+    function as gathering the [B, R, 1 + N, d] samples first, in a bounded
+    memory (at B 256, 36 regions, d 2048: 340 MB where the samples take
+    9.7 GB, and autograd would keep them)."""
+    target = image_target.to(pred.dtype)
+    b, r, d = target.shape
+    index = nce_index(b, r, num_negative, generator, pred.device)
+    scores = pred.reshape(b * r, d) @ target.reshape(b * r, d).T
+    score = scores.gather(1, index.reshape(b * r, -1)).reshape(b, r, -1)
+    return -torch.log_softmax(score, dim=-1)[..., 0]
 
 
 def pretrain_losses(
@@ -90,12 +142,15 @@ def pretrain_losses(
     next_sentence_label: torch.Tensor,
     *,
     visual_target: int,
+    num_negative: int = 128,
+    generator: Optional[torch.Generator] = None,
     img_gathered: bool = False,
 ) -> PretrainLosses:
     return PretrainLosses(
         cross_entropy_ignore_index(out.prediction_scores_t, masked_lm_labels, -1),
         masked_image_loss(out.prediction_scores_v, image_label, image_target,
-                          visual_target=visual_target, gathered=img_gathered),
+                          visual_target=visual_target, gathered=img_gathered,
+                          num_negative=num_negative, generator=generator),
         cross_entropy_ignore_index(out.seq_relationship_score, next_sentence_label, -1),
     )
 

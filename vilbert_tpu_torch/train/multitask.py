@@ -20,8 +20,13 @@ Counterpart of ``vilbert_tpu/train/multitask.py`` (reference train_tasks.py
 The model runs in train mode (dropout at every site, seeds from the
 trainer's ``torch.Generator``, see ``models.layers.set_dropout_generator``)
 and, on a CUDA device, through the port's kernels. Batches reach the device
-through ``data.prefetch`` (pinned, ``non_blocking``). Multi-process meshes
-and the single-stream baseline raise ``NotImplementedError``.
+through ``data.prefetch`` (pinned, ``non_blocking``). ``model_family=
+"basebert"`` (or ``"baseline"``) trains the single-stream baseline
+``BaseBertForVLTasks``, with no participation masks, as the JAX trainer
+does; it has no head for the GQA, VL-tri-classifier and NLVR2
+(VL-binary-classifier over image pairs) tasks, which the JAX trainer fails
+on at their first iteration and this one refuses at construction.
+Multi-process meshes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,6 +66,11 @@ HEAD_FOR_TYPE = {
 #: rows to skip before gathering multiple-choice options: the 100 detector
 #: boxes + global row (reference task_utils.py:353 ``vision_logit[:, 101:]``)
 MC_REGION_OFFSET = 101
+
+#: task types the single-stream baseline has no head for: BaseBertForVLTasks
+#: has neither the GQA nor the three-way head, and its binary head scores
+#: each (text, image) row where NLVR2 scores image pairs
+BASELINE_REFUSED_TYPES = ("VL-classifier-GQA", "VL-tri-classifier", "VL-binary-classifier")
 
 #: batch entries the model never reads: the question ids, and the
 #: co-attention mask, which the model accepts and ignores (the reference's
@@ -106,7 +116,7 @@ def process_batch(process: str, batch: Dict[str, torch.Tensor]) -> Dict[str, tor
 
 
 def _task_logits(
-    model: ViLBERTForVLTasks,
+    model: torch.nn.Module,
     model_cfg: ModelConfig,
     task: TaskConfig,
     batch: Dict[str, torch.Tensor],
@@ -245,12 +255,9 @@ class MultiTaskTrainer:
     ):
         if mesh is not None:
             raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A12)")
-        if model_family != "vilbert":
-            raise NotImplementedError(
-                f"model_family {model_family!r}: the single-stream baseline is not ported "
-                "yet (ROADMAP A11)")
+        if model_family not in ("vilbert", "basebert", "baseline"):
+            raise ValueError(f"unknown model_family {model_family!r}")
         self.model_cfg = model_cfg
-        self.model_family = model_family
         self.device = torch.device(device)
         self.train_cfg = train_cfg or TrainConfig()
         self.grad_accum = max(self.train_cfg.gradient_accumulation_steps, 1)
@@ -280,9 +287,23 @@ class MultiTaskTrainer:
 
         #: draws the initial weights (unless given) and every dropout seed
         self.generator = torch.Generator().manual_seed(seed)
-        model = init_model or ViLBERTForVLTasks(model_cfg, num_labels=num_labels,
-                                                dropout_prob=dropout_prob,
-                                                generator=self.generator)
+        if init_model is not None:
+            model = init_model
+        elif model_family != "vilbert":
+            # the reference --baseline model (train_tasks.py:232-237), at its
+            # default dropout, as the JAX trainer builds it
+            from vilbert_tpu_torch.models.basebert import BaseBertForVLTasks
+
+            model = BaseBertForVLTasks(model_cfg, num_labels=num_labels, generator=self.generator)
+        else:
+            model = ViLBERTForVLTasks(model_cfg, num_labels=num_labels,
+                                      dropout_prob=dropout_prob, generator=self.generator)
+        refused = {k: t.type for k, t in tasks.items() if t.type in BASELINE_REFUSED_TYPES}
+        if model.family == "basebert" and refused:
+            raise ValueError(
+                f"the single-stream baseline has no head for {refused} (reference "
+                "basebert.py's 7 heads; the JAX trainer fails on these at their first "
+                "iteration)")
         if from_pretrained:
             load_pretrained(model, from_pretrained)
         self.model = model.to(self.device)
@@ -296,14 +317,16 @@ class MultiTaskTrainer:
         self.optimizer, self.schedule = build_optimizer(
             self.opt_cfg, params, total_iterations,
             freeze_prefix=self.train_cfg.freeze_prefix, external_lr=True,
+            family=model.family,
         )
         self.tasks: Dict[str, TaskRuntime] = {}
         for key, tcfg in tasks.items():
             # adamw: params outside the task's backward graph (other heads,
             # cls, the poolers for V-logit) take no moment update or weight
-            # decay; radam has no mask (a zero gradient steps them)
-            mask = (task_update_mask(params, tcfg.type) if self.opt_cfg.name == "adamw"
-                    else None)
+            # decay; radam, and the baseline (as in the JAX trainer), have no
+            # mask (a zero gradient steps them)
+            mask = (task_update_mask(params, tcfg.type)
+                    if self.opt_cfg.name == "adamw" and model.family == "vilbert" else None)
             self.tasks[key] = TaskRuntime(
                 key=key, cfg=tcfg, loader=loaders[key], val_loader=val_loaders.get(key),
                 loss_scale=self.loss_scales[key], mask=mask,
@@ -550,10 +573,11 @@ class MultiTaskTrainer:
         return self.model
 
 
-def load_pretrained(model: ViLBERTForVLTasks, path: str) -> None:
+def load_pretrained(model: torch.nn.Module, path: str) -> None:
     """Weights from a local ``.npz`` (flat, keyed by flax path: the hits whose
     shapes match are loaded, the rest kept at init) or a reference torch
-    checkpoint (through the importer's key migration) into ``model``."""
+    checkpoint (through the importer's key migration) into ``model``, by the
+    flax paths of its family (``core.weights``)."""
     from vilbert_tpu_torch.core.importer import _flatten, _unflatten
     from vilbert_tpu_torch.core.weights import (
         flax_from_state_dict,
@@ -566,9 +590,9 @@ def load_pretrained(model: ViLBERTForVLTasks, path: str) -> None:
         load_weights(model, path)
         return
     keys = list(model.state_dict().keys())
-    flat = _flatten(flax_from_state_dict(model.state_dict()))
+    flat = _flatten(flax_from_state_dict(model.state_dict(), model.family))
     loaded = _flatten(load_params_npz(path))
     hits = {k: v for k, v in loaded.items() if k in flat and np.shape(v) == np.shape(flat[k])}
     flat.update(hits)
-    model.load_state_dict(state_dict_from_flax(_unflatten(flat), keys))
+    model.load_state_dict(state_dict_from_flax(_unflatten(flat), keys, model.family))
     logger.info("from_pretrained %s: %d/%d params loaded", path, len(hits), len(flat))

@@ -231,9 +231,10 @@ def make_schedule(cfg: OptimizerConfig, base_lr: float,
     raise ValueError(cfg.schedule)
 
 
-def flax_path(name: str) -> str:
-    """The flax param path of a port parameter name."""
-    path = _to_flax_key(name)
+def flax_path(name: str, family: str = "vilbert") -> str:
+    """The flax param path of a port parameter name of ``family``
+    (``core.weights``)."""
+    path = _to_flax_key(name, family)
     if path is None:
         raise ValueError(f"parameter {name!r} has no flax path")
     return path
@@ -252,9 +253,10 @@ def label_params(
     head_lr: Optional[float] = None,
     pretrained_lr_scale: float = 1.0,
     vision_scratch: bool = False,
+    family: str = "vilbert",
 ) -> Dict[str, str]:
     """``label_params``: "frozen" | "head" | "pretrained_scaled" | "base" per
-    parameter, by flax-path prefix."""
+    parameter, by flax-path prefix (the paths of ``family``)."""
     if isinstance(freeze_prefix, str):
         prefixes = (freeze_prefix,) if freeze_prefix else ()
     else:
@@ -271,7 +273,7 @@ def label_params(
             return "pretrained_scaled"
         return "base"
 
-    return {n: label(flax_path(n)) for n in names}
+    return {n: label(flax_path(n, family)) for n in names}
 
 
 #: top-level head modules of ViLBERTForVLTasks (flax param keys). "cls" (the
@@ -567,11 +569,14 @@ def build_optimizer(
     step_offset: int = 0,
     external_lr: bool = False,
     update_mask: Optional[Mapping[str, bool]] = None,
+    family: str = "vilbert",
 ) -> Tuple[Union[ReferenceAdamW, ReferenceRAdam], Union[Schedule, HostLRScheduler]]:
     """``build_optimizer``: returns the optimizer (adamw or radam) and its
     schedule (for logging, and with ``external_lr`` for the caller to drive:
     the optimizer then has no schedule and unit-base group ratios).
-    ``update_mask`` is adamw's default participation mask."""
+    ``update_mask`` is adamw's default participation mask; ``family`` names
+    the model family of the parameter names, whose flax paths the labels
+    and ``freeze_prefix`` read."""
     if cfg.name not in ("adamw", "radam"):
         raise ValueError(cfg.name)
     if cfg.name == "radam" and update_mask is not None:
@@ -584,7 +589,7 @@ def build_optimizer(
         raise ValueError("vision_scratch trains the fresh vision weights at head_lr: set head_lr")
     labels = label_params(params, freeze_prefix=freeze_prefix, head_lr=cfg.head_lr,
                           pretrained_lr_scale=cfg.pretrained_lr_scale,
-                          vision_scratch=cfg.vision_scratch)
+                          vision_scratch=cfg.vision_scratch, family=family)
     ratio_of = {
         "base": 1.0,
         "head": cfg.head_lr / cfg.learning_rate if cfg.head_lr is not None else 1.0,

@@ -4,14 +4,20 @@ Counterpart of ``vilbert_tpu/train/pretrain.py`` on one device:
 ``make_pretrain_loss_fn`` (the LM / region gathers and the objective
 handling), ``evaluate_pretraining`` (the three raw losses, no dropout) and
 ``run_pretraining`` (forward, three losses, backward, ``reference_adamw``
-on the schedule at ``count + 1``). On a CUDA device the model runs the
-port's kernels: attention forward (K1, with dropout) and backward (K2), the
-LayerNorm forward (K4).
+on the schedule at ``count + 1``), for the two-stream model
+(``model_family="vilbert"``) or the single-stream baseline
+(``"basebert"``, reference ``--baseline``). On a CUDA device the model runs
+the port's kernels: attention forward (K1, with dropout) and backward (K2),
+the LayerNorm forward (K4).
 
 Dropout seeds come from one CPU ``torch.Generator`` seeded from ``seed``,
 which also draws the initial weights; the same seed gives the same steps.
-The JAX package's threefry stream cannot be reproduced, so a run matches
-the JAX trajectory only with dropout off.
+Visual target 2 (NCE) draws its negatives from a generator on the device,
+seeded per call of the loss from that same CPU generator (the JAX loss
+splits its step key into a dropout key and an NCE key); evaluation seeds
+it per batch from a generator of its own ``seed``. The JAX package's
+threefry stream cannot be reproduced, so a run matches the JAX trajectory
+only with dropout off and visual targets 0 and 1.
 
 ``run_pretraining(resume_dir=...)`` restores a full-state checkpoint
 (``core.checkpoint``: parameters, optimizer state, step) and runs from its
@@ -39,6 +45,7 @@ from vilbert_tpu_torch.data.prefetch import (
 )
 from vilbert_tpu_torch.models.layers import set_dropout_generator
 from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
+from vilbert_tpu_torch.ops.dropout import draw_seed
 from vilbert_tpu_torch.parallel.train_step import (
     TrainState,
     load_train_state,
@@ -65,6 +72,7 @@ def make_pretrain_loss_fn(
     lm_gather: int = 0,
     img_gather: int = 0,
     apply_objective: bool = True,
+    nce_generator: Optional[torch.Generator] = None,
 ) -> Callable:
     """loss_fn(model, batch) -> (loss, metrics) for ``make_train_step``.
 
@@ -73,13 +81,15 @@ def make_pretrain_loss_fn(
     the alignment loss (``apply_objective=False`` skips both, as the
     validation pass does); ``lm_gather=K`` projects only the first K masked
     positions through the LM head, ``img_gather=K`` only the first K masked
-    regions through the image head (visual targets 0 and 1). The model runs
-    in train mode unless ``deterministic``.
+    regions through the image head (visual targets 0 and 1; NCE keeps the
+    full projection). The model runs in train mode unless ``deterministic``.
+    With visual target 2, each call draws one seed from the CPU
+    ``nce_generator`` for the generator on the batch's device that draws
+    its negatives.
     """
-    if cfg.visual_target == 2:
-        raise NotImplementedError(
-            "visual_target 2 (NCE) is not ported yet (ROADMAP A4)")
-    use_img_gather = bool(img_gather)
+    if cfg.visual_target == 2 and nce_generator is None:
+        raise ValueError("visual_target 2 (NCE) draws its negatives from nce_generator")
+    use_img_gather = bool(img_gather) and cfg.visual_target in (0, 1)
 
     def loss_fn(model, batch: Dict[str, torch.Tensor]):
         model.train(not deterministic)
@@ -109,9 +119,14 @@ def make_pretrain_loss_fn(
             aligned = (batch["is_next"] == 0)[:, None]
             lm_labels = torch.where(aligned, lm_labels, -1)
             image_label = torch.where(aligned, image_label, -1)
+        generator = None
+        if cfg.visual_target == 2:
+            generator = torch.Generator(device=image_target.device)
+            generator.manual_seed(draw_seed(nce_generator))
         losses = pretrain_losses(
             out, lm_labels, image_label, image_target, batch["is_next"],
-            visual_target=cfg.visual_target, img_gathered=use_img_gather,
+            visual_target=cfg.visual_target, num_negative=cfg.num_negative,
+            generator=generator, img_gathered=use_img_gather,
         )
         nsp = losses.next_sentence_loss
         if apply_objective and cfg.objective == 2:
@@ -141,23 +156,40 @@ def host_batch(batch: Dict[str, Any], cfg: ModelConfig, grad_accum: int = 1) -> 
     return b
 
 
+def pretrain_model(model_cfg: ModelConfig, model_family: str = "vilbert", *,
+                   generator: Optional[torch.Generator] = None):
+    """The pretraining model of a family: the two-stream ViLBERT or the
+    single-stream baseline (reference --baseline, train_concap.py:397-414;
+    the JAX ``_pretrain_model``)."""
+    if model_family == "basebert":
+        from vilbert_tpu_torch.models.basebert import BaseBertForPretraining
+
+        return BaseBertForPretraining(model_cfg, generator=generator)
+    if model_family != "vilbert":
+        raise ValueError(f"model_family must be 'vilbert' or 'basebert', got {model_family!r}")
+    return ViLBERTForPretraining(model_cfg, generator=generator)
+
+
 @torch.no_grad()
 def evaluate_pretraining(
     model_cfg: ModelConfig,
-    model: ViLBERTForPretraining,
+    model: torch.nn.Module,
     val_loader: Iterable[Dict[str, Any]],
     *,
     img_weight: float = 1.0,
     lm_gather: int = 0,
     img_gather: int = 0,
     device="cuda",
+    seed: int = 0,
 ) -> Dict[str, float]:
     """The validation pass: mean {"loss", "masked_loss_t", "masked_loss_v",
     "next_sentence_loss"} over the batches, without dropout and without the
-    objective transforms (reference train_concap.py:608-654)."""
+    objective transforms (reference train_concap.py:608-654). NCE draws
+    each batch's negatives from a fixed per-batch seed of ``seed``."""
     loss_fn = make_pretrain_loss_fn(
         model_cfg, img_weight=img_weight, deterministic=True, lm_gather=lm_gather,
         img_gather=img_gather, apply_objective=False,
+        nce_generator=torch.Generator().manual_seed(seed),
     )
     was_training = model.training
     totals: Dict[str, float] = {}
@@ -182,7 +214,8 @@ def run_pretraining(
     grad_accum: int = 1,
     lm_gather: int = 0,
     img_gather: int = 0,
-    model: Optional[ViLBERTForPretraining] = None,
+    model: Optional[torch.nn.Module] = None,
+    model_family: str = "vilbert",
     device="cuda",
     log_every: int = 20,
     val_loader: Optional[Iterable] = None,
@@ -194,7 +227,9 @@ def run_pretraining(
     grad_dtype: str = "",
 ) -> TrainState:
     """The pretraining driver (``vilbert_tpu.train.pretrain.run_pretraining``)
-    on one device. The model is ``model`` if given, else drawn from ``seed``.
+    on one device. The model is ``model`` if given, else ``model_family``'s
+    (``pretrain_model``) drawn from ``seed``; ``freeze_prefix`` and the
+    learning-rate labels read the flax paths of the model's family.
     With ``val_loader``, a validation pass runs every ``val_every`` steps
     (default once after the last) and is logged. ``hooks`` are called as
     hook(step, state, metrics) after every step. Raises FloatingPointError
@@ -207,16 +242,18 @@ def run_pretraining(
     (``parallel.train_step``)."""
     generator = torch.Generator().manual_seed(seed)
     if model is None:
-        model = ViLBERTForPretraining(model_cfg, generator=generator)
+        model = pretrain_model(model_cfg, model_family, generator=generator)
     model = model.to(device)
     set_dropout_generator(model, generator)
 
     # step_offset=1: the reference steps the LR scheduler BEFORE the
     # optimizer (train_concap.py:583-586), so update k trains at lambda(k)
     opt, schedule = build_optimizer(opt_cfg, dict(model.named_parameters()), num_steps,
-                                    step_offset=1, freeze_prefix=freeze_prefix)
+                                    step_offset=1, freeze_prefix=freeze_prefix,
+                                    family=model.family)
     loss_fn = make_pretrain_loss_fn(model_cfg, img_weight=img_weight,
-                                    lm_gather=lm_gather, img_gather=img_gather)
+                                    lm_gather=lm_gather, img_gather=img_gather,
+                                    nce_generator=generator)
     step_fn = make_train_step(loss_fn, opt, grad_accum=grad_accum,
                               grad_dtype=grad_dtype or None)
     state = TrainState(0, model, opt)
@@ -232,7 +269,7 @@ def run_pretraining(
     def run_validation(step: int) -> None:
         metrics = evaluate_pretraining(model_cfg, model, val_loader, img_weight=img_weight,
                                        lm_gather=lm_gather, img_gather=img_gather,
-                                       device=device)
+                                       device=device, seed=seed)
         nan = float("nan")
         logger.info("validation @ step %d: loss %.4f (t %.4f v %.4f nsp %.4f)", step,
                     metrics.get("loss", nan), metrics.get("masked_loss_t", nan),
