@@ -14,7 +14,9 @@ tokens), image-text retrieval and the demo, and the training options
 (bf16 gradients and moments, RAdam, checkpoints and resume); then the
 single-stream baseline at the full width of configs/bert_base_baseline.json
 (VQA eval, the CC step, the flagship tasks it has heads for, retrieval),
-the CC step with NCE, and K1 and K2 to 1,024 keys.
+the CC step with NCE, and K1 and K2 to 1,024 keys; then the model
+options: int8 inference (``--int8``, static calibration), the attention
+maps (``visualization``, K1 writing its probabilities) and ``--remat``.
 
 1. device: the card's name and power limit; TF32 off for fp32 comparisons;
 2. build: nvcc for sm_90a, one process per source, timed;
@@ -154,7 +156,34 @@ the CC step with NCE, and K1 and K2 to 1,024 keys.
    T + R) of phase 16's tasks, 121 to 562 keys, at rates 0 and 0.1 with
    the backward) and K4 at the row counts of phases 13, 14 and 16, against
    the plain versions, SDPA (``F.layer_norm(x + residual)``) and the
-   bounds.
+   bounds;
+19. int8 inference: ``run_eval`` on synthetic TASK1 with ``--int8`` (counts
+   reset just before and read just after: ``torch._int_mm`` once an int8
+   site a forward, some on zero-padded operands; K1 and K4 as phase 4
+   says), B=256 bf16 logits finite and correlated with the bf16 forward's
+   (> 0.98, ``tests/test_quant.py``'s bound), static int8 calibrated on 64
+   samples (``bench.py:66-78``) likewise; ``int8_dense``, dynamic and
+   static, at every int8 site shape of the VQA forward
+   (B=1024) and of the demo (B=1) against the plain versions (int32
+   products bit-equal, outputs within fp32 rounding); each VQA site shape's
+   quantization passes, ``int_mm`` padded and ``torch._int_mm`` on
+   operands padded beforehand, and bf16 ``F.linear``; questions/s of the
+   bf16, dynamic and static forwards at B=1024 with the quantization
+   passes' share; ``cli/demo.py --int8``;
+20. visualization: a VQA forward at B=256 with maps (counts reset just
+   before and read just after: every K1 launch with its probabilities, on
+   "tc"), each site's maps against ``attention_ref`` on the inputs that
+   site got, element by element within one rounding (``_probs_error``),
+   its context within phase 3's bounds, the logits bit-equal to the forward
+   without maps; K1 with probabilities on every variant ("long_tc" past 128
+   keys, "cc" in fp32) at rates 0 and 0.1, held likewise; the forward's time with maps
+   and without; K1 with probabilities timed at the VQA and demo shapes;
+21. remat: ``train_concap.train --remat`` for 2 steps at B=256, T=36, R=37,
+   dropout 0.1 (counts reset just before and read just after: K1 twice a
+   step, the recompute included, K2 once, K4 again for each encoder
+   LayerNorm); one bf16 step with remat and without from the same weights
+   and seed, loss and every gradient within phase 6's bounds and the
+   dropout generator in one state; samples/s and peak memory of both.
 
 Times: a kernel's ``ms`` (and its plain version's, the library call's,
 another variant's) is device time, calls run back to back behind a
@@ -469,6 +498,32 @@ def _fwd_error(got, want, dtype) -> tuple:
     return e, 1e-4, float(diff[:-1].max()) <= 1e-4 and float(diff[-1].max()) <= 1e-3
 
 
+def _probs_error(got, want, dtype, bias) -> tuple:
+    """(max|err|, worst err / bound, ok) of attention probabilities
+    [B, h, Sq, Sk] against the plain version's, element by element. Both
+    compute P in fp32 and round it to the output dtype once; the fp32 values
+    differ by far less than a bf16 step, so two bf16 roundings land at most
+    one step apart, and one step is at most 2^-7 of the element: bf16 is
+    held to 2^-7 |ref| + 2^-8 / Sk (the floor for entries near 0), fp32 to
+    2^-16 |ref| + 2^-16 / Sk. A batch element whose keys are all padded
+    (``bias`` [B, 1, 1, Sk] or [B, Sk] at -10000) gets 2^-8 |ref| more:
+    its scores sit at -10000, where fp32 spacing is 2^-10, and q.k rounded
+    once (the kernel's fused multiply-add) or twice (the plain version)
+    moves each P by up to that step relative, the normaliser likewise. A
+    wrong normaliser or a P from the wrong key is off by its own size."""
+    ref = want.float()
+    diff = (got.float() - ref).abs()
+    sk = ref.shape[-1]
+    rel, floor = (2.0 ** -16, 2.0 ** -16 / sk) if dtype == "float32" else (2.0 ** -7,
+                                                                            2.0 ** -8 / sk)
+    bound = rel * ref.abs() + floor
+    if bias is not None:
+        padded = (bias.float().reshape(bias.shape[0], -1) <= -10000.0).all(-1)
+        bound = bound + 2.0 ** -8 * ref.abs() * padded.float()[:, None, None, None]
+    ratio = float((diff / bound).max())
+    return float(diff.max()), ratio, ratio <= 1.0
+
+
 def _bwd_errors(got, want, dtype, bias=None) -> tuple:
     """(max|err| over dq, dk, dv, ok): fp32 within 1e-4 * max|ref|, bf16
     within one bf16 rounding of max|ref|, each gradient on its own.
@@ -660,7 +715,8 @@ def phase_kernels(checks: Checks) -> dict:
     # K2 also on their own
     err = {"attention_fwd": 0.0, "attention_bwd": 0.0, "fused_attention": 0.0,
            "layer_norm_fwd": 0.0, "layer_norm_fwd_bf16_weight": 0.0,
-           "attention_fwd_long_tc": 0.0, "attention_fwd_cc": 0.0, "attention_bwd_long_tc": 0.0}
+           "attention_fwd_long_tc": 0.0, "attention_fwd_cc": 0.0, "attention_bwd_long_tc": 0.0,
+           "attention_fwd_probs": 0.0}
     B = 8
     for heads, d, sq, sk in ATTENTION_CASES:
         hd = heads * d
@@ -828,7 +884,7 @@ def random_batch(cfg, batch: int, seed: int) -> dict:
 def _counters() -> dict:
     """counter name -> (wrapper, attribute): each kernel's total, each
     variant's count and K4's bf16-weight launches."""
-    from vilbert_tpu_torch.ops import layernorm
+    from vilbert_tpu_torch.ops import layernorm, quant
     from vilbert_tpu_torch.ops.attention import (
         BWD_VARIANTS,
         VARIANTS,
@@ -845,6 +901,12 @@ def _counters() -> dict:
             out[f"{name}_{variant}"] = (wrapper, f"launches_{variant}")
     # K4's bf16-weight instantiation (of either variant)
     out["layer_norm_bf16_weight"] = (layernorm.layer_norm, "launches_bf16_weight")
+    # K1 launches that also wrote the probabilities (visualization), and the
+    # int8 sites' torch._int_mm calls (a library GEMM, as the JAX package's
+    # int8 dot is XLA's): all, and those on zero-padded operands
+    out["attention_probs"] = (attention, "launches_probs")
+    out["int_mm"] = (quant.int_mm, "launches")
+    out["int_mm_padded"] = (quant.int_mm, "launches_padded")
     return out
 
 
@@ -2939,9 +3001,482 @@ def phase_baseline_timing(checks: Checks, card: str, err: dict) -> dict:
     return times
 
 
+# -- phase 19 ----------------------------------------------------------------
+
+#: static int8 calibrates on one batch of 64 samples, as bench.py:66-78 does
+INT8_CALIB_BATCH = 64
+VQA_HEAD = ("vil_prediction",)
+
+
+@contextlib.contextmanager
+def recording_int8_sites():
+    """Counts the int8 sites' calls by (rows, in, out, x dtype, static)
+    while open, through ``int8_dense`` as ``models.layers`` reaches it."""
+    from vilbert_tpu_torch.models import layers
+
+    dense, seen = layers.int8_dense, collections.Counter()
+
+    def recorded(x, weight, out_dtype, act_amax=None):
+        seen[(x.numel() // x.shape[-1], x.shape[-1], weight.shape[0], str(x.dtype)[6:],
+              act_amax is not None)] += 1
+        return dense(x, weight, out_dtype, act_amax)
+
+    layers.int8_dense = recorded
+    try:
+        yield seen
+    finally:
+        layers.int8_dense = dense
+
+
+def logit_corr(a, b) -> float:
+    import numpy as np
+
+    a, b = (t.float().cpu().numpy().ravel() for t in (a, b))
+    return float(np.corrcoef(a, b)[0, 1])
+
+
+def check_int8_site(checks: Checks, g, rows: int, k: int, n: int, dtype: str,
+                    static: bool) -> None:
+    """``int8_dense`` at one site shape on the card against its plain
+    version (``plain=True``: the product by ``int_mm_ref``): the int32
+    products bit-equal, the outputs within fp32 rounding of the largest."""
+    import torch
+
+    from vilbert_tpu_torch.ops import quant
+
+    x = (torch.randn(rows, k, generator=g, device=DEVICE) * 2).to(getattr(torch, dtype))
+    w = torch.randn(n, k, generator=g, device=DEVICE) * 0.02
+    amax = x.float().abs().amax(0) * 0.9 if static else None
+    xq, s_in = (quant.quantize_act_static(x, amax) if static else quant.quantize(x, None))
+    wq, _ = quant.quantize(w.float() * s_in[None, :] if static else w, 1)
+    exact = torch.equal(quant.int_mm(xq, wq), quant.int_mm_ref(xq, wq))
+    out_dt = torch.bfloat16
+    got, want = (quant.int8_dense(x, w, out_dt, amax, plain=p) for p in (False, True))
+    e = float((got.float() - want.float()).abs().max())
+    bound = 2.0 ** -23 * float(want.float().abs().max())
+    torch.cuda.synchronize()
+    checks.expect(exact and e <= bound,
+                  f"int8 site {rows}x{k}->{n} {dtype} {'static' if static else 'dynamic'}: "
+                  f"int32 product bit-equal {exact}, out max|err| {e:.3e} <= {bound:.3e}")
+
+
+def time_int8_sites(shapes: dict, card: str, g) -> dict:
+    """At each int8 site shape of the VQA forward: the quantization passes
+    (dynamic: the activation's per-tensor and the weight's per-channel
+    quantize; static: the calibrated activation quantize, the fold and the
+    weight quantize; and the weight's share of each alone, which quantized
+    weights kept between calls would save), ``int_mm`` (the padding
+    included) and ``torch._int_mm`` on operands padded before the timed
+    call, ``F.linear`` in bf16 (the bf16 model's product, bias inside) and
+    the whole ``int8_dense``."""
+    import torch
+    import torch.nn.functional as F
+
+    from vilbert_tpu_torch.ops import quant
+
+    rows_out = {}
+    for (rows, k, n, dtype, _), count in sorted(shapes.items()):
+        x = torch.randn(rows, k, generator=g, device=DEVICE).to(getattr(torch, dtype))
+        w = torch.randn(n, k, generator=g, device=DEVICE) * 0.02
+        b = torch.zeros(n, device=DEVICE)
+        amax = x.float().abs().amax(0)
+        xq, _ = quant.quantize(x, None)
+        wq, _ = quant.quantize(w, 1)
+        pad = (max(rows, quant.INT_MM_MIN_ROWS), -(-k // 8) * 8, -(-n // 8) * 8)
+        xp, wp = xq.new_zeros(pad[0], pad[1]), wq.new_zeros(pad[2], pad[1])
+        xp[:rows, :k], wp[:n, :k] = xq, wq
+        wpt = wp.T
+        xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+        fns = {
+            "quantize_dynamic": lambda: (quant.quantize(x, None), quant.quantize(w, 1)),
+            "quantize_static": lambda: (quant.quantize_act_static(x, amax),
+                                        quant.quantize(w * (amax / 127.0 + 1e-8)[None, :], 1)),
+            "quantize_weight_dynamic": lambda: quant.quantize(w, 1),
+            "quantize_weight_static": lambda: quant.quantize(w * (amax / 127.0 + 1e-8)[None, :],
+                                                             1),
+            "int_mm": lambda: quant.int_mm(xq, wq),
+            "int_mm_prepadded": lambda: torch._int_mm(xp, wpt),
+            "linear_bf16": lambda: F.linear(xb, wb, bb),
+            "int8_dense": lambda: quant.int8_dense(x, w, torch.bfloat16),
+        }
+        with torch.inference_mode():
+            dev = device_ms(fns, iters=10)
+        dev["count"] = count
+        dev["padded"] = pad != (rows, k, n)
+        rows_out[f"{rows}x{k}->{n} {dtype}"] = dev
+        log(f"  int8 site {rows}x{k}->{n} {dtype} x{count} a forward: device ms quantize "
+            f"{dev['quantize_dynamic']:.4f} dynamic / {dev['quantize_static']:.4f} static (the "
+            f"weight's {dev['quantize_weight_dynamic']:.4f} / "
+            f"{dev['quantize_weight_static']:.4f}), "
+            f"int_mm {dev['int_mm']:.4f}{' (padded)' if dev['padded'] else ''}, _int_mm on "
+            f"prepadded operands {dev['int_mm_prepadded']:.4f}, int8_dense "
+            f"{dev['int8_dense']:.4f}; bf16 F.linear {dev['linear_bf16']:.4f} [{card}]")
+    return rows_out
+
+
+def phase_int8(checks: Checks, tmp: str, card: str) -> dict:
+    """(19) Int8 inference: ``run_eval`` on synthetic TASK1 with the eval
+    CLI's ``--int8`` (launches reset just before and read just after:
+    ``torch._int_mm`` once a site a forward, K1 and K4 as in phase 4), its
+    logits against the bf16 forward's; static int8 calibrated on 64
+    samples; every int8 site shape of the VQA forward and the demo through
+    ``int8_dense`` (and the head split and merge) against the plain
+    versions; questions/s of the bf16, dynamic and static forwards at
+    B=1024 with the quantization passes' share; ``demo --int8``."""
+    import torch
+
+    from vilbert_tpu_torch.cli import demo
+    from vilbert_tpu_torch.cli.eval_tasks import build_model, run_eval, synthetic_vqa_loader
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.ops.quant import calibrating
+
+    cfg = ModelConfig.from_json_file(CONFIG)
+    task = task1()
+    bf16 = build_model(cfg, seed=SEED, device=DEVICE)
+    models = {"bf16": bf16}
+    for mode in ("int8_matmul", "int8_static"):
+        models[mode] = build_model(cfg.replace(**{mode: True}), seed=SEED, device=DEVICE)
+        models[mode].load_state_dict(bf16.state_dict())
+    loader = synthetic_vqa_loader(cfg, task)
+    n_batches = len(loader)
+    sites = sum(1 for name, m in models["int8_matmul"].named_modules()
+                if getattr(m, "int8", None) and name.startswith(("bert.", "vil_prediction.")))
+    with recording_int8_sites() as seen:
+        reset_launches()
+        metrics, records = run_eval(models["int8_matmul"], cfg.replace(int8_matmul=True),
+                                    {"TASK1": task}, {"TASK1": loader},
+                                    output_dir=os.path.join(tmp, "int8"),
+                                    split=task.val_split)["TASK1"]
+        torch.cuda.synchronize()
+        launches = read_launches()
+    log(f"  run_eval TASK1 --int8: loss {metrics['loss']:.6f} score {metrics['score']:.6f} "
+        f"records {len(records)}; launches {launches}")
+    log(f"  torch._int_mm launches in run_eval --int8: {launches['int_mm']} "
+        f"({launches['int_mm_padded']} on padded operands; {sites} int8 sites a forward)")
+    want_attn, want_ln = kernel_calls_per_forward(cfg)
+    checks.expect(launches["int_mm"] == sum(seen.values()) == n_batches * sites
+                  and launches["int_mm_padded"] > 0,
+                  f"--int8: torch._int_mm launches {launches['int_mm']} == int8 sites called "
+                  f"{sum(seen.values())} == {n_batches} x {sites}, some padded "
+                  f"({launches['int_mm_padded']})")
+    checks.expect(launches["attention"] == launches["attention_tc"] == n_batches * want_attn
+                  and launches["layer_norm"] == n_batches * want_ln
+                  and launches["attention_probs"] == 0,
+                  f"--int8: K1 launches {launches['attention']} (tensor cores "
+                  f"{launches['attention_tc']}) == {n_batches} x {want_attn}, K4 "
+                  f"{launches['layer_norm']} == {n_batches} x {want_ln}")
+    checks.expect(math.isfinite(metrics["loss"]) and len(records) == metrics["num_samples"],
+                  "--int8: loss finite, one record a question")
+
+    # logits against the bf16 forward's; static int8 calibrated on 64 samples
+    x = random_batch(cfg, CHECK_BATCH, SEED + 1)
+    with torch.inference_mode(), calibrating(models["int8_static"]):
+        models["int8_static"](**random_batch(cfg, INT8_CALIB_BATCH, SEED + 30), heads=VQA_HEAD)
+    logits = {}
+    with torch.inference_mode():
+        for name, m in models.items():
+            logits[name] = m(**x, heads=VQA_HEAD).vil_prediction
+    for mode in ("int8_matmul", "int8_static"):
+        corr = logit_corr(logits["bf16"], logits[mode])
+        checks.expect(bool(torch.isfinite(logits[mode]).all()) and corr > 0.98,
+                      f"B={CHECK_BATCH} {mode} bf16 logits finite, correlation with the bf16 "
+                      f"forward's {corr:.5f} > 0.98 (tests/test_quant.py's bound)")
+
+    # every site shape of the VQA forward (B=1024) and of the demo, kernels
+    # against plain versions; then the times
+    xt = random_batch(cfg, TIME_BATCH, SEED + 2)
+    with torch.inference_mode(), recording_int8_sites() as vqa_sites:
+        models["int8_matmul"](**xt, heads=VQA_HEAD)
+    buf = io.StringIO()
+    with recording_int8_sites() as demo_sites, contextlib.redirect_stdout(buf):
+        reset_launches()
+        out = demo.main(["--synthetic", "--config", CONFIG, "--device", DEVICE, "--int8",
+                         "--question", "what color is the couch?"])
+        torch.cuda.synchronize()
+        demo_launches = read_launches()
+    lines = buf.getvalue().strip().splitlines()
+    log("  demo --int8: " + " | ".join(lines))
+    log(f"  torch._int_mm launches in demo --int8: {demo_launches['int_mm']} "
+        f"({demo_launches['int_mm_padded']} padded)")
+    checks.expect(len(lines) == 6 and out.vil_prediction.shape == (1, 3129)
+                  and all(bool(torch.isfinite(v).all()) for v in out[:-1] if v is not None)
+                  and demo_launches["int_mm"] == sum(demo_sites.values()) > 0
+                  and demo_launches["attention"] == want_attn,
+                  f"demo --int8: six lines, every head finite, torch._int_mm launches "
+                  f"{demo_launches['int_mm']} == int8 sites called {sum(demo_sites.values())}, "
+                  f"K1 {demo_launches['attention']} == {want_attn}")
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    shapes = sorted({key[:4] for key in (*vqa_sites, *demo_sites)})
+    for rows, k, n, dtype in shapes:
+        for static in (False, True):
+            with torch.inference_mode():
+                check_int8_site(checks, g, rows, k, n, dtype, static)
+    site_times = time_int8_sites(vqa_sites, card, g)
+
+    forward_ms = {}
+    for name in ("bf16", "int8_matmul", "int8_static", "int8_static", "int8_matmul", "bf16"):
+        with torch.inference_mode():
+            ms = cuda_time_ms(lambda: models[name](**xt, heads=VQA_HEAD), iters=4, warmup=1)
+        forward_ms.setdefault(name, []).append(ms)
+    summary = {"questions_per_s": {}, "quantize_share": {}}
+    for name, (a, b) in forward_ms.items():
+        ms = (a + b) / 2
+        summary["questions_per_s"][name] = TIME_BATCH / ms * 1e3
+        mode = {"int8_matmul": "dynamic", "int8_static": "static"}.get(name)
+        share = ""
+        if mode:
+            q_ms, w_ms = (sum(r["count"] * r[key] for r in site_times.values())
+                          for key in (f"quantize_{mode}", f"quantize_weight_{mode}"))
+            summary["quantize_share"][name] = q_ms / ms
+            share = (f"; the quantization passes {q_ms:.2f} ms ({q_ms / ms:.1%}; the weights' "
+                     f"{w_ms:.2f} ms), summed over the site shapes' device times")
+        log(f"  forward B={TIME_BATCH} T={T} R={R} {name}: {a:.3f} / {b:.3f} ms = "
+            f"{summary['questions_per_s'][name]:.1f} questions/s{share} [{card}]")
+    summary.update(site_times=site_times, launches=launches, demo_launches=demo_launches)
+    del models, bf16
+    checks.end_phase("int8")
+    return summary
+
+
+# -- phase 20 ----------------------------------------------------------------
+
+VIS_BATCH = 256
+#: K1 with its probabilities output at the other variants' shapes (h, d, Sq,
+#: Sk, dtype): long_tc past 128 keys, cc in fp32, at rates 0 and 0.1
+PROBS_EDGE_CASES = [
+    (8, 128, 101, 200, "bfloat16"), (12, 64, 257, 306, "bfloat16"), (12, 64, 562, 562, "bfloat16"),
+    (8, 128, 1, 129, "bfloat16"), (8, 128, 17, 65, "bfloat16"), (8, 128, 101, 101, "float32"),
+    (12, 64, 23, 23, "float32"), (8, 128, 37, 300, "float32"),
+]
+
+
+def phase_visualization(checks: Checks, card: str, err: dict) -> tuple:
+    """(20) A VQA forward at B=256 with ``visualization`` (launches reset
+    just before and read just after: every K1 launch with its
+    probabilities, on "tc"): each site's maps against ``attention_ref`` on
+    the inputs that site got, element by element (``_probs_error``), and
+    its context within phase 3's bounds; the logits bit-equal to the
+    forward without maps; K1 with probabilities at every variant (long_tc,
+    cc) against the plain version likewise, rates 0 and 0.1; the forward's
+    time with and without maps; K1 with probabilities timed at the VQA and
+    demo shapes beside its plain version and its bound (the P write
+    included)."""
+    import torch
+
+    from vilbert_tpu_torch.cli.eval_tasks import build_model
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.models import layers
+    from vilbert_tpu_torch.ops.attention import attention, attention_ref, fwd_variant
+
+    cfg = ModelConfig.from_json_file(CONFIG)
+    model = build_model(cfg, seed=SEED, device=DEVICE)
+    vmodel = build_model(cfg.replace(visualization=True), seed=SEED, device=DEVICE)
+    x = random_batch(cfg, VIS_BATCH, SEED + 20)
+    calls, attend = [], layers.attention
+
+    def recorded(q, k, v, bias, **kw):
+        out = attend(q, k, v, bias, **kw)
+        calls.append((q, k, v, bias, kw, out))
+        return out
+
+    layers.attention = recorded
+    try:
+        with torch.inference_mode():
+            reset_launches()
+            out_v = vmodel(**x, heads=VQA_HEAD)
+            torch.cuda.synchronize()
+            launches = read_launches()
+    finally:
+        layers.attention = attend
+    with torch.inference_mode():
+        out_p = model(**x, heads=VQA_HEAD)
+    want_attn, _ = kernel_calls_per_forward(cfg)
+    maps = out_v.attention_probs
+    log(f"  visualization forward B={VIS_BATCH}: {len(maps)} maps; launches {launches}")
+    checks.expect(len(maps) == len(calls) == want_attn
+                  and launches["attention"] == launches["attention_probs"]
+                  == launches["attention_tc"] == want_attn,
+                  f"visualization: {len(maps)} maps == {want_attn} sites, K1 launches "
+                  f"{launches['attention']} == with probabilities {launches['attention_probs']} "
+                  f"== on tc {launches['attention_tc']}")
+    checks.expect(torch.equal(out_v.vil_prediction, out_p.vil_prediction),
+                  "visualization: logits bit-equal to the forward without maps")
+    worst, worst_ratio, ok = 0.0, 0.0, True
+    with torch.inference_mode():
+        for q, k, v, bias, kw, (ctx, probs) in calls:
+            ref_ctx, ref_p = attention_ref(q, k, v, bias, **kw)
+            e, ratio, ok_p = _probs_error(probs, ref_p, "bfloat16", bias)
+            _, _, ok_c = _fwd_error(ctx, ref_ctx, "bfloat16")
+            worst, worst_ratio = max(worst, e), max(worst_ratio, ratio)
+            ok = ok and ok_p and ok_c
+            track_error(err, "attention_fwd_probs", "tc", e)
+    checks.expect(ok and all(any(m is c[-1][1] for c in calls) for m in maps.values()),
+                  f"visualization: every site's maps (the output's) against attention_ref on "
+                  f"its inputs, element by element within one bf16 rounding (2^-7 |ref| + "
+                  f"2^-8 / Sk): max|err| {worst:.3e}, worst err/bound {worst_ratio:.3f} <= 1; "
+                  f"contexts within one rounding of their max")
+    del calls
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    for heads, d, sq, sk, dtype in PROBS_EDGE_CASES:
+        q, k, v, _, bias = _attention_operands(g, 4, heads, d, sq, sk, getattr(torch, dtype))
+        variant = fwd_variant(q.dtype, sk)
+        for rate in (0.0, 0.1):
+            kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None,
+                      return_probs=True)
+            with torch.inference_mode():
+                before = attention.launches_probs
+                (ctx, probs), on_variant = counted(attention, variant,
+                                                   lambda: attention(q, k, v, bias, **kw))
+                launches_probs = attention.launches_probs - before
+                ref_ctx, ref_p = attention_ref(q, k, v, bias, **kw)
+            e, ratio, ok = _probs_error(probs, ref_p, dtype, bias)
+            eo, _, ok_o = _fwd_error(ctx, ref_ctx, dtype)
+            track_error(err, "attention_fwd_probs", variant, e)
+            checks.expect(ok and ok_o and on_variant and launches_probs == 1,
+                          f"attention probabilities h={heads} d={d} Sq={sq} Sk={sk} {dtype} rate "
+                          f"{rate} [{variant}]: max|err| {e:.3e}, worst err/bound {ratio:.3f} "
+                          f"<= 1 (element by element); output {eo:.3e} (phase 3's bounds)")
+
+    times = {}
+    for maps_on in (False, True, True, False):
+        m = vmodel if maps_on else model
+        with torch.inference_mode():
+            ms = cuda_time_ms(lambda: m(**x, heads=VQA_HEAD), iters=6, warmup=1)
+        times.setdefault("with maps" if maps_on else "without maps", []).append(ms)
+    for label, (a, b) in times.items():
+        log(f"  forward B={VIS_BATCH} bf16 {label}: {a:.3f} / {b:.3f} ms = "
+            f"{2 * VIS_BATCH / (a + b) * 1e3:.1f} questions/s [{card}]")
+    summary = {"forward_ms": {k: sum(v) / 2 for k, v in times.items()}, "launches": launches}
+    del model, vmodel
+
+    rows = {}
+    mask = torch.ones(VIS_BATCH, R, dtype=torch.long, device=DEVICE)
+    mask[:, 60:] = 0
+    shapes = [("VQA " + label, heads, d, sq, sk, VIS_BATCH)
+              for label, heads, d, sq, sk in VQA_ATTENTIONS]
+    shapes += [(label, heads, d, sq, sk, b) for label, heads, d, sq, sk, b in RET_ATTENTIONS
+               if label.startswith("demo")]
+    for label, heads, d, sq, sk, B in shapes:
+        q, k, v = (torch.randn(B, s, heads * d, generator=g, device=DEVICE).bfloat16()
+                   for s in (sq, sk, sk))
+        bias = ((1.0 - mask[:B, :sk].float()) * -10000.0)[:, None, None, :]
+        kw = dict(num_heads=heads, return_probs=True)
+        fns = {"kernel": lambda: attention(q, k, v, bias, **kw),
+               "plain": lambda: attention_ref(q, k, v, bias, **kw)}
+        nbytes, flops = attention_cost(B, heads, d, sq, sk)["fwd"]
+        with torch.inference_mode():
+            e, ratio, ok = _probs_error(fns["kernel"]()[1], fns["plain"]()[1], "bfloat16", bias)
+            row = timed_row(fns, "kernel", "plain", nbytes + 2 * B * heads * sq * sk, flops,
+                            BF16_TC_FLOPS, iters=10)
+        track_error(err, "attention_fwd_probs", "tc", e)
+        checks.expect(ok, f"attention probabilities {label} B={B}: max|err| {e:.3e}, worst "
+                          f"err/bound {ratio:.3f} <= 1 (element by element)")
+        row["variant"] = fwd_variant(torch.bfloat16, sk)
+        rows[("attention_fwd_probs", f"{label} B={B}", 0.0)] = row
+        log(f"  attention with probabilities {label} B={B} h={heads} d={d} {sq}x{sk} bf16 "
+            f"(no library call returns them): {row_text(row)} [{card}]")
+    checks.end_phase("visualization")
+    return rows, summary
+
+
+# -- phase 21 ----------------------------------------------------------------
+
+REMAT_STEPS = 2
+
+
+def phase_remat(checks: Checks, tmp: str, card: str) -> dict:
+    """(21) ``train_concap --remat`` at the bench geometry (B=256, T=36,
+    R=37, bf16, dropout 0.1) for 2 steps, launches reset just before and
+    read just after: K1 twice a step (the forward and the recompute), K2
+    once; then one step from the same weights and seed with remat and
+    without, loss and every gradient within phase 6's bounds of each other;
+    samples/s and peak memory of both on a held batch."""
+    import torch
+
+    from vilbert_tpu_torch.cli.train_concap import build_parser, optimizer_config, train
+    from vilbert_tpu_torch.data.prefetch import to_device
+    from vilbert_tpu_torch.models.layers import set_dropout_generator
+    from vilbert_tpu_torch.parallel.train_step import make_train_step
+    from vilbert_tpu_torch.train.optim import build_optimizer
+    from vilbert_tpu_torch.train.pretrain import host_batch, make_pretrain_loss_fn, pretrain_model
+
+    args = build_parser().parse_args([
+        "--synthetic", "--config", CONFIG, "--remat", "--batch_size", str(TRAIN_BATCH),
+        "--num_steps", str(REMAT_STEPS), "--seed", str(SEED), "--device", DEVICE,
+        "--output_dir", os.path.join(tmp, "cc_remat"),
+    ])
+    losses = []
+    reset_launches()
+    state = train(args, hooks=[lambda step, st, m: losses.append(float(m["loss"]))])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    cfg = state.model.cfg
+    per_step = kernel_calls_per_step(cfg)
+    encoder_ln = (2 * cfg.num_hidden_layers + 2 * cfg.v_num_hidden_layers
+                  + 4 * cfg.num_connection_layers)
+    want = {"attention": 2 * per_step["attention"], "attention_bwd": per_step["attention_bwd"],
+            "layer_norm": per_step["layer_norm"] + encoder_ln}
+    log(f"  train --remat: losses {losses}; launches {launches}")
+    checks.expect(cfg.remat and len(losses) == REMAT_STEPS and all(map(math.isfinite, losses)),
+                  "--remat: cfg.remat set, losses finite")
+    for name, n in want.items():
+        checks.expect(launches[name] == REMAT_STEPS * n,
+                      f"--remat: {name} launches {launches[name]} == {REMAT_STEPS} x {n} (each "
+                      f"encoder block's forward again in the backward)")
+    weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+
+    batch = to_device(host_batch(bench_batch(cfg, TRAIN_BATCH, SEED + 22), cfg), DEVICE)
+    grads, out = {}, {}
+    for remat in (False, True):
+        model = pretrain_model(cfg.replace(remat=remat), "vilbert")
+        model.load_state_dict(weights)
+        model = model.to(DEVICE).train()
+        gen = torch.Generator().manual_seed(SEED + 23)
+        set_dropout_generator(model, gen)
+        loss, _ = make_pretrain_loss_fn(model.cfg, lm_gather=LM_GATHER)(model, batch)
+        loss.backward()
+        # held on the host, so that the card's peak below is the step's own
+        grads[remat] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                        gen.get_state())
+        model.zero_grad(set_to_none=True)
+        opt, _ = build_optimizer(optimizer_config(args, schedule="constant"),
+                                 dict(model.named_parameters()), 1000)
+        step = make_train_step(make_pretrain_loss_fn(model.cfg, lm_gather=LM_GATHER), opt)
+        step(model, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            metrics = step(model, batch)
+        float(metrics["loss"])
+        dt = (time.perf_counter() - t0) / 3
+        out["remat" if remat else "plain"] = {
+            "samples_per_s": TRAIN_BATCH / dt, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  train step B={TRAIN_BATCH} bf16 {'--remat' if remat else 'without remat'}: "
+            f"{dt * 1e3:.2f} ms/step = {TRAIN_BATCH / dt:.1f} samples/s, peak memory "
+            f"{out['remat' if remat else 'plain']['peak_gb']:.2f} GB [{card}]")
+        del model, opt, step
+        torch.cuda.empty_cache()
+    (lp, gp, sp), (lr, gr, sr) = grads[False], grads[True]
+    top = max(float(g.abs().max()) for g in gp.values())
+    worst = max(float((gr[n] - gp[n]).abs().max())
+                / (1e-3 * float(gp[n].abs().max()) + 1e-6 * top) for n in gp)
+    loss_err = abs(lr - lp) / abs(lp)
+    checks.expect(loss_err <= 1e-5 and worst <= 1.0 and torch.equal(sp, sr),
+                  f"B={TRAIN_BATCH} bf16 step with dropout, remat vs not: loss {lr:.6f} vs "
+                  f"{lp:.6f} (rel {loss_err:.3e} <= 1e-5), worst gradient at {worst:.3e} of "
+                  f"phase 6's bound (<= 1), the dropout generator in the same state after")
+    out["launches"] = launches
+    checks.end_phase("remat")
+    return out
+
+
 def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: dict,
                   mt_launches: dict, fp32_launches: dict, ret: dict, opts: dict,
-                  base: dict) -> list:
+                  base: dict, options: dict) -> list:
     """The kernels line. Each kernel's numbers (device ms, ``device_ms``;
     ``wall_ms`` with the host's gaps) at its headline shape: K1 at VQA image
     self-attention, where it costs most; K2 at CC image self-attention;
@@ -2959,7 +3494,12 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
     phase 11's CC steps with bf16 gradients and its times at the CC and
     multi-task shapes. The baseline's and NCE's paths (phases 13-17) add
     their launches under ``launches_by_path``, and phase 18's shapes join
-    ``shapes`` (the long ones, past 128 keys, those of the long variants)."""
+    ``shapes`` (the long ones, past 128 keys, those of the long variants).
+    The model options' paths (``options``: phases 19-21's int8 eval and
+    demo, visualization forward and remat CC steps) add theirs; K1 with its
+    probabilities output is an entry of its own, at VQA image
+    self-attention in phase 20's batch, with its launches in phase 20's
+    forward (K1's entry carries them as ``launches_probs`` too)."""
     from vilbert_tpu_torch.ops.attention import TC_MAX_SEQ
     from vilbert_tpu_torch.ops.layernorm import VARIANTS as LN_VARIANTS
 
@@ -3055,6 +3595,28 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
             "baseline_multitask_train": base["multitask"][counter],
             "baseline_retrieval": sum(lt[counter] for lt in base["retrieval"].values()),
             "nce_cc_train": base["nce"]["launches"][counter]})
+    for out, counter in ((fwd, "attention"), (bwd, "attention_bwd"), (ln, "layer_norm"),
+                         (fwd_long, "attention_long_tc"), (bwd_long, "attention_bwd_long_tc")):
+        out["launches_by_path"].update({k: v[counter] for k, v in options.items()})
+    fwd["launches_probs"] = options["vqa_visualization"]["attention_probs"]
+    probs_rows = {k: v for k, v in times.items() if k[0] == "attention_fwd_probs"}
+    head = next(k for k in probs_rows if k[1].startswith("VQA image self"))
+    row = probs_rows[head]
+    fwd_probs = {
+        "name": "attention_fwd_probs", "route": "cuda", "source": fwd["source"],
+        "replaces": fwd["replaces"],
+        "launches": options["vqa_visualization"]["attention_probs"],
+        "launches_of": "phase 20's visualization forward",
+        "launches_by_variant": {v: options["vqa_visualization"][f"attention_{v}"]
+                                for v in ("tc", "long_tc", "cc")},
+        "max_abs_err": err["attention_fwd_probs"],
+        **{k: row[k] for k in ("ms", "plain_ms", "wall_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+        "bound": "memory", "library": None,
+        "library_note": "no single PyTorch call returns the attention probabilities",
+        "shape": head[1], "shapes": [dict(shape=k[1], **v) for k, v in probs_rows.items()],
+        "variant": "K1's routed variant with its probabilities output (P after dropout, "
+                   "[B, h, Sq, Sk]); long_tc in a second sweep over the key tiles"}
     bf16w = {k: v for k, v in times.items() if k[0] == "layer_norm_bf16_weight"}
     head = max(bf16w, key=lambda k: bf16w[k]["launches_by_path"]["cc"])  # CC text + residual
     row = bf16w[head]
@@ -3070,7 +3632,7 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
         "bound": "memory", "library": ln["library"], "shape": head[1],
         "shapes": [dict(shape=k[1], **v) for k, v in bf16w.items()],
         "weight": "bf16 weight and bias, widened in registers"}
-    return [fwd, bwd, ln, fused, fwd_long, fwd_cc, bwd_long, ln_bf16w]
+    return [fwd, bwd, ln, fused, fwd_long, fwd_cc, bwd_long, ln_bf16w, fwd_probs]
 
 
 def main() -> int:
@@ -3150,7 +3712,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase("[18 baseline timing]")
         times.update(phase_baseline_timing(checks, card, err))
-    phase(f"[done] phases 1-18 in {time.time() - t_start:.1f} s; multi-task peak memory "
+        torch.cuda.empty_cache()
+        phase("[19 int8 inference]")
+        int8 = phase_int8(checks, tmp, card)
+        torch.cuda.empty_cache()
+        phase("[20 visualization]")
+        vis_times, vis = phase_visualization(checks, card, err)
+        times.update(vis_times)
+        torch.cuda.empty_cache()
+        phase("[21 remat]")
+        remat = phase_remat(checks, tmp, card)
+    log(f"  int8 VQA questions/s at B={TIME_BATCH}: "
+        f"{ {k: round(v, 1) for k, v in int8['questions_per_s'].items()} }, quantization "
+        f"passes' share { {k: round(v, 4) for k, v in int8['quantize_share'].items()} }; "
+        f"visualization forward B={VIS_BATCH} ms {vis['forward_ms']}; remat CC step "
+        f"{ {k: v for k, v in remat.items() if k != 'launches'} } [{card}]")
+    phase(f"[done] phases 1-21 in {time.time() - t_start:.1f} s; multi-task peak memory "
           f"{peak_gb:.2f} GB; retrieval captions/s {ret['captions_per_s']}; flagship "
           f"checkpoint {opts['checkpoint_gb']:.3f} GB saved in {opts['save_s']:.2f} s, restored "
           f"in {opts['restore_s']:.2f} s; baseline: {base['vqa_questions_per_s']:.1f} VQA "
@@ -3160,7 +3737,10 @@ def main() -> int:
           f"[{card}]")
 
     kernels = kernel_report(times, err, vqa_launches, train_launches, mt_launches, fp32_launches,
-                            ret, opts, base)
+                            ret, opts, base, {"vqa_int8_eval": int8["launches"],
+                                              "demo_int8": int8["demo_launches"],
+                                              "vqa_visualization": vis["launches"],
+                                              "cc_train_remat": remat["launches"]})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

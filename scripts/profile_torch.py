@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
     python3 scripts/profile_torch.py [--out profile.json] [--paths vqa,cc,multitask]
     python3 scripts/profile_torch.py --paths base_vqa,base_cc,base_multitask,nce_cc
+    python3 scripts/profile_torch.py --paths vqa,int8_vqa,static_vqa,maps_vqa,cc,remat_cc
 
 At the full width of configs/bert_base_6layer_6conect.json, weights from
 seed 0, bf16 compute, it profiles with ``torch.profiler`` (CPU and CUDA
@@ -19,7 +20,12 @@ activities) after warm-up:
 - with ``--paths base_vqa,base_cc,base_multitask,nce_cc``: the same three
   for the single-stream baseline at configs/bert_base_baseline.json (the
   iteration over the nine flagship tasks it has heads for, no task token),
-  and the two-stream CC step with NCE (visual target 2).
+  and the two-stream CC step with NCE (visual target 2);
+- with ``--paths int8_vqa,static_vqa,maps_vqa,remat_cc``: the model
+  options, the VQA forward with dynamic int8 (``int8_matmul``), with static
+  int8 (``int8_static``, calibrated on 64 samples as bench.py:66-78 does)
+  and with the attention maps (``visualization``), and the CC step with
+  ``remat``.
 
 For each it prints the untraced time of one forward or step (host clock
 around work that ends in a synchronize), the device time per forward or
@@ -54,6 +60,9 @@ CLASSES = (
     ("K2 attention backward, long, CUDA cores", ("attention_bwd_rows_dq", "attention_bwd_dkdv")),
     ("K2 attention backward, CUDA cores", ("attention_bwd",)),
     ("K4 LayerNorm forward", ("layer_norm_fwd_kernel",)),
+    # torch._int_mm on an H100 runs CUTLASS's sm80 int8 kernel
+    # (cutlass_80_tensorop_i16832gemm_s8_...)
+    ("int8 GEMMs (torch._int_mm)", ("gemm_s8", "s8s8", "imma")),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("Adam and grad norm (foreach)", ("multi_tensor", "foreach")),
     ("reductions", ("reduce",)),
@@ -132,7 +141,8 @@ def main(argv=None) -> int:
     p.add_argument("--calls", type=int, default=3, help="forwards or steps profiled")
     p.add_argument("--paths", default="vqa,cc,multitask",
                    help="comma-separated: vqa, cc, multitask (one iteration profiled), "
-                        "base_vqa, base_cc, base_multitask, nce_cc")
+                        "base_vqa, base_cc, base_multitask, nce_cc, int8_vqa, static_vqa, "
+                        "maps_vqa, remat_cc")
     args = p.parse_args(argv)
     paths = set(args.paths.split(","))
     if not torch.cuda.is_available():
@@ -145,19 +155,27 @@ def main(argv=None) -> int:
     from vilbert_tpu_torch.core.config import ModelConfig
     from vilbert_tpu_torch.data.prefetch import to_device
     from vilbert_tpu_torch.models.layers import set_dropout_generator
+    from vilbert_tpu_torch.ops.quant import calibrating
     from vilbert_tpu_torch.parallel.train_step import make_train_step
     from vilbert_tpu_torch.train.optim import build_optimizer
     from vilbert_tpu_torch.train.pretrain import host_batch, make_pretrain_loss_fn, pretrain_model
 
     card = smoke.card_line()
     out = {"card": card}
-    for name, config, baseline in (("vqa", CONFIG, False), ("base_vqa", smoke.BASELINE_CONFIG,
-                                                              True)):
+    for name, config, baseline, option in (
+            ("vqa", CONFIG, False, None), ("base_vqa", smoke.BASELINE_CONFIG, True, None),
+            ("int8_vqa", CONFIG, False, "int8_matmul"),
+            ("static_vqa", CONFIG, False, "int8_static"),
+            ("maps_vqa", CONFIG, False, "visualization")):
         if name not in paths:
             continue
-        cfg = ModelConfig.from_json_file(config)
+        cfg = ModelConfig.from_json_file(config, **({option: True} if option else {}))
         model = build_model(cfg, seed=smoke.SEED, device="cuda", baseline=baseline)
         x = smoke.random_batch(cfg, smoke.TIME_BATCH, smoke.SEED + 2)
+        if option == "int8_static":
+            with torch.inference_mode(), calibrating(model):
+                model(**smoke.random_batch(cfg, smoke.INT8_CALIB_BATCH, smoke.SEED + 30),
+                      heads=("vil_prediction",))
         with torch.inference_mode():
             out[f"{name}_forward"] = profile(lambda: model(**x, heads=("vil_prediction",)),
                                              args.calls)
@@ -167,10 +185,11 @@ def main(argv=None) -> int:
 
     for name, config, family, visual_target in (
             ("cc", CONFIG, "vilbert", 0), ("base_cc", smoke.BASELINE_CONFIG, "basebert", 0),
-            ("nce_cc", CONFIG, "vilbert", 2)):
+            ("nce_cc", CONFIG, "vilbert", 2), ("remat_cc", CONFIG, "vilbert", 0)):
         if name not in paths:
             continue
-        cfg = ModelConfig.from_json_file(config, visual_target=visual_target)
+        cfg = ModelConfig.from_json_file(config, visual_target=visual_target,
+                                         remat=name == "remat_cc")
         train_args = build_parser().parse_args(["--synthetic", "--config", config])
         generator = torch.Generator().manual_seed(smoke.SEED)
         model = pretrain_model(cfg, family, generator=generator).to("cuda").train()

@@ -179,7 +179,8 @@ class TestModels:
         want = _jax_apply("BaseBertForVLTasks", cfg, _flax(model), x, heads=heads)
         with torch.inference_mode():
             got = model(**_torch(x), heads=heads)
-        assert got._fields == want._fields
+        assert got._fields == (*want._fields, "attention_probs")  # the maps, None here
+        assert got.attention_probs is None
         computed = 0
         for name in want._fields:
             w = getattr(want, name)

@@ -215,3 +215,54 @@ def test_retrieval_and_demo_run_without_jax(tmp_path):
     assert "JAX_FREE_OK" in proc.stdout and "grounded region:" in proc.stdout
     assert set(json.loads((tmp_path / "r.json").read_text())) == {
         "r1", "r5", "r10", "medr", "meanr", "num_captions", "pool_size"}
+
+
+_OPTIONS_SCRIPT = """
+import sys
+sys.modules["vilbert_tpu"] = None  # any import of the JAX package fails
+import torch
+from vilbert_tpu_torch.cli import demo, eval_tasks, train_concap
+from vilbert_tpu_torch.core.config import ModelConfig
+from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks
+from vilbert_tpu_torch.ops.quant import calibrating
+cfg, cc_cfg, out = sys.argv[1:4]
+eval_tasks.main(["--synthetic", "--tasks", "1", "--int8", "--config", cfg, "--device", "cpu",
+                 "--output_dir", out])
+demo.main(["--synthetic", "--device", "cpu", "--config", cfg, "--int8"])
+state = train_concap.main(["--synthetic", "--device", "cpu", "--num_steps", "2",
+                           "--batch_size", "4", "--remat", "--config", cc_cfg,
+                           "--output_dir", out + "_cc"])
+assert state.model.cfg.remat
+mcfg = ModelConfig.from_json_file(cfg, int8_static=True, visualization=True)
+model = ViLBERTForVLTasks(mcfg).eval()
+x = (torch.randint(0, 99, (2, 5)), torch.randn(2, 3, 2048), torch.rand(2, 3, 5))
+with torch.no_grad(), calibrating(model):
+    model(*x)
+with torch.no_grad():
+    maps = model(*x).attention_probs
+assert len(maps) == 8, sorted(maps)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+print("JAX_FREE_OK")
+"""
+
+
+def test_model_options_run_without_jax(tmp_path):
+    """The model options of ``ops/quant.py`` and the encoder on the CPU, with
+    no jax, flax or optax loaded: ``eval_tasks --int8``, ``demo --int8``,
+    ``train_concap --remat``, and a static-int8 model calibrated under
+    ``calibrating`` returning its ``visualization`` maps."""
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(_TINY))
+    cc_cfg = tmp_path / "tiny_cc.json"
+    cc_cfg.write_text(json.dumps(dict(_TINY, v_target_size=1601)))
+    out = tmp_path / "out"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _OPTIONS_SCRIPT, str(cfg), str(cc_cfg), str(out)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_FREE_OK" in proc.stdout
+    assert "vqa answer idx:" in proc.stdout
+    assert json.loads((out / "metrics_VQA_val.json").read_text())["num_samples"] == 16

@@ -434,11 +434,6 @@ class TestProcessBatch:
 
 
 class TestRefusedKnobs:
-    @pytest.mark.parametrize("knob", ["int8_matmul", "int8_static", "visualization"])
-    def test_refused_at_construction(self, tiny_config, knob):
-        with pytest.raises(NotImplementedError):
-            _port_model(tiny_config.replace(**{knob: True}))
-
     def test_train_mode_with_dropout_raises(self, tiny_config, port_and_params):
         """Train-mode dropout draws its seeds from a generator the trainer
         hands over: without one it raises; with one it runs, one seed gives

@@ -207,10 +207,9 @@ def test_baseline_fast_mode_fails_in_both_clis(tmp_path):
         main([*argv, "--device", "cpu"])
 
 
-def test_demo_prints_the_jax_demos_lines(tmp_path, monkeypatch):
-    """cli/demo.py --device cpu and the root demo.py, the same .npz and
-    question: the same argmax lines (VQA, GQA, grounded row), the scores
-    within the last printed digit."""
+def _demo_lines(tmp_path, monkeypatch, flags=()):
+    """(JAX lines, port lines) of the root demo.py and cli/demo.py --device
+    cpu on the same .npz and question."""
     import importlib.util
 
     from vilbert_tpu.models.vilbert import ViLBERTForVLTasks
@@ -219,7 +218,8 @@ def test_demo_prints_the_jax_demos_lines(tmp_path, monkeypatch):
     cfg = tmp_path / "tiny.json"
     cfg.write_text(json.dumps(_TINY))
     argv = ["--synthetic", "--config", str(cfg), "--params",
-            _jax_npz(tmp_path, cfg, ViLBERTForVLTasks), "--question", "what color is the couch?"]
+            _jax_npz(tmp_path, cfg, ViLBERTForVLTasks), "--question", "what color is the couch?",
+            *flags]
     spec = importlib.util.spec_from_file_location("jax_demo", REPO / "demo.py")
     jax_demo = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jax_demo)
@@ -229,7 +229,10 @@ def test_demo_prints_the_jax_demos_lines(tmp_path, monkeypatch):
         jax_demo.main()
     with redirect_stdout(got):
         demo.main([*argv, "--device", "cpu"])
-    want, got = want.getvalue().splitlines(), got.getvalue().splitlines()
+    return want.getvalue().splitlines(), got.getvalue().splitlines()
+
+
+def _assert_same_demo(want, got):
     assert len(got) == len(want) == 6
     assert got[:3] == want[:3]
     assert got[4].split("(")[0] == want[4].split("(")[0]  # the grounded row
@@ -239,8 +242,15 @@ def test_demo_prints_the_jax_demos_lines(tmp_path, monkeypatch):
             assert abs(float(a) - float(b)) <= 10.0 ** -len(b.split(".")[1]), (g, w)
 
 
-def test_demo_refuses_int8():
-    from vilbert_tpu_torch.cli.demo import main
+def test_demo_prints_the_jax_demos_lines(tmp_path, monkeypatch):
+    """cli/demo.py --device cpu and the root demo.py, the same .npz and
+    question: the same argmax lines (VQA, GQA, grounded row), the scores
+    within the last printed digit."""
+    _assert_same_demo(*_demo_lines(tmp_path, monkeypatch))
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        main(["--synthetic", "--device", "cpu", "--int8"])
+
+def test_demo_int8_prints_the_jax_demos_lines(tmp_path, monkeypatch):
+    """``--int8`` in both demos (dynamic int8 at B = 1, where every int8
+    product of the port is padded to torch._int_mm's shape rules on a
+    card): the same lines as above, from the JAX demo's int8 forward."""
+    _assert_same_demo(*_demo_lines(tmp_path, monkeypatch, ["--int8"]))

@@ -540,3 +540,100 @@ class TestCLI:
         assert type(got) is config.OptimizerConfig  # the port's own copy
         assert dataclasses.asdict(got) == dataclasses.asdict(OptimizerConfig(
             learning_rate=3e-5, warmup_proportion=0.1, schedule=schedule, beta2=0.98, eps=1e-6))
+
+
+class TestRemat:
+    """``remat``: each text, image and connection layer recomputed in the
+    backward (``torch.utils.checkpoint``), its dropout seeds replayed."""
+
+    def test_gradients_bit_equal_with_dropout_and_generator_state(self, tiny_config):
+        """fp32 with dropout 0.1 at every site: remat's loss and every
+        gradient equal the plain model's bit for bit, the dropout generator
+        ends in the same state, and every encoder block ran twice (the
+        forward and its recompute)."""
+        from vilbert_tpu_torch.models.coattention import ConnectionLayer
+        from vilbert_tpu_torch.models.layers import ImageLayer, TextLayer, set_dropout_generator
+        from vilbert_tpu_torch.train.pretrain import make_pretrain_loss_fn
+
+        cfg = tiny_config.replace(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                                  v_hidden_dropout_prob=0.1, v_attention_probs_dropout_prob=0.1)
+        batch = _tensors(_batch(cfg, 6))
+        runs = {}
+        for remat in (False, True):
+            model = _port_model(cfg.replace(remat=remat)).train()
+            gen = torch.Generator().manual_seed(11)
+            set_dropout_generator(model, gen)
+            calls = []
+
+            def counted(forward):
+                return lambda *a: calls.append(1) or forward(*a)
+
+            for m in model.modules():
+                if isinstance(m, (TextLayer, ImageLayer, ConnectionLayer)):
+                    m.forward = counted(m.forward)
+            loss, _ = make_pretrain_loss_fn(cfg, lm_gather=K)(model, batch)
+            loss.backward()
+            runs[remat] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()},
+                           gen.get_state(), len(calls))
+        blocks = cfg.num_hidden_layers + cfg.v_num_hidden_layers + cfg.num_connection_layers
+        (l0, g0, s0, n0), (l1, g1, s1, n1) = runs[False], runs[True]
+        assert torch.equal(l0, l1) and torch.equal(s0, s1)
+        assert (n0, n1) == (blocks, 2 * blocks)
+        assert g0.keys() == g1.keys()
+        for name in g0:
+            assert (g0[name] is None) == (g1[name] is None), name
+            if g0[name] is not None:
+                assert torch.equal(g0[name], g1[name]), name
+
+    def test_gradients_match_flax_remat(self, tiny_config):
+        """Dropout off: the remat step's loss and every gradient against
+        ``jax.value_and_grad`` of the flax model with ``remat=True``, each
+        gradient within 1e-3 of its largest plus 1e-6 of the model's largest
+        (the key biases' gradients are zero but for rounding: softmax is
+        shift-invariant)."""
+        from vilbert_tpu.models.vilbert import ViLBERTForPretraining as JaxModel
+        from vilbert_tpu.train.pretrain import make_pretrain_loss_fn as jax_loss_fn
+        from vilbert_tpu_torch.train.pretrain import make_pretrain_loss_fn
+
+        cfg = tiny_config.replace(remat=True)
+        model = _port_model(cfg, seed=3)
+        batch = _batch(cfg, 7)
+        jfn = jax_loss_fn(JaxModel(_pallas(cfg)), cfg, deterministic=True, lm_gather=K)
+        (want_loss, _), want_g = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
+            _jax_params(model), batch, jax.random.PRNGKey(0))
+        loss, _ = make_pretrain_loss_fn(cfg, lm_gather=K)(model, _tensors(batch))
+        loss.backward()
+        np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+        got_g = _flax({n: p.grad for n, p in model.named_parameters()})
+        want_g = _flatten(want_g)
+        assert set(got_g) == set(want_g)
+        top = max(float(np.abs(np.asarray(w)).max()) for w in want_g.values())
+        for path, w in want_g.items():
+            w = np.asarray(w)
+            np.testing.assert_allclose(got_g[path], w, rtol=0,
+                                       atol=1e-3 * float(np.abs(w).max()) + 1e-6 * top,
+                                       err_msg=path)
+
+    def test_cli_flag_sets_remat(self, tmp_path):
+        """``train_concap --remat`` builds the model with ``cfg.remat`` (the
+        flag used to be accepted and ignored), and the baseline ignores it,
+        as the JAX baseline does."""
+        import json
+
+        from vilbert_tpu_torch.cli.train_concap import main
+
+        cfg = tmp_path / "tiny.json"
+        cfg.write_text(json.dumps(dict(
+            vocab_size=99, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+            intermediate_size=64, max_position_embeddings=64, v_feature_size=2048,
+            v_hidden_size=24, v_num_hidden_layers=2, v_num_attention_heads=4,
+            v_intermediate_size=48, v_target_size=1601, bi_hidden_size=32,
+            bi_num_attention_heads=4, v_biattention_id=[0, 1], t_biattention_id=[0, 1],
+            hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)))
+        common = ["--synthetic", "--device", "cpu", "--num_steps", "2", "--batch_size", "4",
+                  "--config", str(cfg)]
+        plain = main([*common, "--output_dir", str(tmp_path / "a")])
+        remat = main([*common, "--remat", "--output_dir", str(tmp_path / "b")])
+        assert remat.model.cfg.remat and not plain.model.cfg.remat
+        for name, p in plain.model.state_dict().items():
+            assert torch.equal(p, remat.model.state_dict()[name]), name

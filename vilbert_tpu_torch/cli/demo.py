@@ -12,8 +12,8 @@ grounded region and the alignment score, in the JAX demo's lines.
       --params multi_task_model.npz --vocab vocab.txt --question "..."
 
 It runs on the card (the port's attention and LayerNorm kernels) unless
-``--device cpu``. ``--int8`` raises: int8 inference is not ported yet
-(ROADMAP A13).
+``--device cpu``. ``--int8`` runs every dense site in dynamic int8
+(``int8_matmul``, ``ops.quant``), as the JAX demo's flag does.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_seq_length", type=int, default=30)
     p.add_argument("--max_region_num", type=int, default=37)
     p.add_argument("--synthetic", action="store_true")
-    p.add_argument("--int8", action="store_true", help="not ported yet (ROADMAP A13)")
+    p.add_argument("--int8", action="store_true",
+                   help="dynamic int8 inference matmuls (ops/quant.py)")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
 
@@ -47,8 +48,6 @@ def main(argv: Optional[Sequence[str]] = None, *, model: Optional[torch.nn.Modul
     """Run the demo and print its lines; returns the heads' outputs.
     ``model`` replaces the one built from ``--config`` and ``--params``."""
     args = build_parser().parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("--int8: int8 inference is not ported yet (ROADMAP A13)")
 
     from vilbert_tpu_torch.core.config import ModelConfig
     from vilbert_tpu_torch.core.weights import load_weights
@@ -61,7 +60,7 @@ def main(argv: Optional[Sequence[str]] = None, *, model: Optional[torch.nn.Modul
     from vilbert_tpu_torch.data.tokenization import add_special_single, load_tokenizer
     from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks
 
-    cfg = ModelConfig.from_json_file(args.config)
+    cfg = ModelConfig.from_json_file(args.config, int8_matmul=args.int8)
     tokenizer = load_tokenizer(args.vocab or None, cfg.vocab_size)
     store = (InMemoryFeatureStore.synthetic(num_images=4, num_boxes=36)
              if args.synthetic or not args.store else open_feature_store(args.store))

@@ -10,7 +10,9 @@ reference eval_tasks.py and ``vilbert_tpu.cli.eval_tasks``).
 
 Writes, per task, ``metrics_<task>_<split>.json`` and
 ``<task>_<split>_result.json`` into ``--output_dir``. ``--baseline``
-evaluates the single-stream baseline (``models.basebert.BaseBertForVLTasks``).
+evaluates the single-stream baseline (``models.basebert.BaseBertForVLTasks``);
+``--int8`` runs every dense site in dynamic int8 (``int8_matmul``,
+``ops.quant``) as the JAX CLI's flag does.
 On a CUDA device the attention and LayerNorm of the model run the port's
 kernels, built from ``vilbert_tpu_torch/csrc`` at first use.
 """
@@ -53,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=0,
                    help="override the per-task eval batch size")
     p.add_argument("--int8", action="store_true",
-                   help="int8 matmuls for inference (not ported yet)")
+                   help="dynamic int8 matmuls for inference (ops/quant.py)")
     p.add_argument("--use_pallas", action="store_true",
                    help="accepted for flag parity; on CUDA the port always "
                         "runs its attention and LayerNorm kernels")
@@ -143,8 +145,6 @@ def _label2ans(task: TaskConfig) -> Optional[List[str]]:
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("--int8: int8 inference is not ported yet (ROADMAP A13)")
 
     from vilbert_tpu_torch.core.config import load_task_configs
 
@@ -152,6 +152,7 @@ def main(argv=None) -> None:
         args.config,
         task_specific_tokens=args.task_specific_tokens,
         dynamic_attention=args.dynamic_attention,
+        int8_matmul=args.int8,
     )
     all_tasks = load_task_configs(args.tasks_yml)
     selected = {f"TASK{n}": all_tasks[f"TASK{n}"] for n in args.tasks.split("-")}

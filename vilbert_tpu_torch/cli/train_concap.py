@@ -19,7 +19,10 @@ gradients in bf16, ``--bf16_adam_state`` stores the Adam moments in bf16.
 ``--baseline`` pretrains the single-stream baseline
 (``models.basebert.BaseBertForPretraining``; ``--from_pretrained`` then maps
 reference names as the baseline's), and ``--visual_target 2`` trains the
-masked regions by NCE against ``--num_negative`` sampled negatives. On a
+masked regions by NCE against ``--num_negative`` sampled negatives.
+``--remat`` recomputes each encoder block of the two-stream model in the
+backward (``torch.utils.checkpoint``) instead of keeping its activations;
+the single-stream baseline ignores it, as the JAX one does. On a
 CUDA device the model runs the port's attention (forward with dropout,
 backward) and LayerNorm kernels, built from ``vilbert_tpu_torch/csrc`` at
 first use.
@@ -100,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_pallas", action="store_true",
                    help="accepted for flag parity; on CUDA the port always runs its kernels")
     p.add_argument("--remat", action="store_true",
-                   help="accepted for flag parity; ignored (ROADMAP A13)")
+                   help="recompute each encoder block in the backward (activation memory)")
     p.add_argument("--num_workers", type=int, default=0,
                    help=">1: thread-pool host batch building (deterministic)")
     p.add_argument("--synthetic", action="store_true", help="synthetic data smoke run")
@@ -185,6 +188,7 @@ def train(args: argparse.Namespace, hooks: Optional[list] = None):
         dynamic_attention=args.dynamic_attention,
         with_coattention=not args.without_coattention,
         model="roberta" if "roberta" in args.bert_model else "bert",
+        remat=args.remat,
     )
     if args.save_name:
         args.output_dir = os.path.join(args.output_dir, args.save_name)

@@ -18,6 +18,13 @@ parameters are not transposed. The reference's tied LM decoder and dead
   (the ``.bin`` path goes through the importer's key migration: ``module.``
   and ``bert.`` prefixes, gamma/beta, weight-norm folding).
 
+- ``quant_from_model`` / ``load_quant``: the static-int8 sites' calibrated
+  ranges (``act_amax`` buffers, not in the ``state_dict``) out as, and in
+  from, flax's ``quant`` collection, so that a calibration done in either
+  package drives the other;
+- ``flax_path``: the flax path of a port name that is no parameter (a
+  site's ``act_amax``, a ``visualization`` map: flax's ``intermediates``).
+
 ``family`` names the model family the parameter names belong to:
 ``"vilbert"`` (the two-stream models) or ``"basebert"`` (the single-stream
 baseline, ``models.basebert``), whose reference names map onto other flax
@@ -44,6 +51,7 @@ from vilbert_tpu_torch.core.importer import (
     import_torch_state_dict,
     load_torch_checkpoint,
 )
+from vilbert_tpu_torch.ops.quant import static_sites
 
 logger = logging.getLogger(__name__)
 
@@ -91,6 +99,40 @@ def state_dict_from_flax(
         arr = flat[fkey].T if _needs_transpose(key, family) else flat[fkey]
         out[key] = torch.tensor(np.ascontiguousarray(arr))
     return out
+
+
+def flax_path(name: str, family: str = "vilbert") -> str:
+    """Dotted flax path of ``<port module path>.<leaf>`` where the leaf is
+    no parameter: the module's path maps as its parameters' do."""
+    _check_family(family)
+    module, leaf = name.rsplit(".", 1)
+    return _to_flax_key(f"{module}.bias", family)[: -len("bias")] + leaf
+
+
+def quant_from_model(model: nn.Module) -> Dict[str, Any]:
+    """The calibrated ``act_amax`` of ``model``'s static-int8 sites as a
+    flax ``quant`` tree of numpy [in] vectors (sites never calibrated are
+    left out, as a flax calibration pass creates only the sites it ran)."""
+    return _unflatten({
+        flax_path(f"{name}.act_amax", model.family): m.act_amax.detach().cpu().numpy().copy()
+        for name, m in static_sites(model).items() if m.calibrated})
+
+
+def load_quant(model: nn.Module, quant: Mapping[str, Any]) -> None:
+    """A flax ``quant`` tree into ``model``'s static-int8 sites, which then
+    count as calibrated. Sites the tree leaves out stay as they were (a
+    calibration of some heads covers those heads' sites); a leaf that names
+    no site raises ValueError."""
+    sites = static_sites(model)
+    by_flax = {flax_path(f"{name}.act_amax", model.family): name for name in sites}
+    flat = {k: np.asarray(v) for k, v in _flatten(quant).items()}
+    unused = sorted(set(flat) - set(by_flax))
+    if unused:
+        raise ValueError(f"quant leaves that name no int8_static site: {unused[:10]}")
+    for fkey, arr in flat.items():
+        m = sites[by_flax[fkey]]
+        m.act_amax = torch.tensor(arr, dtype=torch.float32, device=m.act_amax.device)
+        m.calibrated = True
 
 
 def load_params_npz(path: str) -> Dict[str, Any]:

@@ -22,6 +22,12 @@
 // passes), keep the [Sq, Sk] scores on chip and write the output once in
 // [B, Sq, H].
 //
+// Each variant can also write the attention probabilities (the
+// `visualization` maps), P after dropout in the output dtype, into a
+// [B, h, Sq, Sk] array when the caller passes one (null: none, and nothing
+// else changes): tc:: and cc:: from the row they hold, ltc:: in a second
+// sweep over the key tiles once the row's max and sum are final.
+//
 // Three variants; the Python wrapper picks one by dtype and Sk and counts
 // each:
 //
@@ -139,8 +145,9 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ x, i
 template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const float* __restrict__ bias, T* __restrict__ out, int num_heads, int sq,
-                     int sk, int q_tiles, int64_t q_bstride, int64_t q_rstride,
+                     const float* __restrict__ bias, T* __restrict__ out,
+                     T* __restrict__ probs, int num_heads, int sq, int sk, int q_tiles,
+                     int64_t q_bstride, int64_t q_rstride,
                      int64_t k_bstride, int64_t k_rstride, int64_t v_bstride,
                      int64_t v_rstride, int64_t bias_bstride, float scale,
                      uint32_t seed, uint32_t threshold, float keep_scale) {
@@ -198,11 +205,14 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   __syncthreads();
 
   // softmax over the sk valid columns of each row, one warp per row, then
-  // the dropout mask of the row's global query index
+  // the dropout mask of the row's global query index; with `probs`, the
+  // row's P as the PV product takes it into [B, h, Sq, Sk]
   const int warp = tid / 32, lane = tid % 32;
   const uint32_t tseed = vt::tile_seed(seed, bh);
   for (int r = warp; r < kBlockQ; r += kThreads / 32) {
     float* row = p_s + r * p_stride;
+    T* prow =
+        probs != nullptr && q0 + r < sq ? probs + ((int64_t)bh * sq + q0 + r) * sk : nullptr;
     float m = -INFINITY;
     for (int j = lane; j < sk; j += 32) m = fmaxf(m, row[j]);
     m = warp_max(m);
@@ -217,6 +227,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       float p = row[j] / l;
       if (kDrop) p = vt::keep(q0 + r, j, tseed, threshold) ? p * keep_scale : 0.f;
       row[j] = to_float(from_float<T>(p));
+      if (prow != nullptr) prow[j] = from_float<T>(p);
     }
   }
 
@@ -259,7 +270,8 @@ size_t smem_bytes(int d, int sk) {
 
 template <typename T, int D, bool kDrop>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
-                   int batch, int num_heads, int sq, int sk, long long q_bs, long long q_rs,
+                   void* probs, int batch, int num_heads, int sq, int sk, long long q_bs,
+                   long long q_rs,
                    long long k_bs, long long k_rs, long long v_bs, long long v_rs,
                    long long bias_bs, float scale, uint32_t seed, uint32_t threshold,
                    float keep_scale, cudaStream_t stream) {
@@ -273,7 +285,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   if (err != cudaSuccess) return err;
   attention_fwd_kernel<T, D, kDrop><<<(unsigned)blocks, kThreads, smem_bytes(D, sk), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<T*>(out), num_heads, sq, sk, q_tiles, q_bs,
+      static_cast<const float*>(bias), static_cast<T*>(out), static_cast<T*>(probs), num_heads,
+      sq, sk, q_tiles, q_bs,
       q_rs, k_bs, k_rs, v_bs, v_rs, bias_bs, scale, seed, threshold, keep_scale);
   return cudaGetLastError();
 }
@@ -293,6 +306,7 @@ struct Args {
   const vt::bf16* v;
   const float* bias;
   vt::bf16* out;
+  vt::bf16* probs;  // [B, h, Sq, Sk], or null: no probabilities
   int num_heads, sq, sk;
   int q_rows, q_tiles;  // query rows per block (a multiple of 16), blocks per head
   int64_t q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, bias_bs;  // strides in elements
@@ -362,6 +376,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attention_fwd_tc_kernel(const 
                           ? s[n][e] * a.keep_scale
                           : 0.f;
     }
+    // the normalized, dropped P as P V takes it (bf16), into [B, h, Sq, Sk]
+    if (a.probs != nullptr)
+      vt::store_probs<2 * KT>(a.probs + (int64_t)bh * a.sq * a.sk, s, 2 * kt, row, 0, a.sq,
+                              a.sk, lane);
 #pragma unroll
     for (int j = 0; j < KT; ++j)
       if (j < kt) vt::c_to_a(pa[j], s[2 * j], s[2 * j + 1]);
@@ -545,12 +563,56 @@ __global__ void __launch_bounds__(32 * kMaxQWarps) attention_fwd_long_tc_kernel(
       vt::accumulate_ab<D, kST>(o, pa, v_t, st, lane);
     }
   }
-  if (!active) return;
-
   // O keep_scale / l, written once in [B, Sq, H]
-  vt::scale_rows<D / 8>(o, a.keep_scale / vt::quad_sum(l[0]), a.keep_scale / vt::quad_sum(l[1]));
-  const int64_t hidden = (int64_t)a.num_heads * D;
-  vt::store_strip<D>(a.out + b * a.sq * hidden + h * D, o, row, a.sq, hidden, 1.f, lane);
+  const float f[2] = {a.keep_scale / vt::quad_sum(l[0]), a.keep_scale / vt::quad_sum(l[1])};
+  if (active) {
+    vt::scale_rows<D / 8>(o, f[0], f[1]);
+    const int64_t hidden = (int64_t)a.num_heads * D;
+    vt::store_strip<D>(a.out + b * a.sq * hidden + h * D, o, row, a.sq, hidden, 1.f, lane);
+  }
+  if (a.probs == nullptr) return;
+
+  // With `probs`: a second sweep over the key tiles, now that the row's max
+  // m and sum l are final. S is recomputed as above, P = exp(s - m)
+  // keep_scale / l where the mask keeps and 0 elsewhere, rounded to bf16
+  // into [B, h, Sq, Sk]. (The sweep above rounded the unnormalized exp to
+  // bf16 for P V; these are the normalized probabilities, as the TPU kernel
+  // rounds them.)
+  vt::bf16* probs = a.probs + (int64_t)bh * a.sq * a.sk;
+  const float ml[2] = {m[0] * kLog2e, m[1] * kLog2e};
+  __syncthreads();  // every warp is done with the last tile's stage
+  load_tile(0);
+  vt::cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    vt::cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      load_tile(t + 1);
+      vt::cp_async_commit();
+    }
+    if (!active) continue;
+    const int k0 = t * kBlockK, kt = (min(kBlockK, a.sk - k0) + 15) / 16;
+#pragma unroll
+    for (int j0 = 0; j0 < kBlockK; j0 += kStep) {
+      const int st = kt - j0 / 16;
+      if (st <= 0) break;
+      const vt::bf16* k_t = k_s + ((t % kStages) * kBlockK + j0) * LD;
+      const float* bias_t = bias_s + (t % kStages) * kBlockK + j0;
+      float s[2 * kST][4];
+      vt::products_abt<D, kST>(s, q_s, k_t, r0, st, lane);
+#pragma unroll
+      for (int n = 0; n < 2 * kST; ++n)
+        if (n < 2 * st)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + j0 + 8 * n + 2 * (lane % 4) + e % 2;
+            const float x = fmaf(s[n][e], a.scale, bias_t[8 * n + 2 * (lane % 4) + e % 2]);
+            const float p = exp2_approx(fmaf(x, kLog2e, -ml[e / 2])) * f[e / 2];
+            s[n][e] = !kDrop || vt::keep(row + 8 * (e / 2), key, tseed, a.threshold) ? p : 0.f;
+          }
+      vt::store_probs<2 * kST>(probs, s, 2 * st, row, k0 + j0, a.sq, a.sk, lane);
+    }
+  }
 }
 
 template <int D, bool kDrop>
@@ -571,29 +633,29 @@ cudaError_t launch(const tc::Args& a, int batch, cudaStream_t stream) {
 }  // namespace
 
 // The CUDA-core variant. dtype: 0 = float32, 1 = bfloat16. Strides are in
-// elements. Dropout:
-// the call's uint32 seed, the uint32 keep threshold and the fp32 keep scale
-// 1/(1 - rate), all computed by the caller; threshold 0 and scale 1 mean
-// rate 0. Returns a cudaError_t; cudaErrorInvalidValue for a dtype, head_dim
-// or key count the kernel does not take (the Python wrapper checks these
-// first).
+// elements. Dropout: the call's uint32 seed, the uint32 keep threshold and
+// the fp32 keep scale 1/(1 - rate), all computed by the caller; threshold 0
+// and scale 1 mean rate 0. probs: null, or a contiguous [B, h, Sq, Sk] of the
+// dtype that receives P after dropout (as the PV product takes it).
+// Returns a cudaError_t; cudaErrorInvalidValue for a dtype, head_dim or key
+// count the kernel does not take (the Python wrapper checks these first).
 extern "C" int vt_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
                                 void* out, int dtype, int batch, int num_heads, int head_dim,
                                 int sq, int sk, long long q_bstride, long long q_rstride,
                                 long long k_bstride, long long k_rstride, long long v_bstride,
                                 long long v_rstride, long long bias_bstride, float scale,
                                 unsigned int seed, unsigned int threshold, float keep_scale,
-                                void* stream) {
+                                void* probs, void* stream) {
   if (sk < 1 || sk > cc::kMaxKeys || sq < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = threshold != 0u || keep_scale != 1.f;
 #define VT_LAUNCH(T, D)                                                                        \
-  return (int)(drop ? cc::launch<T, D, true>(q, k, v, bias, out, batch, num_heads, sq, sk,     \
-                                             q_bstride, q_rstride, k_bstride, k_rstride,       \
+  return (int)(drop ? cc::launch<T, D, true>(q, k, v, bias, out, probs, batch, num_heads, sq,  \
+                                             sk, q_bstride, q_rstride, k_bstride, k_rstride,   \
                                              v_bstride, v_rstride, bias_bstride, scale, seed,  \
                                              threshold, keep_scale, s)                         \
-                    : cc::launch<T, D, false>(q, k, v, bias, out, batch, num_heads, sq, sk,    \
-                                              q_bstride, q_rstride, k_bstride, k_rstride,      \
+                    : cc::launch<T, D, false>(q, k, v, bias, out, probs, batch, num_heads, sq, \
+                                              sk, q_bstride, q_rstride, k_bstride, k_rstride,  \
                                               v_bstride, v_rstride, bias_bstride, scale, seed, \
                                               threshold, keep_scale, s))
   if (dtype == 0 && head_dim == 64) VT_LAUNCH(float, 64);
@@ -606,8 +668,8 @@ extern "C" int vt_attention_fwd(const void* q, const void* k, const void* v, con
 
 // The tensor-core variant: bf16 q, k, v and out, fp32 bias, 1 <= Sk <= 128,
 // head_dim 64 or 128; q, k and v 16-byte aligned with batch and row strides
-// that are multiples of 8 elements (16 bytes). Arguments otherwise as for
-// vt_attention_fwd; cudaErrorInvalidValue for what it does not take (the
+// that are multiples of 8 elements (16 bytes); probs null or bf16. Arguments
+// otherwise as for vt_attention_fwd; cudaErrorInvalidValue for what it does not take (the
 // Python wrapper checks these first).
 extern "C" int vt_attention_fwd_tc(const void* q, const void* k, const void* v, const void* bias,
                                    void* out, int batch, int num_heads, int head_dim, int sq,
@@ -615,7 +677,7 @@ extern "C" int vt_attention_fwd_tc(const void* q, const void* k, const void* v, 
                                    long long k_bstride, long long k_rstride, long long v_bstride,
                                    long long v_rstride, long long bias_bstride, float scale,
                                    unsigned int seed, unsigned int threshold, float keep_scale,
-                                   void* stream) {
+                                   void* probs, void* stream) {
   if (sk < 1 || sk > tc::kMaxKeys || sq < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 ||
@@ -626,7 +688,8 @@ extern "C" int vt_attention_fwd_tc(const void* q, const void* k, const void* v, 
   const int q_rows = min(tc::kBlockQ, (sq + 15) / 16 * 16);
   tc::Args a{static_cast<const vt::bf16*>(q), static_cast<const vt::bf16*>(k),
              static_cast<const vt::bf16*>(v), static_cast<const float*>(bias),
-             static_cast<vt::bf16*>(out), num_heads, sq, sk, q_rows, (sq + q_rows - 1) / q_rows,
+             static_cast<vt::bf16*>(out), static_cast<vt::bf16*>(probs), num_heads, sq, sk,
+             q_rows, (sq + q_rows - 1) / q_rows,
              q_bstride, q_rstride, k_bstride, k_rstride,
              v_bstride, v_rstride, bias_bstride, scale, seed, threshold, keep_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -652,7 +715,7 @@ extern "C" int vt_attention_fwd_long_tc(const void* q, const void* k, const void
                                         long long k_rstride, long long v_bstride,
                                         long long v_rstride, long long bias_bstride, float scale,
                                         unsigned int seed, unsigned int threshold,
-                                        float keep_scale, void* stream) {
+                                        float keep_scale, void* probs, void* stream) {
   if (sk < 1 || sk > ltc::kMaxKeys || sq < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 ||
@@ -664,7 +727,8 @@ extern "C" int vt_attention_fwd_long_tc(const void* q, const void* k, const void
   const int q_rows = ((sq + q_tiles - 1) / q_tiles + 15) / 16 * 16;
   tc::Args a{static_cast<const vt::bf16*>(q), static_cast<const vt::bf16*>(k),
              static_cast<const vt::bf16*>(v), static_cast<const float*>(bias),
-             static_cast<vt::bf16*>(out), num_heads, sq, sk, q_rows, q_tiles,
+             static_cast<vt::bf16*>(out), static_cast<vt::bf16*>(probs), num_heads, sq, sk,
+             q_rows, q_tiles,
              q_bstride, q_rstride, k_bstride, k_rstride,
              v_bstride, v_rstride, bias_bstride, scale, seed, threshold, keep_scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -204,6 +204,24 @@ __device__ __forceinline__ void store_strip(bf16* dst, const float (&c)[D / 8][4
   }
 }
 
+// the first n_valid C tiles of a 16-row strip, each element rounded to bf16,
+// into dst (row-major, row stride cols, already offset to the head): element
+// e of tile n goes to row `row` + 8 (e / 2) and column col0 + 8 n +
+// 2 (lane % 4) + e % 2, where that row is below rows and that column below
+// cols; row = the strip's first row + lane / 4
+template <int N>
+__device__ __forceinline__ void store_probs(bf16* dst, const float (&s)[N][4], int n_valid,
+                                            int row, int col0, int rows, int cols, int lane) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    if (n < n_valid)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row + 8 * (e / 2), c = col0 + 8 * n + 2 * (lane % 4) + e % 2;
+        if (r < rows && c < cols) dst[(int64_t)r * cols + c] = __float2bfloat16(s[n][e]);
+      }
+}
+
 // rows [0, rows_pad) of one head into dst (row stride D + 8): rows below
 // n_valid from src (row stride rstride elements, 16-byte aligned) by
 // cp.async, the rest zero. The caller commits, waits and syncs.

@@ -16,7 +16,12 @@ two-stream ViLBERT. As in the JAX package:
 - ``heads=`` computes only the named heads of the 7; the co-attention mask
   and ``task_ids`` are accepted and ignored. The baseline has no task
   token: a config with ``task_specific_tokens`` is refused (the JAX model
-  fails on it at its first call).
+  fails on it at its first call);
+- ``int8_matmul`` / ``int8_static`` run every dense site in int8 (the JAX
+  baseline's ``_dense`` sites, which the port's ``Linear`` are), and
+  ``visualization`` returns each ``TextLayer``'s attention map on the
+  output (``attention_probs``); ``remat`` is ignored, as the JAX baseline
+  ignores it (its encoder is a plain loop of ``TextLayer``s).
 
 Module names are the reference torch names (``bert.encoder.layer.N``,
 ``bert.pooler.dense``, ``cls.predictions``, ``cls.imagePredictions``,
@@ -34,12 +39,18 @@ import torch
 from torch import nn
 
 from vilbert_tpu_torch.core.config import ModelConfig
-from vilbert_tpu_torch.models.layers import Dropout, LayerNorm, Linear, TextLayer, compute_dtype
+from vilbert_tpu_torch.models.layers import (
+    Dropout,
+    LayerNorm,
+    Linear,
+    TextLayer,
+    collect_attention_maps,
+    compute_dtype,
+)
 from vilbert_tpu_torch.models.vilbert import (
     LMPredictionHead,
     PredictionHeadTransform,
     TextEmbeddings,
-    check_supported,
     init_weights,
 )
 from vilbert_tpu_torch.ops.attention import make_additive_mask
@@ -104,6 +115,8 @@ class BasePooler(nn.Module):
 class BaseBertModelOutput(NamedTuple):
     sequence: torch.Tensor  # [B, T + R, H]
     pooled: torch.Tensor    # [B, H]
+    #: under visualization, {name: probabilities} (``collect_attention_maps``)
+    attention_probs: Optional[Dict[str, torch.Tensor]] = None
 
 
 class BaseBertModel(nn.Module):
@@ -111,7 +124,6 @@ class BaseBertModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        check_supported(cfg)
         if cfg.task_specific_tokens:
             raise ValueError("the single-stream baseline takes no task token: its embeddings "
                              "get no task ids (set task_specific_tokens=False)")
@@ -142,8 +154,9 @@ class BaseBertModel(nn.Module):
                          self.image_embeddings(input_imgs, image_loc, image_types)], dim=1)
         bias = make_additive_mask(torch.cat(
             [attention_mask.to(torch.int32), image_attention_mask.to(torch.int32)], dim=1))
-        seq = self.encoder(seq, bias)
-        return BaseBertModelOutput(seq, self.pooler(seq))
+        with collect_attention_maps(self) as maps:
+            seq = self.encoder(seq, bias)
+        return BaseBertModelOutput(seq, self.pooler(seq), maps)
 
 
 class BaseImagePredictionHead(nn.Module):
@@ -174,6 +187,8 @@ class BasePretrainOutput(NamedTuple):
     prediction_scores_t: torch.Tensor   # [B, T, vocab] (or [B, K, vocab] gathered)
     prediction_scores_v: torch.Tensor   # [B, R, v_target_size] fp32 (or [B, K, ...])
     seq_relationship_score: torch.Tensor  # [B, 2] fp32
+    #: under visualization, {name: probabilities} from the model's root
+    attention_probs: Optional[Dict[str, torch.Tensor]] = None
 
 
 class BaseBertForPretraining(nn.Module):
@@ -205,8 +220,9 @@ class BaseBertForPretraining(nn.Module):
         lm_positions: Optional[torch.Tensor] = None,
         img_positions: Optional[torch.Tensor] = None,
     ) -> BasePretrainOutput:
-        out = self.bert(input_ids, image_feat, image_loc, token_type_ids, attention_mask,
-                        image_attention_mask)
+        with collect_attention_maps(self) as maps:
+            out = self.bert(input_ids, image_feat, image_loc, token_type_ids, attention_mask,
+                            image_attention_mask)
         t_len = input_ids.shape[1]
         seq_t, seq_v = out.sequence[:, :t_len], out.sequence[:, t_len:]
         if lm_positions is not None:
@@ -218,6 +234,7 @@ class BaseBertForPretraining(nn.Module):
             heads.predictions(seq_t, self.bert.embeddings.word_embeddings.weight),
             heads.imagePredictions(seq_v),
             heads.seq_relationship(out.pooled).float(),
+            maps,
         )
 
 
@@ -229,6 +246,8 @@ class BaseVLTaskOutput(NamedTuple):
     vision_logit: Any = None
     linguisic_prediction: Any = None
     linguisic_logit: Any = None
+    #: under visualization, {name: probabilities} from the model's root
+    attention_probs: Any = None
 
 
 class BaseSimpleClassifier(nn.Module):
@@ -287,8 +306,9 @@ class BaseBertForVLTasks(nn.Module):
         if image_attention_mask is None:
             image_attention_mask = torch.ones(
                 input_imgs.shape[:2], dtype=input_txt.dtype, device=input_txt.device)
-        out = self.bert(input_txt, input_imgs, image_loc, token_type_ids, attention_mask,
-                        image_attention_mask)
+        with collect_attention_maps(self) as maps:
+            out = self.bert(input_txt, input_imgs, image_loc, token_type_ids, attention_mask,
+                            image_attention_mask)
         t_len = input_txt.shape[1]
         seq_t, seq_v = out.sequence[:, :t_len], out.sequence[:, t_len:]
         results: Dict[str, Any] = {}
@@ -309,4 +329,4 @@ class BaseBertForVLTasks(nn.Module):
                                        + pad[:, :, None])
         if "linguisic_logit" in heads:
             results["linguisic_logit"] = self.linguisic_logit(self.dropout(seq_t)).float()
-        return BaseVLTaskOutput(**results)
+        return BaseVLTaskOutput(**results, attention_probs=maps)

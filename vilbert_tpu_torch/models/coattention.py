@@ -27,6 +27,7 @@ from vilbert_tpu_torch.models.layers import (
     Linear,
     Output,
     attend,
+    keep_map,
 )
 
 
@@ -39,6 +40,9 @@ class BiAttention(nn.Module):
         self.num_heads = cfg.bi_num_attention_heads
         self.rate_t = cfg.v_attention_probs_dropout_prob  # text queries -> image keys
         self.rate_v = cfg.attention_probs_dropout_prob    # image queries -> text keys
+        # maps under visualization: text queries over image keys
+        # (attention_probs), image queries over text keys (attention_probs_v)
+        self.visualization = cfg.visualization
         self.plain_ops = False
         self.dropout_generator: Optional[torch.Generator] = None
         self.query1 = Linear(cfg, cfg.v_hidden_size, bi)
@@ -57,12 +61,16 @@ class BiAttention(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         context_t = attend(
             self, self.query2(input_t), self.key1(input_v), self.value1(input_v), bias_v,
-            self.num_heads, self.rate_t,
+            self.num_heads, self.rate_t, self.visualization,
         )
         context_v = attend(
             self, self.query1(input_v), self.key2(input_t), self.value2(input_t), bias_t,
-            self.num_heads, self.rate_v,
+            self.num_heads, self.rate_v, self.visualization,
         )
+        if self.visualization:
+            (context_t, probs_t), (context_v, probs_v) = context_t, context_v
+            keep_map(self, "attention_probs", probs_t)
+            keep_map(self, "attention_probs_v", probs_v)
         return context_v, context_t
 
 

@@ -13,6 +13,22 @@ Dtype policy (as the JAX package): params fp32; every ``Linear`` casts its
 input, weight and bias to ``cfg.compute_dtype`` and returns that dtype, like
 ``flax.linen.Dense(dtype=compute_dtype)``; LayerNorm statistics are fp32.
 
+Int8 (``cfg.int8_matmul``, ``cfg.int8_static``; inference only): every
+``Linear`` computes ``ops.quant.int8_dense`` instead, as every ``_dense``,
+``HeadProj`` and ``MergeProj`` site of the JAX package does (word
+embeddings, LayerNorm and the tied LM decoder stay as they are). A static
+site keeps an fp32 ``act_amax`` buffer of its input width, filled under
+``ops.quant.calibrating`` (not in the ``state_dict``: ``core.weights``'
+``quant_from_model`` and ``load_quant`` move it as flax's ``quant``
+collection).
+
+Visualization (``cfg.visualization``): each attention site hands its
+probabilities to ``keep_map`` (``attention_probs``; the co-attention's
+image-query direction ``attention_probs_v``), as the JAX sites ``sow``
+them. The model that is called collects them once, under
+``collect_attention_maps``; outside it (a nested model, remat's recompute
+in the backward) a site keeps nothing.
+
 Dropout (train mode, rate > 0) is the JAX package's counter-hash dropout:
 ``hash_dropout`` at the hidden-state sites, the kernels' ``_keep_mask`` in
 the attention. Each site draws one uint32 seed per call from the CPU
@@ -22,6 +38,8 @@ trainer owns it. In eval mode the attention runs at rate 0.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Optional
 
 import torch
@@ -32,6 +50,7 @@ from vilbert_tpu_torch.core.config import ModelConfig
 from vilbert_tpu_torch.ops.attention import attention, attention_ref
 from vilbert_tpu_torch.ops.dropout import draw_seed, hash_dropout
 from vilbert_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
+from vilbert_tpu_torch.ops.quant import int8_dense, static_act_amax
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -114,17 +133,29 @@ def resolve_act(name: str, cfg: ModelConfig) -> Callable[[torch.Tensor], torch.T
 
 
 class Linear(nn.Module):
-    """y = x W^T + b in the compute dtype; W [out, in] and b fp32 params."""
+    """y = x W^T + b in the compute dtype; W [out, in] and b fp32 params.
+
+    Under int8 (``int8`` is "dynamic" or "static") the product is
+    ``int8_dense`` of x as it comes (``QuantDense`` does not cast it first)
+    and the bias is added in the compute dtype; a static site reads its
+    range from ``static_act_amax``."""
 
     def __init__(self, cfg: ModelConfig, in_features: int, out_features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features))
         self.compute_dtype = compute_dtype(cfg)
+        self.int8 = "static" if cfg.int8_static else "dynamic" if cfg.int8_matmul else None
+        if self.int8 == "static":
+            self.register_buffer("act_amax", torch.zeros(in_features), persistent=False)
+            self.calibrating = self.calibrated = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if self.int8 is None:
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        amax = static_act_amax(self, x) if self.int8 == "static" else None
+        return int8_dense(x, self.weight, dt, amax) + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -191,16 +222,57 @@ class GeLU(nn.Module):
         return gelu(x)
 
 
-def attend(site: nn.Module, q, k, v, bias, num_heads: int, rate: float) -> torch.Tensor:
+def attend(site: nn.Module, q, k, v, bias, num_heads: int, rate: float,
+           return_probs: bool = False):
     """The attention of a site (a module with ``plain_ops`` and a
     ``dropout_generator``): ``attention`` at ``rate`` with a drawn seed in
     train mode, at rate 0 in eval mode; the plain version under
-    ``plain_ops``."""
+    ``plain_ops``. ``return_probs``: ``(context, probabilities)``."""
     if not site.training:
         rate = 0.0
     seed = site_seed(site) if rate > 0.0 else None
     fn = attention_ref if site.plain_ops else attention
-    return fn(q, k, v, bias, num_heads=num_heads, dropout_rate=rate, seed=seed)
+    return fn(q, k, v, bias, num_heads=num_heads, dropout_rate=rate, seed=seed,
+              return_probs=return_probs)
+
+
+#: the names the JAX sites ``sow`` their maps under
+MAP_ATTRS = ("attention_probs", "attention_probs_v")
+
+#: {(site, attribute): probabilities} while the called model's
+#: visualization forward runs (``collect_attention_maps``), else None
+_MAP_SINK: contextvars.ContextVar = contextvars.ContextVar("attention_maps", default=None)
+
+
+def keep_map(site: nn.Module, attr: str, probs: torch.Tensor) -> None:
+    """Hand a site's probabilities to the forward that collects them."""
+    sink = _MAP_SINK.get()
+    if sink is not None:
+        sink[(site, attr)] = probs
+
+
+@contextlib.contextmanager
+def collect_attention_maps(model: nn.Module):
+    """Collect the maps of a forward of ``model`` under
+    ``cfg.visualization``. Yields a dict that, once the block ends, holds
+    {module path from ``model`` + "." + attribute: probabilities}, in the
+    order of ``named_modules`` (``core.weights.flax_path`` names the flax
+    ``intermediates`` path of each). Yields None without
+    ``visualization``, and inside another model's collecting forward, whose
+    dict gets the maps under its own paths."""
+    if not model.cfg.visualization or _MAP_SINK.get() is not None:
+        yield None
+        return
+    sink, maps = {}, {}
+    token = _MAP_SINK.set(sink)
+    try:
+        yield maps
+    finally:
+        _MAP_SINK.reset(token)
+    for name, m in model.named_modules():
+        for attr in MAP_ATTRS:
+            if (m, attr) in sink:
+                maps[f"{name}.{attr}"] = sink[(m, attr)]
 
 
 def use_plain_ops(model: nn.Module, plain: bool = True) -> nn.Module:
@@ -227,6 +299,7 @@ class SelfAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.dynamic = dynamic
+        self.visualization = cfg.visualization
         self.plain_ops = False
         self.dropout_generator: Optional[torch.Generator] = None
         self.query = Linear(cfg, hidden_size, hidden_size)
@@ -250,7 +323,12 @@ class SelfAttention(nn.Module):
             pooled = (txt_embedding * txt_mask2).sum(1) / txt_mask2.sum(1)
             q = q * (1.0 + torch.sigmoid(self.dyLinear_q(pooled)))[:, None, :]
             k = k * (1.0 + torch.sigmoid(self.dyLinear_k(pooled)))[:, None, :]
-        return attend(self, q, k, v, attention_bias, self.num_heads, self.dropout_rate)
+        out = attend(self, q, k, v, attention_bias, self.num_heads, self.dropout_rate,
+                     self.visualization)
+        if self.visualization:
+            out, probs = out
+            keep_map(self, "attention_probs", probs)
+        return out
 
 
 class AttentionOutput(nn.Module):

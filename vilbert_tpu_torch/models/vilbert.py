@@ -8,23 +8,32 @@ embedding table, so there is no ``cls.predictions.decoder`` parameter); the
 co-attention mask is accepted and inert; heads are computed selectively
 (``heads=``), ``None`` computes all of them.
 
-Knobs this slice does not carry are refused at construction: int8 matmuls
-and ``visualization``. ``in_batch_pairs`` expands a batch of B texts and B
-images to the B^2 (text i, image j) pairs once, just before the first
-connection layer, and composes with ``fast_mode`` as in the JAX package
-(the expansion first, then the broadcast). The pure-layout knobs
-(``head_major_attention``, ``fused_qkv``, ``proj_impl``, ``remat``) and the
-kernel switches (``use_pallas_*``: the CUDA path always runs the kernels)
-change no parameter and no arithmetic and are ignored.
+``int8_matmul`` and ``int8_static`` run every dense site in int8
+(``models.layers.Linear``, ``ops.quant``; inference only).
+``visualization`` returns the attention maps of the forward on the output
+(``attention_probs``: {name: [B, h, Sq, Sk]}, one per attention site and two
+per co-attention layer, named by module path so that
+``core.weights.flax_path`` gives the flax ``intermediates`` path the JAX
+model sows each under). ``remat`` recomputes each text, image and
+connection layer in the backward (``torch.utils.checkpoint``), drawing the
+dropout seeds the forward drew. ``in_batch_pairs`` expands a batch of B
+texts and B images to the B^2 (text i, image j) pairs once, just before
+the first connection layer, and composes with ``fast_mode`` as in the JAX
+package (the expansion first, then the broadcast). The pure-layout knobs
+(``head_major_attention``, ``fused_qkv``, ``proj_impl``) and the kernel
+switches (``use_pallas_*``: the CUDA path always runs the kernels) change
+no parameter and no arithmetic and are ignored.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vilbert_tpu_torch.core.config import ModelConfig
 from vilbert_tpu_torch.models.coattention import ConnectionLayer
@@ -35,22 +44,34 @@ from vilbert_tpu_torch.models.layers import (
     LayerNorm,
     Linear,
     TextLayer,
+    collect_attention_maps,
     compute_dtype,
     resolve_act,
 )
 from vilbert_tpu_torch.ops.attention import make_additive_mask
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Refuse the knobs the port does not carry yet."""
-    if cfg.int8_enabled:
-        raise NotImplementedError(
-            "int8_matmul/int8_static are not ported yet (ROADMAP A13, int8)"
-        )
-    if cfg.visualization:
-        raise NotImplementedError(
-            "visualization (attention maps) is not ported yet (ROADMAP A13)"
-        )
+def replay_contexts(generator: Optional[torch.Generator]) -> tuple:
+    """``torch.utils.checkpoint``'s ``context_fn`` for a block whose dropout
+    sites draw their seeds from ``generator``: (forward, recompute) contexts
+    that start the recompute where the generator stood when the block's
+    forward began, so that it draws the same seeds, and put the generator
+    back after. (The checkpoint's ``preserve_rng_state`` covers torch's
+    global generators, not this one.)"""
+    if generator is None:
+        return contextlib.nullcontext(), contextlib.nullcontext()
+    start = generator.get_state()
+
+    @contextlib.contextmanager
+    def recompute():
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            yield
+        finally:
+            generator.set_state(now)
+
+    return contextlib.nullcontext(), recompute()
 
 
 class TextEmbeddings(nn.Module):
@@ -114,22 +135,35 @@ class TwoStreamEncoder(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        # the dropout sites' generator (set_dropout_generator), which remat
+        # replays
+        self.dropout_generator: Optional[torch.Generator] = None
         self.layer = nn.ModuleList(TextLayer(cfg) for _ in range(cfg.num_hidden_layers))
         self.v_layer = nn.ModuleList(ImageLayer(cfg) for _ in range(cfg.v_num_hidden_layers))
         self.c_layer = nn.ModuleList(
             ConnectionLayer(cfg) for _ in range(cfg.num_connection_layers)
         )
 
+    def _block(self, layer: nn.Module, *args):
+        """layer(*args); under ``cfg.remat`` with gradients on, through a
+        non-reentrant ``torch.utils.checkpoint`` that keeps only the block's
+        inputs and recomputes it in the backward (the JAX ``nn.remat``)."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return layer(*args)
+        gen = self.dropout_generator
+        return checkpoint(layer, *args, use_reentrant=False,
+                          context_fn=lambda: replay_contexts(gen))
+
     def forward(self, txt, img, bias_t, txt_mask2, bias_v) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         expanded = False
         for kind, idx in cfg.encoder_schedule():
             if kind == "t":
-                txt = self.layer[idx](txt, bias_t)
+                txt = self._block(self.layer[idx], txt, bias_t)
                 if idx < cfg.fixed_t_layer:
                     txt = txt.detach()
             elif kind == "v":
-                img = self.v_layer[idx](img, bias_v, txt, txt_mask2)
+                img = self._block(self.v_layer[idx], img, bias_v, txt, txt_mask2)
                 if idx < cfg.fixed_v_layer:
                     img = img.detach()
             else:
@@ -137,7 +171,7 @@ class TwoStreamEncoder(nn.Module):
                     txt, img, bias_t, txt_mask2, bias_v = self._expand(
                         txt, img, bias_t, txt_mask2, bias_v)
                     expanded = True
-                img, txt = self.c_layer[idx](img, bias_v, txt, bias_t)
+                img, txt = self._block(self.c_layer[idx], img, bias_v, txt, bias_t)
         return txt, img
 
 
@@ -178,6 +212,8 @@ class BertModelOutput(NamedTuple):
     sequence_v: torch.Tensor
     pooled_t: torch.Tensor
     pooled_v: torch.Tensor
+    #: under visualization, {name: probabilities} (``collect_attention_maps``)
+    attention_probs: Optional[Dict[str, torch.Tensor]] = None
 
 
 class BertModel(nn.Module):
@@ -185,7 +221,6 @@ class BertModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.embeddings = TextEmbeddings(cfg)
         self.v_embeddings = ImageEmbeddings(cfg)
@@ -223,8 +258,9 @@ class BertModel(nn.Module):
 
         emb_t = self.embeddings(input_txt, token_type_ids, task_ids)
         emb_v = self.v_embeddings(input_imgs, image_loc)
-        seq_t, seq_v = self.encoder(emb_t, emb_v, bias_t, txt_mask2, bias_v)
-        return BertModelOutput(seq_t, seq_v, self.t_pooler(seq_t), self.v_pooler(seq_v))
+        with collect_attention_maps(self) as maps:
+            seq_t, seq_v = self.encoder(emb_t, emb_v, bias_t, txt_mask2, bias_v)
+        return BertModelOutput(seq_t, seq_v, self.t_pooler(seq_t), self.v_pooler(seq_v), maps)
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +376,9 @@ class VLTaskOutput(NamedTuple):
     vision_logit: Any = None
     linguisic_prediction: Any = None
     linguisic_logit: Any = None
+    #: under visualization, {name: probabilities}, names from the model's
+    #: root (``bert.encoder...``)
+    attention_probs: Any = None
 
 
 def init_weights(model: nn.Module, cfg: ModelConfig, generator: torch.Generator) -> None:
@@ -366,6 +405,8 @@ class PretrainOutput(NamedTuple):
     seq_relationship_score: torch.Tensor  # [B, 2] fp32
     pooled_t: torch.Tensor
     pooled_v: torch.Tensor
+    #: under visualization, {name: probabilities} from the model's root
+    attention_probs: Optional[Dict[str, torch.Tensor]] = None
 
 
 class ViLBERTForPretraining(nn.Module):
@@ -400,8 +441,9 @@ class ViLBERTForPretraining(nn.Module):
         lm_positions: Optional[torch.Tensor] = None,
         img_positions: Optional[torch.Tensor] = None,
     ) -> PretrainOutput:
-        out = self.bert(input_ids, image_feat, image_loc, token_type_ids,
-                        attention_mask, image_attention_mask)
+        with collect_attention_maps(self) as maps:
+            out = self.bert(input_ids, image_feat, image_loc, token_type_ids,
+                            attention_mask, image_attention_mask)
         sequence_t, sequence_v = out.sequence_t, out.sequence_v
         if lm_positions is not None:
             sequence_t = torch.take_along_dim(sequence_t, lm_positions.long()[:, :, None], dim=1)
@@ -411,7 +453,8 @@ class ViLBERTForPretraining(nn.Module):
             sequence_t, sequence_v, out.pooled_t, out.pooled_v,
             self.bert.embeddings.word_embeddings.weight,
         )
-        return PretrainOutput(scores_t, scores_v, seq_rel, out.pooled_t, out.pooled_v)
+        return PretrainOutput(scores_t, scores_v, seq_rel, out.pooled_t, out.pooled_v,
+                              maps)
 
 
 class ViLBERTForVLTasks(nn.Module):
@@ -456,10 +499,11 @@ class ViLBERTForVLTasks(nn.Module):
         heads: Optional[Sequence[str]] = None,
     ) -> VLTaskOutput:
         heads = set(ALL_HEADS if heads is None else heads)
-        out = self.bert(
-            input_txt, input_imgs, image_loc, token_type_ids, attention_mask,
-            image_attention_mask, co_attention_mask, task_ids,
-        )
+        with collect_attention_maps(self) as maps:
+            out = self.bert(
+                input_txt, input_imgs, image_loc, token_type_ids, attention_mask,
+                image_attention_mask, co_attention_mask, task_ids,
+            )
         results: Dict[str, Any] = {}
         if {"vision_prediction", "linguisic_prediction", "vil_binary_prediction"} & heads:
             scores_t, scores_v, _ = self.cls(
@@ -497,4 +541,4 @@ class ViLBERTForVLTasks(nn.Module):
             results["linguisic_logit"] = self.linguisic_logit(
                 self.dropout(out.sequence_t)
             ).float()
-        return VLTaskOutput(**results)
+        return VLTaskOutput(**results, attention_probs=maps)

@@ -45,15 +45,15 @@ _U32 = ctypes.c_uint32  # a dropout seed may be >= 2^31
 _SIGNATURES = {
     # q, k, v, bias, out, dtype, batch, heads, head_dim, sq, sk,
     # q/k/v batch and row strides, bias batch stride, scale,
-    # dropout seed, keep threshold, keep scale, stream
-    "vt_attention_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 7 + [_F, _U32, _U32, _F, _P],
+    # dropout seed, keep threshold, keep scale, probabilities (or null), stream
+    "vt_attention_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 7 + [_F, _U32, _U32, _F, _P, _P],
     # q, k, v, bias, g, dq, dk, dv, dtype, batch, heads, head_dim, sq, sk,
     # q/k/v/g batch and row strides, bias batch stride, scale,
     # dropout seed, keep threshold, keep scale, stream
     "vt_attention_bwd": [_P] * 8 + [_I] * 6 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # the tensor-core variants: the same without the dtype (bf16 only)
-    "vt_attention_fwd_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P],
-    "vt_attention_fwd_long_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P],
+    "vt_attention_fwd_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P, _P],
+    "vt_attention_fwd_long_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P, _P],
     "vt_attention_bwd_tc": [_P] * 8 + [_I] * 5 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # the long-sequence K2: vt_attention_bwd's arguments with the fp32
     # row-statistics workspace after dv

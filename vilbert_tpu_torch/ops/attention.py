@@ -42,6 +42,14 @@ tensor-core K2 variants round P_drop and ds to bf16 as mma operands (the
 TPU kernel keeps them in fp32). ``attention.launches``
 counts every K1 launch and ``attention.launches_<variant>`` each
 variant's; likewise ``attention_bwd``.
+
+``return_probs=True`` (the model's ``visualization`` maps; the JAX
+package's ``attention_core(..., return_probs=True)``, which computes them
+in XLA) also returns P after dropout, [B, h, Sq, Sk] in v's dtype, as
+``_probs_from_scores`` returns it. On a CUDA tensor the routed K1 variant
+writes it (``attention.launches_probs`` counts those launches): ``tc`` and
+``cc`` from the row they hold, ``long_tc`` in a second sweep over the key
+tiles with the row's final max and sum. Without it nothing changes.
 """
 
 from __future__ import annotations
@@ -130,15 +138,19 @@ def attention_ref(
     num_heads: int,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
-) -> torch.Tensor:
+    return_probs: bool = False,
+):
     """Plain PyTorch attention (``_fwd_kernel``). q [B, Sq, H], k/v
-    [B, Sk, H] -> [B, Sq, H]; ``seed`` is the call's uint32 dropout seed."""
+    [B, Sk, H] -> [B, Sq, H]; ``seed`` is the call's uint32 dropout seed.
+    With ``return_probs``, ``(out, probs)``: probs [B, h, Sq, Sk] in v's
+    dtype, P after dropout as the P.V product takes it."""
     _check_rate(dropout_rate, seed)
     p = _probs(q, k, _bias_rows(bias, q, k.shape[1]), num_heads)
     if dropout_rate > 0.0:
         p = torch.where(_keep(p, dropout_rate, seed), p * (1.0 / (1.0 - dropout_rate)), 0.0)
-    ctx = p.to(v.dtype).float() @ _heads(v, num_heads)
-    return _merge(ctx, q.dtype)
+    p = p.to(v.dtype)
+    out = _merge(p.float() @ _heads(v, num_heads), q.dtype)
+    return (out, p) if return_probs else out
 
 
 def attention_bwd_ref(
@@ -312,9 +324,11 @@ def _count(wrapper, variant: str) -> None:
     setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
-def _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed, variant):
+def _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed, variant, return_probs=False):
     b, sq, sk, d = kernel_geometry(q, k, v, bias_rows, num_heads)
     out = torch.empty(b, sq, q.shape[2], dtype=q.dtype, device=q.device)
+    probs = (torch.empty(b, num_heads, sq, sk, dtype=v.dtype, device=q.device)
+             if return_probs else None)
     lib = _build.load_library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(), out.data_ptr())
     if variant in ("tc", "long_tc"):
@@ -333,10 +347,14 @@ def _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed, variant):
         raise ValueError(f"attention kernel variant must be one of {VARIANTS}, got {variant!r}")
     with torch.cuda.device(q.device):
         err = call(1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
+                   None if probs is None else probs.data_ptr(),
                    torch.cuda.current_stream().cuda_stream)
     _build.check(err, f"attention kernel ({variant})")
     _count(attention, variant)
-    return out
+    if probs is None:
+        return out
+    attention.launches_probs += 1
+    return out, probs
 
 
 def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, variant):
@@ -388,25 +406,31 @@ def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, variant):
 
 class _Attention(torch.autograd.Function):
     """K1 forward and K2 backward; saves (q, k, v, bias_rows, seed) and no
-    probabilities. The bias is the constant mask: no gradient."""
+    probabilities. The bias is the constant mask: no gradient. With
+    ``return_probs`` the forward also returns the probabilities, which take
+    no gradient (as the K2 backward computes none through them)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias_rows, num_heads, dropout_rate, seed):
+    def forward(ctx, q, k, v, bias_rows, num_heads, dropout_rate, seed, return_probs):
         ctx.save_for_backward(q, k, v, bias_rows)
         ctx.args = (num_heads, dropout_rate, seed)
         if q.device.type == "cpu":
-            return attention_ref(q, k, v, bias_rows, num_heads=num_heads,
-                                 dropout_rate=dropout_rate, seed=seed)
-        return _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed,
-                         fwd_variant(q.dtype, k.shape[1]))
+            out = attention_ref(q, k, v, bias_rows, num_heads=num_heads,
+                                dropout_rate=dropout_rate, seed=seed, return_probs=return_probs)
+        else:
+            out = _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed,
+                            fwd_variant(q.dtype, k.shape[1]), return_probs)
+        if return_probs:
+            ctx.mark_non_differentiable(out[1])
+        return out
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_):
         q, k, v, bias_rows = ctx.saved_tensors
         num_heads, dropout_rate, seed = ctx.args
         grads = attention_bwd(q, k, v, bias_rows, g, num_heads=num_heads,
                               dropout_rate=dropout_rate, seed=seed)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def attention(
@@ -418,22 +442,27 @@ def attention(
     num_heads: int,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
-) -> torch.Tensor:
+    return_probs: bool = False,
+):
     """Scaled dot-product attention over projected inputs, differentiable.
 
     q [B, Sq, H], k/v [B, Sk, H], bias an additive key bias [B, 1, 1, Sk]
     (0 / -10000, see ``make_additive_mask``) or None; ``dropout_rate`` > 0
     drops attention probabilities with the mask of the call's uint32
-    ``seed``. Returns [B, Sq, H] in q's dtype. CPU tensors take the plain
-    versions; CUDA tensors launch the kernels' variants that ``fwd_variant``
-    and ``bwd_variant`` pick (``attention.launches*`` and
-    ``attention_bwd.launches*`` count them).
+    ``seed``. Returns [B, Sq, H] in q's dtype; with ``return_probs``,
+    ``(out, probs)``, probs [B, h, Sq, Sk] in v's dtype: P after dropout,
+    the ``visualization`` maps. CPU tensors take the plain versions; CUDA
+    tensors launch the kernels' variants that ``fwd_variant`` and
+    ``bwd_variant`` pick (``attention.launches*`` and
+    ``attention_bwd.launches*`` count them; ``attention.launches_probs``
+    counts the forward launches that also wrote the probabilities).
     """
     _check_rate(dropout_rate, seed)
     if q.device.type != "cpu":
         _check_devices(q, k=k, v=v, bias=bias)
     bias_rows = _bias_rows(bias, q, k.shape[1])
-    return _Attention.apply(q, k, v, bias_rows, num_heads, float(dropout_rate), seed)
+    return _Attention.apply(q, k, v, bias_rows, num_heads, float(dropout_rate), seed,
+                            return_probs)
 
 
 def fused_attention(
@@ -499,9 +528,11 @@ def attention_bwd_kernel(q, k, v, bias, g, *, num_heads: int, variant: str,
 
 
 #: kernel launches since the last reset, in all and by variant (CPU calls
-#: do not count)
+#: do not count); ``attention.launches_probs``: forward launches that also
+#: wrote the probabilities (each counts in its variant's too)
 for _wrapper, _variants in ((attention, VARIANTS), (attention_bwd, BWD_VARIANTS)):
     _wrapper.launches = 0
     for _variant in _variants:
         setattr(_wrapper, f"launches_{_variant}", 0)
 del _wrapper, _variants, _variant
+attention.launches_probs = 0
