@@ -36,7 +36,15 @@ maps (``visualization``, K1 writing its probabilities) and ``--remat``.
    and each crossover of ``ln_variant`` +- 1, with and without a residual,
    each call on its variant's counter, with fp32 and with bf16 weight and
    bias (the bf16-weight instantiation, on its own counter too), and a
-   misaligned operand (refused).
+   misaligned operand (refused); the wgmma K2 (``wg``, bf16 past 128
+   keys) at Sq x Sk edges of its 64-row tiles and narrowed tails (1, 15,
+   16, 17, 63, 64, 65, 127, 128, 129, 131, 200, 257, 306, 562, 1023, 1024,
+   each against itself and the list reversed; d 64 and 128; rates 0 and
+   0.1), from K1's output and row log-sum-exps (``return_lse``, each LSE
+   against torch.logsumexp within 1e-4 + 1e-6 |ref|), every launch on its
+   counter and bit-identical twice, with a stride-0 batch cotangent and
+   bias and a misaligned operand refused; the mma.sync K2 it took over
+   (``long_tc``, named) at the long edges.
    Forward (K1 at rate 0 and 0.1, K4): fp32 1e-4 absolute (1e-3 on a row
    whose keys are all padded), bf16 2^-7 * max|ref| plus one bf16 ulp.
    Backward (K2 at rate 0 and 0.1): fp32 1e-4 * max|ref| (and on a batch
@@ -83,8 +91,8 @@ maps (``visualization``, K1 writing its probabilities) and ``--remat``.
    for two round-robin iterations, then ``evaluate`` of one batch per task;
    counters reset just before and read just after: K1 30 a forward
    ("tc" at Sk <= 128, "long_tc" above, none on "cc"), K2 30 a step (28 for
-   the V-logit tasks, whose loss reads the image stream only; tensor cores
-   at Sq, Sk <= 128, the long tensor-core variant above), K4 as the config
+   the V-logit tasks, whose loss reads the image stream only; "wg" past 128
+   keys and for text->image, "tc" else), K4 as the config
    says, by shape (recorded) and variant as ``ln_shapes`` says;
    every loss finite; after each task's step every other head (``cls``
    included) bitwise unchanged and its own moved. Then one fp32 iteration
@@ -99,8 +107,9 @@ maps (``visualization``, K1 writing its probabilities) and ``--remat``.
    K2 at the Visual7w and GuessWhatPointing attention shapes against their
    plain versions (outputs within phase 3's bounds, at rates 0 and 0.1,
    each call on its variant's counter), SDPA and their bounds; the
-   CUDA-core K1 (checked too) and the long K2 on the CUDA cores beside the
-   tensor-core ones;
+   CUDA-core K1 (checked too), and K2's ``long_tc`` and ``long`` (CUDA
+   cores) beside the routed ``wg``, which is timed from the forward's
+   output and row log-sum-exps as the backward of ``attention`` gets them;
 10. retrieval and demo: ``cli/eval_retrieval.py``'s ``run`` over a
    synthetic pool of 1,000 images x 101 regions x 2048 in chunks of 500,
    captions of 30 tokens: 10 captions fine-tuned with ``--fast_mode`` and 2
@@ -125,10 +134,11 @@ maps (``visualization``, K1 writing its probabilities) and ``--remat``.
    into a new one (parameters, moments and host state equal), the
    checkpoint's size and its save and restore seconds;
 12. K1 and K2 past 512 keys: the long variants (K1 "long_tc" bf16 and "cc"
-   fp32, K2 "long_tc" bf16 and "long" fp32) at Sq x Sk edges of 511, 512,
-   513, 562 and 1024 (LONG_1024_CASES), h12 d64 and h8 d128, rates 0 and
-   0.1, against the plain versions within phase 3's bounds, each call on
-   its variant's counter; a length past KERNEL_MAX_KEYS refused;
+   fp32, K2 "wg" bf16, "long_tc" by name beside it, and "long" fp32) at
+   Sq x Sk edges of 511, 512, 513, 562 and 1024 (LONG_1024_CASES), h12 d64
+   and h8 d128, rates 0 and 0.1, against the plain versions within phase
+   3's bounds, each call on its variant's counter; a length past
+   KERNEL_MAX_KEYS refused; K2 timed at 1024 x 1024 (``LONG_TIMED``);
 13. the single-stream baseline (``--baseline``, configs/bert_base_baseline
    .json: 12 layers of 768) through ``run_eval`` on synthetic TASK1 at
    B=1024, T=23, R=101 (124 keys, K1 on "tc"; K1 and K4 launches, K4 by
@@ -136,16 +146,17 @@ maps (``visualization``, K1 writing its probabilities) and ``--remat``.
    phase 4's bound, questions/s;
 14. the baseline's CC step through ``train_concap.train --baseline``
    (``run_pretraining``, ``model_family="basebert"``) at B=256, T=36, R=37
-   (73 keys), ``lm_gather`` 12, dropout 0.1: 12 K1 and 12 K2 a step on
-   "tc", K4 by shape; an fp32 step with dropout, kernels against plain ops
-   within phase 6's bounds; samples/s;
+   (73 keys), ``lm_gather`` 12, dropout 0.1: 12 K1 a step on "tc" and 12
+   K2 on "wg", K4 by shape; an fp32 step with dropout, kernels against
+   plain ops within phase 6's bounds; samples/s;
 15. the two-stream CC step with ``--visual_target 2`` (NCE, 128 negatives)
    at the same geometry: finite losses, two runs from one seed equal,
    samples/s and peak memory of the step;
 16. one iteration of ``cli/train_tasks.py::train --baseline`` over the
    flagship tasks the baseline has heads for (all but NLVR2, Visual
    Entailment and GQA), no task token: K1 and K2 launches by variant
-   (GuessWhatPointing's 256 + 306 = 562 keys on "long_tc"), K4's by shape,
+   (GuessWhatPointing's 256 + 306 = 562 keys on K1's "long_tc" and K2's
+   "wg"), K4's by shape,
    each task's step time;
 17. baseline retrieval through ``cli/eval_retrieval.py``'s ``run``
    (``--baseline``), phase 10's pool of 1,000 images in chunks of 500 with
@@ -154,9 +165,9 @@ maps (``visualization``, K1 writing its probabilities) and ``--remat``.
 18. K1 and K2 at the baseline's shapes (124 x 124 at B=1024, 73 x 73 at
    B=256 with and without dropout, 131 keys at B=500, and every (batch,
    T + R) of phase 16's tasks, 121 to 562 keys, at rates 0 and 0.1 with
-   the backward) and K4 at the row counts of phases 13, 14 and 16, against
-   the plain versions, SDPA (``F.layer_norm(x + residual)``) and the
-   bounds;
+   the backward; K2's routed variant beside the bf16 one it was chosen
+   over) and K4 at the row counts of phases 13, 14 and 16, against the
+   plain versions, SDPA (``F.layer_norm(x + residual)``) and the bounds;
 19. int8 inference: ``run_eval`` on synthetic TASK1 with ``--int8`` (counts
    reset just before and read just after: ``torch._int_mm`` once an int8
    site a forward, some on zero-padded operands; K1 and K4 as phase 4
@@ -380,8 +391,38 @@ def library_attention_fns(q, k, v, bias, cot, heads, d) -> dict:
 
 
 #: other kernel variants a timed row may carry beside the routed one, as
-#: ``<variant>_ms``: K1's, and K4's named
-OTHER_VARIANTS = ("cc", "long_tc", "block", "persistent")
+#: ``<variant>_ms``: K1's, K2's and K4's named
+OTHER_VARIANTS = ("cc", "long_tc", "tc", "wg", "block", "persistent")
+
+
+def bwd_fns(q, k, v, b, cot, kw: dict) -> dict:
+    """K2 at one shape for ``timed_row``: the routed variant ("kernel"; where
+    it is "wg", from the forward's output and row log-sum-exps, as the
+    backward of ``attention`` gets them), the plain version, and the bf16
+    variant it was chosen over, named: "wg" beside "tc" or "long_tc", and
+    "long_tc" ("tc" at Sq, Sk <= 128) beside "wg"."""
+    from vilbert_tpu_torch.ops.attention import (
+        TC_MAX_SEQ,
+        attention_bwd,
+        attention_bwd_kernel,
+        attention_bwd_ref,
+        attention_kernel,
+        bwd_variant,
+        fwd_variant,
+    )
+
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[2] // kw["num_heads"]
+    out, lse = attention_kernel(q, k, v, b, variant=fwd_variant(q.dtype, sk), return_lse=True,
+                                **kw)
+    fns = {"kernel": lambda: attention_bwd(q, k, v, b, cot, out=out, lse=lse, **kw),
+           "plain": lambda: attention_bwd_ref(q, k, v, b, cot, **kw)}
+    if bwd_variant(q.dtype, sq, sk, d) == "wg":
+        other = "long_tc" if max(sq, sk) > TC_MAX_SEQ else "tc"
+        fns[other] = lambda: attention_bwd_kernel(q, k, v, b, cot, variant=other, **kw)
+    else:
+        fns["wg"] = lambda: attention_bwd_kernel(q, k, v, b, cot, variant="wg", out=out, lse=lse,
+                                                 **kw)
+    return fns
 
 
 def timed_row(fns: dict, kernel: str, plain: str, nbytes: float, flops: float, peak: float,
@@ -559,7 +600,8 @@ def _bwd_errors(got, want, dtype, bias=None) -> tuple:
 
 def track_error(err: dict, kernel: str, variant: str, e: float) -> None:
     """Keep the largest error of a kernel, and of K1's long tensor-core and
-    CUDA-core variants and K2's long tensor-core variant on their own."""
+    CUDA-core variants and K2's long tensor-core and wgmma variants on their
+    own."""
     err[kernel] = max(err[kernel], e)
     own = f"{kernel}_{variant}"
     if own in err:
@@ -598,7 +640,7 @@ def phase_training_kernels(checks: Checks, g, err: dict) -> None:
                                              f"max|err| {e:.3e} (<= {bound:.3e})")
             for rate in (0.0, 0.1):
                 kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
-                variant = bwd_variant(dtype, sq, sk)
+                variant = bwd_variant(dtype, sq, sk, d)
                 got, on_variant = counted(attention_bwd, variant,
                                           lambda: attention_bwd(q, k, v, bias, cot, **kw))
                 want = attention_bwd_ref(q, k, v, bias, cot, **kw)
@@ -620,6 +662,118 @@ def phase_training_kernels(checks: Checks, g, err: dict) -> None:
             err["fused_attention"] = max(err["fused_attention"], e, eb)
             checks.expect(ok and okb, f"fused_attention fwd+bwd {shape}: max|err| {e:.3e}, "
                                       f"grads {eb:.3e}")
+
+
+#: the wgmma K2's edges: its tiles of 64 rows (32 keys in the dq kernel at
+#: d = 128; full, one short, one over), the tail narrowed to 16, 32, 48 or
+#: 64 rows (1, 15, 16, 17, 63, 65, 127, 129, 131), the paths' lengths (200,
+#: 257, 306, 562) and the cap (1024)
+WG_EDGE_LENGTHS = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 131, 200, 257, 306, 562, 1023,
+                   1024)
+
+
+def wg_edge_cases() -> list:
+    """(heads, head_dim, Sq, Sk) of the wgmma K2's check: each edge length
+    against itself and against the list reversed (unequal pairs: 1 x 1024,
+    15 x 1023, ...), at d = 64 (h12) and d = 128 (h8) in turn."""
+    pairs = [(s, s) for s in WG_EDGE_LENGTHS]
+    pairs += [(a, b) for a, b in zip(WG_EDGE_LENGTHS, reversed(WG_EDGE_LENGTHS)) if a != b]
+    return [(12, 64, sq, sk) if i % 2 else (8, 128, sq, sk) for i, (sq, sk) in enumerate(pairs)]
+
+
+def _lse_error(lse, q, k, bias, heads) -> tuple:
+    """(max|err|, ok) of K1's row log-sum-exps against torch.logsumexp of
+    the plain fp32 scores: 1e-4 + 1e-6 |ref| (a fully padded row's scores
+    sit at -10000, where fp32 spacing is 2^-10)."""
+    import torch
+
+    from vilbert_tpu_torch.ops.attention import _bias_rows, _heads
+
+    d = q.shape[-1] // heads
+    s = _heads(q, heads) @ _heads(k, heads).transpose(-1, -2) * (1.0 / math.sqrt(d))
+    ref = torch.logsumexp(s + _bias_rows(bias, q, k.shape[1])[:, None, None, :], -1)
+    diff = (lse - ref).abs()
+    return float(diff.max()), bool((diff <= 1e-4 + 1e-6 * ref.abs()).all())
+
+
+def phase_wg_kernels(checks: Checks, g, err: dict) -> None:
+    """The wgmma K2 (``wg``) against ``attention_bwd_ref`` at
+    ``wg_edge_cases()``, rates 0 and 0.1, with padded keys and a fully
+    padded batch row, from the forward's output and row log-sum-exps (K1's
+    ``tc`` or ``long_tc`` with ``return_lse``, each LSE checked against
+    torch.logsumexp); every launch on ``launches_wg`` and two launches
+    bit-identical; a stride-0 batch cotangent and bias; a misaligned operand
+    refused."""
+    import torch
+
+    from vilbert_tpu_torch.ops.attention import (
+        attention_bwd,
+        attention_bwd_kernel,
+        attention_bwd_ref,
+        attention_kernel,
+        attention_ref,
+        fwd_variant,
+    )
+
+    B = 2
+    for heads, d, sq, sk in wg_edge_cases():
+        q, k, v, cot, bias = _attention_operands(g, B, heads, d, sq, sk, torch.bfloat16)
+        shape = f"h={heads} d={d} Sq={sq} Sk={sk}"
+        for rate in (0.0, 0.1):
+            kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
+            fv = fwd_variant(torch.bfloat16, sk)
+            out, lse = attention_kernel(q, k, v, bias, variant=fv, return_lse=True, **kw)
+            e, bound, ok = _fwd_error(out, attention_ref(q, k, v, bias, **kw), "bfloat16")
+            el, okl = _lse_error(lse, q, k, bias, heads)
+            track_error(err, "attention_fwd", fv, e)
+
+            def launch():
+                return attention_bwd_kernel(q, k, v, bias, cot, variant="wg", out=out, lse=lse,
+                                            **kw)
+
+            got, on_wg = counted(attention_bwd, "wg", launch)
+            again = launch()
+            want = attention_bwd_ref(q, k, v, bias, cot, **kw)
+            torch.cuda.synchronize()
+            eb, okb = _bwd_errors(got, want, "bfloat16")
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            track_error(err, "attention_bwd", "wg", eb)
+            checks.expect(ok and okl and okb and on_wg and same,
+                          f"wg {shape} rate {rate}: fwd [{fv}] max|err| {e:.3e} (<= "
+                          f"{bound:.3e}), lse max|err| {el:.3e}, bwd max|err| {eb:.3e}, "
+                          f"bit-identical twice {same}")
+    # the mma.sync variant "wg" took over past 128, named, at the long edges
+    for heads, d, sq, sk in LONG_EDGE_CASES:
+        q, k, v, cot, bias = _attention_operands(g, B, heads, d, sq, sk, torch.bfloat16)
+        for rate in (0.0, 0.1):
+            kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
+            got, on_lt = counted(attention_bwd, "long_tc", lambda: attention_bwd_kernel(
+                q, k, v, bias, cot, variant="long_tc", **kw))
+            eb, okb = _bwd_errors(got, attention_bwd_ref(q, k, v, bias, cot, **kw), "bfloat16")
+            track_error(err, "attention_bwd", "long_tc", eb)
+            checks.expect(okb and on_lt, f"attention bwd h={heads} d={d} Sq={sq} Sk={sk} rate "
+                                         f"{rate} [long_tc, named]: max|err| {eb:.3e}")
+    # a cotangent and a bias broadcast over the batch (stride 0)
+    q, k, v, cot, bias = _attention_operands(g, 4, 8, 128, 200, 131, torch.bfloat16)
+    cot = cot[:1].expand_as(cot)
+    bias = bias[:1].expand_as(bias)
+    got, on_wg = counted(attention_bwd, "wg", lambda: attention_bwd_kernel(
+        q, k, v, bias, cot, variant="wg", num_heads=8))
+    eb, okb = _bwd_errors(got, attention_bwd_ref(q, k, v, bias, cot, num_heads=8), "bfloat16")
+    track_error(err, "attention_bwd", "wg", eb)
+    checks.expect(okb and on_wg and cot.stride(0) == 0,
+                  f"wg stride-0 batch g and bias 200x131: max|err| {eb:.3e}")
+    # rows that start 2 bytes off a 16-byte boundary are refused, not rerouted
+    wide = torch.randn(2, 200, 1025, generator=g, device=DEVICE).bfloat16()
+    before = attention_bwd.launches
+    try:
+        attention_bwd(wide[..., 1:], wide[..., 1:], wide[..., 1:], None, wide[..., 1:],
+                      num_heads=8)
+        refused = False
+    except ValueError:
+        refused = True
+    checks.expect(refused and attention_bwd.launches == before,
+                  "wg refuses a bf16 operand that is not 16-byte aligned")
 
 
 def ln_edge_rows(dtype) -> tuple:
@@ -716,7 +870,7 @@ def phase_kernels(checks: Checks) -> dict:
     err = {"attention_fwd": 0.0, "attention_bwd": 0.0, "fused_attention": 0.0,
            "layer_norm_fwd": 0.0, "layer_norm_fwd_bf16_weight": 0.0,
            "attention_fwd_long_tc": 0.0, "attention_fwd_cc": 0.0, "attention_bwd_long_tc": 0.0,
-           "attention_fwd_probs": 0.0}
+           "attention_bwd_wg": 0.0, "attention_fwd_probs": 0.0}
     B = 8
     for heads, d, sq, sk in ATTENTION_CASES:
         hd = heads * d
@@ -777,6 +931,7 @@ def phase_kernels(checks: Checks) -> dict:
                                f"[{fwd_variant(torch.bfloat16, sk)}]")
     phase_layer_norm_kernels(checks, g, err)
     phase_training_kernels(checks, g, err)
+    phase_wg_kernels(checks, g, err)
     checks.end_phase("kernels")
     return err
 
@@ -1450,8 +1605,7 @@ def phase_train_timing(checks: Checks, state, args, card: str, err: dict) -> dic
                                       f"bwd max|err| {eb:.3e}")
             fwd = {"kernel": lambda: attention(q, k, v, b, **kw),
                    "plain": lambda: attention_ref(q, k, v, b, **kw)}
-            bwd = {"kernel": lambda: attention_bwd(q, k, v, b, cot, **kw),
-                   "plain": lambda: attention_bwd_ref(q, k, v, b, cot, **kw)}
+            bwd = bwd_fns(q, k, v, b, cot, kw)
             lib = library_attention_fns(q, k, v, b, cot, heads, d) if rate == 0.0 else {}
             if label == "image self":  # the CUDA-core variants beside the tensor-core ones
                 fwd["cc"] = lambda: attention_kernel(q, k, v, b, variant="cc", **kw)
@@ -1582,33 +1736,41 @@ def multitask_launches(tasks: dict, cfg, steps: int, evals: int) -> dict:
     """Launch counts of ``steps`` training steps and ``evals`` eval forwards
     of every task: K1 30 a forward (text self x12, image self x6, both
     co-attention directions x6), on "tc" where Sk <= 128, on "long_tc"
-    above (bf16: none on the CUDA cores); K2
-    once for each attention the loss reaches, on the tensor cores where
-    Sq, Sk <= 128, else the long tensor-core variant: 30 a step, 28 for the V-logit
+    above (bf16: none on the CUDA cores); K2 once for each attention the
+    loss reaches, on the variant ``bwd_variant`` picks ("wg" past 128 keys
+    and for text->image at d = 128, "tc" else): 30 a step, 28 for the V-logit
     types, whose loss reads the image stream only (the text layers after
     the last co-attention and its text-query direction feed no image
     output); K4 as ``ln_task_forward`` says (its variants:
     ``check_ln_recording``)."""
+    import torch
+
+    from vilbert_tpu_torch.ops.attention import bwd_variant
+
     n_t, n_v = cfg.num_hidden_layers, cfg.v_num_hidden_layers
     n_c = cfg.num_connection_layers
+    d_t = cfg.hidden_size // cfg.num_attention_heads
+    d_v = cfg.v_hidden_size // cfg.v_num_attention_heads
+    d_c = cfg.bi_hidden_size // cfg.bi_num_attention_heads
     schedule = cfg.encoder_schedule()
     last_c = max(i for i, (kind, _) in enumerate(schedule) if kind == "c")
     trailing_t = sum(kind == "t" for kind, _ in schedule[last_c + 1:])
     out = {name: 0 for name in _counters() if not name.startswith("layer_norm_")}
     for task in tasks.values():
         t, r = task_geometry(task, cfg)
-        shapes = [(t, t)] * n_t + [(r, r)] * n_v + [(t, r), (r, t)] * n_c
+        # (Sq, Sk, head width) of each attention
+        tt, rr, tr, rt = (t, t, d_t), (r, r, d_v), (t, r, d_c), (r, t, d_c)
+        shapes = [tt] * n_t + [rr] * n_v + [tr, rt] * n_c
         bwd = shapes
         if task.type in ("V-logit", "V-logit-mc"):
-            bwd = [(t, t)] * (n_t - trailing_t) + [(r, r)] * n_v + [(t, r), (r, t)] * (n_c - 1) \
-                + [(r, t)]
+            bwd = [tt] * (n_t - trailing_t) + [rr] * n_v + [tr, rt] * (n_c - 1) + [rt]
         fwd = steps + evals
         out["attention"] += fwd * len(shapes)
-        out["attention_tc"] += fwd * sum(sk <= 128 for _, sk in shapes)
-        out["attention_long_tc"] += fwd * sum(sk > 128 for _, sk in shapes)
+        out["attention_tc"] += fwd * sum(sk <= 128 for _, sk, _ in shapes)
+        out["attention_long_tc"] += fwd * sum(sk > 128 for _, sk, _ in shapes)
         out["attention_bwd"] += steps * len(bwd)
-        out["attention_bwd_tc"] += steps * sum(max(s) <= 128 for s in bwd)
-        out["attention_bwd_long_tc"] += steps * sum(max(s) > 128 for s in bwd)
+        for sq, sk, d in bwd:
+            out[f"attention_bwd_{bwd_variant(torch.bfloat16, sq, sk, d)}"] += steps
         out["layer_norm"] += fwd * sum(n for _, n in ln_task_forward(task, cfg).values())
     return out
 
@@ -1827,7 +1989,7 @@ def phase_multitask_timing(checks: Checks, trainer, card: str, err: dict) -> dic
         mask[:, sk - sk // 4:] = 0
         b = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
         cost = attention_cost(B, heads, d, sq, sk)
-        fv, bv = fwd_variant(torch.bfloat16, sk), bwd_variant(torch.bfloat16, sq, sk)
+        fv, bv = fwd_variant(torch.bfloat16, sk), bwd_variant(torch.bfloat16, sq, sk, d)
         for rate in (0.0, 0.1):
             kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
             with torch.inference_mode():
@@ -1854,9 +2016,8 @@ def phase_multitask_timing(checks: Checks, trainer, card: str, err: dict) -> dic
                "plain": lambda: attention_ref(q, k, v, b, **kw), "library": lib["library"]}
         if sk > TC_MAX_SEQ:  # the CUDA-core K1 beside the long tensor-core one
             fwd["cc"] = lambda: attention_kernel(q, k, v, b, variant="cc", **kw)
-        # the long K2 on the CUDA cores beside the tensor-core one
-        bwd = {"kernel": lambda: attention_bwd(q, k, v, b, cot, **kw),
-               "plain": lambda: attention_bwd_ref(q, k, v, b, cot, **kw),
+        # the long K2 on the CUDA cores beside the tensor-core ones
+        bwd = {**bwd_fns(q, k, v, b, cot, kw),
                "cc": lambda: attention_bwd_kernel(q, k, v, b, cot, variant="long", **kw), **lib}
         with torch.inference_mode():
             rows = {"fwd": timed_row(fwd, "kernel", "plain", *cost["fwd"], BF16_TC_FLOPS,
@@ -2366,17 +2527,23 @@ LONG_1024_CASES = [
 ]
 
 
-def phase_long_kernels(checks: Checks, err: dict) -> None:
-    """(a) The long K1 (``long_tc`` bf16, ``cc`` fp32) and K2 (``long_tc``
-    bf16, ``long`` fp32) at LONG_1024_CASES, rates 0 and 0.1, against the
-    plain versions within phase 3's bounds, each call on its variant's
-    counter; a length past the cap refused in both directions."""
+#: (label, heads, head_dim, S, batch) where phase 12 times K2: the cap
+LONG_TIMED = (("self 1024 h12", 12, 64, 1024, 8), ("self 1024 h8", 8, 128, 1024, 8))
+
+
+def phase_long_kernels(checks: Checks, err: dict, card: str) -> dict:
+    """(a) The long K1 (``long_tc`` bf16, ``cc`` fp32) and K2 (``wg`` bf16,
+    with ``long_tc`` by name beside it, ``long`` fp32) at LONG_1024_CASES,
+    rates 0 and 0.1, against the plain versions within phase 3's bounds,
+    each call on its variant's counter; a length past the cap refused in
+    both directions; K2 timed at LONG_TIMED."""
     import torch
 
     from vilbert_tpu_torch.ops.attention import (
         KERNEL_MAX_KEYS,
         attention,
         attention_bwd,
+        attention_bwd_kernel,
         attention_bwd_ref,
         attention_ref,
         bwd_variant,
@@ -2391,13 +2558,13 @@ def phase_long_kernels(checks: Checks, err: dict) -> None:
             q, k, v, cot, bias = _attention_operands(g, B, heads, d, sq, sk, dtype)
             for rate in (0.0, 0.1):
                 kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
-                fv, bv = fwd_variant(dtype, sk), bwd_variant(dtype, sq, sk)
+                fv, bv = fwd_variant(dtype, sk), bwd_variant(dtype, sq, sk, d)
                 got, on_fv = counted(attention, fv, lambda: attention(q, k, v, bias, **kw))
                 e, bnd, ok = _fwd_error(got, attention_ref(q, k, v, bias, **kw), name)
                 got, on_bv = counted(attention_bwd, bv,
                                      lambda: attention_bwd(q, k, v, bias, cot, **kw))
-                eb, okb = _bwd_errors(got, attention_bwd_ref(q, k, v, bias, cot, **kw), name,
-                                      bias)
+                want = attention_bwd_ref(q, k, v, bias, cot, **kw)
+                eb, okb = _bwd_errors(got, want, name, bias)
                 torch.cuda.synchronize()
                 track_error(err, "attention_fwd", fv, e)
                 track_error(err, "attention_bwd", bv, eb)
@@ -2405,6 +2572,14 @@ def phase_long_kernels(checks: Checks, err: dict) -> None:
                               f"attention h={heads} d={d} Sq={sq} Sk={sk} {name} rate {rate} "
                               f"[{fv}, {bv}]: fwd max|err| {e:.3e} (<= {bnd:.3e}), bwd max|err| "
                               f"{eb:.3e}")
+                if bv == "wg":  # the mma.sync variant it took over, by name
+                    got, on_lt = counted(attention_bwd, "long_tc", lambda: attention_bwd_kernel(
+                        q, k, v, bias, cot, variant="long_tc", **kw))
+                    el, okl = _bwd_errors(got, want, name, bias)
+                    track_error(err, "attention_bwd", "long_tc", el)
+                    checks.expect(okl and on_lt, f"attention bwd h={heads} d={d} Sq={sq} "
+                                                 f"Sk={sk} rate {rate} [long_tc, named]: max|err| "
+                                                 f"{el:.3e}")
     over = KERNEL_MAX_KEYS + 1
     for sq, sk in ((over, 20), (20, over)):
         q, k, v, cot, bias = _attention_operands(g, 1, 12, 64, sq, sk, torch.bfloat16)
@@ -2419,7 +2594,22 @@ def phase_long_kernels(checks: Checks, err: dict) -> None:
         checks.expect(refused == [sk == over, True],
                       f"Sq={sq} Sk={sk}: K1 refused {refused[0]} (past the cap only in Sk), "
                       f"K2 refused {refused[1]}")
+    # K2 at the cap: the routed variant beside the one it took over, SDPA's
+    # backward, the plain version and the bound
+    times = {}
+    for label, heads, d, s, B in LONG_TIMED:
+        q, k, v, cot, bias = _attention_operands(g, B, heads, d, s, s, torch.bfloat16)
+        kw = dict(num_heads=heads)
+        lib = library_attention_fns(q, k, v, bias, cot, heads, d)
+        row = timed_row({**bwd_fns(q, k, v, bias, cot, kw), **lib}, "kernel", "plain",
+                        *attention_cost(B, heads, d, s, s)["bwd"], BF16_TC_FLOPS, iters=5,
+                        library=lambda dev: dev["library_fwd_bwd"] - dev["library"])
+        row["variant"] = bwd_variant(torch.bfloat16, s, s, d)
+        times[("attention_bwd", label, 0.0)] = row
+        log(f"  attention bwd {label} B={B} h={heads} d={d} {s}x{s} bf16 rate 0 "
+            f"[{row['variant']}]: {row_text(row)} [{card}]")
     checks.end_phase("K1 and K2 past 512 keys")
+    return times
 
 
 # -- phase 13 ----------------------------------------------------------------
@@ -2523,15 +2713,17 @@ def phase_baseline_vqa(checks: Checks, card: str) -> tuple:
 def phase_baseline_train(checks: Checks, tmp: str, card: str) -> tuple:
     """(c) The baseline's CC step through ``train_concap.train --baseline``
     (``run_pretraining`` with ``model_family="basebert"``) at B=256, T=36,
-    R=37 (73 keys), ``lm_gather`` 12, dropout 0.1: launches a step, K1 and
-    K2 on "tc"; an fp32 step with dropout through the kernels and the plain
-    ops (phase 6's bounds); samples/s of the bf16 step."""
+    R=37 (73 keys), ``lm_gather`` 12, dropout 0.1: launches a step, K1 on
+    "tc" and K2 on "wg" (``bwd_variant`` at d = 64); an fp32 step with
+    dropout through the kernels and the plain ops (phase 6's bounds);
+    samples/s of the bf16 step."""
     import torch
 
     from vilbert_tpu_torch.cli.train_concap import build_parser, optimizer_config, train
     from vilbert_tpu_torch.data.prefetch import to_device
     from vilbert_tpu_torch.models.basebert import BaseBertForPretraining
     from vilbert_tpu_torch.models.layers import set_dropout_generator, use_plain_ops
+    from vilbert_tpu_torch.ops.attention import bwd_variant, fwd_variant
     from vilbert_tpu_torch.parallel.train_step import make_train_step
     from vilbert_tpu_torch.train.optim import build_optimizer
     from vilbert_tpu_torch.train.pretrain import host_batch, make_pretrain_loss_fn
@@ -2556,10 +2748,12 @@ def phase_baseline_train(checks: Checks, tmp: str, card: str) -> tuple:
                   == cfg.attention_probs_dropout_prob and len(losses) == TRAIN_STEPS
                   and all(math.isfinite(v) for v in losses),
                   "BaseBertForPretraining, dropout 0.1, losses finite")
-    for name in ("attention", "attention_bwd"):
-        checks.expect(launches[name] == launches[f"{name}_tc"] == TRAIN_STEPS * n,
-                      f"{name} launches {launches[name]} == tensor-core "
-                      f"{launches[f'{name}_tc']} == {TRAIN_STEPS} x {n} (73 keys)")
+    s, d = TRAIN_T + TRAIN_R, cfg.hidden_size // cfg.num_attention_heads
+    for name, variant in (("attention", fwd_variant(torch.bfloat16, s)),
+                          ("attention_bwd", bwd_variant(torch.bfloat16, s, s, d))):
+        checks.expect(launches[name] == launches[f"{name}_{variant}"] == TRAIN_STEPS * n,
+                      f"{name} launches {launches[name]} == {variant} "
+                      f"{launches[f'{name}_{variant}']} == {TRAIN_STEPS} x {n} ({s} keys)")
     B = TRAIN_BATCH
     shapes = baseline_ln_forward(cfg, B, TRAIN_T, TRAIN_R, [
         (B * LM_GATHER, cfg.hidden_size), (B * TRAIN_R, cfg.hidden_size)])
@@ -2703,14 +2897,18 @@ def baseline_task_ln_shapes(tasks: dict, cfg) -> dict:
 
 def baseline_multitask_launches(tasks: dict, cfg, steps: int) -> dict:
     """K1 and K2 of ``steps`` baseline steps of every task: one a layer,
-    over T + R keys: "tc" at <= 128, "long_tc" above."""
-    from vilbert_tpu_torch.ops.attention import TC_MAX_SEQ
+    over T + R keys: K1 "tc" at <= 128, "long_tc" above; K2 as
+    ``bwd_variant`` picks ("wg": every task's T + R is past 64, d = 64)."""
+    import torch
+
+    from vilbert_tpu_torch.ops.attention import bwd_variant, fwd_variant
 
     out = collections.Counter()
+    d = cfg.hidden_size // cfg.num_attention_heads
     for task in tasks.values():
         s = baseline_task_geometry(task)[1]
-        variant = "tc" if s <= TC_MAX_SEQ else "long_tc"
-        for name in ("attention", "attention_bwd"):
+        for name, variant in (("attention", fwd_variant(torch.bfloat16, s)),
+                              ("attention_bwd", bwd_variant(torch.bfloat16, s, s, d))):
             out[name] += steps * cfg.num_hidden_layers
             out[f"{name}_{variant}"] += steps * cfg.num_hidden_layers
     return dict(out)
@@ -2778,11 +2976,12 @@ def phase_baseline_multitask(checks: Checks, tmp: str, card: str) -> tuple:
     want = baseline_multitask_launches(tasks, trainer.model_cfg, 1)
     got = {k: launches.get(k, 0) for k in ("attention", "attention_tc", "attention_long_tc",
                                           "attention_cc", "attention_bwd", "attention_bwd_tc",
-                                          "attention_bwd_long_tc", "attention_bwd_long")}
+                                          "attention_bwd_long_tc", "attention_bwd_long",
+                                          "attention_bwd_wg")}
     checks.expect(got == {k: want.get(k, 0) for k in got},
                   f"K1 and K2 launches by variant {got} == {want} (GuessWhatPointing's "
                   f"{tasks['TASK17'].max_seq_length + tasks['TASK17'].max_region_num} keys on "
-                  f"long_tc)")
+                  f"long_tc and wg)")
     check_ln_recording(checks, "train --baseline, one iteration", ln_seen,
                        baseline_task_ln_shapes(tasks, trainer.model_cfg), launches)
     times, total_ms, total = time_task_steps(trainer, card, "baseline ")
@@ -2957,7 +3156,7 @@ def phase_baseline_timing(checks: Checks, card: str, err: dict) -> dict:
         mask[:, sk - sk // 4:] = 0
         b = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
         cost = attention_cost(B, heads, d, sq, sk)
-        fv, bv = fwd_variant(torch.bfloat16, sk), bwd_variant(torch.bfloat16, sq, sk)
+        fv, bv = fwd_variant(torch.bfloat16, sk), bwd_variant(torch.bfloat16, sq, sk, d)
         for rate in rates:
             kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
             with torch.inference_mode():
@@ -2982,8 +3181,7 @@ def phase_baseline_timing(checks: Checks, card: str, err: dict) -> dict:
                                          "kernel", "plain", *cost["fwd"], BF16_TC_FLOPS,
                                          library="library" if lib else None, iters=10)}
             if backward:
-                bwd = {"kernel": lambda: attention_bwd(q, k, v, b, cot, **kw),
-                       "plain": lambda: attention_bwd_ref(q, k, v, b, cot, **kw), **lib}
+                bwd = {**bwd_fns(q, k, v, b, cot, kw), **lib}
                 rows["bwd"] = timed_row(
                     bwd, "kernel", "plain", *cost["bwd"], BF16_TC_FLOPS, iters=10,
                     library=(lambda dev: dev["library_fwd_bwd"] - dev["library"]) if lib
@@ -3482,8 +3680,10 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
     self-attention, where it costs most; K2 at CC image self-attention;
     both at rate 0, where SDPA computes the same function; K4 at the VQA
     image LayerNorm; K1 past 128 keys (the long tensor-core variant, with
-    the CUDA-core one it replaces on bf16 as ``cc_ms``) and K2's long
-    tensor-core variant at Visual7w image self-attention. Every main-path
+    the CUDA-core one it replaces on bf16 as ``cc_ms``) and K2's wgmma
+    variant at Visual7w image self-attention (with the mma.sync one it
+    replaces as ``long_tc_ms``; that one's entry, launched by name only,
+    carries its times with ``wg_ms`` beside them). Every main-path
     shape under ``shapes``; launches in the VQA eval run, the CC training
     run and the multi-task run under ``launches_by_path``, and ``launches``
     of the path the headline shape belongs to. The CUDA-core K1, which the
@@ -3503,7 +3703,7 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
     from vilbert_tpu_torch.ops.attention import TC_MAX_SEQ
     from vilbert_tpu_torch.ops.layernorm import VARIANTS as LN_VARIANTS
 
-    long_labels = tuple(label for label, *_ in MT_ATTENTIONS) + tuple(
+    long_labels = tuple(label for label, *_ in MT_ATTENTIONS + LONG_TIMED) + tuple(
         label for label, _, _, _, sk, *_ in baseline_attentions() if sk > TC_MAX_SEQ)
 
     def entry(name, source, replaces, counter, key, library, variant=None):
@@ -3580,23 +3780,45 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
                           **{k: s[k] for k in cc_keys}} for s in fwd_long["shapes"]
                          if "cc_ms" in s],
               "variant": "cc: CUDA cores, fp32 (bf16 when named), bf16 times here"}
-    bwd_long = entry("attention_bwd_long_tc", "vilbert_tpu_torch/csrc/attention_bwd.cu",
-                     "vilbert_tpu/ops/pallas_attention_train.py:81", "attention_bwd_long_tc",
-                     ("attention_bwd", "Visual7w image self", 0.0),
-                     "scaled_dot_product_attention forward + autograd.grad less forward, rate 0")
-    bwd_long["variant"] = "long_tc: tensor cores, bf16, 128 < Sq or Sk <= 512"
+    bwd_wg = entry("attention_bwd_wg", "vilbert_tpu_torch/csrc/attention_bwd_wg.cu",
+                   "vilbert_tpu/ops/pallas_attention_train.py:81", "attention_bwd_wg",
+                   ("attention_bwd", "Visual7w image self", 0.0),
+                   "scaled_dot_product_attention forward + autograd.grad less forward, rate 0",
+                   variant="wg")
+    bwd_wg["variant"] = ("wg: wgmma, bf16, Sq or Sk past 128, from the forward's output and row "
+                         "log-sum-exps")
+    # the mma.sync K2 past 128 that "wg" took over: timed by name beside it
+    # at its shapes, checked by name in phases 3 and 12; launched on no path
+    lt_keys = ("plain_ms", "bound_ms", "bound_by", "library_ms")
+    bwd_long = {"name": "attention_bwd_long_tc", "route": "cuda",
+                "source": "vilbert_tpu_torch/csrc/attention_bwd.cu", "replaces": bwd_wg["replaces"],
+                "launches": mt_launches["attention_bwd_long_tc"],
+                "launches_of": "the multi-task iteration (phase 8): none, wg took its shapes; "
+                               "launched by name in phases 3, 9, 12 and 18",
+                "launches_by_path": {"vqa_eval": vqa_launches["attention_bwd_long_tc"],
+                                     "cc_train": train_launches["attention_bwd_long_tc"],
+                                     "multitask_train": mt_launches["attention_bwd_long_tc"]},
+                "max_abs_err": err["attention_bwd_long_tc"], "ms": bwd_wg["long_tc_ms"],
+                **{k: bwd_wg[k] for k in (*lt_keys, "bound", "library", "shape")},
+                "wg_ms": bwd_wg["ms"],
+                "shapes": [{"shape": sh["shape"], "ms": sh["long_tc_ms"], "wg_ms": sh["ms"],
+                            **{k: sh[k] for k in lt_keys}} for sh in bwd_wg["shapes"]
+                           if "long_tc_ms" in sh],
+                "variant": "long_tc: mma.sync, bf16, Sq or Sk past 128 (named only)"}
     for out, counter in ((fwd, "attention"), (ln, "layer_norm")):
         out["launches_by_path"].update({f"retrieval_{k}" if k != "demo" else k: ret[k][counter]
                                         for k in ("fast", "zero_shot", "demo")})
     for out, counter in ((fwd, "attention"), (bwd, "attention_bwd"), (ln, "layer_norm"),
-                         (fwd_long, "attention_long_tc"), (bwd_long, "attention_bwd_long_tc")):
+                         (fwd_long, "attention_long_tc"), (bwd_long, "attention_bwd_long_tc"),
+                         (bwd_wg, "attention_bwd_wg")):
         out["launches_by_path"].update({
             "baseline_vqa_eval": base["vqa"][counter], "baseline_cc_train": base["cc"][counter],
             "baseline_multitask_train": base["multitask"][counter],
             "baseline_retrieval": sum(lt[counter] for lt in base["retrieval"].values()),
             "nce_cc_train": base["nce"]["launches"][counter]})
     for out, counter in ((fwd, "attention"), (bwd, "attention_bwd"), (ln, "layer_norm"),
-                         (fwd_long, "attention_long_tc"), (bwd_long, "attention_bwd_long_tc")):
+                         (fwd_long, "attention_long_tc"), (bwd_long, "attention_bwd_long_tc"),
+                         (bwd_wg, "attention_bwd_wg")):
         out["launches_by_path"].update({k: v[counter] for k, v in options.items()})
     fwd["launches_probs"] = options["vqa_visualization"]["attention_probs"]
     probs_rows = {k: v for k, v in times.items() if k[0] == "attention_fwd_probs"}
@@ -3632,7 +3854,7 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
         "bound": "memory", "library": ln["library"], "shape": head[1],
         "shapes": [dict(shape=k[1], **v) for k, v in bf16w.items()],
         "weight": "bf16 weight and bias, widened in registers"}
-    return [fwd, bwd, ln, fused, fwd_long, fwd_cc, bwd_long, ln_bf16w, fwd_probs]
+    return [fwd, bwd, ln, fused, fwd_long, fwd_cc, bwd_long, ln_bf16w, fwd_probs, bwd_wg]
 
 
 def main() -> int:
@@ -3693,7 +3915,7 @@ def main() -> int:
         del trainer
         torch.cuda.empty_cache()
         phase("[12 K1 and K2 past 512 keys]")
-        phase_long_kernels(checks, err)
+        times.update(phase_long_kernels(checks, err, card))
         base = {}
         phase("[13 baseline VQA eval]")
         base["vqa"], base["vqa_questions_per_s"] = phase_baseline_vqa(checks, card)

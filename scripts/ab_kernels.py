@@ -7,6 +7,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
         --old "constexpr int kMaxWarps = 8;" --new "constexpr int kMaxWarps = 4;"
     python3 scripts/ab_kernels.py --kernel layer_norm --baseline OLD/csrc
     python3 scripts/ab_kernels.py --kernel layer_norm --ln_weight bfloat16
+    python3 scripts/ab_kernels.py --kernel attention_bwd [--baseline OLD/csrc]
 
 It builds the kernels of ``vilbert_tpu_torch/csrc`` as they are (A) and a
 copy in which ``--old`` is replaced by ``--new`` in ``--file`` (B), prints
@@ -29,12 +30,28 @@ timed A, B, B, A; ``routed`` is the variant ``ln_variant`` picks.
 bias in bf16) in place of the fp32-weight ones. The libraries compared must
 take the weight dtype argument of the entry points (from the bf16-weight
 K4 on).
+
+``--kernel attention_bwd`` does it for K2's bf16 variants: it builds the K2
+sources (``attention_bwd.cu``, ``attention_bwd_wg.cu`` where the csrc has
+it, and ``attention.cu`` for the forward's output and row log-sum-exps
+that ``wg`` reads, always taken from the tree's library), prints the ptxas
+line of each K2 instantiation, and at every K2 shape of the paths
+(``BWD_SHAPES``: PERF.md's kernel table and the two-stream multi-task's
+steps at or under 128) and a sweep of lengths 16 to 1,024 (``BWD_SWEEP``)
+checks each variant a library has (``tc`` at Sq, Sk <= 128, ``long_tc``,
+``wg``) against ``attention_bwd_ref`` at rate 0 (bf16 bound) and times it,
+libraries alternated A, B, B, A, beside SDPA's backward
+(``scaled_dot_product_attention`` forward and ``autograd.grad``, less the
+forward) and the bound; ``routed`` is the variant ``bwd_variant`` picks.
+The device time of ``wg``'s two kernels (dq, dkdv) comes from
+``torch.profiler`` at the shapes of ``BWD_SHAPES``.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -67,6 +84,42 @@ LN_SWEEP = ((768, "bfloat16", True), (1024, "bfloat16", True), (2048, "bfloat16"
 LN_SWEEP_ROWS = (64, 128, 256, 512, 1024, 2048, 3072, 4096, 6144, 8192, 16384)
 
 
+#: (label, batch, heads, head_dim, Sq, Sk) where the paths run K2 in bf16:
+#: PERF.md's kernel table (CC step, Visual7w, GuessWhatPointing, the
+#: baseline's steps) and the two-stream multi-task's steps at or under 128
+#: (VQA's four attentions, the text->image direction of every task at 101
+#: regions, refcoco's image self and VisualEntailment's text self), at the
+#: model's batch (retrieval x4 pairs, NLVR2 x2 images)
+BWD_SHAPES = (
+    ("CC text self", 256, 12, 64, 36, 36), ("CC image self", 256, 8, 128, 37, 37),
+    ("CC text->image", 256, 8, 128, 36, 37), ("CC image->text", 256, 8, 128, 37, 36),
+    ("VQA step text self", 128, 12, 64, 24, 24), ("VQA step image self", 128, 8, 128, 101, 101),
+    ("VQA step text->image", 128, 8, 128, 24, 101),
+    ("VQA step image->text", 128, 8, 128, 101, 24),
+    ("GenomeQA, GQA step text->image", 128, 8, 128, 27, 101),
+    ("RetrievalCOCO, Flickr30k step text->image", 512, 8, 128, 31, 101),
+    ("refcoco, refcoco+, refcocog step text->image", 256, 8, 128, 21, 101),
+    ("NLVR2 step text->image", 128, 8, 128, 41, 101),
+    ("VisualEntailment step text->image", 256, 8, 128, 57, 101),
+    ("refcoco step image self", 256, 8, 128, 101, 101),
+    ("VisualEntailment step text self", 256, 12, 64, 57, 57),
+    ("Visual7w image self", 256, 8, 128, 200, 200), ("Visual7w text->image", 256, 8, 128, 21, 200),
+    ("Visual7w image->text", 256, 8, 128, 200, 21),
+    ("GuessWhatPointing text self", 64, 12, 64, 257, 257),
+    ("GuessWhatPointing image self", 64, 8, 128, 306, 306),
+    ("GuessWhatPointing text->image", 64, 8, 128, 257, 306),
+    ("GuessWhatPointing image->text", 64, 8, 128, 306, 257),
+    ("baseline CC self", 256, 12, 64, 73, 73), ("baseline VQA step self", 128, 12, 64, 124, 124),
+    ("baseline GenomeQA step self", 128, 12, 64, 127, 127),
+    ("baseline refcoco step self", 256, 12, 64, 121, 121),
+    ("baseline retrieval step self", 512, 12, 64, 131, 131),
+    ("baseline Visual7w step self", 256, 12, 64, 220, 220),
+    ("baseline GuessWhatPointing step self", 64, 12, 64, 562, 562),
+)
+#: lengths of the sweep (Sq = Sk), each at a batch of about 36,000 rows
+BWD_SWEEP = (16, 32, 48, 64, 80, 96, 112, 128, 144, 192, 256, 384, 512, 768, 1024)
+
+
 def build(csrc: str, out_dir: str, sources=None) -> tuple:
     """(library path, ptxas lines of the tensor-core kernels or, when
     ``sources`` names layernorm.cu alone, of the LayerNorm kernels) of
@@ -90,8 +143,8 @@ def build(csrc: str, out_dir: str, sources=None) -> tuple:
         for line in out.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                kernel = m.group(1) if "_tc_" in m.group(1) or "layer_norm" in m.group(1) \
-                    else None
+                kernel = m.group(1) if ("_tc_" in m.group(1) or "layer_norm" in m.group(1)
+                                        or "_wg_" in m.group(1)) else None
             elif kernel and ("spill" in line or "Used" in line):
                 # <x type, weight type (S0_: x's again), H, persistent>
                 ln = re.search(r"layer_norm_fwd_kernelI(f|13__nv_bfloat16)"
@@ -127,8 +180,9 @@ def load(path: str) -> ctypes.CDLL:
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
-    lib.vt_error_string.argtypes = [ctypes.c_int]
-    lib.vt_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "vt_error_string"):  # layernorm.cu: not in a K2-only build
+        lib.vt_error_string.argtypes = [ctypes.c_int]
+        lib.vt_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -141,7 +195,8 @@ def main(argv=None) -> int:
                    help="text of --file that B replaces (again: C, D, ... with the next --new)")
     p.add_argument("--new", action="append", default=[], help="what B puts in its place")
     p.add_argument("--baseline", default="", help="a csrc directory to build A from")
-    p.add_argument("--kernel", default="attention", choices=("attention", "layer_norm"))
+    p.add_argument("--kernel", default="attention",
+                   choices=("attention", "layer_norm", "attention_bwd"))
     p.add_argument("--ln_weight", default="float32", choices=("float32", "bfloat16"),
                    help="dtype of K4's weight and bias in the layer_norm timings")
     args = p.parse_args(argv)
@@ -176,13 +231,19 @@ def main(argv=None) -> int:
         for name, csrc in sources.items():
             out_dir = os.path.join(tmp, name)
             os.makedirs(out_dir)
-            lib_path, report = build(
-                csrc, out_dir, ["layernorm.cu"] if args.kernel == "layer_norm" else None)
+            sources_of = {"layer_norm": ["layernorm.cu"],
+                          "attention_bwd": [f for f in ("attention.cu", "attention_bwd.cu",
+                                                        "attention_bwd_wg.cu")
+                                            if os.path.exists(os.path.join(csrc, f))]}
+            lib_path, report = build(csrc, out_dir, sources_of.get(args.kernel))
             variants[name] = load(lib_path)
             for line in report:
-                print(f"  {name} ptxas {line}")
+                if args.kernel != "attention_bwd" or line.startswith("bwd "):
+                    print(f"  {name} ptxas {line}")
         if args.kernel == "layer_norm":
             return time_layer_norm(variants, smoke, getattr(torch, args.ln_weight))
+        if args.kernel == "attention_bwd":
+            return time_attention_bwd(variants, smoke)
 
         def use(name):
             _build.load_library = lambda: variants[name]
@@ -215,6 +276,90 @@ def main(argv=None) -> int:
         return 1 if fails else 0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def time_attention_bwd(libs: dict, smoke) -> int:
+    """K2's bf16 variants of each library at BWD_SHAPES and the BWD_SWEEP
+    lengths: checked against the plain version at rate 0 and timed,
+    libraries alternated A, B, B, A; SDPA's backward and the bound beside;
+    wg's dq and dkdv kernels apart at BWD_SHAPES."""
+    import torch
+
+    from vilbert_tpu_torch.ops import _build
+    from vilbert_tpu_torch.ops import attention as A
+
+    tree = libs[list(libs)[-1]]  # the tree's library: K1 with row log-sum-exps
+
+    def use(lib):
+        _build.load_library = lambda: lib
+
+    shapes = list(BWD_SHAPES)
+    for s in BWD_SWEEP:
+        shapes += [(f"sweep {s}", max(1, round(36000 / s)), heads, d, s, s)
+                   for heads, d in ((12, 64), (8, 128))]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    fails = 0
+    for label, B, heads, d, sq, sk in shapes:
+        q, k, v, cot, bias = smoke._attention_operands(g, B, heads, d, sq, sk, torch.bfloat16)
+        kw = dict(num_heads=heads)
+        use(tree)
+        out, lse = A.attention_kernel(q, k, v, bias, variant=A.fwd_variant(q.dtype, sk),
+                                      return_lse=True, **kw)
+        want = A.attention_bwd_ref(q, k, v, bias, cot, **kw)
+        lib_fns = smoke.library_attention_fns(q, k, v, bias, cot, heads, d)
+        sdpa = smoke.device_ms(lib_fns, 10)
+        times = {}
+        for name in (*libs, *reversed(libs)):  # A, B, B, A
+            use(libs[name])
+            fns = {}
+            for variant in ("tc", "long_tc", "wg"):
+                if ((variant == "tc" and max(sq, sk) > A.TC_MAX_SEQ)
+                        or not hasattr(libs[name], f"vt_attention_bwd_{variant}")):
+                    continue
+                fns[f"{name} {variant}"] = functools.partial(
+                    A.attention_bwd_kernel, q, k, v, bias, cot, variant=variant, out=out,
+                    lse=lse, **kw)
+                eb, okb = smoke._bwd_errors(fns[f"{name} {variant}"](), want, "bfloat16")
+                if not okb:
+                    fails += 1
+                    print(f"  FAIL {name} {variant} {label}: max|err| {eb:.3e}")
+            for key, ms in smoke.device_ms(fns, 10).items():
+                times.setdefault(key, []).append(ms)
+        b_ms, b_by = smoke.bound(*smoke.attention_cost(B, heads, d, sq, sk)["bwd"],
+                                 smoke.BF16_TC_FLOPS)
+        text = ", ".join(f"{key} {sum(t) / len(t):.4f}" for key, t in times.items())
+        print(f"attention_bwd {label} B={B} h={heads} d={d} {sq}x{sk} routed "
+              f"{A.bwd_variant(q.dtype, sq, sk, d)}: device ms {text}; SDPA bwd "
+              f"{sdpa['library_fwd_bwd'] - sdpa['library']:.4f}; bound {b_ms:.4f} ({b_by})",
+              flush=True)
+        if not label.startswith("sweep") and hasattr(tree, "vt_attention_bwd_wg"):
+            use(tree)
+            split = wg_kernel_ms(functools.partial(
+                A.attention_bwd_kernel, q, k, v, bias, cot, variant="wg", out=out, lse=lse, **kw))
+            print(f"  wg kernels {label}: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()),
+                  flush=True)
+    print("checks failed:", fails)
+    return 1 if fails else 0
+
+
+def wg_kernel_ms(fn, iters: int = 10) -> dict:
+    """Device ms per call of ``wg``'s two kernels (dq, dkdv) in ``fn``, by
+    ``torch.profiler``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        dev = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if "_wg_" in ev.key and dev:
+            out["dq" if "_dq_" in ev.key else "dkdv"] = dev / 1e3 / iters
+    return out
 
 
 def time_layer_norm(libs: dict, smoke, wdtype) -> int:

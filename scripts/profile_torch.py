@@ -56,6 +56,7 @@ CLASSES = (
     ("K1 attention forward, long, tensor cores", ("attention_fwd_long_tc",)),
     ("K1 attention forward, CUDA cores", ("attention_fwd",)),
     ("K2 attention backward, tensor cores", ("attention_bwd_tc",)),
+    ("K2 attention backward, wgmma", ("attention_bwd_wg",)),
     ("K2 attention backward, long, tensor cores", ("attention_bwd_long_tc",)),
     ("K2 attention backward, long, CUDA cores", ("attention_bwd_rows_dq", "attention_bwd_dkdv")),
     ("K2 attention backward, CUDA cores", ("attention_bwd",)),

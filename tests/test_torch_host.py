@@ -418,9 +418,10 @@ def test_chip_smoke_baseline_shapes_and_launches(monkeypatch):
     """chip_smoke.py's expectations of the single-stream baseline: K4 26
     launches a VQA forward (the two embeddings in fp32, two a layer with
     the residual), 28 a CC step (and the LM and image transforms), 26 a
-    step of each task; K1 and K2 one a layer over T + R keys, on
-    "long_tc" past 128 (GuessWhatPointing's 562), over the nine flagship
-    tasks the baseline has heads for."""
+    step of each task; K1 and K2 one a layer over T + R keys, K1 on "tc"
+    and past 128 (GuessWhatPointing's 562) on "long_tc", K2 on "wg" (every
+    task's T + R is past 64 at d = 64), over the nine flagship tasks the
+    baseline has heads for."""
     import importlib.util
 
     from vilbert_tpu_torch.core.config import ModelConfig
@@ -447,10 +448,10 @@ def test_chip_smoke_baseline_shapes_and_launches(monkeypatch):
     assert len({a[0] for a in smoke.baseline_attentions()}) == len(smoke.baseline_attentions())
     cfg = ModelConfig.from_json_file(smoke.BASELINE_CONFIG)
     want = smoke.baseline_multitask_launches(tasks, cfg, 1)
-    # TASK4 (220 keys), TASK7 and TASK8 (131) and TASK17 (562) past 128
+    # TASK4 (220 keys), TASK7 and TASK8 (131) and TASK17 (562) past 128:
+    # K1 on long_tc; K2 on wg there and at the others' 121 to 127 keys (d 64)
     assert want == {"attention": 108, "attention_bwd": 108, "attention_tc": 60,
-                    "attention_bwd_tc": 60, "attention_long_tc": 48,
-                    "attention_bwd_long_tc": 48}
+                    "attention_long_tc": 48, "attention_bwd_wg": 108}
 
 
 def test_vcr_copy_matches(tmp_path):

@@ -135,23 +135,40 @@ class TestAttentionVariants:
         assert fwd_variant(dtype, sk) == want
 
     def test_backward_variant_by_dtype(self):
-        """Up to 128 queries and keys, bf16 runs on the tensor cores and fp32
-        on the CUDA cores."""
+        """Up to 128 queries and keys at d = 128 (but text->image), bf16 runs
+        on the mma.sync tensor-core variant and fp32 on the CUDA cores."""
         from vilbert_tpu_torch.ops.attention import bwd_variant
 
         for sq, sk in ((1, 1), (37, 36), (128, 128)):
-            assert (bwd_variant(torch.bfloat16, sq, sk),
-                    bwd_variant(torch.float32, sq, sk)) == ("tc", "cc")
+            assert (bwd_variant(torch.bfloat16, sq, sk, 128),
+                    bwd_variant(torch.float32, sq, sk, 128)) == ("tc", "cc")
 
+    @pytest.mark.parametrize("d", [64, 128])
     @pytest.mark.parametrize("sq,sk", [(129, 1), (1, 129), (21, 200), (200, 21), (257, 306),
                                        (512, 512), (562, 562), (1024, 1)])
-    @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "long_tc"), (torch.float32, "long")])
-    def test_backward_variant_past_128_is_long(self, sq, sk, dtype, want):
-        """Past 128 queries or keys, bf16 runs the long variant on the tensor
-        cores and fp32 on the CUDA cores."""
+    @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wg"), (torch.float32, "long")])
+    def test_backward_variant_past_128_is_long(self, sq, sk, dtype, want, d):
+        """Past 128 queries or keys, bf16 runs the wgmma variant (which took
+        over from the long mma.sync one) and fp32 the long variant on the
+        CUDA cores, at either head width."""
         from vilbert_tpu_torch.ops.attention import bwd_variant
 
-        assert bwd_variant(dtype, sq, sk) == want
+        assert bwd_variant(dtype, sq, sk, d) == want
+
+    @pytest.mark.parametrize("sq,sk,d,want", [
+        (36, 36, 64, "tc"), (57, 57, 64, "tc"), (64, 64, 64, "tc"), (65, 65, 64, "wg"),
+        (73, 73, 64, "wg"), (121, 121, 64, "wg"), (124, 124, 64, "wg"), (128, 1, 64, "wg"),
+        (37, 37, 128, "tc"), (36, 37, 128, "tc"), (101, 101, 128, "tc"), (101, 24, 128, "tc"),
+        (24, 101, 128, "wg"), (64, 65, 128, "wg"), (65, 101, 128, "tc"), (1, 128, 128, "wg"),
+    ])
+    def test_backward_variant_at_or_under_128(self, sq, sk, d, want):
+        """At or under 128, bf16 takes "wg" where it beat "tc" on the card:
+        past one 64-row tile at d = 64, and at d = 128 where at most 64
+        queries meet more than 64 keys; fp32 stays on "cc"."""
+        from vilbert_tpu_torch.ops.attention import bwd_variant
+
+        assert bwd_variant(torch.bfloat16, sq, sk, d) == want
+        assert bwd_variant(torch.float32, sq, sk, d) == "cc"
 
     @pytest.mark.parametrize("sq,sk,ok", [(512, 512, True), (306, 257, True), (513, 20, True),
                                           (20, 513, True), (562, 562, True), (1024, 1024, True),
@@ -624,7 +641,7 @@ class TestBuild:
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith("libvilbert_kernels_") and path.suffix == ".so"
         assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} == {
-            "attention.cu", "attention_bwd.cu", "layernorm.cu"}
+            "attention.cu", "attention_bwd.cu", "attention_bwd_wg.cu", "layernorm.cu"}
         assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {"keep_mask.cuh", "mma_bf16.cuh"}
 
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):

@@ -26,7 +26,11 @@
 // `visualization` maps), P after dropout in the output dtype, into a
 // [B, h, Sq, Sk] array when the caller passes one (null: none, and nothing
 // else changes): tc:: and cc:: from the row they hold, ltc:: in a second
-// sweep over the key tiles once the row's max and sum are final.
+// sweep over the key tiles once the row's max and sum are final. The bf16
+// variants (tc::, ltc::) can likewise write each query row's log-sum-exp of
+// the scaled, biased scores, m + log l in fp32, into a [B, h, Sq] array: the
+// row statistics of the wgmma backward (attention_bwd_wg.cu), which then
+// recomputes P without a walk over the row first.
 //
 // Three variants; the Python wrapper picks one by dtype and Sk and counts
 // each:
@@ -307,6 +311,7 @@ struct Args {
   const float* bias;
   vt::bf16* out;
   vt::bf16* probs;  // [B, h, Sq, Sk], or null: no probabilities
+  float* lse;       // [B, h, Sq], or null: no row log-sum-exps
   int num_heads, sq, sk;
   int q_rows, q_tiles;  // query rows per block (a multiple of 16), blocks per head
   int64_t q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, bias_bs;  // strides in elements
@@ -363,7 +368,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attention_fwd_tc_kernel(const 
     float s[2 * KT][4];
     vt::products_abt<D, KT>(s, q_s, k_s, r0, kt, lane);
     // P in registers, then the mask at each element's global (row, key)
-    vt::softmax_strip<KT>(s, kt, a.sk, a.scale, bias_s, lane);
+    float lse[2];
+    vt::softmax_strip<KT>(s, kt, a.sk, a.scale, bias_s, lane, lse);
+    if (a.lse != nullptr && lane % 4 == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row + 8 * r < a.sq) a.lse[(int64_t)bh * a.sq + row + 8 * r] = lse[r];
     if (kDrop) {
       const uint32_t tseed = vt::tile_seed(a.seed, bh);
 #pragma unroll
@@ -563,12 +573,17 @@ __global__ void __launch_bounds__(32 * kMaxQWarps) attention_fwd_long_tc_kernel(
       vt::accumulate_ab<D, kST>(o, pa, v_t, st, lane);
     }
   }
-  // O keep_scale / l, written once in [B, Sq, H]
-  const float f[2] = {a.keep_scale / vt::quad_sum(l[0]), a.keep_scale / vt::quad_sum(l[1])};
+  // O keep_scale / l, written once in [B, Sq, H]; with `lse`, m + log l
+  const float ls[2] = {vt::quad_sum(l[0]), vt::quad_sum(l[1])};
+  const float f[2] = {a.keep_scale / ls[0], a.keep_scale / ls[1]};
   if (active) {
     vt::scale_rows<D / 8>(o, f[0], f[1]);
     const int64_t hidden = (int64_t)a.num_heads * D;
     vt::store_strip<D>(a.out + b * a.sq * hidden + h * D, o, row, a.sq, hidden, 1.f, lane);
+    if (a.lse != nullptr && lane % 4 == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row + 8 * r < a.sq) a.lse[(int64_t)bh * a.sq + row + 8 * r] = m[r] + logf(ls[r]);
   }
   if (a.probs == nullptr) return;
 
@@ -668,8 +683,9 @@ extern "C" int vt_attention_fwd(const void* q, const void* k, const void* v, con
 
 // The tensor-core variant: bf16 q, k, v and out, fp32 bias, 1 <= Sk <= 128,
 // head_dim 64 or 128; q, k and v 16-byte aligned with batch and row strides
-// that are multiples of 8 elements (16 bytes); probs null or bf16. Arguments
-// otherwise as for vt_attention_fwd; cudaErrorInvalidValue for what it does not take (the
+// that are multiples of 8 elements (16 bytes); lse null or an fp32
+// [B, h, Sq] that receives each row's log-sum-exp; probs null or bf16.
+// Arguments otherwise as for vt_attention_fwd; cudaErrorInvalidValue for what it does not take (the
 // Python wrapper checks these first).
 extern "C" int vt_attention_fwd_tc(const void* q, const void* k, const void* v, const void* bias,
                                    void* out, int batch, int num_heads, int head_dim, int sq,
@@ -677,7 +693,7 @@ extern "C" int vt_attention_fwd_tc(const void* q, const void* k, const void* v, 
                                    long long k_bstride, long long k_rstride, long long v_bstride,
                                    long long v_rstride, long long bias_bstride, float scale,
                                    unsigned int seed, unsigned int threshold, float keep_scale,
-                                   void* probs, void* stream) {
+                                   void* lse, void* probs, void* stream) {
   if (sk < 1 || sk > tc::kMaxKeys || sq < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 ||
@@ -688,7 +704,8 @@ extern "C" int vt_attention_fwd_tc(const void* q, const void* k, const void* v, 
   const int q_rows = min(tc::kBlockQ, (sq + 15) / 16 * 16);
   tc::Args a{static_cast<const vt::bf16*>(q), static_cast<const vt::bf16*>(k),
              static_cast<const vt::bf16*>(v), static_cast<const float*>(bias),
-             static_cast<vt::bf16*>(out), static_cast<vt::bf16*>(probs), num_heads, sq, sk,
+             static_cast<vt::bf16*>(out), static_cast<vt::bf16*>(probs),
+             static_cast<float*>(lse), num_heads, sq, sk,
              q_rows, (sq + q_rows - 1) / q_rows,
              q_bstride, q_rstride, k_bstride, k_rstride,
              v_bstride, v_rstride, bias_bstride, scale, seed, threshold, keep_scale};
@@ -715,7 +732,8 @@ extern "C" int vt_attention_fwd_long_tc(const void* q, const void* k, const void
                                         long long k_rstride, long long v_bstride,
                                         long long v_rstride, long long bias_bstride, float scale,
                                         unsigned int seed, unsigned int threshold,
-                                        float keep_scale, void* probs, void* stream) {
+                                        float keep_scale, void* lse, void* probs,
+                                        void* stream) {
   if (sk < 1 || sk > ltc::kMaxKeys || sq < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 ||
@@ -727,7 +745,8 @@ extern "C" int vt_attention_fwd_long_tc(const void* q, const void* k, const void
   const int q_rows = ((sq + q_tiles - 1) / q_tiles + 15) / 16 * 16;
   tc::Args a{static_cast<const vt::bf16*>(q), static_cast<const vt::bf16*>(k),
              static_cast<const vt::bf16*>(v), static_cast<const float*>(bias),
-             static_cast<vt::bf16*>(out), static_cast<vt::bf16*>(probs), num_heads, sq, sk,
+             static_cast<vt::bf16*>(out), static_cast<vt::bf16*>(probs),
+             static_cast<float*>(lse), num_heads, sq, sk,
              q_rows, q_tiles,
              q_bstride, q_rstride, k_bstride, k_rstride,
              v_bstride, v_rstride, bias_bstride, scale, seed, threshold, keep_scale};

@@ -254,10 +254,12 @@ __device__ __forceinline__ float quad_sum(float x) {
 // In place, the raw products q.k of a warp's 16-row strip (products_abt)
 // become P = softmax(q.k scale + bias) in fp32, row by row over the sk valid
 // keys; keys past sk get P = 0. Element e of tile n is row lane/4 + 8 (e/2)
-// of the strip and key 8 n + 2 (lane % 4) + e % 2.
+// of the strip and key 8 n + 2 (lane % 4) + e % 2. With `lse`, each of the
+// two rows' log-sum-exp of the scores (max + log sum) into lse[0], lse[1].
 template <int KT>
 __device__ __forceinline__ void softmax_strip(float (&s)[2 * KT][4], int kt, int sk,
-                                              float scale, const float* bias_s, int lane) {
+                                              float scale, const float* bias_s, int lane,
+                                              float* lse = nullptr) {
   float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int n = 0; n < 2 * KT; ++n) {
@@ -287,6 +289,10 @@ __device__ __forceinline__ void softmax_strip(float (&s)[2 * KT][4], int kt, int
   }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
+  if (lse != nullptr) {
+    lse[0] = m[0] + logf(l[0]);
+    lse[1] = m[1] + logf(l[1]);
+  }
 #pragma unroll
   for (int n = 0; n < 2 * KT; ++n)
     if (n < 2 * kt)

@@ -51,15 +51,20 @@ _SIGNATURES = {
     # q/k/v/g batch and row strides, bias batch stride, scale,
     # dropout seed, keep threshold, keep scale, stream
     "vt_attention_bwd": [_P] * 8 + [_I] * 6 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
-    # the tensor-core variants: the same without the dtype (bf16 only)
-    "vt_attention_fwd_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P, _P],
-    "vt_attention_fwd_long_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P, _P],
+    # the tensor-core variants: the same without the dtype (bf16 only), and
+    # the row log-sum-exps (or null) before the probabilities
+    "vt_attention_fwd_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P, _P, _P],
+    "vt_attention_fwd_long_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P, _P,
+                                                                   _P],
     "vt_attention_bwd_tc": [_P] * 8 + [_I] * 5 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # the long-sequence K2: vt_attention_bwd's arguments with the fp32
     # row-statistics workspace after dv
     "vt_attention_bwd_long": [_P] * 9 + [_I] * 6 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # ... and on the tensor cores: the same without the dtype (bf16 only)
     "vt_attention_bwd_long_tc": [_P] * 9 + [_I] * 5 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
+    # the wgmma K2: q, k, v, bias, g, the forward's output and row
+    # log-sum-exps, dq, dk, dv, its fp32 workspace, then as the one above
+    "vt_attention_bwd_wg": [_P] * 11 + [_I] * 5 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # x, residual, weight, bias, out, dtype, weight dtype, rows, h, eps,
     # stream: one entry point a LayerNorm variant ("block", "persistent")
     "vt_layer_norm_fwd_block": [_P] * 5 + [_I] * 4 + [_F, _P],

@@ -29,17 +29,25 @@ the VQA and CC paths, the whole key axis in shared memory), ``"long_tc"``
 on the tensor cores for bf16 at 128 < Sk <= 1024 (K and V streamed in tiles
 of 64 keys under an online softmax; it rounds exp(s - max) to bf16 before
 dividing by the row sum, where the TPU kernel rounds the normalized P), and
-``"cc"`` on the CUDA cores for fp32. K2 has four: ``"tc"`` for bf16 at
+``"cc"`` on the CUDA cores for fp32. K2 has five: ``"tc"`` for bf16 at
 Sq, Sk <= 128, ``"cc"`` for fp32 there; when Sq or Sk is above 128, up to
-1024, ``"long_tc"`` for bf16 and ``"long"`` (CUDA cores) for fp32, both
-tiles of 64 queries and keys over two kernels and an fp32 workspace of row
-statistics. ``"cc"`` and ``"long"`` take bf16 too, and ``"long_tc"`` K1
-takes Sk <= 128, when named (``attention_kernel``,
-``attention_bwd_kernel``). The tensor-core variants load rows by 16-byte
-copies, so they refuse (ValueError) operands that are not 16-byte aligned
-or whose batch and row strides are not multiples of 8 elements. The bf16
-tensor-core K2 variants round P_drop and ds to bf16 as mma operands (the
-TPU kernel keeps them in fp32). ``attention.launches``
+1024, ``"wg"`` for bf16 (``csrc/attention_bwd_wg.cu``, on Hopper's wgmma)
+and ``"long"`` (CUDA cores) for fp32; ``"wg"`` also takes the bf16 shapes
+at or under 128 where it beat ``"tc"`` (``bwd_variant``); ``"long_tc"``,
+the bf16 variant on ``mma.sync`` that ``"wg"`` replaced, stays launchable
+by name. The long variants cut the work into tiles of 64 queries and keys
+over two kernels and an fp32 workspace of row statistics. ``"wg"`` takes
+the row statistics from the forward: K1's bf16 variants also write each
+row's log-sum-exp of the scores (``return_lse``), and the backward reads
+it with the forward's output O (rowsum(dp P) = rowsum(g O)); ``_Attention``
+saves both where ``bwd_variant`` picks ``"wg"``, and ``attention_bwd``
+called alone runs one K1 launch for them first. ``"cc"`` and ``"long"`` take bf16
+too, and ``"long_tc"`` K1 takes Sk <= 128, when named
+(``attention_kernel``, ``attention_bwd_kernel``). The tensor-core variants
+load rows by 16-byte copies, so they refuse (ValueError) operands that are
+not 16-byte aligned or whose batch and row strides are not multiples of 8
+elements. The bf16 tensor-core K2 variants round P_drop and ds to bf16 as
+mma operands (the TPU kernel keeps them in fp32). ``attention.launches``
 counts every K1 launch and ``attention.launches_<variant>`` each
 variant's; likewise ``attention_bwd``.
 
@@ -76,9 +84,12 @@ BWD_KERNEL_MAX_SEQ = 1024
 TC_MAX_SEQ = 128
 #: kernel variants: tensor cores (bf16) up to 128 keys and past them, CUDA
 #: cores; K2's tensor-core and CUDA-core variants each have a long twin past
-#: 128 queries or keys
+#: 128 queries or keys, and the bf16 one ("long_tc", mma.sync) a wgmma
+#: successor ("wg")
 VARIANTS = ("tc", "long_tc", "cc")
-BWD_VARIANTS = ("tc", "cc", "long_tc", "long")
+BWD_VARIANTS = ("tc", "cc", "long_tc", "long", "wg")
+#: rows of the owned and the streamed tiles of K2's "wg" variant
+WG_TILE = 64
 
 
 def make_additive_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -273,13 +284,23 @@ def fwd_variant(dtype: torch.dtype, sk: int) -> str:
     return "tc" if sk <= TC_MAX_SEQ else "long_tc"
 
 
-def bwd_variant(dtype: torch.dtype, sq: int, sk: int) -> str:
-    """The backward kernel's variant for a dtype and sequence lengths:
-    ``"tc"`` for bf16 and ``"cc"`` for fp32 at Sq, Sk <= 128, ``"long_tc"``
-    and ``"long"`` when Sq or Sk is above."""
-    long = "long_" if max(sq, sk) > TC_MAX_SEQ else ""
+def bwd_variant(dtype: torch.dtype, sq: int, sk: int, head_dim: int) -> str:
+    """The backward kernel's variant for a dtype, sequence lengths and head
+    width. fp32: ``"cc"`` at Sq, Sk <= 128, ``"long"`` when Sq or Sk is
+    above. bf16: ``"wg"`` past 128, and at or under 128 where it beat
+    ``"tc"`` on an H100 (scripts/ab_kernels.py --kernel attention_bwd): at
+    d = 64 past one 64-row tile (73 to 128 keys: 0.59-0.65x tc's time), at
+    d = 128 where at most 64 queries meet more than 64 keys (text->image
+    co-attention, 21-57 x 101: 0.63-0.75x); ``"tc"`` elsewhere (at d = 128
+    the two run within 4% of each other from 80 to 128 keys, and ``tc``
+    wins at 64 keys and below)."""
+    long = max(sq, sk) > TC_MAX_SEQ
     if dtype == torch.bfloat16:
-        return long + "tc"
+        if head_dim == 64:
+            short_wg = max(sq, sk) > WG_TILE
+        else:
+            short_wg = sq <= WG_TILE < sk
+        return "wg" if long or short_wg else "tc"
     return "long" if long else "cc"
 
 
@@ -324,11 +345,17 @@ def _count(wrapper, variant: str) -> None:
     setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
-def _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed, variant, return_probs=False):
+def _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed, variant, return_probs=False,
+              return_lse=False):
+    """One K1 launch of ``variant``: out, or (out, probs), (out, lse) or
+    (out, probs, lse) as asked; lse fp32 [B, h, Sq], from the bf16 variants
+    only."""
     b, sq, sk, d = kernel_geometry(q, k, v, bias_rows, num_heads)
     out = torch.empty(b, sq, q.shape[2], dtype=q.dtype, device=q.device)
     probs = (torch.empty(b, num_heads, sq, sk, dtype=v.dtype, device=q.device)
              if return_probs else None)
+    lse = (torch.empty(b, num_heads, sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _build.load_library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(), out.data_ptr())
     if variant in ("tc", "long_tc"):
@@ -339,25 +366,30 @@ def _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed, variant, return
         fn = lib.vt_attention_fwd_tc if variant == "tc" else lib.vt_attention_fwd_long_tc
         call = functools.partial(fn, *ptrs, b, num_heads, d, sq, sk,
                                  *_tc_strides(q=q, k=k, v=v), bias_rows.stride(0))
+        stats = (None if lse is None else lse.data_ptr(),)
     elif variant == "cc":
+        if return_lse:
+            raise ValueError("the row log-sum-exps come from the bf16 variants (tc, long_tc)")
         call = functools.partial(lib.vt_attention_fwd, *ptrs, _build.DTYPE_CODES[q.dtype], b,
                                  num_heads, d, sq, sk, q.stride(0), q.stride(1), k.stride(0),
                                  k.stride(1), v.stride(0), v.stride(1), bias_rows.stride(0))
+        stats = ()
     else:
         raise ValueError(f"attention kernel variant must be one of {VARIANTS}, got {variant!r}")
     with torch.cuda.device(q.device):
-        err = call(1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
+        err = call(1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed), *stats,
                    None if probs is None else probs.data_ptr(),
                    torch.cuda.current_stream().cuda_stream)
     _build.check(err, f"attention kernel ({variant})")
     _count(attention, variant)
-    if probs is None:
-        return out
-    attention.launches_probs += 1
-    return out, probs
+    if probs is not None:
+        attention.launches_probs += 1
+    extra = tuple(t for t in (probs, lse) if t is not None)
+    return (out, *extra) if extra else out
 
 
-def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, variant):
+def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, variant, out=None,
+              lse=None):
     if g.stride(2) != 1:
         g = g.contiguous()  # autograd may hand the cotangent over as a view
     b, sq, sk, d = bwd_kernel_geometry(q, k, v, bias_rows, g, num_heads)
@@ -372,9 +404,9 @@ def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, variant):
     if variant in ("tc", "cc") and max(sq, sk) > TC_MAX_SEQ:
         raise ValueError(f"attention backward kernel variant {variant!r} takes Sq, Sk <= "
                          f"{TC_MAX_SEQ}, got Sq={sq}, Sk={sk}")
+    if variant in ("tc", "long_tc", "wg") and q.dtype != torch.bfloat16:
+        raise ValueError(f"tensor-core attention backward kernel takes bf16, got {q.dtype}")
     if variant == "tc":
-        if q.dtype != torch.bfloat16:
-            raise ValueError(f"tensor-core attention backward kernel takes bf16, got {q.dtype}")
         call = functools.partial(lib.vt_attention_bwd_tc, *ptrs, b, num_heads, d, sq, sk,
                                  *_tc_strides(q=q, k=k, v=v, g=g), bias_rows.stride(0))
     elif variant == "cc":
@@ -387,12 +419,29 @@ def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, variant):
             call = functools.partial(lib.vt_attention_bwd_long, *ptrs, stats.data_ptr(),
                                      _build.DTYPE_CODES[q.dtype], b, num_heads, d, sq, sk,
                                      *strides)
-        elif q.dtype != torch.bfloat16:
-            raise ValueError(f"tensor-core attention backward kernel takes bf16, got {q.dtype}")
         else:
             call = functools.partial(lib.vt_attention_bwd_long_tc, *ptrs, stats.data_ptr(), b,
                                      num_heads, d, sq, sk, *_tc_strides(q=q, k=k, v=v, g=g),
                                      bias_rows.stride(0))
+    elif variant == "wg":
+        tc_strides = _tc_strides(q=q, k=k, v=v, g=g)
+        if out is None or lse is None:  # called alone: the forward's O and row statistics
+            out, lse = _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed,
+                                 fwd_variant(q.dtype, sk), return_lse=True)
+        if (out.shape != q.shape or out.dtype != q.dtype or not out.is_contiguous()
+                or out.data_ptr() % 16 or out.device != q.device):
+            raise ValueError(f"attention backward kernel 'wg' takes the forward's output as a "
+                             f"contiguous {q.dtype} {tuple(q.shape)}, 16-byte aligned")
+        if (tuple(lse.shape) != (b, num_heads, sq) or lse.dtype != torch.float32
+                or not lse.is_contiguous() or lse.device != q.device):
+            raise ValueError(f"attention backward kernel 'wg' takes the forward's row "
+                             f"log-sum-exps as a contiguous fp32 [{b}, {num_heads}, {sq}]")
+        # each row's log-sum-exp times log2(e) and D = rowsum(g O), written
+        # by the dq kernel for the dkdv kernel
+        stats = torch.empty(2 * b * num_heads * sq, dtype=torch.float32, device=q.device)
+        call = functools.partial(lib.vt_attention_bwd_wg, *ptrs[:5], out.data_ptr(),
+                                 lse.data_ptr(), *ptrs[5:], stats.data_ptr(), b, num_heads, d,
+                                 sq, sk, *tc_strides, bias_rows.stride(0))
     else:
         raise ValueError(f"attention backward kernel variant must be one of {BWD_VARIANTS}, "
                          f"got {variant!r}")
@@ -406,31 +455,41 @@ def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, variant):
 
 class _Attention(torch.autograd.Function):
     """K1 forward and K2 backward; saves (q, k, v, bias_rows, seed) and no
-    probabilities. The bias is the constant mask: no gradient. With
-    ``return_probs`` the forward also returns the probabilities, which take
-    no gradient (as the K2 backward computes none through them)."""
+    probabilities, and where the backward runs ``"wg"`` (``with_stats``) the
+    output and K1's row log-sum-exps too. The bias is the constant mask: no
+    gradient. With ``return_probs`` the forward also returns the
+    probabilities, which take no gradient (as the K2 backward computes none
+    through them)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias_rows, num_heads, dropout_rate, seed, return_probs):
-        ctx.save_for_backward(q, k, v, bias_rows)
+    def forward(ctx, q, k, v, bias_rows, num_heads, dropout_rate, seed, return_probs,
+                with_stats):
         ctx.args = (num_heads, dropout_rate, seed)
         if q.device.type == "cpu":
             out = attention_ref(q, k, v, bias_rows, num_heads=num_heads,
                                 dropout_rate=dropout_rate, seed=seed, return_probs=return_probs)
+            ctx.save_for_backward(q, k, v, bias_rows)
         else:
             out = _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed,
-                            fwd_variant(q.dtype, k.shape[1]), return_probs)
+                            fwd_variant(q.dtype, k.shape[1]), return_probs, with_stats)
+            stats = ()
+            if with_stats:
+                *out, lse = out
+                out = tuple(out) if return_probs else out[0]
+                stats = (out[0] if return_probs else out, lse)
+            ctx.save_for_backward(q, k, v, bias_rows, *stats)
         if return_probs:
             ctx.mark_non_differentiable(out[1])
         return out
 
     @staticmethod
     def backward(ctx, g, *_):
-        q, k, v, bias_rows = ctx.saved_tensors
+        q, k, v, bias_rows, *stats = ctx.saved_tensors
         num_heads, dropout_rate, seed = ctx.args
+        out, lse = stats or (None, None)
         grads = attention_bwd(q, k, v, bias_rows, g, num_heads=num_heads,
-                              dropout_rate=dropout_rate, seed=seed)
-        return (*grads, None, None, None, None, None)
+                              dropout_rate=dropout_rate, seed=seed, out=out, lse=lse)
+        return (*grads, None, None, None, None, None, None)
 
 
 def attention(
@@ -461,8 +520,12 @@ def attention(
     if q.device.type != "cpu":
         _check_devices(q, k=k, v=v, bias=bias)
     bias_rows = _bias_rows(bias, q, k.shape[1])
+    with_stats = (q.device.type != "cpu" and torch.is_grad_enabled()
+                  and any(t.requires_grad for t in (q, k, v))
+                  and bwd_variant(q.dtype, q.shape[1], k.shape[1],
+                                  q.shape[2] // num_heads) == "wg")
     return _Attention.apply(q, k, v, bias_rows, num_heads, float(dropout_rate), seed,
-                            return_probs)
+                            return_probs, with_stats)
 
 
 def fused_attention(
@@ -490,41 +553,50 @@ def attention_bwd(
     num_heads: int,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
+    lse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The attention's backward (K2): (dq, dk, dv) for the cotangent g of
     ``attention(q, k, v, bias, ...)`` with the same rate and seed. CPU
     tensors take ``attention_bwd_ref``; CUDA tensors launch the variant
     ``bwd_variant`` picks and add one to ``attention_bwd.launches`` and to
-    the variant's count."""
+    the variant's count. ``out`` and ``lse``, the forward's output and row
+    log-sum-exps (``attention_kernel(..., return_lse=True)``), are what
+    ``"wg"`` reads; without them it gets both from one K1 launch first."""
     _check_rate(dropout_rate, seed)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, bias, g, num_heads=num_heads,
                                  dropout_rate=dropout_rate, seed=seed)
-    _check_devices(q, k=k, v=v, bias=bias, g=g)
+    _check_devices(q, k=k, v=v, bias=bias, g=g, out=out, lse=lse)
     bias_rows = _bias_rows(bias, q, k.shape[1])
     return _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed,
-                     bwd_variant(q.dtype, q.shape[1], k.shape[1]))
+                     bwd_variant(q.dtype, q.shape[1], k.shape[1], q.shape[2] // num_heads),
+                     out, lse)
 
 
 def attention_kernel(q, k, v, bias, *, num_heads: int, variant: str, dropout_rate: float = 0.0,
-                     seed: Optional[int] = None) -> torch.Tensor:
+                     seed: Optional[int] = None, return_lse: bool = False):
     """One launch of the named forward variant (one of ``VARIANTS``) on CUDA
     tensors, bypassing ``fwd_variant``: for comparing the variants on the
-    card. Counts like ``attention``; not differentiable."""
+    card. Counts like ``attention``; not differentiable. With
+    ``return_lse`` (bf16 variants), ``(out, lse)``: lse the fp32
+    [B, h, Sq] log-sum-exp of each row's scaled, biased scores."""
     _check_rate(dropout_rate, seed)
     _check_devices(q, k=k, v=v, bias=bias)
     return _fwd_cuda(q, k, v, _bias_rows(bias, q, k.shape[1]), num_heads, float(dropout_rate),
-                     seed, variant)
+                     seed, variant, return_lse=return_lse)
 
 
 def attention_bwd_kernel(q, k, v, bias, g, *, num_heads: int, variant: str,
-                         dropout_rate: float = 0.0, seed: Optional[int] = None):
+                         dropout_rate: float = 0.0, seed: Optional[int] = None,
+                         out: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None):
     """One launch of the named backward variant on CUDA tensors, bypassing
-    ``bwd_variant`` (see ``attention_kernel``)."""
+    ``bwd_variant`` (see ``attention_kernel``; ``out`` and ``lse`` as for
+    ``attention_bwd``, read by ``"wg"`` only)."""
     _check_rate(dropout_rate, seed)
-    _check_devices(q, k=k, v=v, bias=bias, g=g)
+    _check_devices(q, k=k, v=v, bias=bias, g=g, out=out, lse=lse)
     return _bwd_cuda(q, k, v, _bias_rows(bias, q, k.shape[1]), g, num_heads,
-                     float(dropout_rate), seed, variant)
+                     float(dropout_rate), seed, variant, out, lse)
 
 
 #: kernel launches since the last reset, in all and by variant (CPU calls
