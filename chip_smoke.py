@@ -215,6 +215,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import io
 import json
 import math
@@ -412,8 +413,8 @@ def bwd_fns(q, k, v, b, cot, kw: dict) -> dict:
     )
 
     sq, sk, d = q.shape[1], k.shape[1], q.shape[2] // kw["num_heads"]
-    out, lse = attention_kernel(q, k, v, b, variant=fwd_variant(q.dtype, sk), return_lse=True,
-                                **kw)
+    out, lse = attention_kernel(q, k, v, b, variant=fwd_variant(q.dtype, sq, sk, d),
+                                return_lse=True, **kw)
     fns = {"kernel": lambda: attention_bwd(q, k, v, b, cot, out=out, lse=lse, **kw),
            "plain": lambda: attention_bwd_ref(q, k, v, b, cot, **kw)}
     if bwd_variant(q.dtype, sq, sk, d) == "wg":
@@ -423,6 +424,83 @@ def bwd_fns(q, k, v, b, cot, kw: dict) -> dict:
         fns["wg"] = lambda: attention_bwd_kernel(q, k, v, b, cot, variant="wg", out=out, lse=lse,
                                                  **kw)
     return fns
+
+
+def k1_fns(q, k, v, b, kw: dict) -> tuple:
+    """(fns, routed): K1 at one shape for ``timed_row``, the routed variant
+    ("kernel") and the plain version, and every other bf16 variant by name
+    beside it (``tc`` at Sk <= 128, ``long_tc``, ``wg``): the variants the
+    routed one was chosen over, or that were chosen over it."""
+    from vilbert_tpu_torch.ops.attention import (
+        TC_MAX_SEQ,
+        attention,
+        attention_kernel,
+        attention_ref,
+        fwd_variant,
+    )
+
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[2] // kw["num_heads"]
+    routed = fwd_variant(q.dtype, sq, sk, d)
+    fns = {"kernel": lambda: attention(q, k, v, b, **kw),
+           "plain": lambda: attention_ref(q, k, v, b, **kw)}
+    for variant in ("tc", "long_tc", "wg"):
+        if variant != routed and not (variant == "tc" and sk > TC_MAX_SEQ):
+            fns[variant] = functools.partial(attention_kernel, q, k, v, b, variant=variant, **kw)
+    return fns, routed
+
+
+def vl_attention_shapes(cfg, t: int, r: int) -> list:
+    """(Sq, Sk, head width) of each attention of one two-stream forward over
+    t tokens and r regions: text self a text layer, image self an image
+    layer, text->image and image->text a connection layer."""
+    d_t = cfg.hidden_size // cfg.num_attention_heads
+    d_v = cfg.v_hidden_size // cfg.v_num_attention_heads
+    d_c = cfg.bi_hidden_size // cfg.bi_num_attention_heads
+    return ([(t, t, d_t)] * cfg.num_hidden_layers + [(r, r, d_v)] * cfg.v_num_hidden_layers
+            + [(t, r, d_c), (r, t, d_c)] * cfg.num_connection_layers)
+
+
+def k1_routed(shapes, times: int = 1) -> dict:
+    """K1's launch counts ("attention" and "attention_<variant>") of
+    ``times`` bf16 calls at each (Sq, Sk, head width) of ``shapes``, as
+    ``fwd_variant`` routes them."""
+    import torch
+
+    from vilbert_tpu_torch.ops.attention import VARIANTS, fwd_variant
+
+    out = {"attention": times * len(shapes), **{f"attention_{v}": 0 for v in VARIANTS}}
+    for sq, sk, d in shapes:
+        out[f"attention_{fwd_variant(torch.bfloat16, sq, sk, d)}"] += times
+    return out
+
+
+def k1_text(launches: dict, want: dict) -> str:
+    return ", ".join(f"{name.removeprefix('attention_')} {launches[name]} == {n}"
+                     for name, n in want.items())
+
+
+def check_k1(checks: Checks, what: str, launches: dict, want: dict, *, no_k2: bool = True):
+    """K1's launches, in all and by variant, equal ``want`` (``k1_routed``);
+    with ``no_k2``, no K2 launch."""
+    ok = all(launches[name] == n for name, n in want.items())
+    checks.expect(ok and (not no_k2 or launches["attention_bwd"] == 0),
+                  f"{what}: K1 launches {k1_text(launches, want)}"
+                  + (f", K2 {launches['attention_bwd']} == 0" if no_k2 else ""))
+
+
+def check_k1_variants(checks: Checks, err: dict, fns: dict, what: str) -> None:
+    """Each K1 variant of ``fns`` (``k1_fns``: the routed "kernel" and the
+    others by name) against the plain version within phase 3's bf16 bound,
+    before they are timed."""
+    import torch
+
+    with torch.inference_mode():
+        want = fns["plain"]()
+        for name in ("kernel", *OTHER_VARIANTS):
+            if name in fns:
+                e, bnd, ok = _fwd_error(fns[name](), want, "bfloat16")
+                track_error(err, "attention_fwd", name, e)
+                checks.expect(ok, f"{what} [{name}]: max|err| {e:.3e} <= {bnd:.3e}")
 
 
 def timed_row(fns: dict, kernel: str, plain: str, nbytes: float, flops: float, peak: float,
@@ -630,7 +708,7 @@ def phase_training_kernels(checks: Checks, g, err: dict) -> None:
             q, k, v, cot, bias = _attention_operands(g, B, heads, d, sq, sk, dtype)
             shape = f"h={heads} d={d} Sq={sq} Sk={sk} {name}"
             kw = dict(num_heads=heads, dropout_rate=0.1, seed=DROPOUT_SEED)
-            variant = fwd_variant(dtype, sk)
+            variant = fwd_variant(dtype, sq, sk, d)
             got, on_variant = counted(attention, variant, lambda: attention(q, k, v, bias, **kw))
             want = attention_ref(q, k, v, bias, **kw)
             torch.cuda.synchronize()
@@ -721,7 +799,7 @@ def phase_wg_kernels(checks: Checks, g, err: dict) -> None:
         shape = f"h={heads} d={d} Sq={sq} Sk={sk}"
         for rate in (0.0, 0.1):
             kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
-            fv = fwd_variant(torch.bfloat16, sk)
+            fv = fwd_variant(torch.bfloat16, sq, sk, d)
             out, lse = attention_kernel(q, k, v, bias, variant=fv, return_lse=True, **kw)
             e, bound, ok = _fwd_error(out, attention_ref(q, k, v, bias, **kw), "bfloat16")
             el, okl = _lse_error(lse, q, k, bias, heads)
@@ -773,6 +851,96 @@ def phase_wg_kernels(checks: Checks, g, err: dict) -> None:
     except ValueError:
         refused = True
     checks.expect(refused and attention_bwd.launches == before,
+                  "wg refuses a bf16 operand that is not 16-byte aligned")
+
+
+#: K1 wg's edges, in Sq and in Sk: one row or key, a 16-key step and one
+#: over, one short of, at and one past a warpgroup's 64 rows and a 64-key
+#: tile, the exact branch's end (128) and one past it, the paths' long
+#: lengths (200, 257, 306, 562) and the cap
+WG_FWD_EDGE_LENGTHS = (1, 16, 17, 63, 64, 65, 127, 128, 129, 200, 257, 306, 562, 1024)
+
+
+def wg_fwd_edge_cases() -> list:
+    """(heads, head_dim, Sq, Sk) of K1 wg's check: each edge length against
+    itself and against the list reversed (1 x 1024, 16 x 562, ...), each at
+    d = 64 (h12) and d = 128 (h8)."""
+    pairs = [(s, s) for s in WG_FWD_EDGE_LENGTHS]
+    pairs += [(a, b) for a, b in zip(WG_FWD_EDGE_LENGTHS, reversed(WG_FWD_EDGE_LENGTHS))
+              if a != b]
+    return [(heads, d, sq, sk) for sq, sk in pairs for heads, d in ((12, 64), (8, 128))]
+
+
+def phase_wg_fwd_kernels(checks: Checks, g, err: dict) -> None:
+    """K1's wgmma variant (``wg``) by name against ``attention_ref`` at
+    ``wg_fwd_edge_cases()``, rates 0 and 0.1, with padded keys and a fully
+    padded batch row: the output within the bf16 bound, the row
+    log-sum-exps within ``_lse_error``'s, K2 ``wg`` fed from its output
+    and log-sum-exps within K2's bound, and the probabilities (a second
+    launch that also writes them) within ``_probs_error``'s bound, its
+    output bit-equal to the first's; every launch on ``launches_wg``. A
+    stride-0 batch k and v (retrieval's fast_mode) at both head widths; a
+    misaligned operand refused."""
+    import torch
+
+    from vilbert_tpu_torch.ops.attention import (
+        attention,
+        attention_bwd,
+        attention_bwd_kernel,
+        attention_bwd_ref,
+        attention_kernel,
+        attention_ref,
+    )
+
+    B = 2
+    for heads, d, sq, sk in wg_fwd_edge_cases():
+        q, k, v, cot, bias = _attention_operands(g, B, heads, d, sq, sk, torch.bfloat16)
+        shape = f"h={heads} d={d} Sq={sq} Sk={sk}"
+        for rate in (0.0, 0.1):
+            kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
+            (out, lse), on_wg = counted(attention, "wg", lambda: attention_kernel(
+                q, k, v, bias, variant="wg", return_lse=True, **kw))
+            e, bound, ok = _fwd_error(out, attention_ref(q, k, v, bias, **kw), "bfloat16")
+            el, okl = _lse_error(lse, q, k, bias, heads)
+            got, on_bwd = counted(attention_bwd, "wg", lambda: attention_bwd_kernel(
+                q, k, v, bias, cot, variant="wg", out=out, lse=lse, **kw))
+            eb, okb = _bwd_errors(got, attention_bwd_ref(q, k, v, bias, cot, **kw), "bfloat16")
+            (out_p, probs), on_p = counted(attention, "wg", lambda: attention_kernel(
+                q, k, v, bias, variant="wg", return_probs=True, **kw))
+            ep, ratio, okp = _probs_error(probs, attention_ref(q, k, v, bias, return_probs=True,
+                                                               **kw)[1], "bfloat16", bias)
+            torch.cuda.synchronize()
+            same = torch.equal(out_p, out)
+            track_error(err, "attention_fwd", "wg", e)
+            track_error(err, "attention_bwd", "wg", eb)
+            track_error(err, "attention_fwd_probs", "wg", ep)
+            checks.expect(ok and okl and okb and okp and same and on_wg and on_bwd and on_p,
+                          f"wg K1 {shape} rate {rate}: max|err| {e:.3e} (<= {bound:.3e}), lse "
+                          f"max|err| {el:.3e}, K2 wg from its output and lse max|err| {eb:.3e}, "
+                          f"P worst err/bound {ratio:.3f}, output with P bit-equal {same}")
+    # one text broadcast over the batch (stride 0 in k and v)
+    for hd, heads in ((768, 12), (1024, 8)):
+        for sk in (30, 101, 200):
+            q = torch.randn(4, 23, hd, generator=g, device=DEVICE).bfloat16()
+            kv = torch.randn(1, sk, hd, generator=g, device=DEVICE).bfloat16().expand(4, sk, hd)
+            got, on_wg = counted(attention, "wg", lambda: attention_kernel(
+                q, kv, kv, None, num_heads=heads, variant="wg"))
+            want = attention_ref(q, kv, kv, None, num_heads=heads)
+            e, bound, ok = _fwd_error(got, want, "bfloat16")
+            track_error(err, "attention_fwd", "wg", e)
+            checks.expect(ok and on_wg and kv.stride(0) == 0,
+                          f"wg stride-0 batch k, v h={heads} Sk={sk}: max|err| {e:.3e} <= "
+                          f"{bound:.3e}")
+    # 16-byte copies: rows that start 2 bytes off are refused, not rerouted
+    wide = torch.randn(2, 101, 1025, generator=g, device=DEVICE).bfloat16()
+    before = attention.launches
+    try:
+        attention_kernel(wide[..., 1:], wide[..., 1:], wide[..., 1:], None, num_heads=8,
+                         variant="wg")
+        refused = False
+    except ValueError:
+        refused = True
+    checks.expect(refused and attention.launches == before,
                   "wg refuses a bf16 operand that is not 16-byte aligned")
 
 
@@ -858,6 +1026,7 @@ def phase_kernels(checks: Checks) -> dict:
 
     from vilbert_tpu_torch.ops.attention import (
         attention,
+        attention_kernel,
         attention_ref,
         fwd_variant,
         make_additive_mask,
@@ -870,7 +1039,7 @@ def phase_kernels(checks: Checks) -> dict:
     err = {"attention_fwd": 0.0, "attention_bwd": 0.0, "fused_attention": 0.0,
            "layer_norm_fwd": 0.0, "layer_norm_fwd_bf16_weight": 0.0,
            "attention_fwd_long_tc": 0.0, "attention_fwd_cc": 0.0, "attention_bwd_long_tc": 0.0,
-           "attention_bwd_wg": 0.0, "attention_fwd_probs": 0.0}
+           "attention_bwd_wg": 0.0, "attention_fwd_probs": 0.0, "attention_fwd_wg": 0.0}
     B = 8
     for heads, d, sq, sk in ATTENTION_CASES:
         hd = heads * d
@@ -882,7 +1051,7 @@ def phase_kernels(checks: Checks) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(B, s, hd, generator=g, device=dev).to(dtype)
                        for s in (sq, sk, sk))
-            variant = fwd_variant(dtype, sk)
+            variant = fwd_variant(dtype, sq, sk, d)
             got, on_variant = counted(attention, variant,
                                       lambda: attention(q, k, v, bias, num_heads=heads))
             want = attention_ref(q, k, v, bias, num_heads=heads)
@@ -893,12 +1062,13 @@ def phase_kernels(checks: Checks) -> dict:
             checks.expect(e <= bound and on_variant,
                           f"attention h={heads} d={d} Sq={sq} Sk={sk} {str(dtype)[6:]} "
                           f"[{variant}]: max|err| {e:.3e} <= {bound:.3e}")
-    # the long tensor-core K1's tiling edges, at rates 0 and 0.1
+    # the long tensor-core K1's tiling edges, at rates 0 and 0.1, by name
     for heads, d, sq, sk in LONG_FWD_EDGE_CASES:
         q, k, v, _, bias = _attention_operands(g, B, heads, d, sq, sk, torch.bfloat16)
         for rate in (0.0, 0.1):
             kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
-            got, on_variant = counted(attention, "long_tc", lambda: attention(q, k, v, bias, **kw))
+            got, on_variant = counted(attention, "long_tc", lambda: attention_kernel(
+                q, k, v, bias, variant="long_tc", **kw))
             want = attention_ref(q, k, v, bias, **kw)
             torch.cuda.synchronize()
             e, bound, ok = _fwd_error(got, want, "bfloat16")
@@ -911,8 +1081,8 @@ def phase_kernels(checks: Checks) -> dict:
     for sk, variant in ((30, "tc"), (200, "long_tc")):
         q = torch.randn(B, 23, 768, generator=g, device=dev).bfloat16()
         kv = torch.randn(1, sk, 768, generator=g, device=dev).bfloat16().expand(B, sk, 768)
-        got, on_variant = counted(attention, variant,
-                                  lambda: attention(q, kv, kv, None, num_heads=12))
+        got, on_variant = counted(attention, variant, lambda: attention_kernel(
+            q, kv, kv, None, num_heads=12, variant=variant))
         want = attention_ref(q, kv, kv, None, num_heads=12)
         e, bound = float((got.float() - want.float()).abs().max()), bf16_bound(want.float())
         track_error(err, "attention_fwd", variant, e)
@@ -928,10 +1098,11 @@ def phase_kernels(checks: Checks) -> dict:
         except ValueError:
             refused = True
         checks.expect(refused, f"attention refuses a bf16 operand that is not 16-byte aligned "
-                               f"[{fwd_variant(torch.bfloat16, sk)}]")
+                               f"[{fwd_variant(torch.bfloat16, 23, sk, 64)}]")
     phase_layer_norm_kernels(checks, g, err)
     phase_training_kernels(checks, g, err)
     phase_wg_kernels(checks, g, err)
+    phase_wg_fwd_kernels(checks, g, err)
     checks.end_phase("kernels")
     return err
 
@@ -1164,11 +1335,8 @@ def phase_slice(checks: Checks) -> tuple:
         f"records {len(records)} samples {metrics['num_samples']} in {time.time() - t0:.1f} s; "
         f"files {files}; launches {launches}")
     want_attn, want_ln = kernel_calls_per_forward(cfg)
-    checks.expect(launches["attention"] == launches["attention_tc"] == n_batches * want_attn
-                  and launches["attention_cc"] == 0,
-                  f"attention launches {launches['attention']} == tensor-core launches "
-                  f"{launches['attention_tc']} == {n_batches} x {want_attn}, CUDA-core "
-                  f"{launches['attention_cc']} == 0")
+    check_k1(checks, f"run_eval, {n_batches} x {want_attn}", launches,
+             k1_routed(vl_attention_shapes(cfg, T, R), n_batches), no_k2=False)
     checks.expect(launches["layer_norm"] == n_batches * want_ln,
                   f"layer_norm launches {launches['layer_norm']} == {n_batches} x {want_ln}")
     # the evaluator pads a short last batch to the batch size
@@ -1367,7 +1535,7 @@ def phase_timing(checks: Checks, model, cfg, card: str, err: dict) -> dict:
     import torch.nn.functional as F
 
     from vilbert_tpu_torch.models.layers import use_plain_ops
-    from vilbert_tpu_torch.ops.attention import attention, attention_kernel, attention_ref
+    from vilbert_tpu_torch.ops.attention import attention_kernel
 
     B = TIME_BATCH
     x = random_batch(cfg, B, SEED + 2)
@@ -1396,23 +1564,17 @@ def phase_timing(checks: Checks, model, cfg, card: str, err: dict) -> dict:
         q, k, v, cot = (torch.randn(B, s, heads * d, generator=g, device=DEVICE).bfloat16()
                         for s in (sq, sk, sk, sq))
         bias = ((1.0 - mask[:, :sk].float()) * -10000.0)[:, None, None, :]
-        fns = {"kernel": lambda: attention(q, k, v, bias, num_heads=heads),
-               "plain": lambda: attention_ref(q, k, v, bias, num_heads=heads),
-               "library": library_attention_fns(q, k, v, bias, cot, heads, d)["library"]}
-        if label == "image self":  # the other variants beside the tensor-core one
+        fns, routed = k1_fns(q, k, v, bias, dict(num_heads=heads))
+        fns["library"] = library_attention_fns(q, k, v, bias, cot, heads, d)["library"]
+        if label == "image self":  # the CUDA-core variant beside the tensor-core ones
             fns["cc"] = lambda: attention_kernel(q, k, v, bias, num_heads=heads, variant="cc")
-            fns["long_tc"] = lambda: attention_kernel(q, k, v, bias, num_heads=heads,
-                                                      variant="long_tc")
-            with torch.inference_mode():
-                e, bnd, ok = _fwd_error(fns["long_tc"](), fns["plain"](), "bfloat16")
-            track_error(err, "attention_fwd", "long_tc", e)
-            checks.expect(ok, f"attention {label} B={B} bf16 [long_tc, named]: max|err| "
-                              f"{e:.3e} <= {bnd:.3e}")
+        check_k1_variants(checks, err, fns, f"attention {label} B={B} bf16")
         row = timed_row(fns, "kernel", "plain", *attention_cost(B, heads, d, sq, sk)["fwd"],
                         BF16_TC_FLOPS, library="library")
+        row["variant"] = routed
         times[("attention_fwd", "VQA " + label, 0.0)] = row
-        log(f"  attention {label} B={B} h={heads} d={d} {sq}x{sk} bf16 rate 0 (library: SDPA): "
-            f"{row_text(row)} [{card}]")
+        log(f"  attention {label} B={B} h={heads} d={d} {sq}x{sk} bf16 rate 0 [{routed}] "
+            f"(library: SDPA): {row_text(row)} [{card}]")
     times.update(time_layer_norm(checks, shapes, card, err, g))
     checks.end_phase("timing")
     return times
@@ -1494,10 +1656,13 @@ def phase_train(checks: Checks) -> tuple:
     for name, per_step in kernel_calls_per_step(cfg).items():
         checks.expect(launches[name] == TRAIN_STEPS * per_step,
                       f"{name} launches {launches[name]} == {TRAIN_STEPS} x {per_step}")
-    for name in ("attention", "attention_bwd"):  # bf16: all on the tensor cores
-        checks.expect(launches[f"{name}_tc"] == launches[name] and launches[f"{name}_cc"] == 0,
-                      f"{name} tensor-core launches {launches[f'{name}_tc']} == "
-                      f"{launches[name]}, CUDA-core {launches[f'{name}_cc']} == 0")
+    # bf16: K1 as fwd_variant routes the step's shapes, K2 on "tc"
+    check_k1(checks, f"{TRAIN_STEPS} CC steps", launches,
+             k1_routed(vl_attention_shapes(cfg, TRAIN_T, TRAIN_R), TRAIN_STEPS), no_k2=False)
+    checks.expect(launches["attention_bwd_tc"] == launches["attention_bwd"]
+                  and launches["attention_bwd_cc"] == 0,
+                  f"attention_bwd tensor-core launches {launches['attention_bwd_tc']} == "
+                  f"{launches['attention_bwd']}, CUDA-core {launches['attention_bwd_cc']} == 0")
     check_ln_recording(checks, f"{TRAIN_STEPS} CC steps", ln_seen,
                        {key: row["cc"] for key, row in ln_shapes().items()}, launches,
                        TRAIN_STEPS)
@@ -1603,13 +1768,13 @@ def phase_train_timing(checks: Checks, state, args, card: str, err: dict) -> dic
             checks.expect(ok and okb, f"CC attention {label} B={B} bf16 rate "
                                       f"{rate}: fwd max|err| {e:.3e} (<= {bnd:.3e}), "
                                       f"bwd max|err| {eb:.3e}")
-            fwd = {"kernel": lambda: attention(q, k, v, b, **kw),
-                   "plain": lambda: attention_ref(q, k, v, b, **kw)}
+            fwd, routed = k1_fns(q, k, v, b, kw)
             bwd = bwd_fns(q, k, v, b, cot, kw)
             lib = library_attention_fns(q, k, v, b, cot, heads, d) if rate == 0.0 else {}
             if label == "image self":  # the CUDA-core variants beside the tensor-core ones
                 fwd["cc"] = lambda: attention_kernel(q, k, v, b, variant="cc", **kw)
                 bwd["cc"] = lambda: attention_bwd_kernel(q, k, v, b, cot, variant="cc", **kw)
+            check_k1_variants(checks, err, fwd, f"CC attention {label} B={B} bf16 rate {rate}")
             with torch.inference_mode():
                 fwd_lib = {"library": lib["library"]} if lib else {}
                 rows = {"fwd": timed_row({**fwd, **fwd_lib}, "kernel", "plain", *cost["fwd"],
@@ -1617,6 +1782,7 @@ def phase_train_timing(checks: Checks, state, args, card: str, err: dict) -> dic
             rows["bwd"] = timed_row(
                 {**bwd, **lib}, "kernel", "plain", *cost["bwd"], BF16_TC_FLOPS,
                 library=(lambda dev: dev["library_fwd_bwd"] - dev["library"]) if lib else None)
+            rows["fwd"]["variant"] = routed
             for kind, row in rows.items():
                 times[(f"attention_{kind}", "CC " + label, rate)] = row
                 log(f"  CC attention {kind} {label} B={B} h={heads} d={d} {sq}x{sk} bf16 rate "
@@ -1735,8 +1901,8 @@ def task_geometry(task, cfg) -> tuple:
 def multitask_launches(tasks: dict, cfg, steps: int, evals: int) -> dict:
     """Launch counts of ``steps`` training steps and ``evals`` eval forwards
     of every task: K1 30 a forward (text self x12, image self x6, both
-    co-attention directions x6), on "tc" where Sk <= 128, on "long_tc"
-    above (bf16: none on the CUDA cores); K2 once for each attention the
+    co-attention directions x6), on the variant ``fwd_variant`` picks
+    (bf16: none on the CUDA cores); K2 once for each attention the
     loss reaches, on the variant ``bwd_variant`` picks ("wg" past 128 keys
     and for text->image at d = 128, "tc" else): 30 a step, 28 for the V-logit
     types, whose loss reads the image stream only (the text layers after
@@ -1765,9 +1931,8 @@ def multitask_launches(tasks: dict, cfg, steps: int, evals: int) -> dict:
         if task.type in ("V-logit", "V-logit-mc"):
             bwd = [tt] * (n_t - trailing_t) + [rr] * n_v + [tr, rt] * (n_c - 1) + [rt]
         fwd = steps + evals
-        out["attention"] += fwd * len(shapes)
-        out["attention_tc"] += fwd * sum(sk <= 128 for _, sk, _ in shapes)
-        out["attention_long_tc"] += fwd * sum(sk > 128 for _, sk, _ in shapes)
+        for name, n in k1_routed(shapes, fwd).items():
+            out[name] += n
         out["attention_bwd"] += steps * len(bwd)
         for sq, sk, d in bwd:
             out[f"attention_bwd_{bwd_variant(torch.bfloat16, sq, sk, d)}"] += steps
@@ -1989,7 +2154,7 @@ def phase_multitask_timing(checks: Checks, trainer, card: str, err: dict) -> dic
         mask[:, sk - sk // 4:] = 0
         b = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
         cost = attention_cost(B, heads, d, sq, sk)
-        fv, bv = fwd_variant(torch.bfloat16, sk), bwd_variant(torch.bfloat16, sq, sk, d)
+        fv, bv = fwd_variant(torch.bfloat16, sq, sk, d), bwd_variant(torch.bfloat16, sq, sk, d)
         for rate in (0.0, 0.1):
             kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
             with torch.inference_mode():
@@ -2012,9 +2177,10 @@ def phase_multitask_timing(checks: Checks, trainer, card: str, err: dict) -> dic
                           f"(<= {bnd:.3e}), bwd max|err| {eb:.3e}")
         kw = dict(num_heads=heads)
         lib = library_attention_fns(q, k, v, b, cot, heads, d)
-        fwd = {"kernel": lambda: attention(q, k, v, b, **kw),
-               "plain": lambda: attention_ref(q, k, v, b, **kw), "library": lib["library"]}
-        if sk > TC_MAX_SEQ:  # the CUDA-core K1 beside the long tensor-core one
+        fwd, _ = k1_fns(q, k, v, b, kw)
+        fwd["library"] = lib["library"]
+        check_k1_variants(checks, err, fwd, f"{label} B={B} bf16 rate 0")
+        if sk > TC_MAX_SEQ:  # the CUDA-core K1 beside the tensor-core ones
             fwd["cc"] = lambda: attention_kernel(q, k, v, b, variant="cc", **kw)
         # the long K2 on the CUDA cores beside the tensor-core ones
         bwd = {**bwd_fns(q, k, v, b, cot, kw),
@@ -2092,15 +2258,6 @@ def retrieval_world():
     return store, keys, captions
 
 
-def check_k1_tc(checks: Checks, what: str, launches: dict, forwards: int, cfg) -> None:
-    want = forwards * kernel_calls_per_forward(cfg)[0]
-    checks.expect(launches["attention"] == launches["attention_tc"] == want
-                  and launches["attention_bwd"] == 0,
-                  f"{what}: K1 launches {launches['attention']} == tensor-core "
-                  f"{launches['attention_tc']} == {forwards} forwards x "
-                  f"{kernel_calls_per_forward(cfg)[0]}, no K2")
-
-
 def phase_retrieval(checks: Checks, tmp: str, card: str, err: dict) -> tuple:
     """Retrieval through cli/eval_retrieval.py (fine-tuned with fast_mode,
     then zero-shot) and the demo through cli/demo.py at the flagship width;
@@ -2121,7 +2278,6 @@ def phase_retrieval(checks: Checks, tmp: str, card: str, err: dict) -> tuple:
     )
     from vilbert_tpu_torch.models.layers import use_plain_ops
     from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining, ViLBERTForVLTasks
-    from vilbert_tpu_torch.ops.attention import attention, attention_ref
 
     t0 = time.time()
     store, keys, entries = retrieval_world()
@@ -2147,7 +2303,8 @@ def phase_retrieval(checks: Checks, tmp: str, card: str, err: dict) -> tuple:
     checks.expect(metrics["num_captions"] == RET_CAPTIONS and metrics["pool_size"] == RET_POOL
                   and all(math.isfinite(v) for v in metrics.values()),
                   f"{RET_CAPTIONS} captions ranked against {RET_POOL} images, metrics finite")
-    check_k1_tc(checks, "eval_retrieval --fast_mode", launches["fast"], forwards, cfg)
+    check_k1(checks, f"eval_retrieval --fast_mode, {forwards} forwards", launches["fast"],
+             k1_routed(vl_attention_shapes(cfg, RET_T, RET_R), forwards))
     fast_shapes = {k: n for k, (_, n) in ln_forward(cfg, RET_CHUNK, RET_T, RET_R,
                                                     fast=True).items()}
     check_ln_recording(checks, "eval_retrieval --fast_mode", ln_seen, fast_shapes,
@@ -2172,7 +2329,8 @@ def phase_retrieval(checks: Checks, tmp: str, card: str, err: dict) -> tuple:
     checks.expect(zs["num_captions"] == RET_ZERO_SHOT_CAPTIONS
                   and all(math.isfinite(v) for v in zs.values()), "zero-shot metrics finite")
     zs_forwards = RET_ZERO_SHOT_CAPTIONS * chunks
-    check_k1_tc(checks, "eval_retrieval --zero_shot", launches["zero_shot"], zs_forwards, cfg)
+    check_k1(checks, f"eval_retrieval --zero_shot, {zs_forwards} forwards",
+             launches["zero_shot"], k1_routed(vl_attention_shapes(cfg, RET_T, RET_R), zs_forwards))
     zs_shapes = {k: n for k, (_, n) in ln_forward(cfg_zs, RET_CHUNK, RET_T, RET_R,
                                                   zs_heads).items()}
     check_ln_recording(checks, "eval_retrieval --zero_shot", ln_seen, zs_shapes,
@@ -2241,7 +2399,8 @@ def phase_retrieval(checks: Checks, tmp: str, card: str, err: dict) -> tuple:
     checks.expect(all(bool(torch.isfinite(v).all()) for v in out if v is not None)
                   and out.vil_prediction.shape == (1, 3129),
                   "demo: every head finite, 3129 VQA answers")
-    check_k1_tc(checks, "demo", launches["demo"], 1, cfg_zs)
+    check_k1(checks, "demo", launches["demo"], k1_routed(vl_attention_shapes(cfg_zs, DEMO_T,
+                                                                             DEMO_R)))
     demo_shapes = {k: n for k, (_, n) in ln_forward(cfg_zs, 1, DEMO_T, DEMO_R,
                                                      demo_heads(cfg_zs)).items()}
     check_ln_recording(checks, "demo", ln_seen, demo_shapes, launches["demo"])
@@ -2256,16 +2415,13 @@ def phase_retrieval(checks: Checks, tmp: str, card: str, err: dict) -> tuple:
         mask = torch.ones(B, sk, dtype=torch.long, device=DEVICE)
         mask[:, sk - sk // 4:] = 0
         bias = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
-        fns = {"kernel": lambda: attention(q, k, v, bias, num_heads=heads),
-               "plain": lambda: attention_ref(q, k, v, bias, num_heads=heads),
-               "library": library_attention_fns(q, k, v, bias, cot, heads, d)["library"]}
+        fns, routed = k1_fns(q, k, v, bias, dict(num_heads=heads))
+        fns["library"] = library_attention_fns(q, k, v, bias, cot, heads, d)["library"]
+        check_k1_variants(checks, err, fns, f"attention {label} B={B} bf16")
         with torch.inference_mode():
-            e, bnd, ok = _fwd_error(fns["kernel"](), fns["plain"](), "bfloat16")
-            track_error(err, "attention_fwd", "tc", e)
-            checks.expect(ok, f"attention {label} B={B} bf16: max|err| {e:.3e} <= {bnd:.3e}")
             row = timed_row(fns, "kernel", "plain", *attention_cost(B, heads, d, sq, sk)["fwd"],
                             BF16_TC_FLOPS, library="library")
-        row["variant"] = "tc"
+        row["variant"] = routed
         times[("attention_fwd", label, 0.0)] = row
         log(f"  attention {label} B={B} h={heads} d={d} {sq}x{sk} bf16 (library: SDPA): "
             f"{row_text(row)} [{card}]")
@@ -2354,11 +2510,13 @@ def phase_training_options(checks: Checks, trainer, tmp: str, card: str, err: di
     cc_shapes = bf16_grad_shapes({key: row["cc"] for key, row in ln_shapes().items()})
     check_ln_recording(checks, f"{BF16_GRAD_STEPS} CC steps, bf16 gradients", ln_seen,
                        cc_shapes, bf16_launches, BF16_GRAD_STEPS)
-    for name in ("attention", "attention_bwd"):
-        checks.expect(bf16_launches[name] == BF16_GRAD_STEPS * per_step[name]
-                      == bf16_launches[f"{name}_tc"],
-                      f"{name} launches {bf16_launches[name]} == {BF16_GRAD_STEPS} x "
-                      f"{per_step[name]}, all on the tensor cores")
+    check_k1(checks, f"{BF16_GRAD_STEPS} CC steps, bf16 gradients", bf16_launches,
+             k1_routed(vl_attention_shapes(state.model.cfg, TRAIN_T, TRAIN_R), BF16_GRAD_STEPS),
+             no_k2=False)
+    checks.expect(bf16_launches["attention_bwd"] == BF16_GRAD_STEPS * per_step["attention_bwd"]
+                  == bf16_launches["attention_bwd_tc"],
+                  f"attention_bwd launches {bf16_launches['attention_bwd']} == {BF16_GRAD_STEPS} "
+                  f"x {per_step['attention_bwd']}, all on the tensor cores")
     # kernels vs plain ops: a bf16-gradient step at fp32 compute (K4 takes
     # fp32 x with bf16 weight and bias), dropout on, the same masks
     cfg32 = state.model.cfg.replace(compute_dtype="float32")
@@ -2558,7 +2716,7 @@ def phase_long_kernels(checks: Checks, err: dict, card: str) -> dict:
             q, k, v, cot, bias = _attention_operands(g, B, heads, d, sq, sk, dtype)
             for rate in (0.0, 0.1):
                 kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
-                fv, bv = fwd_variant(dtype, sk), bwd_variant(dtype, sq, sk, d)
+                fv, bv = fwd_variant(dtype, sq, sk, d), bwd_variant(dtype, sq, sk, d)
                 got, on_fv = counted(attention, fv, lambda: attention(q, k, v, bias, **kw))
                 e, bnd, ok = _fwd_error(got, attention_ref(q, k, v, bias, **kw), name)
                 got, on_bv = counted(attention_bwd, bv,
@@ -2668,11 +2826,9 @@ def phase_baseline_vqa(checks: Checks, card: str) -> tuple:
     log(f"  run_eval --baseline TASK1 B={BASE_VQA_BATCH}: loss {metrics['loss']:.6f} score "
         f"{metrics['score']:.6f} records {len(records)} in {time.time() - t0:.1f} s; launches "
         f"{launches}")
-    n = cfg.num_hidden_layers
-    checks.expect(launches["attention"] == launches["attention_tc"] == n
-                  and launches["attention_bwd"] == 0,
-                  f"K1 launches {launches['attention']} == tensor-core {launches['attention_tc']} "
-                  f"== {n} (124 keys), no K2")
+    n, d = cfg.num_hidden_layers, cfg.hidden_size // cfg.num_attention_heads
+    check_k1(checks, f"run_eval --baseline, {n} layers over {T + R} keys", launches,
+             k1_routed([(T + R, T + R, d)] * n))
     check_ln_recording(checks, "run_eval --baseline", ln_seen,
                        baseline_ln_forward(cfg, BASE_VQA_BATCH, T, R), launches)
     checks.expect(math.isfinite(metrics["loss"]) and len(records) == BASE_VQA_BATCH
@@ -2749,7 +2905,7 @@ def phase_baseline_train(checks: Checks, tmp: str, card: str) -> tuple:
                   and all(math.isfinite(v) for v in losses),
                   "BaseBertForPretraining, dropout 0.1, losses finite")
     s, d = TRAIN_T + TRAIN_R, cfg.hidden_size // cfg.num_attention_heads
-    for name, variant in (("attention", fwd_variant(torch.bfloat16, s)),
+    for name, variant in (("attention", fwd_variant(torch.bfloat16, s, s, d)),
                           ("attention_bwd", bwd_variant(torch.bfloat16, s, s, d))):
         checks.expect(launches[name] == launches[f"{name}_{variant}"] == TRAIN_STEPS * n,
                       f"{name} launches {launches[name]} == {variant} "
@@ -2897,8 +3053,8 @@ def baseline_task_ln_shapes(tasks: dict, cfg) -> dict:
 
 def baseline_multitask_launches(tasks: dict, cfg, steps: int) -> dict:
     """K1 and K2 of ``steps`` baseline steps of every task: one a layer,
-    over T + R keys: K1 "tc" at <= 128, "long_tc" above; K2 as
-    ``bwd_variant`` picks ("wg": every task's T + R is past 64, d = 64)."""
+    over T + R keys, on the variants ``fwd_variant`` and ``bwd_variant``
+    pick (K2 "wg": every task's T + R is past 64, d = 64)."""
     import torch
 
     from vilbert_tpu_torch.ops.attention import bwd_variant, fwd_variant
@@ -2907,7 +3063,7 @@ def baseline_multitask_launches(tasks: dict, cfg, steps: int) -> dict:
     d = cfg.hidden_size // cfg.num_attention_heads
     for task in tasks.values():
         s = baseline_task_geometry(task)[1]
-        for name, variant in (("attention", fwd_variant(torch.bfloat16, s)),
+        for name, variant in (("attention", fwd_variant(torch.bfloat16, s, s, d)),
                               ("attention_bwd", bwd_variant(torch.bfloat16, s, s, d))):
             out[name] += steps * cfg.num_hidden_layers
             out[f"{name}_{variant}"] += steps * cfg.num_hidden_layers
@@ -2975,13 +3131,14 @@ def phase_baseline_multitask(checks: Checks, tmp: str, card: str) -> tuple:
                   f"{len(losses)} task steps of the baseline, every loss finite")
     want = baseline_multitask_launches(tasks, trainer.model_cfg, 1)
     got = {k: launches.get(k, 0) for k in ("attention", "attention_tc", "attention_long_tc",
-                                          "attention_cc", "attention_bwd", "attention_bwd_tc",
+                                          "attention_cc", "attention_wg", "attention_bwd",
+                                          "attention_bwd_tc",
                                           "attention_bwd_long_tc", "attention_bwd_long",
                                           "attention_bwd_wg")}
     checks.expect(got == {k: want.get(k, 0) for k in got},
                   f"K1 and K2 launches by variant {got} == {want} (GuessWhatPointing's "
-                  f"{tasks['TASK17'].max_seq_length + tasks['TASK17'].max_region_num} keys on "
-                  f"long_tc and wg)")
+                  f"{tasks['TASK17'].max_seq_length + tasks['TASK17'].max_region_num} keys "
+                  f"included)")
     check_ln_recording(checks, "train --baseline, one iteration", ln_seen,
                        baseline_task_ln_shapes(tasks, trainer.model_cfg), launches)
     times, total_ms, total = time_task_steps(trainer, card, "baseline ")
@@ -2999,9 +3156,9 @@ def phase_baseline_retrieval(checks: Checks, tmp: str, card: str) -> tuple:
     ``run`` (``--baseline``): phase 10's pool (1,000 images in chunks of 500,
     captions of 30 tokens), fine-tuned (``BaseBertForVLTasks``; no
     ``--fast_mode``, which the baseline refuses) over BASE_RET_CAPTIONS
-    captions and zero-shot over BASE_RET_ZERO_SHOT: 131 keys, so K1 runs
-    "long_tc"; launches and K4 shapes; bf16 scores against the plain ops;
-    captions/s."""
+    captions and zero-shot over BASE_RET_ZERO_SHOT: 131 keys, K1 on the
+    variant ``fwd_variant`` picks there; launches and K4 shapes; bf16
+    scores against the plain ops; captions/s."""
     import numpy as np
     import torch
 
@@ -3013,7 +3170,7 @@ def phase_baseline_retrieval(checks: Checks, tmp: str, card: str) -> tuple:
     store, keys, entries = retrieval_world()
     cfg = ModelConfig.from_json_file(BASELINE_CONFIG)
     chunks = RET_POOL // RET_CHUNK
-    n = cfg.num_hidden_layers
+    n, d = cfg.num_hidden_layers, cfg.hidden_size // cfg.num_attention_heads
     out, launches = {}, {}
     for mode, cls, captions in (("fine-tuned", BaseBertForVLTasks, BASE_RET_CAPTIONS),
                                 ("zero-shot", BaseBertForPretraining, BASE_RET_ZERO_SHOT)):
@@ -3036,16 +3193,14 @@ def phase_baseline_retrieval(checks: Checks, tmp: str, card: str) -> tuple:
         checks.expect(metrics["num_captions"] == captions and metrics["pool_size"] == RET_POOL
                       and all(math.isfinite(v) for v in metrics.values()),
                       f"{mode}: {captions} captions ranked against {RET_POOL} images, finite")
-        lt = launches[mode]
-        checks.expect(lt["attention"] == lt["attention_long_tc"] == forwards * n
-                      and lt["attention_bwd"] == 0,
-                      f"{mode}: K1 launches {lt['attention']} == long tensor-core "
-                      f"{lt['attention_long_tc']} == {forwards} forwards x {n} (131 keys)")
+        s = RET_T + RET_R
+        check_k1(checks, f"{mode}: {forwards} forwards x {n} ({s} keys)", launches[mode],
+                 k1_routed([(s, s, d)] * n, forwards))
         heads = [] if mode == "fine-tuned" else [(RET_CHUNK * RET_T, cfg.hidden_size),
                                                   (RET_CHUNK * RET_R, cfg.hidden_size)]
         check_ln_recording(checks, f"eval_retrieval --baseline {mode}", ln_seen,
-                           baseline_ln_forward(cfg, RET_CHUNK, RET_T, RET_R, heads), lt,
-                           forwards)
+                           baseline_ln_forward(cfg, RET_CHUNK, RET_T, RET_R, heads),
+                           launches[mode], forwards)
         if mode == "fine-tuned":
             fine_tuned = model  # checked against the plain ops below
         del model
@@ -3156,7 +3311,7 @@ def phase_baseline_timing(checks: Checks, card: str, err: dict) -> dict:
         mask[:, sk - sk // 4:] = 0
         b = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
         cost = attention_cost(B, heads, d, sq, sk)
-        fv, bv = fwd_variant(torch.bfloat16, sk), bwd_variant(torch.bfloat16, sq, sk, d)
+        fv, bv = fwd_variant(torch.bfloat16, sq, sk, d), bwd_variant(torch.bfloat16, sq, sk, d)
         for rate in rates:
             kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None)
             with torch.inference_mode():
@@ -3174,8 +3329,8 @@ def phase_baseline_timing(checks: Checks, card: str, err: dict) -> dict:
                           f"{label} B={B} bf16 rate {rate} [{fv}, {bv}]: fwd max|err| {e:.3e} "
                           f"(<= {bnd:.3e}), bwd max|err| {eb:.3e}")
             lib = library_attention_fns(q, k, v, b, cot, heads, d) if rate == 0.0 else {}
-            fwd = {"kernel": lambda: attention(q, k, v, b, **kw),
-                   "plain": lambda: attention_ref(q, k, v, b, **kw)}
+            fwd, _ = k1_fns(q, k, v, b, kw)
+            check_k1_variants(checks, err, fwd, f"{label} B={B} bf16 rate {rate}")
             with torch.inference_mode():
                 rows = {"fwd": timed_row({**fwd, **({"library": lib["library"]} if lib else {})},
                                          "kernel", "plain", *cost["fwd"], BF16_TC_FLOPS,
@@ -3357,12 +3512,12 @@ def phase_int8(checks: Checks, tmp: str, card: str) -> dict:
                   f"--int8: torch._int_mm launches {launches['int_mm']} == int8 sites called "
                   f"{sum(seen.values())} == {n_batches} x {sites}, some padded "
                   f"({launches['int_mm_padded']})")
-    checks.expect(launches["attention"] == launches["attention_tc"] == n_batches * want_attn
-                  and launches["layer_norm"] == n_batches * want_ln
+    check_k1(checks, f"--int8, {n_batches} x {want_attn}", launches,
+             k1_routed(vl_attention_shapes(cfg, T, R), n_batches))
+    checks.expect(launches["layer_norm"] == n_batches * want_ln
                   and launches["attention_probs"] == 0,
-                  f"--int8: K1 launches {launches['attention']} (tensor cores "
-                  f"{launches['attention_tc']}) == {n_batches} x {want_attn}, K4 "
-                  f"{launches['layer_norm']} == {n_batches} x {want_ln}")
+                  f"--int8: K4 {launches['layer_norm']} == {n_batches} x {want_ln}, no "
+                  f"probabilities")
     checks.expect(math.isfinite(metrics["loss"]) and len(records) == metrics["num_samples"],
                   "--int8: loss finite, one record a question")
 
@@ -3440,7 +3595,8 @@ def phase_int8(checks: Checks, tmp: str, card: str) -> dict:
 
 VIS_BATCH = 256
 #: K1 with its probabilities output at the other variants' shapes (h, d, Sq,
-#: Sk, dtype): long_tc past 128 keys, cc in fp32, at rates 0 and 0.1
+#: Sk, dtype): long_tc and wg's online branch past 128 keys, wg's exact
+#: branch, cc in fp32, at rates 0 and 0.1 (each on its routed variant)
 PROBS_EDGE_CASES = [
     (8, 128, 101, 200, "bfloat16"), (12, 64, 257, 306, "bfloat16"), (12, 64, 562, 562, "bfloat16"),
     (8, 128, 1, 129, "bfloat16"), (8, 128, 17, 65, "bfloat16"), (8, 128, 101, 101, "float32"),
@@ -3451,11 +3607,12 @@ PROBS_EDGE_CASES = [
 def phase_visualization(checks: Checks, card: str, err: dict) -> tuple:
     """(20) A VQA forward at B=256 with ``visualization`` (launches reset
     just before and read just after: every K1 launch with its
-    probabilities, on "tc"): each site's maps against ``attention_ref`` on
+    probabilities, each on the variant ``fwd_variant`` routes its shape to,
+    as without maps): each site's maps against ``attention_ref`` on
     the inputs that site got, element by element (``_probs_error``), and
     its context within phase 3's bounds; the logits bit-equal to the
-    forward without maps; K1 with probabilities at every variant (long_tc,
-    cc) against the plain version likewise, rates 0 and 0.1; the forward's
+    forward without maps; K1 with probabilities at every variant (wg,
+    long_tc, cc) against the plain version likewise, rates 0 and 0.1; the forward's
     time with and without maps; K1 with probabilities timed at the VQA and
     demo shapes beside its plain version and its bound (the P write
     included)."""
@@ -3491,12 +3648,13 @@ def phase_visualization(checks: Checks, card: str, err: dict) -> tuple:
     want_attn, _ = kernel_calls_per_forward(cfg)
     maps = out_v.attention_probs
     log(f"  visualization forward B={VIS_BATCH}: {len(maps)} maps; launches {launches}")
+    want_k1 = k1_routed(vl_attention_shapes(cfg, T, R))
     checks.expect(len(maps) == len(calls) == want_attn
-                  and launches["attention"] == launches["attention_probs"]
-                  == launches["attention_tc"] == want_attn,
+                  and launches["attention"] == launches["attention_probs"] == want_attn
+                  and all(launches[name] == n for name, n in want_k1.items()),
                   f"visualization: {len(maps)} maps == {want_attn} sites, K1 launches "
-                  f"{launches['attention']} == with probabilities {launches['attention_probs']} "
-                  f"== on tc {launches['attention_tc']}")
+                  f"{launches['attention']} == with probabilities {launches['attention_probs']}, "
+                  f"by variant {k1_text(launches, want_k1)}")
     checks.expect(torch.equal(out_v.vil_prediction, out_p.vil_prediction),
                   "visualization: logits bit-equal to the forward without maps")
     worst, worst_ratio, ok = 0.0, 0.0, True
@@ -3518,7 +3676,7 @@ def phase_visualization(checks: Checks, card: str, err: dict) -> tuple:
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
     for heads, d, sq, sk, dtype in PROBS_EDGE_CASES:
         q, k, v, _, bias = _attention_operands(g, 4, heads, d, sq, sk, getattr(torch, dtype))
-        variant = fwd_variant(q.dtype, sk)
+        variant = fwd_variant(q.dtype, sq, sk, d)
         for rate in (0.0, 0.1):
             kw = dict(num_heads=heads, dropout_rate=rate, seed=DROPOUT_SEED if rate else None,
                       return_probs=True)
@@ -3570,7 +3728,7 @@ def phase_visualization(checks: Checks, card: str, err: dict) -> tuple:
         track_error(err, "attention_fwd_probs", "tc", e)
         checks.expect(ok, f"attention probabilities {label} B={B}: max|err| {e:.3e}, worst "
                           f"err/bound {ratio:.3f} <= 1 (element by element)")
-        row["variant"] = fwd_variant(torch.bfloat16, sk)
+        row["variant"] = fwd_variant(torch.bfloat16, sq, sk, d)
         rows[("attention_fwd_probs", f"{label} B={B}", 0.0)] = row
         log(f"  attention with probabilities {label} B={B} h={heads} d={d} {sq}x{sk} bf16 "
             f"(no library call returns them): {row_text(row)} [{card}]")
@@ -3728,11 +3886,47 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
         out.update({f"{v}_ms": row[f"{v}_ms"] for v in OTHER_VARIANTS if f"{v}_ms" in row})
         return out
 
-    fwd = entry("attention_fwd", "vilbert_tpu_torch/csrc/attention.cu",
-                "vilbert_tpu/ops/pallas_attention_train.py:69", "attention",
-                ("attention_fwd", "VQA image self", 0.0),
-                "torch.nn.functional.scaled_dot_product_attention, rate 0")
-    fwd["launches_tc"] = vqa_launches["attention_tc"]
+    sdpa = "torch.nn.functional.scaled_dot_product_attention, rate 0"
+    head = ("attention_fwd", "VQA image self", 0.0)
+    fwd = entry("attention_fwd", "vilbert_tpu_torch/csrc/" + (
+        "attention_fwd_wg.cu" if times[head]["variant"] == "wg" else "attention.cu"),
+        "vilbert_tpu/ops/pallas_attention_train.py:69", "attention", head, sdpa)
+    fwd["variant"] = times[head]["variant"]
+    # every path's K1 launches by variant
+    paths = {"vqa_eval": vqa_launches, "cc_train": train_launches, "multitask_train": mt_launches,
+             "retrieval_fast": ret["fast"], "retrieval_zero_shot": ret["zero_shot"],
+             "demo": ret["demo"], "baseline_vqa_eval": base["vqa"],
+             "baseline_cc_train": base["cc"], "baseline_multitask_train": base["multitask"],
+             "baseline_retrieval": {k: sum(lt[k] for lt in base["retrieval"].values())
+                                    for k in ("attention_tc", "attention_long_tc", "attention_wg",
+                                              "attention_cc")},
+             "nce_cc_train": base["nce"]["launches"], **options}
+    for v in ("tc", "long_tc", "wg", "cc"):
+        fwd[f"launches_{v}"] = {path: launches[f"attention_{v}"]
+                                for path, launches in paths.items()}
+
+    def variant_entry(name, source, variant, key, launches, launches_of):
+        """A K1 variant's own entry: its time at every K1 row where it ran,
+        routed there or named beside the routed variant."""
+        def own(row):
+            return row["ms"] if row.get("variant") == variant else row.get(f"{variant}_ms")
+
+        rows = {k: v for k, v in times.items() if k[0] == "attention_fwd" and own(v) is not None}
+        row = rows[key]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": "vilbert_tpu/ops/pallas_attention_train.py:69",
+                "launches": launches, "launches_of": launches_of,
+                "launches_by_path": fwd[f"launches_{variant}"],
+                "max_abs_err": err[f"attention_fwd_{variant}"], "ms": own(row),
+                **{k: row[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "bound": "memory", "library": sdpa, "shape": " ".join(map(str, key[1:])),
+                "shapes": [dict(v, shape=" ".join(map(str, k[1:])), ms=own(v),
+                                routed=v.get("variant")) for k, v in rows.items()]}
+
+    fwd_wg = variant_entry("attention_fwd_wg", "vilbert_tpu_torch/csrc/attention_fwd_wg.cu",
+                           "wg", head, vqa_launches["attention_wg"], "the VQA eval run (phase 4)")
+    fwd_wg["variant"] = ("wg: wgmma, bf16, Sk <= 1024; routed by fwd_variant, else named beside "
+                         "the routed variant")
     bwd = entry("attention_bwd", "vilbert_tpu_torch/csrc/attention_bwd.cu",
                 "vilbert_tpu/ops/pallas_attention_train.py:81", "attention_bwd",
                 ("attention_bwd", "CC image self", 0.0),
@@ -3758,11 +3952,11 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
              "library_ms": f0["library_ms"] + b0["library_ms"],
              "library": "scaled_dot_product_attention forward + autograd.grad",
              "shape": "CC image self 0.0"}
-    sdpa = "torch.nn.functional.scaled_dot_product_attention, rate 0"
-    fwd_long = entry("attention_fwd_long_tc", "vilbert_tpu_torch/csrc/attention.cu",
-                     "vilbert_tpu/ops/pallas_attention_train.py:69", "attention_long_tc",
-                     ("attention_fwd", "Visual7w image self", 0.0), sdpa, variant="long_tc")
-    fwd_long["variant"] = "long_tc: tensor cores, bf16, 128 < Sk <= 512"
+    fwd_long = variant_entry("attention_fwd_long_tc", "vilbert_tpu_torch/csrc/attention.cu",
+                             "long_tc", ("attention_fwd", "Visual7w image self", 0.0),
+                             mt_launches["attention_long_tc"], "the multi-task run (phase 8)")
+    fwd_long["variant"] = ("long_tc: mma.sync, bf16, Sk <= 1024; routed by fwd_variant, else "
+                           "named beside the routed variant")
     # the CUDA-core K1: fp32 on the paths; its bf16 times beside the long
     # tensor-core variant
     cc_keys = ("plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3773,7 +3967,8 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
                                    "cc_train": train_launches["attention_cc"],
                                    "multitask_train": mt_launches["attention_cc"],
                                    "multitask_fp32_check": fp32_launches["attention_cc"]},
-              "max_abs_err": err["attention_fwd_cc"], "ms": fwd_long["cc_ms"],
+              "max_abs_err": err["attention_fwd_cc"],
+              "ms": times[("attention_fwd", "Visual7w image self", 0.0)]["cc_ms"],
               **{k: fwd_long[k] for k in (*cc_keys, "bound", "library", "shape")},
               "long_tc_ms": fwd_long["ms"],
               "shapes": [{"shape": s["shape"], "ms": s["cc_ms"], "long_tc_ms": s["ms"],
@@ -3809,16 +4004,14 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
         out["launches_by_path"].update({f"retrieval_{k}" if k != "demo" else k: ret[k][counter]
                                         for k in ("fast", "zero_shot", "demo")})
     for out, counter in ((fwd, "attention"), (bwd, "attention_bwd"), (ln, "layer_norm"),
-                         (fwd_long, "attention_long_tc"), (bwd_long, "attention_bwd_long_tc"),
-                         (bwd_wg, "attention_bwd_wg")):
+                         (bwd_long, "attention_bwd_long_tc"), (bwd_wg, "attention_bwd_wg")):
         out["launches_by_path"].update({
             "baseline_vqa_eval": base["vqa"][counter], "baseline_cc_train": base["cc"][counter],
             "baseline_multitask_train": base["multitask"][counter],
             "baseline_retrieval": sum(lt[counter] for lt in base["retrieval"].values()),
             "nce_cc_train": base["nce"]["launches"][counter]})
     for out, counter in ((fwd, "attention"), (bwd, "attention_bwd"), (ln, "layer_norm"),
-                         (fwd_long, "attention_long_tc"), (bwd_long, "attention_bwd_long_tc"),
-                         (bwd_wg, "attention_bwd_wg")):
+                         (bwd_long, "attention_bwd_long_tc"), (bwd_wg, "attention_bwd_wg")):
         out["launches_by_path"].update({k: v[counter] for k, v in options.items()})
     fwd["launches_probs"] = options["vqa_visualization"]["attention_probs"]
     probs_rows = {k: v for k, v in times.items() if k[0] == "attention_fwd_probs"}
@@ -3830,7 +4023,7 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
         "launches": options["vqa_visualization"]["attention_probs"],
         "launches_of": "phase 20's visualization forward",
         "launches_by_variant": {v: options["vqa_visualization"][f"attention_{v}"]
-                                for v in ("tc", "long_tc", "cc")},
+                                for v in ("tc", "long_tc", "cc", "wg")},
         "max_abs_err": err["attention_fwd_probs"],
         **{k: row[k] for k in ("ms", "plain_ms", "wall_ms", "bound_ms", "bound_by",
                                "library_ms")},
@@ -3838,7 +4031,8 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
         "library_note": "no single PyTorch call returns the attention probabilities",
         "shape": head[1], "shapes": [dict(shape=k[1], **v) for k, v in probs_rows.items()],
         "variant": "K1's routed variant with its probabilities output (P after dropout, "
-                   "[B, h, Sq, Sk]); long_tc in a second sweep over the key tiles"}
+                   "[B, h, Sq, Sk]); long_tc and wg past 128 keys in a second sweep over the "
+                   "key tiles"}
     bf16w = {k: v for k, v in times.items() if k[0] == "layer_norm_bf16_weight"}
     head = max(bf16w, key=lambda k: bf16w[k]["launches_by_path"]["cc"])  # CC text + residual
     row = bf16w[head]
@@ -3854,7 +4048,7 @@ def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: di
         "bound": "memory", "library": ln["library"], "shape": head[1],
         "shapes": [dict(shape=k[1], **v) for k, v in bf16w.items()],
         "weight": "bf16 weight and bias, widened in registers"}
-    return [fwd, bwd, ln, fused, fwd_long, fwd_cc, bwd_long, ln_bf16w, fwd_probs, bwd_wg]
+    return [fwd, bwd, ln, fused, fwd_long, fwd_cc, bwd_long, ln_bf16w, fwd_probs, bwd_wg, fwd_wg]
 
 
 def main() -> int:

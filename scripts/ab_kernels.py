@@ -12,13 +12,18 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
 It builds the kernels of ``vilbert_tpu_torch/csrc`` as they are (A) and a
 copy in which ``--old`` is replaced by ``--new`` in ``--file`` (B), prints
 the registers, stack and spills that ``ptxas -v`` reports for each
-tensor-core kernel of both, checks both against the plain PyTorch versions
-at every shape below (the bf16 bound of chip_smoke.py), and times K1 and K2
-of both at the VQA (B=1024), CC (B=256) and multi-task (past 128 keys)
-attention shapes, alternated A, B, B, A, as device time
-(``chip_smoke.device_ms``). With no ``--old`` it reports and times the tree
-alone. ``--baseline DIR`` builds A from another ``csrc`` directory (an
-earlier checkout's) and B from the tree (or its patched copy).
+tensor-core kernel of both, and (``--kernel attention``, the default) at
+every K1 shape of the paths (``FWD_SHAPES``: PERF.md's kernel table, the
+eval and retrieval forwards, and every training shape of ``BWD_SHAPES`` at
+rates 0 and 0.1) and a sweep (``FWD_SWEEP``) checks each bf16 K1 variant
+a library has (``tc`` at Sk <= 128, ``long_tc``, ``wg``) against
+``attention_ref`` (the bf16 bound of chip_smoke.py) and times it, the
+libraries alternated A, B, B, A, as device time
+(``chip_smoke.device_ms``), beside SDPA's forward at rate 0 and the bound;
+``routed`` is the variant ``fwd_variant`` picks. With no ``--old`` it
+reports and times the tree alone. ``--baseline DIR`` builds A from another
+``csrc`` directory (an earlier checkout's) and B from the tree (or its
+patched copy).
 
 ``--kernel layer_norm`` does the same for K4 (``layernorm.cu`` alone):
 ptxas lines of every instantiation, and at every shape of
@@ -61,19 +66,20 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-#: (label, batch, heads, head_dim, Sq, Sk): the VQA and CC shapes, and the
-#: multi-task's past 128 keys (chip_smoke.MT_ATTENTIONS, where K1 runs its
-#: long tensor-core variant)
-SHAPES = (
-    ("VQA image self", 1024, 8, 128, 101, 101), ("VQA text->image", 1024, 8, 128, 23, 101),
-    ("VQA image->text", 1024, 8, 128, 101, 23), ("VQA text self", 1024, 12, 64, 23, 23),
-    ("CC image self", 256, 8, 128, 37, 37), ("CC text self", 256, 12, 64, 36, 36),
-    ("Sq = Sk = 128", 64, 8, 128, 128, 128),
-    ("Visual7w image self", 256, 8, 128, 200, 200), ("Visual7w text->image", 256, 8, 128, 21, 200),
-    ("GuessWhatPointing text self", 64, 12, 64, 257, 257),
-    ("GuessWhatPointing image self", 64, 8, 128, 306, 306),
-    ("GuessWhatPointing text->image", 64, 8, 128, 257, 306),
-    ("GuessWhatPointing image->text", 64, 8, 128, 306, 257),
+#: (label, batch, heads, head_dim, Sq, Sk) where the paths run K1 at rate 0
+#: only: the VQA forward (B=1024), retrieval's (chunks of 500) and the
+#: demo's (B=1), the baseline's VQA and retrieval forwards, and the cap
+EVAL_SHAPES = (
+    ("VQA text self", 1024, 12, 64, 23, 23), ("VQA image self", 1024, 8, 128, 101, 101),
+    ("VQA text->image", 1024, 8, 128, 23, 101), ("VQA image->text", 1024, 8, 128, 101, 23),
+    ("retrieval text self", 500, 12, 64, 30, 30), ("retrieval image self", 500, 8, 128, 101, 101),
+    ("retrieval text->image", 500, 8, 128, 30, 101),
+    ("retrieval image->text", 500, 8, 128, 101, 30),
+    ("demo text self", 1, 12, 64, 30, 30), ("demo image self", 1, 8, 128, 37, 37),
+    ("demo text->image", 1, 8, 128, 30, 37), ("demo image->text", 1, 8, 128, 37, 30),
+    ("baseline VQA self", 1024, 12, 64, 124, 124),
+    ("baseline retrieval self", 500, 12, 64, 131, 131),
+    ("cap d64", 8, 12, 64, 1024, 1024), ("cap d128", 8, 8, 128, 1024, 1024),
 )
 
 
@@ -118,6 +124,14 @@ BWD_SHAPES = (
 )
 #: lengths of the sweep (Sq = Sk), each at a batch of about 36,000 rows
 BWD_SWEEP = (16, 32, 48, 64, 80, 96, 112, 128, 144, 192, 256, 384, 512, 768, 1024)
+#: K1's shapes: the eval ones at rate 0, the training ones (every K2 shape)
+#: at rates 0 and 0.1
+FWD_SHAPES = tuple((*s, (0.0,)) for s in EVAL_SHAPES) + tuple((*s, (0.0, 0.1))
+                                                             for s in BWD_SHAPES)
+#: K1's sweep, each at a batch of about 36,000 query rows: Sq = Sk over
+#: BWD_SWEEP, and few queries against many keys (Sq 16..64 x Sk 101, 200)
+FWD_SWEEP = tuple((s, s) for s in BWD_SWEEP) + tuple(
+    (sq, sk) for sk in (101, 200) for sq in (16, 32, 48, 64))
 
 
 def build(csrc: str, out_dir: str, sources=None) -> tuple:
@@ -158,10 +172,16 @@ def build(csrc: str, out_dir: str, sources=None) -> tuple:
                             f"{line.split(':', 1)[-1].strip()}")
                     continue
                 name = re.search(r"attention_(fwd|bwd)_(\w*?)_?kernelILi(\d+)E(?:Li(\d+)E)?"
-                                 r"(Lb[01])?", kernel)
-                label = (f"{name.group(1)} {name.group(2)} d={name.group(3)}"
-                         f"{f' KT={name.group(4)}' if name.group(4) else ''}"
-                         f"{' drop' if name.group(5) == 'Lb1' else ''}" if name else kernel)
+                                 r"(Lb[01])?E?(Lb[01])?", kernel)
+                if name and "attention_fwd_wg_kernel" in kernel:
+                    # <D, warpgroups, exact branch, dropout>
+                    label = (f"fwd wg d={name.group(3)} WG={name.group(4)} "
+                             f"{'exact' if name.group(5) == 'Lb1' else 'online'}"
+                             f"{' drop' if name.group(6) == 'Lb1' else ''}")
+                else:
+                    label = (f"{name.group(1)} {name.group(2)} d={name.group(3)}"
+                             f"{f' KT={name.group(4)}' if name.group(4) else ''}"
+                             f"{' drop' if name.group(5) == 'Lb1' else ''}" if name else kernel)
                 report.append(f"{label}: {line.split(':', 1)[-1].strip()}")
     lib = os.path.join(out_dir, "lib.so")
     subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", lib, *objs], check=True)
@@ -206,7 +226,6 @@ def main(argv=None) -> int:
 
     import chip_smoke as smoke
     from vilbert_tpu_torch.ops import _build
-    from vilbert_tpu_torch.ops import attention as A
 
     print(smoke.card_line(), flush=True)
     tmp = tempfile.mkdtemp(prefix="ab_kernels_")
@@ -232,8 +251,8 @@ def main(argv=None) -> int:
             out_dir = os.path.join(tmp, name)
             os.makedirs(out_dir)
             sources_of = {"layer_norm": ["layernorm.cu"],
-                          "attention_bwd": [f for f in ("attention.cu", "attention_bwd.cu",
-                                                        "attention_bwd_wg.cu")
+                          "attention_bwd": [f for f in ("attention.cu", "attention_fwd_wg.cu",
+                                                        "attention_bwd.cu", "attention_bwd_wg.cu")
                                             if os.path.exists(os.path.join(csrc, f))]}
             lib_path, report = build(csrc, out_dir, sources_of.get(args.kernel))
             variants[name] = load(lib_path)
@@ -244,38 +263,61 @@ def main(argv=None) -> int:
             return time_layer_norm(variants, smoke, getattr(torch, args.ln_weight))
         if args.kernel == "attention_bwd":
             return time_attention_bwd(variants, smoke)
-
-        def use(name):
-            _build.load_library = lambda: variants[name]
-
-        g = torch.Generator(device="cuda").manual_seed(0)
-        fails = 0
-        for label, B, heads, d, sq, sk in SHAPES:
-            q, k, v, cot, bias = smoke._attention_operands(g, B, heads, d, sq, sk, torch.bfloat16)
-            for rate in (0.0, 0.1):
-                kw = dict(num_heads=heads, dropout_rate=rate, seed=7 if rate else None)
-                want = A.attention_ref(q, k, v, bias, **kw)
-                want_b = A.attention_bwd_ref(q, k, v, bias, cot, **kw)
-                times = {}
-                for name in (*variants, *reversed(variants)):  # A, B, B, A
-                    use(name)
-                    e, bound, ok = smoke._fwd_error(A.attention(q, k, v, bias, **kw), want,
-                                                    "bfloat16")
-                    eb, okb = smoke._bwd_errors(A.attention_bwd(q, k, v, bias, cot, **kw),
-                                                want_b, "bfloat16")
-                    fails += not (ok and okb)
-                    t = smoke.device_ms({"fwd": lambda: A.attention(q, k, v, bias, **kw),
-                                         "bwd": lambda: A.attention_bwd(q, k, v, bias, cot, **kw)})
-                    times.setdefault(name, []).append(t)
-                text = "; ".join(
-                    f"{name} fwd {sum(t['fwd'] for t in ts) / len(ts):.4f} bwd "
-                    f"{sum(t['bwd'] for t in ts) / len(ts):.4f}" for name, ts in times.items())
-                print(f"{label} B={B} h={heads} d={d} {sq}x{sk} rate {rate}: device ms {text}",
-                      flush=True)
-        print("checks failed:", fails)
-        return 1 if fails else 0
+        return time_attention_fwd(variants, smoke)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def time_attention_fwd(libs: dict, smoke) -> int:
+    """K1's bf16 variants of each library at FWD_SHAPES and FWD_SWEEP:
+    checked against the plain version and timed, libraries alternated A, B,
+    B, A; SDPA's forward (rate 0) and the bound beside."""
+    import torch
+
+    from vilbert_tpu_torch.ops import _build
+    from vilbert_tpu_torch.ops import attention as A
+
+    def use(lib):
+        _build.load_library = lambda: lib
+
+    shapes = list(FWD_SHAPES)
+    for sq, sk in FWD_SWEEP:
+        shapes += [(f"sweep {sq}x{sk}", max(1, round(36000 / sq)), heads, d, sq, sk, (0.0,))
+                   for heads, d in ((12, 64), (8, 128))]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    fails = 0
+    for label, B, heads, d, sq, sk, rates in shapes:
+        q, k, v, _, bias = smoke._attention_operands(g, B, heads, d, sq, sk, torch.bfloat16)
+        b_ms, b_by = smoke.bound(*smoke.attention_cost(B, heads, d, sq, sk)["fwd"],
+                                 smoke.BF16_TC_FLOPS)
+        sdpa = smoke.device_ms({"sdpa": smoke.library_attention_fns(
+            q, k, v, bias, q, heads, d)["library"]}, 10)["sdpa"]
+        for rate in rates:
+            kw = dict(num_heads=heads, dropout_rate=rate, seed=smoke.DROPOUT_SEED if rate else None)
+            want = A.attention_ref(q, k, v, bias, **kw)
+            times = {}
+            for name in (*libs, *reversed(libs)):  # A, B, B, A
+                use(libs[name])
+                fns = {}
+                for variant in ("tc", "long_tc", "wg"):
+                    if ((variant == "tc" and sk > A.TC_MAX_SEQ)
+                            or not hasattr(libs[name], f"vt_attention_fwd_{variant}")):
+                        continue
+                    fns[f"{name} {variant}"] = functools.partial(
+                        A.attention_kernel, q, k, v, bias, variant=variant, **kw)
+                    e, bnd, ok = smoke._fwd_error(fns[f"{name} {variant}"](), want, "bfloat16")
+                    if not ok:
+                        fails += 1
+                        print(f"  FAIL {name} {variant} {label} rate {rate}: max|err| {e:.3e} > "
+                              f"{bnd:.3e}")
+                for key, ms in smoke.device_ms(fns, 10).items():
+                    times.setdefault(key, []).append(ms)
+            text = ", ".join(f"{key} {sum(t) / len(t):.4f}" for key, t in times.items())
+            print(f"attention_fwd {label} B={B} h={heads} d={d} {sq}x{sk} rate {rate} routed "
+                  f"{A.fwd_variant(q.dtype, sq, sk, d)}: device ms {text}; SDPA {sdpa:.4f}; "
+                  f"bound {b_ms:.4f} ({b_by})", flush=True)
+    print("checks failed:", fails)
+    return 1 if fails else 0
 
 
 def time_attention_bwd(libs: dict, smoke) -> int:
@@ -303,7 +345,7 @@ def time_attention_bwd(libs: dict, smoke) -> int:
         q, k, v, cot, bias = smoke._attention_operands(g, B, heads, d, sq, sk, torch.bfloat16)
         kw = dict(num_heads=heads)
         use(tree)
-        out, lse = A.attention_kernel(q, k, v, bias, variant=A.fwd_variant(q.dtype, sk),
+        out, lse = A.attention_kernel(q, k, v, bias, variant=A.fwd_variant(q.dtype, sq, sk, d),
                                       return_lse=True, **kw)
         want = A.attention_bwd_ref(q, k, v, bias, cot, **kw)
         lib_fns = smoke.library_attention_fns(q, k, v, bias, cot, heads, d)

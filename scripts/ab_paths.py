@@ -13,8 +13,9 @@ slice and its timing (phase 5: questions/s of the bf16 forward at B=1024),
 the CC training slice and its timing (phase 7: samples/s of the bf16 step
 at B=256), the flagship multi-task slice and its timing (phase 9: the
 twelve tasks' steps, samples/s, and two iterations through the host
-loader), and one iteration of the single-stream baseline over its nine
-tasks (phase 16: their steps, samples/s). Each checkout builds its own
+loader), the single-stream baseline's VQA eval (phase 13: questions/s of
+its bf16 forward at B=1024) and one iteration of it over its nine tasks
+(phase 16: their steps, samples/s). Each checkout builds its own
 kernels. It prints each run's end-to-end lines and then, per metric, each
 run's value and the two means. A failed check in a run fails the command.
 """
@@ -30,8 +31,10 @@ import sys
 #: metric -> pattern of the log lines that carry it, in chip_smoke.py's
 #: own wording; a run's value is the mean over its lines
 METRICS = {
-    "VQA eval questions/s (phase 5)": r"forward B=\d+ T=\d+ R=\d+ bf16 kernels: .* = ([\d.]+) "
-                                      r"questions/s",
+    "VQA eval questions/s (phase 5)": r"(?<!baseline )forward B=\d+ T=\d+ R=\d+ bf16 kernels: "
+                                      r".* = ([\d.]+) questions/s",
+    "baseline VQA eval questions/s (phase 13)": r"baseline forward B=\d+ T=\d+ R=\d+ bf16 "
+                                                r"kernels: .* = ([\d.]+) questions/s",
     "CC step samples/s (phase 7)": r"train step B=\d+ T=\d+ R=\d+ bf16 kernels: .* = ([\d.]+) "
                                    r"samples/s",
     "twelve-task steps samples/s (phase 9)": r"steps of the twelve tasks: .* = ([\d.]+) samples/s",
@@ -57,6 +60,8 @@ torch.cuda.empty_cache()
 state, args, _ = s.phase_train(checks)
 s.phase_train_timing(checks, state, args, card, err)
 del state
+torch.cuda.empty_cache()
+s.phase_baseline_vqa(checks, card)
 torch.cuda.empty_cache()
 with tempfile.TemporaryDirectory() as tmp:
     trainer = s.phase_multitask(checks, tmp)[0]

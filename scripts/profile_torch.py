@@ -54,6 +54,7 @@ CONFIG = "configs/bert_base_6layer_6conect.json"
 CLASSES = (
     ("K1 attention forward, tensor cores", ("attention_fwd_tc",)),
     ("K1 attention forward, long, tensor cores", ("attention_fwd_long_tc",)),
+    ("K1 attention forward, wgmma", ("attention_fwd_wg",)),
     ("K1 attention forward, CUDA cores", ("attention_fwd",)),
     ("K2 attention backward, tensor cores", ("attention_bwd_tc",)),
     ("K2 attention backward, wgmma", ("attention_bwd_wg",)),

@@ -332,16 +332,26 @@ class TestWgDispatch:
     def test_called_alone_gets_the_statistics_from_one_forward(self, recorder):
         """Without the forward's output and row log-sum-exps, one K1 launch
         of the routed forward variant writes them first."""
-        from vilbert_tpu_torch.ops.attention import _bwd_cuda, attention, attention_bwd
+        from vilbert_tpu_torch.ops.attention import (
+            _bwd_cuda,
+            attention,
+            attention_bwd,
+            fwd_variant,
+        )
 
-        q, k, v, bias, g = _operands(2, 21, 200, 1024)
-        _bwd_cuda(q, k, v, bias, g, 8, 0.0, None, "wg")
-        (fwd, fargs), (bwd, bargs) = recorder.calls
-        assert (fwd, bwd) == ("vt_attention_fwd_long_tc", "vt_attention_bwd_wg")
-        assert fargs[-3] is not None and fargs[-2] is None  # the lse, no probabilities
-        assert bargs[5] == fargs[4] and bargs[6] == fargs[-3]  # the forward's out and lse
-        assert (attention.launches, attention.launches_long_tc) == (1, 1)
-        assert attention_bwd.launches_wg == 1
+        for sq, sk, fv in ((21, 200, "long_tc"), (24, 101, "wg")):
+            recorder.calls.clear()
+            before = (attention.launches, getattr(attention, f"launches_{fv}"),
+                      attention_bwd.launches_wg)
+            q, k, v, bias, g = _operands(2, sq, sk, 1024)
+            _bwd_cuda(q, k, v, bias, g, 8, 0.0, None, "wg")
+            (fwd, fargs), (bwd, bargs) = recorder.calls
+            assert fwd_variant(q.dtype, sq, sk, 128) == fv
+            assert (fwd, bwd) == (f"vt_attention_fwd_{fv}", "vt_attention_bwd_wg")
+            assert fargs[-3] is not None and fargs[-2] is None  # the lse, no probabilities
+            assert bargs[5] == fargs[4] and bargs[6] == fargs[-3]  # the forward's out and lse
+            assert (attention.launches, getattr(attention, f"launches_{fv}"),
+                    attention_bwd.launches_wg) == tuple(n + 1 for n in before)
 
     def test_stride0_batch_of_g_passes(self, recorder):
         """A cotangent broadcast over the batch (stride 0) goes in as a 0

@@ -418,10 +418,10 @@ def test_chip_smoke_baseline_shapes_and_launches(monkeypatch):
     """chip_smoke.py's expectations of the single-stream baseline: K4 26
     launches a VQA forward (the two embeddings in fp32, two a layer with
     the residual), 28 a CC step (and the LM and image transforms), 26 a
-    step of each task; K1 and K2 one a layer over T + R keys, K1 on "tc"
-    and past 128 (GuessWhatPointing's 562) on "long_tc", K2 on "wg" (every
-    task's T + R is past 64 at d = 64), over the nine flagship tasks the
-    baseline has heads for."""
+    step of each task; K1 and K2 one a layer over T + R keys, K1 on "wg" at
+    96 < T + R <= 128 and past 512 (GuessWhatPointing's 562), on "long_tc"
+    at 131 and 220, K2 on "wg" (every task's T + R is past 64 at d = 64),
+    over the nine flagship tasks the baseline has heads for."""
     import importlib.util
 
     from vilbert_tpu_torch.core.config import ModelConfig
@@ -448,10 +448,11 @@ def test_chip_smoke_baseline_shapes_and_launches(monkeypatch):
     assert len({a[0] for a in smoke.baseline_attentions()}) == len(smoke.baseline_attentions())
     cfg = ModelConfig.from_json_file(smoke.BASELINE_CONFIG)
     want = smoke.baseline_multitask_launches(tasks, cfg, 1)
-    # TASK4 (220 keys), TASK7 and TASK8 (131) and TASK17 (562) past 128:
-    # K1 on long_tc; K2 on wg there and at the others' 121 to 127 keys (d 64)
-    assert want == {"attention": 108, "attention_bwd": 108, "attention_tc": 60,
-                    "attention_long_tc": 48, "attention_bwd_wg": 108}
+    # K1 on wg at TASK1, TASK2 (124, 127 keys), TASK9-11 (121) and TASK17
+    # (562), on long_tc at TASK4 (220), TASK7 and TASK8 (131); K2 on wg at
+    # every one (d 64)
+    assert want == {"attention": 108, "attention_bwd": 108, "attention_wg": 72,
+                    "attention_long_tc": 36, "attention_bwd_wg": 108}
 
 
 def test_vcr_copy_matches(tmp_path):

@@ -120,19 +120,24 @@ class TestAttentionVariants:
     """Which kernel variant the wrappers pick, and what the tensor-core
     variants take, before any launch."""
 
-    @pytest.mark.parametrize("dtype,sk,want", [
-        (torch.bfloat16, 1, "tc"), (torch.bfloat16, 101, "tc"), (torch.bfloat16, 128, "tc"),
-        (torch.bfloat16, 129, "long_tc"), (torch.bfloat16, 512, "long_tc"),
-        (torch.float32, 23, "cc"), (torch.float32, 129, "cc"), (torch.float32, 512, "cc"),
-        (torch.bfloat16, 562, "long_tc"), (torch.bfloat16, 1024, "long_tc"),
-        (torch.float32, 1024, "cc"),
-        (torch.bfloat16, 200, "long_tc"), (torch.bfloat16, 257, "long_tc"),
-        (torch.bfloat16, 306, "long_tc"),
+    @pytest.mark.parametrize("dtype,sq,sk,d,want", [
+        (torch.bfloat16, 23, 1, 128, "tc"), (torch.bfloat16, 101, 101, 128, "wg"),
+        (torch.bfloat16, 128, 128, 64, "wg"),
+        (torch.bfloat16, 129, 129, 128, "long_tc"), (torch.bfloat16, 512, 512, 64, "long_tc"),
+        (torch.float32, 23, 23, 64, "cc"), (torch.float32, 129, 129, 64, "cc"),
+        (torch.float32, 512, 512, 128, "cc"),
+        (torch.bfloat16, 562, 562, 64, "wg"), (torch.bfloat16, 1024, 1024, 128, "long_tc"),
+        (torch.float32, 1024, 1024, 64, "cc"),
+        (torch.bfloat16, 200, 200, 128, "long_tc"), (torch.bfloat16, 257, 257, 64, "long_tc"),
+        (torch.bfloat16, 306, 306, 128, "long_tc"),
     ])
-    def test_forward_variant_by_dtype_and_keys(self, dtype, sk, want):
+    def test_forward_variant_by_dtype_and_keys(self, dtype, sq, sk, d, want):
+        """fp32 on the CUDA cores; bf16 by sequence lengths and head width
+        (``fwd_variant``; the path shapes are pinned in
+        tests/test_torch_attention_fwd.py)."""
         from vilbert_tpu_torch.ops.attention import fwd_variant
 
-        assert fwd_variant(dtype, sk) == want
+        assert fwd_variant(dtype, sq, sk, d) == want
 
     def test_backward_variant_by_dtype(self):
         """Up to 128 queries and keys at d = 128 (but text->image), bf16 runs
@@ -290,13 +295,16 @@ class TestLongForwardDispatch:
     @pytest.mark.parametrize("sq,sk,hd,heads", [(200, 200, 1024, 8), (257, 306, 1024, 8),
                                                 (21, 200, 1024, 8), (257, 257, 768, 12)])
     def test_long_shapes_reach_long_tc_with_tc_strides(self, fake_kernels, sq, sk, hd, heads):
+        """``long_tc``, the variant ``fwd_variant`` routes these shapes
+        (Visual7w, GuessWhatPointing) to."""
         from vilbert_tpu_torch.ops.attention import _fwd_cuda, attention, fwd_variant
 
         q, k, v, bias = _qkv(sq=sq, sk=sk, hd=hd)
-        variant = fwd_variant(q.dtype, sk)
+        variant = "long_tc"
         before = (attention.launches, attention.launches_long_tc)
         out = _fwd_cuda(q, k, v, bias, heads, 0.1, 2 ** 31 + 5, variant)
-        assert variant == "long_tc" and out.shape == q.shape and out.dtype == q.dtype
+        assert fwd_variant(q.dtype, sq, sk, hd // heads) == variant
+        assert out.shape == q.shape and out.dtype == q.dtype
         assert (attention.launches, attention.launches_long_tc) == (before[0] + 1,
                                                                    before[1] + 1)
         (name, args), = fake_kernels.calls
@@ -641,8 +649,10 @@ class TestBuild:
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith("libvilbert_kernels_") and path.suffix == ".so"
         assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} == {
-            "attention.cu", "attention_bwd.cu", "attention_bwd_wg.cu", "layernorm.cu"}
-        assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {"keep_mask.cuh", "mma_bf16.cuh"}
+            "attention.cu", "attention_bwd.cu", "attention_bwd_wg.cu", "attention_fwd_wg.cu",
+            "layernorm.cu"}
+        assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {
+            "keep_mask.cuh", "mma_bf16.cuh", "wgmma_bf16.cuh"}
 
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         from vilbert_tpu_torch.ops import _build

@@ -10,7 +10,10 @@ parameters are not transposed. The reference's tied LM decoder and dead
 ``q_dense`` weights have no port parameter: the importer skips them.
 
 - ``flax_from_state_dict`` / ``state_dict_from_flax``: exact round trip
-  between a port ``state_dict`` and a flax params tree of numpy arrays;
+  between a port ``state_dict`` and a flax params tree of numpy arrays,
+  each parameter in its own dtype (bf16 as ``ml_dtypes.bfloat16``, as flax
+  keeps ``param_dtype="bfloat16"`` params; a 2-byte void array, which is
+  what ``np.load`` gives back for one, reads as bf16);
 - ``load_params_npz`` / ``save_params_npz``: a flat ``.npz`` keyed by flax
   path, as ``vilbert_tpu.core.checkpoint.save_params`` writes it and
   ``load_params`` reads it, so a checkpoint moves between the packages;
@@ -64,16 +67,36 @@ def _check_family(family: str) -> None:
         raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
 
 
+def _to_numpy(tensor: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of its own dtype (bf16: ml_dtypes')."""
+    t = tensor.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bf16, as flax's bf16 params are
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
+
+
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor of its own dtype: bf16 (ml_dtypes', or the
+    2-byte void that ``np.load`` returns for it) as torch.bfloat16."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V" and arr.dtype.itemsize == 2):
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.tensor(arr)
+
+
 def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor],
                          family: str = "vilbert") -> Dict[str, Any]:
-    """Port ``state_dict`` -> nested flax params tree of numpy arrays."""
+    """Port ``state_dict`` -> nested flax params tree of numpy arrays, each
+    in its parameter's dtype."""
     _check_family(family)
     flat = {}
     for key, tensor in state_dict.items():
         fkey = _to_flax_key(key, family)
         if fkey is None:
             continue
-        arr = tensor.detach().cpu().numpy().copy()
+        arr = _to_numpy(tensor)
         flat[fkey] = arr.T.copy() if _needs_transpose(key, family) else arr
     return _unflatten(flat)
 
@@ -82,8 +105,9 @@ def state_dict_from_flax(
     params: Mapping[str, Any], keys: Iterable[str], family: str = "vilbert"
 ) -> Dict[str, torch.Tensor]:
     """Flax params tree -> ``state_dict`` over the port parameter names
-    ``keys`` (``model.state_dict().keys()``). Every key must be provided and
-    every flax leaf used: a mismatch raises ValueError naming the keys."""
+    ``keys`` (``model.state_dict().keys()``), each tensor in its leaf's
+    dtype. Every key must be provided and every flax leaf used: a mismatch
+    raises ValueError naming the keys."""
     _check_family(family)
     flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
     by_flax = {_to_flax_key(k, family): k for k in keys}
@@ -97,7 +121,7 @@ def state_dict_from_flax(
     out = {}
     for fkey, key in by_flax.items():
         arr = flat[fkey].T if _needs_transpose(key, family) else flat[fkey]
-        out[key] = torch.tensor(np.ascontiguousarray(arr))
+        out[key] = _to_tensor(arr)
     return out
 
 

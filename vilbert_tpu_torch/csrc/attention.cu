@@ -11,13 +11,17 @@
 // PV product (_fwd_kernel:75-76), PV accumulated in fp32, output in q's
 // dtype. Rate 0 compiles the mask out (kDrop = false).
 //
-// What bounds it on the H100: memory. A (batch, head) reads 3 S d elements
-// and writes S d, and does 4 S^2 d flops: about Sk flop per byte in bf16,
-// against the card's ridge of ~295 at 989 TFLOP/s and 3.35 TB/s. At VQA
-// image self-attention (B 1024, h 8, d 128, 101 x 101) the bytes take
-// 0.253 ms; the 42.8 GFLOP would take 0.14 ms even at mma.sync's ~300
-// TFLOP/s, so wgmma buys nothing here. Both variants read q, k and v
-// straight from the [B, S, H] projections through strides (no head
+// What bounds it on the H100: by the bound, memory. A (batch, head) reads
+// 3 S d elements and writes S d, and does 4 S^2 d flops: about Sk flop per
+// byte in bf16, against the card's ridge of ~295 at 989 TFLOP/s and 3.35
+// TB/s. At VQA image self-attention (B 1024, h 8, d 128, 101 x 101) the
+// bytes take 0.253 ms. But these variants wait on their loads and their
+// warps' mma.sync chains, and read 13-73% of the bound: the wgmma variant
+// (attention_fwd_wg.cu), which streams the keys from the first tile on,
+// takes 0.349 ms there against tc::'s 0.673 (H100 80GB HBM3, 700 W,
+// chip_smoke.py), so the wrapper routes bf16 by shape among tc::,
+// ltc:: and it (ops/attention.py::fwd_variant). The variants read q, k and
+// v straight from the [B, S, H] projections through strides (no head
 // transposes in device memory; a stride-0 batch, retrieval's fast_mode,
 // passes), keep the [Sq, Sk] scores on chip and write the output once in
 // [B, Sq, H].
@@ -32,8 +36,8 @@
 // row statistics of the wgmma backward (attention_bwd_wg.cu), which then
 // recomputes P without a walk over the row first.
 //
-// Three variants; the Python wrapper picks one by dtype and Sk and counts
-// each:
+// Three variants here; the Python wrapper picks one of them or the wgmma
+// variant by dtype and shape and counts each:
 //
 // * tensor cores (tc::, bf16, Sk <= 128: every shape of the VQA and CC
 //   paths). A block is one (batch, head) and up to 128 query rows, one
@@ -75,8 +79,10 @@
 //   relative rounding is the same size (one bf16 rounding of each P), and
 //   K2 recomputes P itself, so only the output has to stay within the bf16
 //   bound; exact normalization before P V would take a second walk over
-//   the keys and a third product. It takes Sk <= 128 too, for timing beside
-//   tc::, but the wrapper does not send those shapes here.
+//   the keys and a third product. It takes Sk <= 128 too, and the wrapper
+//   sends it the shapes at or under 128 keys where it beat tc:: and the
+//   wgmma variant (d = 64 past 32 keys, image->text at d = 128: up to
+//   0.54x tc::'s time at 73 keys).
 // * CUDA cores (cc::, fp32 at any Sk <= 1024): one block per (batch, head,
 //   32 query rows), fp32 FMAs from fp32 tiles in shared memory, 4 x 4
 //   register tiles; keys walked in tiles of 64 rows. What grows with Sk is

@@ -46,6 +46,7 @@ from vilbert_tpu_torch.models.layers import (
     TextLayer,
     collect_attention_maps,
     compute_dtype,
+    param_dtype,
 )
 from vilbert_tpu_torch.models.vilbert import (
     LMPredictionHead,
@@ -78,8 +79,9 @@ class BaseImageEmbeddings(nn.Module):
         self.cfg = cfg
         self.image_embeddings = Linear(cfg, cfg.v_feature_size, cfg.hidden_size)
         self.image_location_embeddings = Linear(cfg, cfg.num_locs, cfg.hidden_size)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
-        self.LayerNorm = LayerNorm(cfg.hidden_size)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size,
+                                                  dtype=param_dtype(cfg))
+        self.LayerNorm = LayerNorm(cfg.hidden_size, dtype=param_dtype(cfg))
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, features, locations, token_type_ids) -> torch.Tensor:

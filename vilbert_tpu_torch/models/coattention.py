@@ -28,6 +28,7 @@ from vilbert_tpu_torch.models.layers import (
     Output,
     attend,
     keep_map,
+    param_dtype,
 )
 
 
@@ -81,10 +82,10 @@ class BiOutput(nn.Module):
         super().__init__()
         bi = cfg.bi_hidden_size
         self.dense1 = Linear(cfg, bi, cfg.v_hidden_size)
-        self.LayerNorm1 = LayerNorm(cfg.v_hidden_size)
+        self.LayerNorm1 = LayerNorm(cfg.v_hidden_size, dtype=param_dtype(cfg))
         self.dropout1 = Dropout(cfg.v_hidden_dropout_prob)
         self.dense2 = Linear(cfg, bi, cfg.hidden_size)
-        self.LayerNorm2 = LayerNorm(cfg.hidden_size)
+        self.LayerNorm2 = LayerNorm(cfg.hidden_size, dtype=param_dtype(cfg))
         self.dropout2 = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, context_v, input_v, context_t, input_t):

@@ -57,6 +57,12 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The dtype every parameter is created in (``cfg.param_dtype``), as the
+    JAX modules pass it to each ``param``, ``nn.Dense`` and ``nn.Embed``."""
+    return getattr(torch, cfg.param_dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) gelu — the reference's non-approximate form."""
     return F.gelu(x)
@@ -133,7 +139,8 @@ def resolve_act(name: str, cfg: ModelConfig) -> Callable[[torch.Tensor], torch.T
 
 
 class Linear(nn.Module):
-    """y = x W^T + b in the compute dtype; W [out, in] and b fp32 params.
+    """y = x W^T + b in the compute dtype; W [out, in] and b params in
+    ``cfg.param_dtype``.
 
     Under int8 (``int8`` is "dynamic" or "static") the product is
     ``int8_dense`` of x as it comes (``QuantDense`` does not cast it first)
@@ -142,8 +149,8 @@ class Linear(nn.Module):
 
     def __init__(self, cfg: ModelConfig, in_features: int, out_features: int):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.empty(out_features))
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=param_dtype(cfg)))
+        self.bias = nn.Parameter(torch.empty(out_features, dtype=param_dtype(cfg)))
         self.compute_dtype = compute_dtype(cfg)
         self.int8 = "static" if cfg.int8_static else "dynamic" if cfg.int8_matmul else None
         if self.int8 == "static":
@@ -162,12 +169,13 @@ class LayerNorm(nn.Module):
     """TF-style LayerNorm (eps 1e-12) with an optional fused residual add.
 
     Runs ``ops.layernorm.layer_norm`` (the kernel on CUDA); ``plain_ops``
-    switches it to the plain version (see ``use_plain_ops``)."""
+    switches it to the plain version (see ``use_plain_ops``). Weight and
+    bias are created in ``dtype`` (the models pass ``param_dtype(cfg)``)."""
 
-    def __init__(self, hidden_size: int, eps: float = 1e-12):
+    def __init__(self, hidden_size: int, eps: float = 1e-12, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(hidden_size))
-        self.bias = nn.Parameter(torch.zeros(hidden_size))
+        self.weight = nn.Parameter(torch.ones(hidden_size, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(hidden_size, dtype=dtype))
         self.eps = eps
         self.plain_ops = False
 
@@ -337,7 +345,7 @@ class AttentionOutput(nn.Module):
     def __init__(self, cfg: ModelConfig, hidden_size: int, dropout_rate: float):
         super().__init__()
         self.dense = Linear(cfg, hidden_size, hidden_size)
-        self.LayerNorm = LayerNorm(hidden_size)
+        self.LayerNorm = LayerNorm(hidden_size, dtype=param_dtype(cfg))
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, hidden_states: torch.Tensor, input_tensor: torch.Tensor) -> torch.Tensor:
@@ -377,7 +385,7 @@ class Output(nn.Module):
                  dropout_rate: float):
         super().__init__()
         self.dense = Linear(cfg, intermediate_size, hidden_size)
-        self.LayerNorm = LayerNorm(hidden_size)
+        self.LayerNorm = LayerNorm(hidden_size, dtype=param_dtype(cfg))
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, h: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:

@@ -46,6 +46,7 @@ from vilbert_tpu_torch.models.layers import (
     TextLayer,
     collect_attention_maps,
     compute_dtype,
+    param_dtype,
     resolve_act,
 )
 from vilbert_tpu_torch.ops.attention import make_additive_mask
@@ -82,12 +83,16 @@ class TextEmbeddings(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
+        pdtype = param_dtype(cfg)
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=pdtype)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size,
+                                                dtype=pdtype)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size,
+                                                  dtype=pdtype)
         if cfg.task_specific_tokens:
-            self.task_embeddings = nn.Embedding(cfg.num_task_tokens, cfg.hidden_size)
-        self.LayerNorm = LayerNorm(cfg.hidden_size)
+            self.task_embeddings = nn.Embedding(cfg.num_task_tokens, cfg.hidden_size,
+                                                dtype=pdtype)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, dtype=pdtype)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids, task_ids=None) -> torch.Tensor:
@@ -120,7 +125,7 @@ class ImageEmbeddings(nn.Module):
         self.cfg = cfg
         self.image_embeddings = Linear(cfg, cfg.v_feature_size, cfg.v_hidden_size)
         self.image_location_embeddings = Linear(cfg, cfg.num_locs, cfg.v_hidden_size)
-        self.LayerNorm = LayerNorm(cfg.v_hidden_size)
+        self.LayerNorm = LayerNorm(cfg.v_hidden_size, dtype=param_dtype(cfg))
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, features, locations) -> torch.Tensor:
@@ -275,7 +280,7 @@ class PredictionHeadTransform(nn.Module):
         super().__init__()
         self.dense = Linear(cfg, hidden_size, hidden_size)
         self.act = resolve_act(cfg.hidden_act, cfg)
-        self.LayerNorm = LayerNorm(hidden_size)
+        self.LayerNorm = LayerNorm(hidden_size, dtype=param_dtype(cfg))
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return self.LayerNorm(self.act(self.dense(h)))
@@ -288,7 +293,7 @@ class LMPredictionHead(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.transform = PredictionHeadTransform(cfg, cfg.hidden_size)
-        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size, dtype=param_dtype(cfg)))
 
     def forward(self, h: torch.Tensor, embedding_table: torch.Tensor) -> torch.Tensor:
         h = self.transform(h)
@@ -340,7 +345,7 @@ class SimpleClassifier(nn.Module):
     def __init__(self, cfg: ModelConfig, in_dim: int, hid_dim: int, out_dim: int):
         super().__init__()
         self.logit_fc = nn.Sequential(
-            Linear(cfg, in_dim, hid_dim), GeLU(), LayerNorm(hid_dim),
+            Linear(cfg, in_dim, hid_dim), GeLU(), LayerNorm(hid_dim, dtype=param_dtype(cfg)),
             Linear(cfg, hid_dim, out_dim),
         )
 

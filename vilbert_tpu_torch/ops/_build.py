@@ -56,6 +56,8 @@ _SIGNATURES = {
     "vt_attention_fwd_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P, _P, _P],
     "vt_attention_fwd_long_tc": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P, _P,
                                                                    _P],
+    # the wgmma K1 (attention_fwd_wg.cu): the arguments of the two above
+    "vt_attention_fwd_wg": [_P] * 5 + [_I] * 5 + [_LL] * 7 + [_F, _U32, _U32, _F, _P, _P, _P],
     "vt_attention_bwd_tc": [_P] * 8 + [_I] * 5 + [_LL] * 9 + [_F, _U32, _U32, _F, _P],
     # the long-sequence K2: vt_attention_bwd's arguments with the fp32
     # row-statistics workspace after dv

@@ -20,44 +20,53 @@ the port follows the kernels.
 ``attention`` is the entry point of the model, differentiable through one
 ``autograd.Function``; ``fused_attention`` is K3's API counterpart over it. On CPU tensors
 they run ``attention_ref`` and ``attention_bwd_ref``; on CUDA tensors they
-launch ``csrc/attention.cu`` and ``csrc/attention_bwd.cu`` or raise.
+launch ``csrc/attention.cu``, ``csrc/attention_fwd_wg.cu``,
+``csrc/attention_bwd.cu`` and ``csrc/attention_bwd_wg.cu`` or raise.
 
 The wrapper picks a kernel variant by dtype and shape alone
 (``fwd_variant``, ``bwd_variant``), never by catching a failure. K1 has
-three: ``"tc"`` on the tensor cores for bf16 at Sk <= 128 (every shape of
-the VQA and CC paths, the whole key axis in shared memory), ``"long_tc"``
-on the tensor cores for bf16 at 128 < Sk <= 1024 (K and V streamed in tiles
-of 64 keys under an online softmax; it rounds exp(s - max) to bf16 before
-dividing by the row sum, where the TPU kernel rounds the normalized P), and
-``"cc"`` on the CUDA cores for fp32. K2 has five: ``"tc"`` for bf16 at
+four: ``"wg"`` for bf16 on Hopper's wgmma (``csrc/attention_fwd_wg.cu``:
+keys streamed in tiles of 64 from the first tile on; where the ring holds
+the whole key axis, Sk <= 128, P is normalized and dropped before it is
+rounded, past it an online softmax), ``"tc"`` on the tensor cores'
+mma.sync for bf16 at Sk <= 128 (the whole key axis in shared memory),
+``"long_tc"`` on mma.sync for bf16 at any Sk <= 1024 (K and V streamed in
+tiles of 64 keys under an online softmax; it rounds exp(s - max) to bf16
+before dividing by the row sum, where the TPU kernel rounds the normalized
+P), and ``"cc"`` on the CUDA cores for fp32. ``fwd_variant`` sends each
+bf16 shape of the paths to whichever of the three ran it fastest on an
+H100. K2 has five: ``"tc"`` for bf16 at
 Sq, Sk <= 128, ``"cc"`` for fp32 there; when Sq or Sk is above 128, up to
 1024, ``"wg"`` for bf16 (``csrc/attention_bwd_wg.cu``, on Hopper's wgmma)
 and ``"long"`` (CUDA cores) for fp32; ``"wg"`` also takes the bf16 shapes
 at or under 128 where it beat ``"tc"`` (``bwd_variant``); ``"long_tc"``,
 the bf16 variant on ``mma.sync`` that ``"wg"`` replaced, stays launchable
 by name. The long variants cut the work into tiles of 64 queries and keys
-over two kernels and an fp32 workspace of row statistics. ``"wg"`` takes
-the row statistics from the forward: K1's bf16 variants also write each
-row's log-sum-exp of the scores (``return_lse``), and the backward reads
-it with the forward's output O (rowsum(dp P) = rowsum(g O)); ``_Attention``
-saves both where ``bwd_variant`` picks ``"wg"``, and ``attention_bwd``
-called alone runs one K1 launch for them first. ``"cc"`` and ``"long"`` take bf16
-too, and ``"long_tc"`` K1 takes Sk <= 128, when named
-(``attention_kernel``, ``attention_bwd_kernel``). The tensor-core variants
-load rows by 16-byte copies, so they refuse (ValueError) operands that are
-not 16-byte aligned or whose batch and row strides are not multiples of 8
-elements. The bf16 tensor-core K2 variants round P_drop and ds to bf16 as
-mma operands (the TPU kernel keeps them in fp32). ``attention.launches``
-counts every K1 launch and ``attention.launches_<variant>`` each
-variant's; likewise ``attention_bwd``.
+over two kernels and an fp32 workspace of row statistics. K2's ``"wg"``
+takes the row statistics from the forward: K1's bf16 variants also write
+each row's log-sum-exp of the scores (``return_lse``), and the backward
+reads it with the forward's output O (rowsum(dp P) = rowsum(g O));
+``_Attention`` saves both where ``bwd_variant`` picks ``"wg"``, and
+``attention_bwd`` called alone runs one K1 launch for them first. Every
+variant stays launchable by name (``attention_kernel``,
+``attention_bwd_kernel``); ``"cc"`` and ``"long"`` take bf16 too there.
+The tensor-core variants load rows by 16-byte copies, so they refuse
+(ValueError) operands that are not 16-byte aligned or whose batch and row
+strides are not multiples of 8 elements. The bf16 tensor-core K2 variants
+round P_drop and ds to bf16 as mma operands (the TPU kernel keeps them in
+fp32). ``attention.launches`` counts every K1 launch and
+``attention.launches_<variant>`` each variant's; likewise
+``attention_bwd``.
 
 ``return_probs=True`` (the model's ``visualization`` maps; the JAX
 package's ``attention_core(..., return_probs=True)``, which computes them
 in XLA) also returns P after dropout, [B, h, Sq, Sk] in v's dtype, as
 ``_probs_from_scores`` returns it. On a CUDA tensor the routed K1 variant
 writes it (``attention.launches_probs`` counts those launches): ``tc`` and
-``cc`` from the row they hold, ``long_tc`` in a second sweep over the key
-tiles with the row's final max and sum. Without it nothing changes.
+``cc`` from the row they hold, ``wg`` from the P its exact branch (Sk <=
+128) normalizes, ``long_tc`` and ``wg``'s online branch in a second sweep
+over the key tiles with the row's final max and sum. Without it nothing
+changes.
 """
 
 from __future__ import annotations
@@ -82,13 +91,14 @@ BWD_KERNEL_MAX_SEQ = 1024
 #: longest sequence of the "tc" variants, and of K2's "cc" variant, which
 #: keep a whole (batch, head) in shared memory
 TC_MAX_SEQ = 128
-#: kernel variants: tensor cores (bf16) up to 128 keys and past them, CUDA
-#: cores; K2's tensor-core and CUDA-core variants each have a long twin past
-#: 128 queries or keys, and the bf16 one ("long_tc", mma.sync) a wgmma
-#: successor ("wg")
-VARIANTS = ("tc", "long_tc", "cc")
+#: kernel variants: K1's tensor cores (bf16, mma.sync) up to 128 keys and
+#: past them, CUDA cores, and bf16 on wgmma ("wg"); K2's tensor-core and
+#: CUDA-core variants each have a long twin past 128 queries or keys, and
+#: the bf16 one ("long_tc", mma.sync) a wgmma successor ("wg")
+VARIANTS = ("tc", "long_tc", "cc", "wg")
 BWD_VARIANTS = ("tc", "cc", "long_tc", "long", "wg")
-#: rows of the owned and the streamed tiles of K2's "wg" variant
+#: rows of the wgmma variants' tiles: K2 "wg"'s owned and streamed tiles, K1
+#: "wg"'s key tiles
 WG_TILE = 64
 
 
@@ -275,13 +285,40 @@ def bwd_kernel_geometry(
     return b, sq, sk, d
 
 
-def fwd_variant(dtype: torch.dtype, sk: int) -> str:
-    """The forward kernel's variant for a dtype and key count: ``"tc"``
-    (tensor cores) for bf16 at Sk <= 128, ``"long_tc"`` for bf16 above,
-    ``"cc"`` (CUDA cores) for fp32."""
+def fwd_variant(dtype: torch.dtype, sq: int, sk: int, head_dim: int) -> str:
+    """The forward kernel's variant for a dtype, sequence lengths and head
+    width. fp32: ``"cc"`` (CUDA cores). bf16: ``"wg"`` (wgmma) at every
+    shape of the paths where it beat both ``"tc"`` and ``"long_tc"`` on an
+    H100 (scripts/ab_kernels.py --kernel attention, at the rate the path
+    runs the shape: 0 in eval, 0.1 in training), else the faster of those
+    two there:
+
+    * d = 128: ``"wg"`` at 64 < Sk <= 128 (image self-attention and
+      text->image over 101 regions: 0.74-0.96x ``long_tc``'s time, at VQA
+      image self 0.52x ``tc``'s); at Sk <= 64 ``"tc"`` where Sq <= 64 (the
+      CC step's 36 x 37, where ``wg`` ties at rate 0 and loses at 0.1; the
+      demo's same shapes at batch 1 take 5-9 us on any variant) and
+      ``"long_tc"`` above (image->text over 21-30 tokens: 0.85-0.89x
+      ``wg``'s time); ``"long_tc"`` past 128 keys (Visual7w,
+      GuessWhatPointing: 0.78-0.97x ``wg``'s).
+    * d = 64 (self-attention only): ``"wg"`` at 96 < Sk <= 128 (the
+      baseline's 121-127 tokens and regions) and past 512 (its
+      GuessWhatPointing 562); ``"tc"`` at Sk <= 32; ``"long_tc"``
+      between (CC's 36 and 73, VisualEntailment's 57, retrieval's 131,
+      Visual7w's 220 and GuessWhatPointing's 257).
+
+    Every variant also writes the probabilities when asked, so a call that
+    returns them runs the same variant, and the same arithmetic, as one
+    that does not."""
     if dtype != torch.bfloat16:
         return "cc"
-    return "tc" if sk <= TC_MAX_SEQ else "long_tc"
+    if head_dim == 128:
+        if WG_TILE < sk <= TC_MAX_SEQ:
+            return "wg"
+        return "tc" if sk <= WG_TILE and sq <= WG_TILE else "long_tc"
+    if 96 < sk <= TC_MAX_SEQ or sk > 512:
+        return "wg"
+    return "tc" if sk <= 32 else "long_tc"
 
 
 def bwd_variant(dtype: torch.dtype, sq: int, sk: int, head_dim: int) -> str:
@@ -358,18 +395,19 @@ def _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed, variant, return
            if return_lse else None)
     lib = _build.load_library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(), out.data_ptr())
-    if variant in ("tc", "long_tc"):
+    if variant in ("tc", "long_tc", "wg"):
         max_keys = TC_MAX_SEQ if variant == "tc" else KERNEL_MAX_KEYS
         if q.dtype != torch.bfloat16 or sk > max_keys:
             raise ValueError(f"tensor-core attention kernel {variant!r} takes bf16 at Sk <= "
                              f"{max_keys}, got {q.dtype} at Sk={sk}")
-        fn = lib.vt_attention_fwd_tc if variant == "tc" else lib.vt_attention_fwd_long_tc
+        fn = getattr(lib, f"vt_attention_fwd_{variant}")
         call = functools.partial(fn, *ptrs, b, num_heads, d, sq, sk,
                                  *_tc_strides(q=q, k=k, v=v), bias_rows.stride(0))
         stats = (None if lse is None else lse.data_ptr(),)
     elif variant == "cc":
         if return_lse:
-            raise ValueError("the row log-sum-exps come from the bf16 variants (tc, long_tc)")
+            raise ValueError("the row log-sum-exps come from the bf16 variants (tc, long_tc, "
+                             "wg)")
         call = functools.partial(lib.vt_attention_fwd, *ptrs, _build.DTYPE_CODES[q.dtype], b,
                                  num_heads, d, sq, sk, q.stride(0), q.stride(1), k.stride(0),
                                  k.stride(1), v.stride(0), v.stride(1), bias_rows.stride(0))
@@ -427,7 +465,7 @@ def _bwd_cuda(q, k, v, bias_rows, g, num_heads, dropout_rate, seed, variant, out
         tc_strides = _tc_strides(q=q, k=k, v=v, g=g)
         if out is None or lse is None:  # called alone: the forward's O and row statistics
             out, lse = _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed,
-                                 fwd_variant(q.dtype, sk), return_lse=True)
+                                 fwd_variant(q.dtype, sq, sk, d), return_lse=True)
         if (out.shape != q.shape or out.dtype != q.dtype or not out.is_contiguous()
                 or out.data_ptr() % 16 or out.device != q.device):
             raise ValueError(f"attention backward kernel 'wg' takes the forward's output as a "
@@ -471,7 +509,8 @@ class _Attention(torch.autograd.Function):
             ctx.save_for_backward(q, k, v, bias_rows)
         else:
             out = _fwd_cuda(q, k, v, bias_rows, num_heads, dropout_rate, seed,
-                            fwd_variant(q.dtype, k.shape[1]), return_probs, with_stats)
+                            fwd_variant(q.dtype, q.shape[1], k.shape[1], q.shape[2] // num_heads),
+                            return_probs, with_stats)
             stats = ()
             if with_stats:
                 *out, lse = out
@@ -575,16 +614,18 @@ def attention_bwd(
 
 
 def attention_kernel(q, k, v, bias, *, num_heads: int, variant: str, dropout_rate: float = 0.0,
-                     seed: Optional[int] = None, return_lse: bool = False):
+                     seed: Optional[int] = None, return_probs: bool = False,
+                     return_lse: bool = False):
     """One launch of the named forward variant (one of ``VARIANTS``) on CUDA
     tensors, bypassing ``fwd_variant``: for comparing the variants on the
     card. Counts like ``attention``; not differentiable. With
-    ``return_lse`` (bf16 variants), ``(out, lse)``: lse the fp32
+    ``return_probs``, the probabilities after ``out`` (as ``attention``
+    returns them); with ``return_lse`` (bf16 variants), last, the fp32
     [B, h, Sq] log-sum-exp of each row's scaled, biased scores."""
     _check_rate(dropout_rate, seed)
     _check_devices(q, k=k, v=v, bias=bias)
     return _fwd_cuda(q, k, v, _bias_rows(bias, q, k.shape[1]), num_heads, float(dropout_rate),
-                     seed, variant, return_lse=return_lse)
+                     seed, variant, return_probs=return_probs, return_lse=return_lse)
 
 
 def attention_bwd_kernel(q, k, v, bias, g, *, num_heads: int, variant: str,
