@@ -16,7 +16,10 @@ single-stream baseline at the full width of configs/bert_base_baseline.json
 (VQA eval, the CC step, the flagship tasks it has heads for, retrieval),
 the CC step with NCE, and K1 and K2 to 1,024 keys; then the model
 options: int8 inference (``--int8``, static calibration), the attention
-maps (``visualization``, K1 writing its probabilities) and ``--remat``.
+maps (``visualization``, K1 writing its probabilities) and ``--remat``;
+then the last modules: batches staged ahead of the step at depths 0 and 2,
+data parallelism (NCCL at world size 1; two ranks over gloo on the card),
+the native VFR reader and the TF checkpoint import.
 
 1. device: the card's name and power limit; TF32 off for fp32 comparisons;
 2. build: nvcc for sm_90a, one process per source, timed;
@@ -194,7 +197,32 @@ maps (``visualization``, K1 writing its probabilities) and ``--remat``.
    step, the recompute included, K2 once, K4 again for each encoder
    LayerNorm); one bf16 step with remat and without from the same weights
    and seed, loss and every gradient within phase 6's bounds and the
-   dropout generator in one state; samples/s and peak memory of both.
+   dropout generator in one state; samples/s and peak memory of both;
+22. prefetch (``data.prefetch.device_prefetch``): the CC driver
+   (``run_pretraining`` over the synthetic ``ConceptCapLoader``, B=256,
+   bf16, dropout 0.1) for 9 steps at depths 0 and 2, counters reset before
+   each run and read after it: the metrics bit-equal across depths,
+   samples/s over 5 untraced steps, the device time of the 2 steps after
+   them (``torch.profiler``) and the idle share; the loader's time for a
+   batch alone; phase 8's flagship trainer built again at depth 0 (phase 8
+   stages 2): its two iterations' task losses bit-equal to phase 8's, one
+   iteration timed and one profiled, against phase 9's iterations at
+   depth 2;
+23. data parallelism: (a) ``train_concap.train`` and
+   ``train_tasks.train`` with ``--coordinator`` over NCCL at world size 1,
+   every loss bit-equal to the runs without a process group (phase 8's for
+   the trainer); (b) two ranks in two processes (``--dp_worker``) over
+   gloo on CUDA tensors, 3 CC steps at B_local=128 a leg against one
+   process on B=256 run meanwhile: fp32 metrics within 1e-5 and the first
+   step's gradients within phase 6's bounds; fp32 compute with bf16
+   gradients all-reduced in bf16, the first step's gradients within phase
+   11's bf16-gradient bound; bf16 compute; bf16 losses within
+   ``bf16_bound``; the ranks' parameters bit-equal (sha256);
+24. the native VFR reader built into build/native_vfs and read against
+   ``VrfFeatureStore`` (64 images x 101 regions), time per image;
+25. the TF import of synthetic variables for every text-stream parameter
+   of the full-width model against a plain name mapping;
+   ``load_tf_checkpoint`` reported skipped without tensorflow.
 
 Times: a kernel's ``ms`` (and its plain version's, the library call's,
 another variant's) is device time, calls run back to back behind a
@@ -2045,7 +2073,7 @@ def phase_multitask(checks: Checks, tmp: str) -> tuple:
         f"B={MT_CHECK_BATCH} a task fp32 iteration with dropout, kernels vs plain ops: worst "
         f"loss rel {loss_err:.3e} (<= 1e-5), worst gradient at {worst:.3e} of its bound (<= 1)")
     checks.end_phase("multi-task fp32 check")
-    return trainer, launches, fp32_launches, peak_gb
+    return trainer, launches, fp32_launches, peak_gb, losses
 
 
 def multitask_fp32_steps(trainer, tasks) -> dict:
@@ -3830,6 +3858,615 @@ def phase_remat(checks: Checks, tmp: str, card: str) -> dict:
     return out
 
 
+# -- phases 22-25: staging, data parallelism, the native reader, TF import ------
+
+PREFETCH_WINDOW = (2, 7)    # CC driver: untraced from step 2's hook to step 7's
+PREFETCH_PROFILED = 2       # CC driver steps profiled after the window
+DP_STEPS = 3                # full-width CC steps of the two-rank check
+DP_WORLD = 2
+#: the two-rank check's runs: label -> (compute dtype, gradient dtype)
+DP_LEGS = {"float32": ("float32", ""), "bf16_grads": ("float32", "bfloat16"),
+           "bfloat16": ("bfloat16", "")}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class Profiled:
+    """``torch.profiler`` (CUDA activity: the device's kernels and copies)
+    opened and closed from hooks; the device time of what ran between, in
+    ms."""
+
+    def __init__(self):
+        self.prof, self.device_ms = None, None
+
+    def start(self) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.start()
+
+    def stop(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        self.prof.stop()
+        self.device_ms = sum(ev.device_time_total for ev in self.prof.events()
+                             if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        self.prof = None
+        return self.device_ms
+
+
+def cc_driver(cfg, args, model, make_loader, depth: int) -> dict:
+    """``run_pretraining`` over the synthetic CC loader at ``depth``: the
+    metrics of every step, samples/s over the untraced window, device ms a
+    step over the profiled steps after it, the idle share, the launches."""
+    import copy
+
+    import torch
+
+    from vilbert_tpu_torch.cli.train_concap import optimizer_config
+    from vilbert_tpu_torch.train.pretrain import run_pretraining
+
+    metrics, marks, prof = [], {}, Profiled()
+    first, last = PREFETCH_WINDOW
+
+    def hook(step, state, m):
+        metrics.append({k: v.detach() for k, v in m.items()})
+        if step + 1 == first:
+            torch.cuda.synchronize()
+            marks["t0"] = time.perf_counter()
+        elif step + 1 == last:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            prof.start()
+        elif step + 1 == last + PREFETCH_PROFILED:
+            prof.stop()
+
+    reset_launches()
+    run_pretraining(cfg, optimizer_config(args, schedule="constant"), make_loader(),
+                    num_steps=last + PREFETCH_PROFILED, seed=SEED, lm_gather=LM_GATHER,
+                    model=copy.deepcopy(model), device=DEVICE, log_every=0, hooks=[hook],
+                    prefetch_batches=depth)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    step_ms = (marks["t1"] - marks["t0"]) / (last - first) * 1e3
+    device = prof.device_ms / PREFETCH_PROFILED
+    return {"metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
+            "step_ms": step_ms, "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
+            "device_ms": device, "idle_share": 1.0 - device / step_ms, "launches": launches}
+
+
+def mt_depth_0(tasks, tmp: str) -> dict:
+    """Phase 8's flagship trainer (the CLI's; ``TrainConfig.prefetch_batches``
+    2) built again from the same flags, seed and batches, its tasks' staging
+    depth set to 0 before their first batch: iterations 0 and 1 (every
+    task's loss, against phase 8's), 1 timed, then one more profiled."""
+    import torch
+
+    from vilbert_tpu_torch.cli.train_tasks import build_trainer
+    from vilbert_tpu_torch.core.config import ModelConfig
+
+    loaders, val_loaders = multitask_loaders(tasks, ModelConfig.from_json_file(CONFIG).vocab_size)
+    trainer = build_trainer(multitask_args(os.path.join(tmp, "mt_prefetch_0"), [
+        "--num_iterations", str(MT_ITERATIONS)]), tasks, loaders, val_loaders=val_loaders)
+    for task in trainer.tasks.values():
+        task.prefetch_batches = 0
+    losses, prof = [], Profiled()
+    reset_launches()
+    for it in range(MT_ITERATIONS + 1):
+        if it == MT_ITERATIONS - 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if it == MT_ITERATIONS:
+            prof.start()
+        out = trainer.train_iteration(it)
+        if it < MT_ITERATIONS:
+            losses.extend((k, m["loss"].detach()) for k, m in out.items())
+        if it == MT_ITERATIONS - 1:
+            torch.cuda.synchronize()
+            iteration_ms = (time.perf_counter() - t0) * 1e3
+    prof.stop()
+    launches = read_launches()
+    trainer.close()
+    return {"losses": [(k, float(v)) for k, v in losses], "iteration_ms": iteration_ms,
+            "device_ms": prof.device_ms, "launches": launches}
+
+
+def check_path_launches(checks: Checks, what: str, launches: dict) -> None:
+    """K1, K2 and K4 each launched in a training path's run."""
+    for name in ("attention", "attention_bwd", "layer_norm"):
+        checks.expect(launches[name] > 0, f"{what}: {name} launches {launches[name]} > 0")
+
+
+def phase_prefetch(checks: Checks, tmp: str, card: str, held_samples_per_s: float,
+                   mt_losses: list, mt_iteration_s: list) -> dict:
+    """(22) The staging thread (``device_prefetch``). The CC driver
+    (``run_pretraining``, synthetic ``ConceptCapLoader``, B=256, bf16,
+    dropout 0.1) for 9 steps at depths 0 and 2 from one model and seed:
+    every step's metrics bit-equal, samples/s over 5 untraced steps and the
+    idle share (1 - the device time of 2 profiled steps over the untraced
+    time) at each; the loader's time to build a batch alone on the main
+    thread. The flagship trainer at depth 0 (``mt_depth_0``): its first two
+    iterations' task losses bit-equal to phase 8's at depth 2, samples/s of
+    an iteration at depth 0 and, at depth 2, phase 9's iterations through
+    the host loader; the idle share of each over the device time of one
+    depth-0 iteration (the same kernels and copies at either depth)."""
+    import torch
+
+    from vilbert_tpu_torch.cli.train_concap import build_parser, concap_loader, synthetic_stores
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.data.prefetch import repeat_iterator
+    from vilbert_tpu_torch.data.tokenization import load_tokenizer
+    from vilbert_tpu_torch.train.pretrain import host_batch, pretrain_model
+
+    args = build_parser().parse_args(["--synthetic", "--config", CONFIG, "--batch_size",
+                                      str(TRAIN_BATCH), "--seed", str(SEED)])
+    cfg = ModelConfig.from_json_file(CONFIG)
+    store, captions, _, _ = synthetic_stores(TRAIN_BATCH)
+    tokenizer = load_tokenizer(None, cfg.vocab_size)
+
+    def make_loader():  # a fresh loader a run: the loader's epochs advance as it is read
+        return concap_loader(store, captions, tokenizer, cfg, args, seed=SEED)
+
+    it = repeat_iterator(make_loader().__iter__)  # one batch an epoch here
+    host_batch(next(it), cfg)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        host_batch(next(it), cfg)
+    loader_ms = (time.perf_counter() - t0) / 3 * 1e3
+    model = pretrain_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    cc = {depth: cc_driver(cfg, args, model, make_loader, depth) for depth in (0, 2)}
+    del model
+    torch.cuda.empty_cache()
+    for depth, r in cc.items():
+        log(f"  CC driver B={TRAIN_BATCH} bf16, prefetch depth {depth}: {r['step_ms']:.2f} "
+            f"ms/step = {r['samples_per_s']:.1f} samples/s, device {r['device_ms']:.2f} ms/step, "
+            f"idle share {r['idle_share']:.3f}; step losses "
+            f"{[round(m['loss'], 6) for m in r['metrics']]} [{card}]")
+    log(f"  the CC loader alone: {loader_ms:.1f} ms a batch of {TRAIN_BATCH} on the main "
+        f"thread (ConceptCapLoader + host_batch); phase 7's held-batch step "
+        f"{TRAIN_BATCH / held_samples_per_s * 1e3:.2f} ms ({held_samples_per_s:.1f} samples/s)"
+        f" against the depth-2 driver's {cc[2]['step_ms']:.2f} [{card}]")
+    checks.expect(len(cc[0]["metrics"]) == PREFETCH_WINDOW[1] + PREFETCH_PROFILED
+                  and cc[0]["metrics"] == cc[2]["metrics"] and all(
+                      math.isfinite(v) for m in cc[0]["metrics"] for v in m.values()),
+                  "CC driver: every step's metrics finite and bit-equal at depths 0 and 2")
+    for depth, r in cc.items():
+        check_path_launches(checks, f"CC driver at depth {depth}", r["launches"])
+
+    tasks = flagship_tasks()
+    zero = mt_depth_0(tasks, tmp)
+    torch.cuda.empty_cache()
+    samples = sum(t.batch_size for t in tasks.values())
+    two_ms = sum(mt_iteration_s) / len(mt_iteration_s) * 1e3
+    mt = {0: {"iteration_ms": zero["iteration_ms"]}, 2: {"iteration_ms": two_ms}}
+    for depth, r in mt.items():
+        r["samples_per_s"] = samples / r["iteration_ms"] * 1e3
+        r["device_ms"] = zero["device_ms"]
+        r["idle_share"] = 1.0 - zero["device_ms"] / r["iteration_ms"]
+        log(f"  flagship iteration, prefetch_batches {depth}: {r['iteration_ms']:.1f} ms = "
+            f"{r['samples_per_s']:.1f} samples/s, idle share {r['idle_share']:.3f} over "
+            f"{zero['device_ms']:.1f} ms of device time (a depth-0 iteration, profiled)"
+            f"{'' if depth == 0 else '; phase 9, untraced'} [{card}]")
+    want = [(k, loss) for k, loss, _ in mt_losses]
+    checks.expect(len(zero["losses"]) == MT_ITERATIONS * len(tasks) and zero["losses"] == want
+                  and all(math.isfinite(v) for _, v in want),
+                  f"flagship trainer at prefetch_batches 0: {MT_ITERATIONS} iterations' task "
+                  "losses finite and bit-equal to phase 8's at prefetch_batches 2")
+    check_path_launches(checks, "flagship iterations at depth 0", zero["launches"])
+    checks.end_phase("prefetch")
+    strip = ("metrics", "launches")
+    return {"cc": {d: {k: v for k, v in r.items() if k not in strip} for d, r in cc.items()},
+            "multitask": mt, "loader_ms": loader_ms,
+            "launches": {"cc_train_prefetch_0": cc[0]["launches"],
+                         "cc_train_prefetch_2": cc[2]["launches"],
+                         "multitask_prefetch_0": zero["launches"]}}
+
+
+def phase_nccl_one_rank(checks: Checks, tmp: str, card: str, mt_losses: list) -> dict:
+    """(23a) One rank over NCCL: ``train_concap.train`` (3 CC steps, B=256,
+    bf16, dropout 0.1) with ``--coordinator --num_processes 1 --process_id
+    0`` against the same run without a process group, and ``train_tasks``
+    (two flagship iterations) with them against phase 8's run without one:
+    every loss bit-equal (the step's all-reduce of the gradients and
+    metrics over one rank is exact)."""
+    import torch
+    import torch.distributed as dist
+
+    from vilbert_tpu_torch.cli import train_concap, train_tasks
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.parallel.distributed import is_initialized, shutdown_distributed
+
+    group = ["--coordinator", f"localhost:{free_port()}", "--num_processes", "1",
+             "--process_id", "0"]
+    cc_args = ["--synthetic", "--config", CONFIG, "--batch_size", str(TRAIN_BATCH),
+               "--num_steps", "3", "--seed", str(SEED), "--device", DEVICE]
+    tasks = flagship_tasks()
+    loaders, val_loaders = multitask_loaders(
+        tasks, ModelConfig.from_json_file(CONFIG).vocab_size)
+    runs, launches = {}, {}
+
+    def cc_run(label, extra):
+        losses = []
+        reset_launches()
+        train_concap.train(train_concap.build_parser().parse_args(
+            cc_args + extra + ["--output_dir", os.path.join(tmp, f"cc_{label}")]),
+            hooks=[lambda s, st, m: losses.append({k: float(v) for k, v in m.items()})])
+        torch.cuda.synchronize()
+        launches[f"cc_train_{label}"] = read_launches()
+        runs[f"cc {label}"] = losses
+
+    cc_run("no_group", [])
+    cc_run("nccl_one_rank", group)
+    backend = dist.get_backend() if is_initialized() else None
+    world = dist.get_world_size() if is_initialized() else None
+    losses = []
+    reset_launches()
+    trainer = train_tasks.train(
+        multitask_args(os.path.join(tmp, "mt_nccl_one_rank"),
+                       ["--num_iterations", str(MT_ITERATIONS), *group]),
+        tasks, loaders, val_loaders=val_loaders,
+        task_hooks=[lambda key, model, m: m is not None and losses.append(
+            (key, float(m["loss"])))])
+    torch.cuda.synchronize()
+    launches["multitask_nccl_one_rank"] = read_launches()
+    trainer.close()
+    del trainer
+    shutdown_distributed()
+    torch.cuda.empty_cache()
+    runs["multitask nccl_one_rank"] = losses
+    runs["multitask no_group (phase 8)"] = [(k, loss) for k, loss, _ in mt_losses]
+    for label, r in runs.items():
+        log(f"  {label}: losses {r}")
+    checks.expect(backend == "nccl" and world == 1 and not is_initialized(),
+                  f"process group: backend {backend}, world size {world}; left after the runs")
+    checks.expect(len(runs["cc no_group"]) == 3
+                  and runs["cc nccl_one_rank"] == runs["cc no_group"],
+                  "train_concap with --coordinator (NCCL, one rank): every step's metrics "
+                  "bit-equal to the run without a process group")
+    checks.expect(len(losses) == MT_ITERATIONS * len(tasks)
+                  and losses == runs["multitask no_group (phase 8)"],
+                  f"train_tasks with --coordinator (NCCL, one rank): every task's loss of "
+                  f"{MT_ITERATIONS} iterations bit-equal to phase 8's run without a process group")
+    for label in ("cc_train_nccl_one_rank", "multitask_nccl_one_rank"):
+        check_path_launches(checks, label, launches[label])
+    checks.end_phase("NCCL one rank")
+    return {"launches": {k: v for k, v in launches.items() if "nccl" in k}}
+
+
+def dp_runs(mesh, rows) -> dict:
+    """The two-rank check's runs (``DP_LEGS``), on this process's ``rows``
+    of each global batch (B=256): ``DP_STEPS`` full-width CC steps with
+    dropout 0.1 a leg, the metrics, a digest of the parameters after the
+    steps, the launches, and the first step's gradients as the optimizer
+    takes them (averaged over the ranks)."""
+    import hashlib
+
+    import torch
+
+    from vilbert_tpu_torch.cli.train_concap import build_parser, optimizer_config
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.train import optim
+    from vilbert_tpu_torch.train.pretrain import pretrain_model, run_pretraining
+
+    grads = []
+    step = optim.ReferenceAdamW.step
+
+    def recording(self, g, **kw):
+        if not grads:
+            grads.append(({k: v.detach().float().cpu() for k, v in g.items()},
+                          sorted({str(v.dtype) for v in g.values()})))
+        return step(self, g, **kw)
+
+    optim.ReferenceAdamW.step = recording
+    args = build_parser().parse_args(["--synthetic", "--config", CONFIG])
+    out = {"grads": {}}
+    try:
+        for leg, (dtype, grad_dtype) in DP_LEGS.items():
+            # the model computes in its own config's dtype: one model a leg
+            cfg = ModelConfig.from_json_file(CONFIG).replace(compute_dtype=dtype)
+            model = pretrain_model(cfg, generator=torch.Generator().manual_seed(SEED))
+            loader = [{k: v[rows] for k, v in bench_batch(cfg, TRAIN_BATCH, SEED + 60 + s).items()}
+                      for s in range(DP_STEPS)]
+            metrics = []
+            grads.clear()
+            reset_launches()
+            state = run_pretraining(
+                cfg, optimizer_config(args, schedule="constant"), loader, num_steps=DP_STEPS,
+                seed=SEED, lm_gather=LM_GATHER, model=model, device=DEVICE,
+                log_every=0, mesh=mesh, grad_dtype=grad_dtype,
+                hooks=[lambda s, st, m: metrics.append({k: float(v) for k, v in m.items()})])
+            torch.cuda.synchronize()
+            digest = hashlib.sha256()
+            for v in state.model.state_dict().values():
+                digest.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+            out[leg] = {"metrics": metrics, "params_sha256": digest.hexdigest(),
+                        "launches": read_launches(), "grad_dtypes": grads[0][1]}
+            if leg != "bfloat16":
+                out["grads"][leg] = grads[0][0]
+            del state, model
+            torch.cuda.empty_cache()
+    finally:
+        optim.ReferenceAdamW.step = step
+    return out
+
+
+def dp_worker(rank: int, port: int, out_dir: str) -> int:
+    """A rank of phase 23b, in its own process: gloo over CUDA tensors (two
+    ranks share the one card, which NCCL refuses), rows rank * 128 ... of
+    each global batch."""
+    import torch
+
+    from vilbert_tpu_torch.ops import _build
+    from vilbert_tpu_torch.parallel.distributed import initialize_distributed, shutdown_distributed
+    from vilbert_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    device = initialize_distributed(f"localhost:{port}", DP_WORLD, rank, device=DEVICE,
+                                    backend="gloo")
+    mesh = make_mesh(device)
+    local = TRAIN_BATCH // DP_WORLD
+    result = dp_runs(mesh, slice(rank * local, (rank + 1) * local))
+    grads = result.pop("grads")
+    if rank == 0:
+        torch.save(grads, os.path.join(out_dir, "grads_rank0.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    shutdown_distributed()
+    return 0
+
+
+def grad_ratio(got: dict, want: dict, bound) -> dict:
+    """name -> max|got - want| over ``bound(want tensor)`` plus 1e-6 of the
+    largest gradient of the model (the floor of phases 6 and 11)."""
+    top = max(float(g.abs().max()) for g in want.values())
+    return {n: float((got[n] - want[n]).abs().max()) / (bound(want[n]) + 1e-6 * top)
+            for n in want}
+
+
+def phase_two_ranks(checks: Checks, tmp: str, card: str) -> dict:
+    """(23b) Two ranks in two processes on the one card over gloo (CUDA
+    tensors), 3 full-width CC steps at B_local=128 with dropout 0.1 a leg,
+    against one process on the concatenated B=256 batches, run meanwhile in
+    this process: fp32 (every step's metrics within 1e-5, the first step's
+    gradients within phase 6's bound), fp32 compute with bf16 gradients,
+    all-reduced in bf16 (the first step's bf16 gradients within phase 11's
+    bf16-gradient bound, every step's loss within phase 3's bf16 bound) and
+    bf16 compute (every step's loss within that bound; every K1, K2 and K4
+    launched as the config says); the ranks' metrics and parameters
+    bit-equal after every leg. A rank that fails fails the phase."""
+    import torch
+
+    out_dir = os.path.join(tmp, "two_ranks")
+    os.makedirs(out_dir)
+    port = free_port()
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp_worker",
+                               str(rank), str(port), out_dir],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(DP_WORLD)]
+    logs = []
+    try:
+        ref = dp_runs(None, slice(None))
+        ref_s = time.time() - t0
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    ranks_s = time.time() - t0
+    torch.cuda.empty_cache()
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        checks.expect(proc.returncode == 0, f"rank {rank} exited {proc.returncode}")
+        if proc.returncode != 0:
+            log(text[-4000:])
+    checks.end_phase("two ranks (processes)")
+    ranks = []
+    for rank in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    for leg in DP_LEGS:
+        log(f"  {leg}: rank 0 {[round(m['loss'], 6) for m in ranks[0][leg]['metrics']]}, "
+            f"rank 1 {[round(m['loss'], 6) for m in ranks[1][leg]['metrics']]}, one "
+            f"process {[round(m['loss'], 6) for m in ref[leg]['metrics']]}")
+    log(f"  two ranks in {ranks_s:.1f} s (start-up, models, gloo over the host included), "
+        f"the one-process reference beside them in {ref_s:.1f} s [{card}]")
+    same = all(ranks[0][leg]["metrics"] == ranks[1][leg]["metrics"]
+               and ranks[0][leg]["params_sha256"] == ranks[1][leg]["params_sha256"]
+               for leg in DP_LEGS)
+    checks.expect(same, "the two ranks' metrics and parameters (sha256) bit-equal after "
+                        f"{DP_STEPS} steps, every leg")
+    worst = max(abs(g[k] - w[k]) / abs(w[k])
+                for g, w in zip(ranks[0]["float32"]["metrics"], ref["float32"]["metrics"])
+                for k in ("loss", "masked_loss_t", "masked_loss_v", "next_sentence_loss"))
+    checks.expect(len(ranks[0]["float32"]["metrics"]) == DP_STEPS and worst <= 1e-5,
+                  f"fp32: every step's losses within 1e-5 of one process on B={TRAIN_BATCH} "
+                  f"(worst rel {worst:.3e})")
+    got = torch.load(os.path.join(out_dir, "grads_rank0.pt"))
+    bounds = {"float32": lambda w: 1e-3 * float(w.abs().max()),
+              "bf16_grads": lambda w: bf16_bound(w)}
+    for leg, bound in bounds.items():
+        want = ref["grads"][leg]
+        ratio = grad_ratio(got[leg], want, bound) if set(got[leg]) == set(want) else {"": 2.0}
+        log(f"  {leg} first-step gradients, the five furthest from one process's (at their "
+            "bound; max|grad|): " + ", ".join(
+                f"{n} {ratio[n]:.3e} ({float(want[n].abs().max()):.3e})"
+                for n in sorted(ratio, key=ratio.get)[-5:] if n in want))
+        checks.expect(max(ratio.values()) <= 1.0,
+                      f"{leg}: the first step's averaged gradients ({ranks[0][leg]['grad_dtypes']}) "
+                      f"against one process's, worst at {max(ratio.values()):.3e} of "
+                      f"{'phase 6' if leg == 'float32' else 'phase 11'}'s bound (<= 1)")
+    checks.expect(ranks[0]["bf16_grads"]["grad_dtypes"] == ["torch.bfloat16"],
+                  f"bf16_grads: the optimizer takes bf16 gradients "
+                  f"({ranks[0]['bf16_grads']['grad_dtypes']}), all-reduced in bf16")
+    for leg in ("bf16_grads", "bfloat16"):
+        ok = all(abs(g["loss"] - w["loss"]) <= bf16_bound(torch.tensor(w["loss"]))
+                 for g, w in zip(ranks[0][leg]["metrics"], ref[leg]["metrics"]))
+        checks.expect(len(ranks[0][leg]["metrics"]) == DP_STEPS and ok,
+                      f"{leg}: every step's loss within phase 3's bf16 bound of one process's")
+    from vilbert_tpu_torch.core.config import ModelConfig
+
+    per_step = kernel_calls_per_step(ModelConfig.from_json_file(CONFIG))
+    for name, n in per_step.items():
+        got_n = ranks[0]["bfloat16"]["launches"][name]
+        checks.expect(got_n == DP_STEPS * n, f"rank 0's bf16 steps: {name} launches {got_n} "
+                                              f"== {DP_STEPS} x {n}")
+    checks.end_phase("two ranks")
+    return {"launches": {"cc_train_two_ranks_rank0": ranks[0]["bfloat16"]["launches"]}}
+
+
+def tf_port_name(tf_name: str) -> str:
+    """A google-research BERT variable's port parameter name, written out
+    plainly (the reference ``load_tf_weights_in_bert``'s walk)."""
+    import re
+
+    name = re.sub(r"layer_(\d+)", r"layer.\1", tf_name.replace("/", "."))
+    if name.endswith("output_bias"):
+        return name[: -len("output_bias")] + "bias"
+    for tf_leaf, leaf in (("kernel", "weight"), ("gamma", "weight"), ("beta", "bias")):
+        if name.endswith("." + tf_leaf):
+            return name[: -len(tf_leaf)] + leaf
+    return name if name.endswith(".bias") else name + ".weight"
+
+
+def phase_reader_and_tf_import(checks: Checks, tmp: str, card: str) -> dict:
+    """(24) The native VFR reader: ``native/vfs/vfs.cc`` built into
+    ``build/native_vfs`` (timed), a synthetic .vfr of 64 images x 101
+    regions x 2048 features and 1601 targets read through it and through
+    ``VrfFeatureStore``, every array equal, time per image of each. (25)
+    The TF import: synthetic google-research BERT variables for every
+    text-stream parameter of the full-width model through
+    ``load_tf_weights``, each parameter against the plain mapping
+    (``tf_port_name``; kernels transposed), the rest unchanged;
+    ``load_tf_checkpoint`` on a checkpoint written here when tensorflow is
+    installed, else reported skipped."""
+    import numpy as np
+    import torch
+
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.core.tf_import import load_tf_checkpoint, load_tf_weights
+    from vilbert_tpu_torch.data import native_vfs
+    from vilbert_tpu_torch.data.feature_store import (
+        InMemoryFeatureStore,
+        VrfFeatureStore,
+        VrfWriter,
+    )
+    from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
+
+    t0 = time.time()
+    lib = native_vfs.build()
+    build_s = time.time() - t0
+    store = InMemoryFeatureStore.synthetic(num_images=64, num_boxes=101)
+    path = os.path.join(tmp, "synthetic.vfr")
+    with VrfWriter(path) as w:
+        for k in store.keys():
+            w.add(k, store.get(k))
+    native, plain = native_vfs.NativeVrfFeatureStore(path), VrfFeatureStore(path)
+    keys = store.keys()
+    same = sorted(native.keys()) == sorted(plain.keys()) == sorted(keys)
+    for k in keys:
+        a, b = native.get(k), plain.get(k)
+        same = same and all(np.array_equal(x, y) for x, y in (
+            (a.features, b.features), (a.boxes, b.boxes), (a.target, b.target))) and (
+            (a.image_h, a.image_w) == (b.image_h, b.image_w))
+    times = {}
+    for label, reader in (("native", native), ("python", plain)):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            for k in keys:
+                rf = reader.get(k)
+                float(rf.features[-1, -1])  # touch the record
+        times[label] = (time.perf_counter() - t0) / (5 * len(keys)) * 1e6
+    native.close()
+    log(f"  native reader {os.path.relpath(lib)} built in {build_s:.1f} s; {len(keys)} images x 101 x 2048 (+1601 targets): "
+        f"{times['native']:.1f} us an image native, {times['python']:.1f} us VrfFeatureStore")
+    checks.expect(same and lib.parent.name == "native_vfs" and lib.parent.parent.name == "build",
+                  "native reader built into build/native_vfs, every record equal to "
+                  "VrfFeatureStore's")
+
+    cfg = ModelConfig.from_json_file(CONFIG)
+    model = ViLBERTForPretraining(cfg, generator=torch.Generator().manual_seed(SEED))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED)
+    variables = {}
+    for name, shape in tf_text_stream_shapes(cfg).items():
+        variables[name] = rng.standard_normal(shape, dtype=np.float32)
+    variables["bert/pooler/dense/kernel"] = rng.standard_normal((768, 768), dtype=np.float32)
+    variables["global_step"] = np.asarray(1000)
+    t0 = time.time()
+    report = load_tf_weights(model, variables)
+    import_s = time.time() - t0
+    after = model.state_dict()
+    mapped = {tf_port_name(n): n for n in variables if not n.startswith(("bert/pooler",
+                                                                          "global_step"))}
+    ok = set(mapped) <= set(after) and len(report.loaded) == len(mapped)
+    for port, tf in mapped.items():
+        want = torch.from_numpy(variables[tf])
+        want = want.T if port.endswith(".weight") and want.dim() == 2 and not (
+            "embeddings" in port) else want
+        ok = ok and torch.equal(after[port], want.to(after[port].dtype))
+    unchanged = all(torch.equal(after[k], before[k]) for k in after if k not in mapped)
+    log(f"  TF import: {len(report.loaded)} text-stream parameters of {len(after)} loaded in "
+        f"{import_s:.1f} s, {len(report.unexpected)} without destination")
+    checks.expect(ok and unchanged, "TF import at full width: every text-stream parameter "
+                                    "equals the plain mapping of its variable, every other "
+                                    "parameter unchanged")
+    try:
+        import tensorflow  # noqa: F401
+    except ImportError:
+        try:
+            load_tf_checkpoint(os.path.join(tmp, "none"))
+        except ImportError as e:
+            log(f"  load_tf_checkpoint skipped: tensorflow is not installed ({e})")
+    else:
+        log("  load_tf_checkpoint: tensorflow is installed; covered by "
+            "tests/test_torch_tf_import.py, not run here")
+    checks.end_phase("native reader and TF import")
+    return {"native_us": times["native"], "python_us": times["python"], "build_s": build_s}
+
+
+def tf_text_stream_shapes(cfg) -> dict:
+    """google-research BERT variable name -> shape for the text stream of
+    ``cfg`` (embeddings, encoder layers, LM head)."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    out = {
+        "bert/embeddings/word_embeddings": (cfg.vocab_size, h),
+        "bert/embeddings/position_embeddings": (cfg.max_position_embeddings, h),
+        "bert/embeddings/token_type_embeddings": (cfg.type_vocab_size, h),
+        "bert/embeddings/LayerNorm/gamma": (h,), "bert/embeddings/LayerNorm/beta": (h,),
+        "cls/predictions/transform/dense/kernel": (h, h),
+        "cls/predictions/transform/dense/bias": (h,),
+        "cls/predictions/transform/LayerNorm/gamma": (h,),
+        "cls/predictions/transform/LayerNorm/beta": (h,),
+        "cls/predictions/output_bias": (cfg.vocab_size,),
+    }
+    for n in range(cfg.num_hidden_layers):
+        p = f"bert/encoder/layer_{n}/"
+        for m in ("query", "key", "value"):
+            out[f"{p}attention/self/{m}/kernel"] = (h, h)
+            out[f"{p}attention/self/{m}/bias"] = (h,)
+        out.update({f"{p}attention/output/dense/kernel": (h, h),
+                    f"{p}attention/output/dense/bias": (h,),
+                    f"{p}attention/output/LayerNorm/gamma": (h,),
+                    f"{p}attention/output/LayerNorm/beta": (h,),
+                    f"{p}intermediate/dense/kernel": (h, i), f"{p}intermediate/dense/bias": (i,),
+                    f"{p}output/dense/kernel": (i, h), f"{p}output/dense/bias": (h,),
+                    f"{p}output/LayerNorm/gamma": (h,), f"{p}output/LayerNorm/beta": (h,)})
+    return out
+
+
 def kernel_report(times: dict, err: dict, vqa_launches: dict, train_launches: dict,
                   mt_launches: dict, fp32_launches: dict, ret: dict, opts: dict,
                   base: dict, options: dict) -> list:
@@ -4095,9 +4732,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase("[8 multi-task slice]")
-        trainer, mt_launches, fp32_launches, peak_gb = phase_multitask(checks, tmp)
+        trainer, mt_launches, fp32_launches, peak_gb, mt_losses = phase_multitask(checks, tmp)
         phase("[9 multi-task timing]")
         times.update(phase_multitask_timing(checks, trainer, card, err))
+        mt_iteration_s = [times[("multitask_iteration", i)]["s"] for i in range(2)]
         torch.cuda.empty_cache()
         phase("[10 retrieval and demo]")
         ret_times, ret = phase_retrieval(checks, tmp, card, err)
@@ -4138,12 +4776,30 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase("[21 remat]")
         remat = phase_remat(checks, tmp, card)
+        torch.cuda.empty_cache()
+        phase("[22 prefetch]")
+        held = times[("train", "kernels")]
+        pre = phase_prefetch(checks, tmp, card, sum(held) / len(held), mt_losses,
+                             mt_iteration_s)
+        phase("[23a data parallel: NCCL, one rank]")
+        nccl = phase_nccl_one_rank(checks, tmp, card, mt_losses)
+        phase("[23b data parallel: two ranks over gloo]")
+        two = phase_two_ranks(checks, tmp, card)
+        torch.cuda.empty_cache()
+        phase("[24-25 native reader, TF import]")
+        reader = phase_reader_and_tf_import(checks, tmp, card)
     log(f"  int8 VQA questions/s at B={TIME_BATCH}: "
         f"{ {k: round(v, 1) for k, v in int8['questions_per_s'].items()} }, quantization "
         f"passes' share { {k: round(v, 4) for k, v in int8['quantize_share'].items()} }; "
         f"visualization forward B={VIS_BATCH} ms {vis['forward_ms']}; remat CC step "
         f"{ {k: v for k, v in remat.items() if k != 'launches'} } [{card}]")
-    phase(f"[done] phases 1-21 in {time.time() - t_start:.1f} s; multi-task peak memory "
+    log(f"  prefetch: CC driver { {d: round(r['samples_per_s'], 1) for d, r in pre['cc'].items()} }"
+        f" samples/s, idle { {d: round(r['idle_share'], 3) for d, r in pre['cc'].items()} }; "
+        f"flagship iteration { {d: round(r['samples_per_s'], 1) for d, r in pre['multitask'].items()} }"
+        f" samples/s, idle { {d: round(r['idle_share'], 3) for d, r in pre['multitask'].items()} }"
+        f" (depth: value); native reader {reader['native_us']:.1f} us an image, "
+        f"VrfFeatureStore {reader['python_us']:.1f} [{card}]")
+    phase(f"[done] phases 1-25 in {time.time() - t_start:.1f} s; multi-task peak memory "
           f"{peak_gb:.2f} GB; retrieval captions/s {ret['captions_per_s']}; flagship "
           f"checkpoint {opts['checkpoint_gb']:.3f} GB saved in {opts['save_s']:.2f} s, restored "
           f"in {opts['restore_s']:.2f} s; baseline: {base['vqa_questions_per_s']:.1f} VQA "
@@ -4156,7 +4812,9 @@ def main() -> int:
                             ret, opts, base, {"vqa_int8_eval": int8["launches"],
                                               "demo_int8": int8["demo_launches"],
                                               "vqa_visualization": vis["launches"],
-                                              "cc_train_remat": remat["launches"]})
+                                              "cc_train_remat": remat["launches"],
+                                              **pre["launches"], **nccl["launches"],
+                                              **two["launches"]})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4166,4 +4824,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp_worker"]:  # a rank of phase 23b, started by it
+        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

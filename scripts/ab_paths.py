@@ -8,15 +8,16 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
 For each checkout, in the order A, B, B, A (``--rounds 1``: A, B), a
 subprocess run from that checkout's root imports its ``chip_smoke.py`` and
-drives phases 4-9 and 16 there, as ``chip_smoke.py`` does: the VQA eval
-slice and its timing (phase 5: questions/s of the bf16 forward at B=1024),
-the CC training slice and its timing (phase 7: samples/s of the bf16 step
-at B=256), the flagship multi-task slice and its timing (phase 9: the
-twelve tasks' steps, samples/s, and two iterations through the host
+drives phases 4-9 and 13-16 there, as ``chip_smoke.py`` does: the VQA
+eval slice and its timing (phase 5: questions/s of the bf16 forward at
+B=1024), the CC training slice and its timing (phase 7: samples/s of the
+bf16 step at B=256), the flagship multi-task slice and its timing (phase
+9: the twelve tasks' steps, samples/s, and two iterations through the host
 loader), the single-stream baseline's VQA eval (phase 13: questions/s of
-its bf16 forward at B=1024) and one iteration of it over its nine tasks
-(phase 16: their steps, samples/s). Each checkout builds its own
-kernels. It prints each run's end-to-end lines and then, per metric, each
+its bf16 forward at B=1024), its CC step (phase 14) and the NCE CC step
+(phase 15: samples/s of each at B=256), and one iteration of the baseline
+over its nine tasks (phase 16: their steps, samples/s). Each checkout
+builds its own kernels. It prints each run's end-to-end lines and then, per metric, each
 run's value and the two means. A failed check in a run fails the command.
 """
 
@@ -35,8 +36,12 @@ METRICS = {
                                       r".* = ([\d.]+) questions/s",
     "baseline VQA eval questions/s (phase 13)": r"baseline forward B=\d+ T=\d+ R=\d+ bf16 "
                                                 r"kernels: .* = ([\d.]+) questions/s",
-    "CC step samples/s (phase 7)": r"train step B=\d+ T=\d+ R=\d+ bf16 kernels: .* = ([\d.]+) "
-                                   r"samples/s",
+    "CC step samples/s (phase 7)": r"(?m)^  train step B=\d+ T=\d+ R=\d+ bf16 kernels: .* = "
+                                   r"([\d.]+) samples/s",
+    "baseline CC step samples/s (phase 14)": r"baseline train step B=\d+ T=\d+ R=\d+ bf16 "
+                                             r"kernels: .* = ([\d.]+) samples/s",
+    "NCE CC step samples/s (phase 15)": r"NCE train step B=\d+ T=\d+ R=\d+ bf16 kernels: "
+                                        r".* = ([\d.]+) samples/s",
     "twelve-task steps samples/s (phase 9)": r"steps of the twelve tasks: .* = ([\d.]+) samples/s",
     "flagship iteration dataset samples/s (phase 9)": r"iteration \d+: .* = ([\d.]+) dataset "
                                                       r"samples/s",
@@ -69,6 +74,10 @@ with tempfile.TemporaryDirectory() as tmp:
     del trainer
     torch.cuda.empty_cache()
     s.phase_baseline_multitask(checks, tmp, card)
+    torch.cuda.empty_cache()
+    s.phase_baseline_train(checks, tmp, card)
+    torch.cuda.empty_cache()
+    s.phase_nce(checks, tmp, card)
 """
 
 

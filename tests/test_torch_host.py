@@ -359,6 +359,42 @@ def test_host_lr_scheduler_copy_is_the_original():
     assert optim.HEAD_MODULE_FOR_TYPE == jax_optim.HEAD_MODULE_FOR_TYPE
 
 
+@pytest.mark.parametrize("name", ["tf_name_to_flax", "import_tf_weights", "_TF_SKIP"])
+def test_tf_import_copy_is_the_original(name):
+    """``core/tf_import.py`` keeps the JAX module's mapping and import
+    verbatim (``tests/test_torch_tf_import.py`` runs them against it)."""
+    import inspect
+
+    from vilbert_tpu.core import tf_import as jax_tf
+    from vilbert_tpu_torch.core import tf_import
+
+    port, ref = getattr(tf_import, name), getattr(jax_tf, name)
+    if callable(port):
+        assert inspect.getsource(port) == inspect.getsource(ref)
+    else:
+        assert port.pattern == ref.pattern
+    assert [(p.pattern, r) for p, r in tf_import._TF_REWRITES] == [
+        (p.pattern, r) for p, r in jax_tf._TF_REWRITES]
+
+
+def test_native_vfs_binding_is_the_originals():
+    """``data/native_vfs.py`` binds the same C entry points with the same
+    record layout and reader class as the JAX module; only the build
+    (into ``build/``, raising on failure) differs."""
+    import inspect
+
+    from vilbert_tpu.data import native_vfs as jax_vfs
+    from vilbert_tpu_torch.data import native_vfs
+
+    def body(cls, name):  # the method's source, whitespace and line breaks aside
+        return "".join(inspect.getsource(getattr(cls, name)).split())
+
+    assert native_vfs._VfsRecord._fields_ == jax_vfs._VfsRecord._fields_
+    for name in ("get", "prefetch", "keys", "close"):
+        assert body(native_vfs.NativeVrfFeatureStore, name) == body(
+            jax_vfs.NativeVrfFeatureStore, name), name
+
+
 # -- chip_smoke.py's task configs -------------------------------------------------
 
 def test_chip_smoke_task_configs_are_the_yml():

@@ -103,11 +103,11 @@ base = main(["--synthetic", "--device", "cpu", "--baseline", "--tasks", "1-4-7-9
              "--num_iterations", "1", "--config", cfg, "--output_dir", out + "_baseline"])
 assert base.global_step == 1 and base.model.family == "basebert", base.model.family
 try:
-    main(["--synthetic", "--device", "cpu", "--coordinator", "x"])
-except NotImplementedError as e:
-    assert "ROADMAP" in str(e), e
+    main(["--synthetic", "--device", "cpu", "--num_processes", "2"])
+except ValueError as e:
+    assert "--coordinator" in str(e), e
 else:
-    raise AssertionError("--coordinator was not refused")
+    raise AssertionError("--num_processes without --coordinator was not refused")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
 assert not leaked, leaked
 print("JAX_FREE_OK")
@@ -266,3 +266,60 @@ def test_model_options_run_without_jax(tmp_path):
     assert "JAX_FREE_OK" in proc.stdout
     assert "vqa answer idx:" in proc.stdout
     assert json.loads((out / "metrics_VQA_val.json").read_text())["num_samples"] == 16
+
+
+_PARALLEL_SCRIPT = """
+import socket, sys
+sys.modules["vilbert_tpu"] = None  # any import of the JAX package fails
+import numpy as np
+from vilbert_tpu_torch.cli import train_concap
+from vilbert_tpu_torch.core.config import ModelConfig
+from vilbert_tpu_torch.core.tf_import import load_tf_weights
+from vilbert_tpu_torch.data import native_vfs
+from vilbert_tpu_torch.data.feature_store import InMemoryFeatureStore, VrfWriter
+from vilbert_tpu_torch.data.prefetch import device_prefetch, to_tensors
+from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
+from vilbert_tpu_torch.parallel.distributed import is_initialized
+
+cfg, out = sys.argv[1:3]
+staged = list(device_prefetch(iter([{"x": np.full(2, i)} for i in range(3)]), size=2,
+                              device="cpu", transform=to_tensors))
+assert [int(b["x"][0]) for b in staged] == [0, 1, 2]
+store = InMemoryFeatureStore.synthetic(num_images=2, num_boxes=3, feature_dim=8, target_dim=4)
+with VrfWriter(out + ".vfr", feature_dim=8, target_dim=4) as w:
+    for k in store.keys():
+        w.add(k, store.get(k))
+reader = native_vfs.NativeVrfFeatureStore(out + ".vfr")
+assert np.array_equal(reader.get("0").features, store.get("0").features)
+reader.close()
+mcfg = ModelConfig.from_json_file(cfg)
+model = ViLBERTForPretraining(mcfg)
+words = np.ones((mcfg.vocab_size, mcfg.hidden_size), np.float32)
+assert load_tf_weights(model, {"bert/embeddings/word_embeddings": words}).loaded
+sock = socket.socket(); sock.bind(("localhost", 0)); port = sock.getsockname()[1]; sock.close()
+train_concap.main(["--synthetic", "--device", "cpu", "--num_steps", "2", "--batch_size", "8",
+                   "--config", cfg, "--output_dir", out, "--coordinator", f"localhost:{port}",
+                   "--num_processes", "1", "--process_id", "0"])
+assert not is_initialized()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+print("JAX_FREE_OK")
+"""
+
+
+def test_parallel_prefetch_import_and_reader_run_without_jax(tmp_path):
+    """The modules of the last slice with no jax, flax or optax loaded: the
+    staging thread, the native VFR reader (built into ``build/``), the TF
+    import into a model, and the CC CLI over a one-rank gloo process group
+    (``--coordinator``), which it leaves at the end."""
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(dict(_TINY, v_target_size=1601)))
+    out = tmp_path / "out"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PARALLEL_SCRIPT, str(cfg), str(out)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_FREE_OK" in proc.stdout
+    assert (out / "params_final.npz").exists()

@@ -488,10 +488,15 @@ def test_each_task_step_leaves_the_other_heads_unchanged(tiny_config):
 
 
 def test_cli_refuses_what_is_not_ported():
+    """The data-parallel flags are ported (tests/test_torch_distributed.py);
+    an incomplete set of them raises before any process group is formed."""
     from vilbert_tpu_torch.cli.train_tasks import main
 
-    for flag in (["--coordinator", "x"], ["--num_processes", "2"], ["--process_id", "1"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for flag, match in ((["--num_processes", "2"], "--coordinator"),
+                        (["--process_id", "1"], "--process_id"),
+                        (["--coordinator", "localhost:1", "--num_processes", "2"],
+                         "--process_id")):
+        with pytest.raises(ValueError, match=match):
             main(["--synthetic", "--device", "cpu", *flag])
 
 
@@ -501,8 +506,12 @@ def test_trainer_refuses_what_is_not_ported(tiny_config, tmp_path):
 
     tasks = {"TASK1": _tasks(port_config)["TASK1"]}
     loaders = {"TASK1": _FakeLoader(_task_batches(tiny_config, n=1)["TASK1"], B)}
+    # in_batch_pairs pairs across the global batch: not split over ranks yet
+    from vilbert_tpu_torch.parallel.mesh import DataMesh
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiTaskTrainer(tiny_config, tasks, loaders, device="cpu", mesh=object())
+        MultiTaskTrainer(tiny_config.replace(in_batch_pairs=True), tasks, loaders, device="cpu",
+                         mesh=DataMesh(rank=0, world_size=2))
     trainer = MultiTaskTrainer(
         tiny_config, tasks, loaders, device="cpu", num_labels=NUM_LABELS,
         train_cfg=port_config.TrainConfig(checkpoint_dir=str(tmp_path / "ckpt")))

@@ -517,13 +517,18 @@ class TestCLI:
             k: s.shape for k, s in _flatten(shapes).items()}
         assert got["bert.embeddings.word_embeddings.embedding"].shape == (99, 32)
 
-    @pytest.mark.parametrize("flag", [["--coordinator", "x"], ["--num_processes", "2"],
-                                      ["--num_shards", "2"]])
+    @pytest.mark.parametrize("flag", [(["--num_processes", "2"], "--coordinator"),
+                                      (["--process_id", "1"], "--process_id"),
+                                      (["--num_shards", "2", "--shard_id", "2"], "--shard_id")])
     def test_refused_flags_name_their_roadmap_item(self, flag):
+        """The data-parallel flags are ported (tests/test_torch_distributed.py);
+        an incomplete or inconsistent set raises, naming the flag, before any
+        process group is formed."""
         from vilbert_tpu_torch.cli.train_concap import main
 
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--synthetic", "--device", "cpu", *flag])
+        flags, match = flag
+        with pytest.raises(ValueError, match=match):
+            main(["--synthetic", "--device", "cpu", *flags])
 
     @pytest.mark.parametrize("schedule", ["warmup_linear", "constant"])
     def test_optimizer_config_is_the_jax_clis(self, schedule):

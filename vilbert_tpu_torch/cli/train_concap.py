@@ -26,6 +26,13 @@ the single-stream baseline ignores it, as the JAX one does. On a
 CUDA device the model runs the port's attention (forward with dropout,
 backward) and LayerNorm kernels, built from ``vilbert_tpu_torch/csrc`` at
 first use.
+
+Data parallelism: ``--coordinator host:port --num_processes N
+--process_id r`` (or a ``torchrun`` launch, read from its environment)
+joins N processes (NCCL on CUDA, gloo on the CPU; ``cuda:<LOCAL_RANK>``
+each); each loads shard ``--shard_id`` of ``--num_shards`` (default: its
+rank of the world) at ``--batch_size // num_shards`` a step, and rank 0
+writes the checkpoints and ``params_final.npz``.
 """
 
 from __future__ import annotations
@@ -37,12 +44,6 @@ import os
 from typing import Optional, Sequence
 
 from vilbert_tpu_torch.core.config import ModelConfig, OptimizerConfig
-
-#: flags of the JAX CLI that the port refuses, and the ROADMAP item of each
-_REFUSED = {
-    "coordinator": "multi-GPU training (ROADMAP A12)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -90,9 +91,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override the resume step (-1: from the checkpoint)")
     p.add_argument("--seed", type=int, default=0,
                    help="seeds the initial weights and every dropout mask")
-    p.add_argument("--shard_id", type=int, default=-1, help="-1: 0 (one process)")
-    p.add_argument("--num_shards", type=int, default=0, help="0: 1 (one process)")
-    p.add_argument("--coordinator", default="", help="not ported yet")
+    p.add_argument("--shard_id", type=int, default=-1, help="-1: this process's rank")
+    p.add_argument("--num_shards", type=int, default=0, help="0: the number of processes")
+    p.add_argument("--coordinator", default="",
+                   help="host:port of rank 0 for a multi-process run (torch.distributed)")
     p.add_argument("--num_processes", type=int, default=0)
     p.add_argument("--process_id", type=int, default=-1)
     p.add_argument("--lm_gather", type=int, default=-1,
@@ -113,13 +115,29 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_flags(args: argparse.Namespace) -> None:
-    """Raise for the flags the port does not carry yet."""
-    for flag, what in _REFUSED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {what} is not ported yet")
-    if args.num_processes > 1 or args.num_shards > 1:
-        raise NotImplementedError(f"--num_processes/--num_shards: {_REFUSED['coordinator']}")
+def setup_distributed(args: argparse.Namespace):
+    """Join the process group the flags ask for (``--coordinator``,
+    ``--num_processes``, ``--process_id``, or ``torchrun``'s environment);
+    returns (this rank's device, its ``DataMesh`` or None for a single
+    process)."""
+    from vilbert_tpu_torch.parallel.distributed import initialize_distributed, is_initialized
+    from vilbert_tpu_torch.parallel.mesh import make_mesh
+
+    device = initialize_distributed(
+        args.coordinator or None, args.num_processes or None,
+        args.process_id if args.process_id >= 0 else None, device=args.device)
+    return device, (make_mesh(device) if is_initialized() else None)
+
+
+def finish_distributed(write) -> None:
+    """``write()`` on rank 0 (the others wait for it), then leave the
+    process group."""
+    from vilbert_tpu_torch.parallel.distributed import barrier, process_shard, shutdown_distributed
+
+    if process_shard()[0] == 0:
+        write()
+    barrier()
+    shutdown_distributed()
 
 
 def model_family(args: argparse.Namespace) -> str:
@@ -140,17 +158,19 @@ def synthetic_stores(batch_size: int):
 
 
 def concap_loader(store, captions, tokenizer, model_cfg: ModelConfig, args, *, seed: int,
-                  num_workers: int = 0):
+                  num_workers: int = 0, shard_id: int = 0, num_shards: int = 1):
+    """Shard ``shard_id`` of ``num_shards`` of the CC samples, at
+    ``--batch_size // num_shards`` a batch."""
     from vilbert_tpu_torch.data.concap import ConceptCapLoader, ConceptCapSampleConfig
 
     return ConceptCapLoader(
-        store, captions, tokenizer, batch_size=args.batch_size,
+        store, captions, tokenizer, batch_size=args.batch_size // num_shards,
         cfg=ConceptCapSampleConfig(
             seq_len=args.seq_len, region_len=args.region_len,
             feature_dim=model_cfg.v_feature_size, target_dim=model_cfg.v_target_size,
             visual_target=args.visual_target, objective=args.objective,
         ),
-        seed=seed, shard_id=0, num_shards=1, num_workers=num_workers,
+        seed=seed, shard_id=shard_id, num_shards=num_shards, num_workers=num_workers,
     )
 
 
@@ -173,8 +193,17 @@ def optimizer_config(args: argparse.Namespace, schedule: str = "warmup_linear") 
 def train(args: argparse.Namespace, hooks: Optional[list] = None):
     """The CLI's body without the final save: data, model and
     ``run_pretraining`` for parsed flags, with the checkpoint hook of
-    ``--checkpoint_every`` after ``hooks``; returns the final ``TrainState``."""
-    check_flags(args)
+    ``--checkpoint_every`` after ``hooks``; returns the final ``TrainState``.
+    A multi-process run joins its process group here and stays in it
+    (``finish_distributed`` leaves it)."""
+    from vilbert_tpu_torch.parallel.distributed import process_shard
+
+    device, mesh = setup_distributed(args)
+    rank, world = process_shard()
+    num_shards = args.num_shards if args.num_shards > 0 else world
+    shard_id = args.shard_id if args.shard_id >= 0 else rank
+    if not 0 <= shard_id < num_shards:
+        raise ValueError(f"--shard_id {shard_id} outside --num_shards {num_shards}")
 
     from vilbert_tpu_torch.cli.train_tasks import freeze_prefixes
     from vilbert_tpu_torch.data.tokenization import load_tokenizer
@@ -211,12 +240,13 @@ def train(args: argparse.Namespace, hooks: Optional[list] = None):
             val_store = open_feature_store(args.val_store)
             with open(args.val_captions) as f:
                 val_captions = json.load(f)
+    shard = dict(shard_id=shard_id, num_shards=num_shards)
     loader = concap_loader(store, captions, tokenizer, model_cfg, args, seed=args.seed,
-                           num_workers=args.num_workers)
+                           num_workers=args.num_workers, **shard)
     val_loader = None
     if val_store is not None:
         val_loader = concap_loader(val_store, val_captions, tokenizer, model_cfg, args,
-                                   seed=args.seed + 1)
+                                   seed=args.seed + 1, **shard)
 
     steps_per_epoch = max(len(store.keys()) // args.batch_size, 1)
     num_steps = args.num_steps or steps_per_epoch * args.num_epochs
@@ -237,7 +267,7 @@ def train(args: argparse.Namespace, hooks: Optional[list] = None):
         from vilbert_tpu_torch.core.checkpoint import CheckpointManager
         from vilbert_tpu_torch.parallel.train_step import train_state_dict
 
-        mngr = CheckpointManager(os.path.join(args.output_dir, "ckpt"))
+        mngr = CheckpointManager(os.path.join(args.output_dir, "ckpt"), mesh=mesh)
 
         def ckpt_hook(step, state, metrics):
             if (step + 1) % args.checkpoint_every == 0:
@@ -250,7 +280,7 @@ def train(args: argparse.Namespace, hooks: Optional[list] = None):
         img_weight=args.img_weight, grad_accum=args.gradient_accumulation_steps,
         lm_gather=args.seq_len // 3 if args.lm_gather == -1 else args.lm_gather,
         img_gather=args.img_gather, model=model, model_family=model_family(args),
-        device=args.device,
+        device=device, mesh=mesh,
         val_loader=val_loader, val_every=val_every, hooks=hooks,
         freeze_prefix=freeze_prefixes(str(args.freeze)),
         resume_dir=args.resume_file, start_step=args.start_step,
@@ -263,14 +293,17 @@ def main(argv: Optional[Sequence[str]] = None):
     ``TrainState``."""
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    check_flags(args)
     state = train(args)
 
     from vilbert_tpu_torch.core.weights import save_params_npz
 
     path = os.path.join(args.output_dir, "params_final.npz")
-    save_params_npz(path, state.model)
-    logging.info("saved %s", path)
+
+    def write():
+        save_params_npz(path, state.model)
+        logging.info("saved %s", path)
+
+    finish_distributed(write)
     return state
 
 

@@ -17,6 +17,13 @@ resumes. ``freeze_prefixes`` and ``_synthetic_world`` are copies of
 the JAX CLI's (``tests/test_torch_host.py`` holds them to it); the other
 CLIs of the port use them too. ``--tasks_yml`` needs PyYAML; ``train``
 also takes the ``TaskConfig``s and loaders from its caller.
+
+Data parallelism: ``--coordinator host:port --num_processes N
+--process_id r`` (or a ``torchrun`` launch) joins N processes, as
+``train_concap`` does; each loads its shard of every task's data (the
+per-task batch divided by the processes, ``data.loading``; the synthetic
+loaders are sharded likewise), and rank 0 writes the logs, checkpoints and
+``params_final.npz``.
 """
 
 from __future__ import annotations
@@ -25,12 +32,6 @@ import argparse
 import logging
 import os
 from typing import Optional, Sequence
-
-#: flags of the JAX CLI that the port refuses, and the ROADMAP item of each
-_REFUSED = {
-    "coordinator": "multi-GPU training (ROADMAP A12)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -92,20 +93,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0,
                    help="seeds the initial weights and every dropout mask")
     p.add_argument("--synthetic", action="store_true")
-    p.add_argument("--coordinator", default="", help="not ported yet")
+    p.add_argument("--coordinator", default="",
+                   help="host:port of rank 0 for a multi-process run (torch.distributed)")
     p.add_argument("--num_processes", type=int, default=0)
     p.add_argument("--process_id", type=int, default=-1)
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
-
-
-def check_flags(args: argparse.Namespace) -> None:
-    """Raise for the flags the port does not carry yet."""
-    for flag, what in _REFUSED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {what} is not ported yet")
-    if args.num_processes > 1 or args.process_id > 0:
-        raise NotImplementedError(f"--num_processes/--process_id: {_REFUSED['coordinator']}")
 
 
 def optimizer_config(args: argparse.Namespace, base_lr: float):
@@ -134,11 +127,14 @@ def build_trainer(args: argparse.Namespace, task_cfgs=None, loaders=None, *,
 
     ``task_cfgs`` ({"TASKn": TaskConfig}) replaces ``--tasks_yml`` and
     ``--tasks``; ``loaders`` (and ``val_loaders``) replace the data the
-    flags name."""
-    check_flags(args)
-
+    flags name. A multi-process run joins its process group here."""
+    from vilbert_tpu_torch.cli.train_concap import setup_distributed
     from vilbert_tpu_torch.core.config import ModelConfig, TrainConfig, load_task_configs
+    from vilbert_tpu_torch.parallel.distributed import process_shard
     from vilbert_tpu_torch.train.multitask import MultiTaskTrainer
+
+    device, mesh = setup_distributed(args)
+    rank, world = process_shard()
 
     model_cfg = ModelConfig.from_json_file(
         args.config,
@@ -153,6 +149,8 @@ def build_trainer(args: argparse.Namespace, task_cfgs=None, loaders=None, *,
     if loaders is None:
         if args.synthetic:
             loaders, val_loaders = _synthetic_world(task_cfgs, model_cfg.vocab_size), {}
+            for loader in loaders.values():
+                loader.shard_id, loader.num_shards = rank, world
         else:
             from vilbert_tpu_torch.data.loading import load_datasets
             from vilbert_tpu_torch.data.tokenization import load_tokenizer
@@ -161,6 +159,7 @@ def build_trainer(args: argparse.Namespace, task_cfgs=None, loaders=None, *,
             loaders, val_loaders = load_datasets(
                 task_cfgs, tokenizer, seed=args.seed,
                 grad_accum=args.gradient_accumulation_steps,
+                shard_id=rank, num_shards=world,
                 clean_train_sets=args.clean_train_sets,
             )
     if args.save_name:
@@ -187,7 +186,8 @@ def build_trainer(args: argparse.Namespace, task_cfgs=None, loaders=None, *,
         num_train_epochs=args.num_epochs,
         model_family="basebert" if args.baseline else "vilbert",
         from_pretrained=args.from_pretrained,
-        device=args.device,
+        device=device,
+        mesh=mesh,
     )
     trainer.attach_logger(f"{args.output_dir}/logs")
     if args.resume_file:
@@ -215,11 +215,16 @@ def main(argv: Optional[Sequence[str]] = None):
     args = build_parser().parse_args(argv)
     trainer = train(args)
 
+    from vilbert_tpu_torch.cli.train_concap import finish_distributed
     from vilbert_tpu_torch.core.weights import save_params_npz
 
     path = os.path.join(args.output_dir, "params_final.npz")
-    save_params_npz(path, trainer.model)
-    logging.info("saved %s", path)
+
+    def write():
+        save_params_npz(path, trainer.model)
+        logging.info("saved %s", path)
+
+    finish_distributed(write)
     return trainer
 
 

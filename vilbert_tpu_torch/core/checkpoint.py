@@ -16,7 +16,9 @@ step into the structure of a template: a tensor whose saved dtype differs
 from the template's (``--bf16_adam_state`` toggled between save and resume)
 is converted, as the JAX package converts it, and a warning names the
 groups converted. Weights-only files stay in ``core/weights.py``
-(``save_params_npz`` / ``load_params_npz``).
+(``save_params_npz`` / ``load_params_npz``). In a data-parallel run
+(``mesh``) rank 0 writes and every rank waits at a barrier until the step
+is complete; every rank reads on restore.
 """
 
 from __future__ import annotations
@@ -38,9 +40,10 @@ HOST_FILE = "host.json"
 class CheckpointManager:
     """Step directories under ``directory``, the newest ``max_to_keep`` kept."""
 
-    def __init__(self, directory: str, *, max_to_keep: int = 3):
+    def __init__(self, directory: str, *, max_to_keep: int = 3, mesh=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def all_steps(self) -> List[int]:
@@ -55,8 +58,12 @@ class CheckpointManager:
     def save(self, step: int, state: Mapping[str, Any], *,
              host_state: Optional[Mapping[str, Any]] = None) -> str:
         """Write ``state`` (and ``host_state``) as step ``step``; returns its
-        directory. Synchronous: the files are complete on return."""
+        directory. Synchronous: the files are complete on return (on every
+        rank of the mesh, of which rank 0 writes)."""
         final = os.path.join(self.directory, str(int(step)))
+        if self.mesh is not None and not self.mesh.is_primary:
+            self.mesh.barrier()
+            return final
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -68,6 +75,8 @@ class CheckpointManager:
         os.replace(tmp, final)
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+        if self.mesh is not None:
+            self.mesh.barrier()
         return final
 
     def restore(self, template: Mapping[str, Any], *, step: Optional[int] = None

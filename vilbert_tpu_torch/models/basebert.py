@@ -46,6 +46,7 @@ from vilbert_tpu_torch.models.layers import (
     TextLayer,
     collect_attention_maps,
     compute_dtype,
+    embed,
     param_dtype,
 )
 from vilbert_tpu_torch.models.vilbert import (
@@ -86,7 +87,7 @@ class BaseImageEmbeddings(nn.Module):
 
     def forward(self, features, locations, token_type_ids) -> torch.Tensor:
         emb = (self.image_embeddings(features) + self.image_location_embeddings(locations)
-               + self.token_type_embeddings(token_type_ids.long()))
+               + embed(self.token_type_embeddings, token_type_ids))
         return self.dropout(self.LayerNorm(emb)).to(compute_dtype(self.cfg))
 
 

@@ -46,6 +46,7 @@ class BiAttention(nn.Module):
         self.visualization = cfg.visualization
         self.plain_ops = False
         self.dropout_generator: Optional[torch.Generator] = None
+        self.dropout_rank = 0  # set_dropout_generator
         self.query1 = Linear(cfg, cfg.v_hidden_size, bi)
         self.key1 = Linear(cfg, cfg.v_hidden_size, bi)
         self.value1 = Linear(cfg, cfg.v_hidden_size, bi)

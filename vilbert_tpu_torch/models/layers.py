@@ -48,7 +48,7 @@ from torch import nn
 
 from vilbert_tpu_torch.core.config import ModelConfig
 from vilbert_tpu_torch.ops.attention import attention, attention_ref
-from vilbert_tpu_torch.ops.dropout import draw_seed, hash_dropout
+from vilbert_tpu_torch.ops.dropout import draw_seed, hash_dropout, shard_seed
 from vilbert_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
 from vilbert_tpu_torch.ops.quant import int8_dense, static_act_amax
 
@@ -197,12 +197,33 @@ def site_seed(site: nn.Module) -> int:
     return draw_seed(site.dropout_generator)
 
 
-def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> nn.Module:
+def embed(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``table(ids)`` for a table of a few rows (the token types), as a
+    select among its rows: the same rows forward, and a backward that sums
+    each row's gradient by a reduction, in a fixed order, where
+    ``nn.Embedding``'s CUDA backward does not over one id repeated through
+    the batch (a run then repeats bit for bit). A pass over the output a
+    row; larger tables take ``nn.Embedding``, whose backward is faster than
+    a sorted ``index_put_`` over many repeats."""
+    w = table.weight
+    ids = ids.long()[..., None]
+    out = w[0].expand(*ids.shape[:-1], w.shape[1])
+    for row in range(1, w.shape[0]):
+        out = torch.where(ids == row, w[row], out)
+    return out
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator], *,
+                          rank: int = 0) -> nn.Module:
     """Hand the CPU generator that train-mode dropout draws its seeds from to
-    every dropout site of ``model`` (None removes it)."""
+    every dropout site of ``model`` (None removes it). ``rank``: this
+    process's rank in a data-parallel run, whose masks are then its rows'
+    of the global batch's (``ops.dropout``: the flat offset and the
+    attention seed shift)."""
     for m in model.modules():
         if hasattr(m, "dropout_generator"):
             m.dropout_generator = generator
+            m.dropout_rank = rank
     return model
 
 
@@ -216,11 +237,13 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.dropout_generator: Optional[torch.Generator] = None
+        self.dropout_rank = 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        return hash_dropout(x, self.rate, site_seed(self))
+        # rank r's rows of the global batch start at flat index r * numel
+        return hash_dropout(x, self.rate, site_seed(self), offset=self.dropout_rank * x.numel())
 
 
 class GeLU(nn.Module):
@@ -238,7 +261,9 @@ def attend(site: nn.Module, q, k, v, bias, num_heads: int, rate: float,
     ``plain_ops``. ``return_probs``: ``(context, probabilities)``."""
     if not site.training:
         rate = 0.0
-    seed = site_seed(site) if rate > 0.0 else None
+    seed = None
+    if rate > 0.0:
+        seed = shard_seed(site_seed(site), site.dropout_rank, q.shape[0], num_heads)
     fn = attention_ref if site.plain_ops else attention
     return fn(q, k, v, bias, num_heads=num_heads, dropout_rate=rate, seed=seed,
               return_probs=return_probs)
@@ -310,6 +335,7 @@ class SelfAttention(nn.Module):
         self.visualization = cfg.visualization
         self.plain_ops = False
         self.dropout_generator: Optional[torch.Generator] = None
+        self.dropout_rank = 0  # set_dropout_generator
         self.query = Linear(cfg, hidden_size, hidden_size)
         self.key = Linear(cfg, hidden_size, hidden_size)
         self.value = Linear(cfg, hidden_size, hidden_size)

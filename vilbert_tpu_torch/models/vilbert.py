@@ -46,6 +46,7 @@ from vilbert_tpu_torch.models.layers import (
     TextLayer,
     collect_attention_maps,
     compute_dtype,
+    embed,
     param_dtype,
     resolve_act,
 )
@@ -102,7 +103,7 @@ class TextEmbeddings(nn.Module):
         emb = (
             self.word_embeddings(input_ids.long()).float()
             + self.position_embeddings(positions).float()[None]
-            + self.token_type_embeddings(token_type_ids.long()).float()
+            + embed(self.token_type_embeddings, token_type_ids).float()
         )
         if self.cfg.task_specific_tokens:
             if task_ids is None:

@@ -16,6 +16,13 @@ intermediate leaves int64's range. Seeds are Python ints in [0, 2^32).
 ``draw_seed`` takes one uint32 seed from an explicit CPU ``torch.Generator``:
 a dropout site draws one per call, and the seed reaches the mask (or the
 kernel) as a host scalar, so no device value is read back.
+
+Data parallelism: the JAX step computes on the global batch, so its masks
+are those of the global shape. Rank r of a data-parallel run holds rows
+r * B_local ... of it, so its hidden masks start at the flat index
+``r * x.numel()`` (``offset``), and its attention tiles at
+(b + r * B_local, h), a seed shift (``shard_seed``); with both, the ranks'
+masks concatenated are the single process's on the concatenated batch.
 """
 
 from __future__ import annotations
@@ -60,24 +67,29 @@ def _murmur_mix(x: torch.Tensor) -> torch.Tensor:
 
 
 def hash_keep_mask(shape: Sequence[int], rate: float, seed: int,
-                   device=None) -> torch.Tensor:
+                   device=None, offset: int = 0) -> torch.Tensor:
     """Boolean keep mask with P(keep) = 1 - rate, bit-exact with
     ``vilbert_tpu.ops.dropout.hash_keep_mask(shape, rate, seed)``: the hash
-    of the flat element index and the seed."""
+    of the flat element index and the seed. ``offset`` starts the flat
+    index there (mod 2^32, as the JAX uint32 iota wraps): the block of a
+    larger mask whose flat indices begin at ``offset``."""
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    if offset:
+        idx = (idx + offset) & _M32
     x = _mul32(idx, _GOLDEN) ^ ((seed * _SEED_MUL) & _M32)
     return (_murmur_mix(x) >= keep_threshold(rate)).reshape(tuple(shape))
 
 
-def hash_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, rate: float, seed: int, offset: int = 0) -> torch.Tensor:
     """``vilbert_tpu.ops.dropout.hash_dropout`` for one drawn seed: kept
     elements are DIVIDED by (1 - rate) in x's dtype, dropped ones are 0.
+    ``offset``: the mask's first flat index (``hash_keep_mask``).
 
     The divisor is a tensor on x's device: a CPU scalar would make a CUDA
     division multiply by its reciprocal, which rounds differently."""
     if rate == 0.0:
         return x
-    keep = hash_keep_mask(x.shape, rate, seed, device=x.device)
+    keep = hash_keep_mask(x.shape, rate, seed, device=x.device, offset=offset)
     divisor = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / divisor, 0.0)
 
@@ -103,3 +115,10 @@ def attention_keep_mask(batch: int, num_heads: int, sq: int, sk: int, rate: floa
     bh = torch.arange(batch * num_heads, dtype=torch.int64, device=device)
     tile_seeds = (seed + bh * TILE_SEED_STRIDE) & _M32
     return tile_keep_mask(sq, sk, rate, tile_seeds).reshape(batch, num_heads, sq, sk)
+
+
+def shard_seed(seed: int, rank: int, batch: int, num_heads: int) -> int:
+    """The attention call seed of rank ``rank`` holding ``batch`` rows a
+    rank: tile (b, h) of its call then takes the seed of tile
+    (b + rank * batch, h) of the call over the global batch."""
+    return (seed + rank * batch * num_heads * TILE_SEED_STRIDE) & _M32

@@ -14,6 +14,19 @@ without a gradient (outside the loss's graph, or behind a ``detach``)
 takes a zero gradient, as in JAX, where it participates; where it does
 not, it gets no update at all.
 
+With a ``mesh`` (``parallel.mesh.DataMesh``) in a process group, each
+rank differentiates its own shard of the batch and the summed gradients
+of its microbatches are averaged over the ranks in the step, with the
+loss and the metrics, in one ``all_reduce`` a dtype
+(``parallel.distributed.all_mean_``), before the ``grad_accum`` divide,
+``loss_scale``, the norm and the update: every rank applies the same
+update and logs the global values. Not DDP: the multi-task step leaves the
+other tasks' heads without a gradient and the bf16 branch takes
+``autograd.grad``, neither of which DDP's hooks cover. A loss whose
+normalizer depends on the data (a count of masked positions) must divide
+by the global count (``train.losses``) for the average to be the loss of
+the global batch.
+
 ``grad_dtype="bfloat16"`` differentiates with respect to bf16 copies of
 every fp32 parameter (``torch.func.functional_call`` over bf16 leaves), as
 the JAX step casts its parameters before ``value_and_grad``: the forward
@@ -31,6 +44,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from vilbert_tpu_torch.parallel.distributed import all_mean_
 from vilbert_tpu_torch.train.optim import global_norm
 
 #: loss_fn(model, batch) -> (scalar loss, metrics dict)
@@ -97,10 +111,13 @@ def make_train_step(
     external_lr: bool = False,
     grad_dtype: Optional[str] = None,
     update_mask: Optional[Mapping[str, bool]] = None,
+    mesh=None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """step(model, batch[, lr]) -> metrics (``loss``, ``grad_norm`` and the
     loss function's own), updating the optimizer's parameters in place;
-    ``lr`` is required with ``external_lr`` and refused without it."""
+    ``lr`` is required with ``external_lr`` and refused without it.
+    ``mesh``: average gradients and metrics over its ranks (module
+    docstring)."""
     if grad_dtype not in (None, "", "float32", "bfloat16"):
         raise ValueError(f"grad_dtype {grad_dtype!r}")
     bf16 = grad_dtype == "bfloat16"
@@ -141,6 +158,8 @@ def make_train_step(
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                      for n, p in params.items()
                      if p.grad is not None or mask is None or mask[n]}
+        if mesh is not None and mesh.distributed:
+            all_mean_(list(grads.values()) + [loss] + list(metrics.values()))
         if grad_accum > 1:
             loss = loss / grad_accum
             metrics = {k: v / grad_accum for k, v in metrics.items()}

@@ -6,7 +6,9 @@ installed, a plain-text ``out.txt`` of JSON records, per-task train/val
 loss/score/LR, the CC pretraining 3-loss variant, running averages, and a
 state that survives a checkpoint. The trace hooks run ``torch.profiler``
 (CPU and, where there is one, CUDA activity) in place of ``jax.profiler``
-and write a Chrome trace under ``<log_dir>/profile``.
+and write a Chrome trace under ``<log_dir>/profile``. In a data-parallel
+run only rank 0 writes (``write=False`` on the others): every rank keeps the
+same running state, so a checkpoint of any rank restores it.
 """
 
 from __future__ import annotations
@@ -25,13 +27,18 @@ class MetricsLogger:
         *,
         txt_name: str = "out.txt",
         use_tensorboard: bool = True,
+        write: bool = True,
     ):
-        os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
         self.task_ids = list(task_ids)
         self.use_tensorboard = use_tensorboard
+        self.write = write
         self._tb = None
-        if use_tensorboard:
+        self._txt = None
+        if write:
+            os.makedirs(log_dir, exist_ok=True)
+            self._txt = open(os.path.join(log_dir, txt_name), "a")
+        if use_tensorboard and write:
             try:
                 from tensorboardX import SummaryWriter
 
@@ -39,7 +46,6 @@ class MetricsLogger:
             except Exception:
                 self._tb = None
         self._txt_path = os.path.join(log_dir, txt_name)
-        self._txt = open(self._txt_path, "a")
         self._profiler = None
         # running sums since the last flush, per task
         self.task_loss_tmp = {t: 0.0 for t in task_ids}
@@ -103,6 +109,8 @@ class MetricsLogger:
         return line
 
     def _write_txt(self, record: Dict[str, Any]) -> None:
+        if self._txt is None:
+            return
         self._txt.write(json.dumps(record) + "\n")
         self._txt.flush()
 
@@ -143,6 +151,7 @@ class MetricsLogger:
         self.task_step_total.update(d.get("task_step_total", {}))
 
     def close(self) -> None:
-        self._txt.close()
+        if self._txt is not None:
+            self._txt.close()
         if self._tb is not None:
             self._tb.close()

@@ -11,6 +11,16 @@ over ``bce_with_logits``, ``cross_entropy`` and ``compute_score_with_logits``
 evaluation, ``task_loss_and_score_per_sample`` /
 ``compute_score_with_logits_per_sample``, whose means are the reference's
 batch loss and score.
+
+Data parallelism (a ``mesh`` of more than one rank): the JAX loss is that
+of the global batch. The pretraining losses divide by counts of the data
+(masked positions, masked regions), which differ between ranks, so each
+rank divides its sum by the count summed over the ranks, times the world
+size: the ranks' average is then the global loss, and so are its
+gradients. NCE scores each rank's rows against the targets gathered from
+every rank, with the global batch's negatives. The task losses are means
+over equal shards and need neither. With one rank the arithmetic is the
+single process's, bit for bit.
 """
 
 from __future__ import annotations
@@ -18,6 +28,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from vilbert_tpu_torch.parallel.distributed import all_gather, global_sum
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -32,13 +44,27 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return _nll(logits, labels).mean()
 
 
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.world_size > 1
+
+
+def masked_mean(total: torch.Tensor, count: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``total / max(count, 1)`` over the batch; over a mesh of several
+    ranks, this rank's share of the global batch's mean: ``total`` times
+    the world size over the count summed over the ranks."""
+    if not _sharded(mesh):
+        return total / count.clamp_min(1)
+    return total * mesh.world_size / global_sum(count).clamp_min(1)
+
+
 def cross_entropy_ignore_index(
-    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1, mesh=None
 ) -> torch.Tensor:
-    """Mean CE over positions whose label != ignore_index (torch semantics)."""
+    """Mean CE over positions whose label != ignore_index (torch semantics);
+    over a ``mesh``, the count is the global batch's (``masked_mean``)."""
     valid = labels != ignore_index
     nll = torch.where(valid, _nll(logits, torch.where(valid, labels, 0)), 0.0)
-    return nll.sum() / valid.sum().clamp_min(1)
+    return masked_mean(nll.sum(), valid.sum(), mesh)
 
 
 def kl_div_soft_targets(log_pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -63,11 +89,14 @@ def masked_image_loss(
     gathered: bool = False,
     num_negative: int = 128,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Masked-region loss over the masked rows; row 0 (the global feature)
     is skipped unless the model already gathered K rows (``gathered``).
     Visual target 2 (NCE) draws its negatives from ``generator``, a
-    generator on the predictions' device, and takes no ``gathered``."""
+    generator on the predictions' device, and takes no ``gathered``.
+    ``mesh``: this rank's share of the global batch's loss (module
+    docstring)."""
     if gathered and visual_target == 2:
         raise ValueError("img_gather is not supported with NCE (visual_target 2), as in "
                          "the JAX package: its negatives come from every region")
@@ -79,15 +108,15 @@ def masked_image_loss(
     masked = (image_label == 1).float()
     if visual_target == 1:  # feature regression, mean over masked elements
         err = (pred - image_target.float()).square()
-        return (err * masked[..., None]).sum() / (masked.sum() * pred.shape[-1]).clamp_min(1.0)
+        return masked_mean((err * masked[..., None]).sum(), masked.sum() * pred.shape[-1], mesh)
     if visual_target == 0:  # KL vs the soft class distribution, mean over masked rows
         kl = kl_div_soft_targets(torch.log_softmax(pred, dim=-1), image_target)
-        return (kl * masked[..., None]).sum() / masked.sum().clamp_min(1.0)
+        return masked_mean((kl * masked[..., None]).sum(), masked.sum(), mesh)
     if visual_target == 2:
         if generator is None:
             raise ValueError("visual_target 2 (NCE) draws its negatives from a generator")
-        nll = _nce_nll(pred, image_target, num_negative, generator)
-        return (nll * masked).sum() / masked.sum().clamp_min(1.0)
+        nll = _nce_nll(pred, image_target, num_negative, generator, mesh)
+        return masked_mean((nll * masked).sum(), masked.sum(), mesh)
     raise ValueError(f"unknown visual_target {visual_target}")
 
 
@@ -116,10 +145,13 @@ def nce_index(b: int, r: int, num_negative: int, generator: torch.Generator,
 
 
 def _nce_nll(pred: torch.Tensor, image_target: torch.Tensor, num_negative: int,
-             generator: torch.Generator) -> torch.Tensor:
+             generator: torch.Generator, mesh=None) -> torch.Tensor:
     """[B, R] NCE loss of every region row: the predicted feature scored
     against its true feature and the negatives of ``nce_index``; the NLL of
-    the true one under the log-softmax over the 1 + N scores.
+    the true one under the log-softmax over the 1 + N scores. Over a
+    ``mesh`` of several ranks, the targets are gathered from every rank and
+    the index is the global batch's (the ranks' generators agree), of
+    which this rank keeps its own rows.
 
     The scores are one fp32 product of every prediction with every target,
     [B R, B R], from which each row's 1 + N columns are gathered: the same
@@ -128,8 +160,13 @@ def _nce_nll(pred: torch.Tensor, image_target: torch.Tensor, num_negative: int,
     9.7 GB, and autograd would keep them)."""
     target = image_target.to(pred.dtype)
     b, r, d = target.shape
-    index = nce_index(b, r, num_negative, generator, pred.device)
-    scores = pred.reshape(b * r, d) @ target.reshape(b * r, d).T
+    if _sharded(mesh):
+        target = all_gather(target)
+        index = nce_index(target.shape[0], r, num_negative, generator, pred.device)
+        index = index[mesh.rank * b:(mesh.rank + 1) * b]
+    else:
+        index = nce_index(b, r, num_negative, generator, pred.device)
+    scores = pred.reshape(b * r, d) @ target.reshape(-1, d).T
     score = scores.gather(1, index.reshape(b * r, -1)).reshape(b, r, -1)
     return -torch.log_softmax(score, dim=-1)[..., 0]
 
@@ -145,13 +182,16 @@ def pretrain_losses(
     num_negative: int = 128,
     generator: Optional[torch.Generator] = None,
     img_gathered: bool = False,
+    mesh=None,
 ) -> PretrainLosses:
+    """The three pretraining losses; over a ``mesh``, this rank's shares of
+    the global batch's (module docstring)."""
     return PretrainLosses(
-        cross_entropy_ignore_index(out.prediction_scores_t, masked_lm_labels, -1),
+        cross_entropy_ignore_index(out.prediction_scores_t, masked_lm_labels, -1, mesh),
         masked_image_loss(out.prediction_scores_v, image_label, image_target,
                           visual_target=visual_target, gathered=img_gathered,
-                          num_negative=num_negative, generator=generator),
-        cross_entropy_ignore_index(out.seq_relationship_score, next_sentence_label, -1),
+                          num_negative=num_negative, generator=generator, mesh=mesh),
+        cross_entropy_ignore_index(out.seq_relationship_score, next_sentence_label, -1, mesh),
     )
 
 

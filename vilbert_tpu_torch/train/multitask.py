@@ -1,7 +1,7 @@
 """12-in-1 multi-task training: task heads, batch reshapes and the trainer.
 
 Counterpart of ``vilbert_tpu/train/multitask.py`` (reference train_tasks.py
-+ task_utils.py) on one device:
++ task_utils.py):
 
 - ``HEAD_FOR_TYPE``, ``MC_REGION_OFFSET`` and ``process_batch`` (the
   process-mode reshapes, task_utils.py:199-310);
@@ -19,18 +19,27 @@ Counterpart of ``vilbert_tpu/train/multitask.py`` (reference train_tasks.py
 
 The model runs in train mode (dropout at every site, seeds from the
 trainer's ``torch.Generator``, see ``models.layers.set_dropout_generator``)
-and, on a CUDA device, through the port's kernels. Batches reach the device
-through ``data.prefetch`` (pinned, ``non_blocking``). ``model_family=
+and, on a CUDA device, through the port's kernels. Each task's batches are
+built and staged ``TrainConfig.prefetch_batches`` ahead on a thread of its
+own (``data.prefetch.device_prefetch``; with ``grad_accum`` the thread
+stacks the microbatches; 0 builds each between steps). ``model_family=
 "basebert"`` (or ``"baseline"``) trains the single-stream baseline
 ``BaseBertForVLTasks``, with no participation masks, as the JAX trainer
 does; it has no head for the GQA, VL-tri-classifier and NLVR2
 (VL-binary-classifier over image pairs) tasks, which the JAX trainer fails
 on at their first iteration and this one refuses at construction.
-Multi-process meshes raise ``NotImplementedError``.
+
+With a ``mesh`` (``parallel.mesh.DataMesh``) each process trains on its
+loaders' shard of every batch: rank 0's weights and state are broadcast at
+construction, the step averages the gradients over the ranks, the per-task
+evaluation sums (loss, score, rows) over them so that the stop controllers
+stay in lockstep (``vilbert_tpu/train/multitask.py:636-645``), rank 0
+writes the checkpoints and the logs.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import os
@@ -42,9 +51,15 @@ import numpy as np
 import torch
 
 from vilbert_tpu_torch.core.config import ModelConfig, OptimizerConfig, TaskConfig, TrainConfig
-from vilbert_tpu_torch.data.prefetch import compress_for_transfer, to_device, to_tensors
+from vilbert_tpu_torch.data.prefetch import (
+    compress_for_transfer,
+    device_prefetch,
+    to_device,
+    to_tensors,
+)
 from vilbert_tpu_torch.models.layers import set_dropout_generator
 from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks
+from vilbert_tpu_torch.parallel.distributed import sum_host
 from vilbert_tpu_torch.parallel.train_step import make_train_step
 from vilbert_tpu_torch.train.controllers import MultiTaskStopController
 from vilbert_tpu_torch.train.losses import task_loss_and_score, task_loss_and_score_per_sample
@@ -140,9 +155,13 @@ def _task_logits(
         # flattened) target: B for expand/retrieval, B*rounds for dialog
         logits = logits.reshape(target.shape[0], -1)
     elif task.type == "V-logit-mc":
-        # gather the option rows past the detector block
+        # the option rows past the detector block, by advanced indexing: its
+        # backward (a sorted index_put_ with accumulate) sums repeated
+        # options in a fixed order on CUDA, where gather's (scatter_add_)
+        # does not, so that a run repeats bit for bit
         mc = p["multiple_choice_ids"].long()
-        logits = logits[:, MC_REGION_OFFSET:, 0].gather(1, mc)[..., None]
+        rows = torch.arange(mc.shape[0], device=mc.device)[:, None]
+        logits = logits[:, MC_REGION_OFFSET:, 0][rows, mc][..., None]
     return logits, target
 
 
@@ -196,6 +215,24 @@ def _repeat(loader) -> Iterator:
             raise ValueError("a task loader yielded no batch")
 
 
+def _groups(it: Iterator, n: int) -> Iterator[List]:
+    """Consecutive lists of ``n`` items of an endless ``it``."""
+    while True:
+        yield [next(it) for _ in range(n)]
+
+
+def _stacked_host_batch(loader_batches: List[Dict[str, Any]], compute_dtype: str
+                        ) -> Dict[str, torch.Tensor]:
+    """Loader batches -> one host batch; more than one (gradient
+    accumulation) stacked on a leading axis. A module function: the staging
+    thread holds it, and must hold nothing of the trainer, or a trainer
+    dropped without ``close`` would live on with its thread."""
+    micro = [host_batch(b, compute_dtype) for b in loader_batches]
+    if len(micro) == 1:
+        return micro[0]
+    return {k: torch.stack([m[k] for m in micro]) for k in micro[0]}
+
+
 @dataclass
 class TaskRuntime:
     key: str
@@ -210,29 +247,36 @@ class TaskRuntime:
     compute_dtype: str = "float32"
     grad_accum: int = 1
     num_iters: int = 0
+    prefetch_batches: int = 0
     iterator: Iterator = None
 
     def next_batch(self) -> Dict[str, torch.Tensor]:
         """The next training batch on the device (the loader restarts at its
-        end). With gradient accumulation, ``grad_accum`` loader batches
-        stacked on a leading axis."""
+        end), staged ``prefetch_batches`` ahead. With gradient
+        accumulation, ``grad_accum`` loader batches stacked on a leading
+        axis."""
         if self.iterator is None:
-            self.iterator = _repeat(self.loader)
-        if self.grad_accum == 1:
-            b = host_batch(next(self.iterator), self.compute_dtype)
-        else:
-            micro = [host_batch(next(self.iterator), self.compute_dtype)
-                     for _ in range(self.grad_accum)]
-            b = {k: torch.stack([m[k] for m in micro]) for k in micro[0]}
-        return to_device(b, self.device)
+            self.iterator = device_prefetch(
+                _groups(_repeat(self.loader), self.grad_accum), size=self.prefetch_batches,
+                device=self.device,
+                transform=functools.partial(_stacked_host_batch,
+                                            compute_dtype=self.compute_dtype))
+        return next(self.iterator)
+
+    def close(self) -> None:
+        """Stop the staging thread; the next batch starts a new one."""
+        if self.iterator is not None:
+            self.iterator.close()
+            self.iterator = None
 
 
 class MultiTaskTrainer:
-    """Round-robin multi-task driver (reference train_tasks.py:510-610) on
-    one device. ``model`` is built from ``seed`` unless ``init_model`` is
-    given; ``from_pretrained`` then loads a local ``.npz`` (the hits whose
-    shapes match: a pretraining checkpoint leaves the task heads at init) or
-    a reference ``.bin``."""
+    """Round-robin multi-task driver (reference train_tasks.py:510-610).
+    ``model`` is built from ``seed`` unless ``init_model`` is given;
+    ``from_pretrained`` then loads a local ``.npz`` (the hits whose shapes
+    match: a pretraining checkpoint leaves the task heads at init) or a
+    reference ``.bin``. ``mesh``: data parallelism over its ranks (module
+    docstring), on the mesh's device."""
 
     def __init__(
         self,
@@ -254,7 +298,9 @@ class MultiTaskTrainer:
         device="cuda",
     ):
         if mesh is not None:
-            raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A12)")
+            mesh.check_config(model_cfg)
+            device = mesh.device
+        self.mesh = mesh
         if model_family not in ("vilbert", "basebert", "baseline"):
             raise ValueError(f"unknown model_family {model_family!r}")
         self.model_cfg = model_cfg
@@ -307,7 +353,8 @@ class MultiTaskTrainer:
         if from_pretrained:
             load_pretrained(model, from_pretrained)
         self.model = model.to(self.device)
-        set_dropout_generator(self.model, self.generator)
+        set_dropout_generator(self.model, self.generator,
+                              rank=mesh.rank if mesh is not None else 0)
         params = dict(self.model.named_parameters())
 
         # the schedule is a function of ITERATIONS: the LR advances once per
@@ -334,12 +381,15 @@ class MultiTaskTrainer:
                     make_task_loss_fn(model_cfg, tcfg), self.optimizer,
                     loss_scale=self.loss_scales[key], external_lr=True,
                     grad_accum=self.grad_accum, grad_dtype=self.train_cfg.grad_dtype or None,
-                    update_mask=mask,
+                    update_mask=mask, mesh=mesh,
                 ),
                 eval_fn=make_task_eval_fn(model_cfg, tcfg),
                 device=self.device, compute_dtype=model_cfg.compute_dtype,
                 grad_accum=self.grad_accum, num_iters=len(loaders[key]),
+                prefetch_batches=self.train_cfg.prefetch_batches,
             )
+        if mesh is not None:
+            mesh.replicate(self.model, self.optimizer)
         self.controller = MultiTaskStopController(
             list(tasks), train_iter_gap=self.train_cfg.train_iter_gap)
         self.global_step = 0
@@ -353,14 +403,20 @@ class MultiTaskTrainer:
     def attach_logger(self, log_dir: str):
         from vilbert_tpu_torch.train.logger import MetricsLogger
 
-        self.metrics_logger = MetricsLogger(log_dir, list(self.tasks))
+        self.metrics_logger = MetricsLogger(
+            log_dir, list(self.tasks), write=self.mesh is None or self.mesh.is_primary)
         return self.metrics_logger
+
+    def close(self) -> None:
+        """Stop the tasks' staging threads."""
+        for task in self.tasks.values():
+            task.close()
 
     def _ckpt_manager(self):
         if self._ckpt is None:
             from vilbert_tpu_torch.core.checkpoint import CheckpointManager
 
-            self._ckpt = CheckpointManager(self.train_cfg.checkpoint_dir)
+            self._ckpt = CheckpointManager(self.train_cfg.checkpoint_dir, mesh=self.mesh)
         return self._ckpt
 
     def _state(self) -> Dict[str, Any]:
@@ -392,7 +448,7 @@ class MultiTaskTrainer:
         Returns the step restored."""
         from vilbert_tpu_torch.core.checkpoint import CheckpointManager
 
-        mngr = CheckpointManager(directory) if directory else self._ckpt_manager()
+        mngr = CheckpointManager(directory, mesh=self.mesh) if directory else self._ckpt_manager()
         saved, host, step = mngr.restore(self._state(), step=step)
         self.model.load_state_dict(saved["params"])
         self.optimizer.load_state_dict(saved["optimizer"])
@@ -477,6 +533,10 @@ class MultiTaskTrainer:
             tot_loss += float(loss_v[:valid].sum())
             tot_score += float(score_v[:valid].sum())
             n_rows += valid
+        if self.mesh is not None and self.mesh.distributed:
+            # every rank must see the same score, or the stop controllers
+            # (and the round-robin schedule) diverge across the ranks
+            tot_loss, tot_score, n_rows = sum_host([tot_loss, tot_score, n_rows])
         result = {"loss": tot_loss / max(n_rows, 1), "score": tot_score / max(n_rows, 1)}
         self._last_val_scores[key] = result["score"]
         self.controller.step(key, result["score"])

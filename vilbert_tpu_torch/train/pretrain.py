@@ -1,6 +1,6 @@
 """Conceptual Captions pretraining: the loss function and the driver.
 
-Counterpart of ``vilbert_tpu/train/pretrain.py`` on one device:
+Counterpart of ``vilbert_tpu/train/pretrain.py``:
 ``make_pretrain_loss_fn`` (the LM / region gathers and the objective
 handling), ``evaluate_pretraining`` (the three raw losses, no dropout) and
 ``run_pretraining`` (forward, three losses, backward, ``reference_adamw``
@@ -19,6 +19,21 @@ it per batch from a generator of its own ``seed``. The JAX package's
 threefry stream cannot be reproduced, so a run matches the JAX trajectory
 only with dropout off and visual targets 0 and 1.
 
+``run_pretraining`` can stage batches ``prefetch_batches`` ahead of the
+step on a thread (``data.prefetch.device_prefetch``; the JAX driver stages
+2); the thread touches only the loader, so the dropout and NCE streams,
+drawn on the main thread, are the same at every depth. The default is 0,
+each batch built between steps: on an H100 the CC loader's thread holds
+the GIL that the step's launches need, and depth 2 measured no faster
+than depth 0 (PERF.md, PR 12). With a ``mesh``
+(``parallel.mesh.DataMesh``), each process trains on its shard of every
+batch, the ranks' batches concatenated in rank order being the global
+batch: rank 0's weights are broadcast first, the masks are the rows' of
+the global batch's (``set_dropout_generator(rank=)``), the losses divide by
+the global counts (``train.losses``), the step averages the gradients,
+and the validation pass averages over the ranks; ``in_batch_pairs``
+raises there (ROADMAP A12b).
+
 ``run_pretraining(resume_dir=...)`` restores a full-state checkpoint
 (``core.checkpoint``: parameters, optimizer state, step) and runs from its
 step. As in the JAX package, the dropout stream and the loader start again
@@ -29,6 +44,7 @@ same batch with dropout off.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 import time
@@ -39,10 +55,12 @@ import torch
 from vilbert_tpu_torch.core.config import ModelConfig, OptimizerConfig
 from vilbert_tpu_torch.data.prefetch import (
     compress_for_transfer,
+    device_prefetch,
     repeat_iterator,
     to_device,
     to_tensors,
 )
+from vilbert_tpu_torch.parallel.distributed import sum_host
 from vilbert_tpu_torch.models.layers import set_dropout_generator
 from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
 from vilbert_tpu_torch.ops.dropout import draw_seed
@@ -73,6 +91,7 @@ def make_pretrain_loss_fn(
     img_gather: int = 0,
     apply_objective: bool = True,
     nce_generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> Callable:
     """loss_fn(model, batch) -> (loss, metrics) for ``make_train_step``.
 
@@ -85,7 +104,8 @@ def make_pretrain_loss_fn(
     full projection). The model runs in train mode unless ``deterministic``.
     With visual target 2, each call draws one seed from the CPU
     ``nce_generator`` for the generator on the batch's device that draws
-    its negatives.
+    its negatives. ``mesh``: the losses are this rank's shares of the
+    global batch's (``train.losses``).
     """
     if cfg.visual_target == 2 and nce_generator is None:
         raise ValueError("visual_target 2 (NCE) draws its negatives from nce_generator")
@@ -126,7 +146,7 @@ def make_pretrain_loss_fn(
         losses = pretrain_losses(
             out, lm_labels, image_label, image_target, batch["is_next"],
             visual_target=cfg.visual_target, num_negative=cfg.num_negative,
-            generator=generator, img_gathered=use_img_gather,
+            generator=generator, img_gathered=use_img_gather, mesh=mesh,
         )
         nsp = losses.next_sentence_loss
         if apply_objective and cfg.objective == 2:
@@ -181,15 +201,18 @@ def evaluate_pretraining(
     img_gather: int = 0,
     device="cuda",
     seed: int = 0,
+    mesh=None,
 ) -> Dict[str, float]:
     """The validation pass: mean {"loss", "masked_loss_t", "masked_loss_v",
     "next_sentence_loss"} over the batches, without dropout and without the
     objective transforms (reference train_concap.py:608-654). NCE draws
-    each batch's negatives from a fixed per-batch seed of ``seed``."""
+    each batch's negatives from a fixed per-batch seed of ``seed``. With a
+    ``mesh``, each rank reads its shard of every batch, and the means are
+    the global batches', the same on every rank."""
     loss_fn = make_pretrain_loss_fn(
         model_cfg, img_weight=img_weight, deterministic=True, lm_gather=lm_gather,
         img_gather=img_gather, apply_objective=False,
-        nce_generator=torch.Generator().manual_seed(seed),
+        nce_generator=torch.Generator().manual_seed(seed), mesh=mesh,
     )
     was_training = model.training
     totals: Dict[str, float] = {}
@@ -200,6 +223,13 @@ def evaluate_pretraining(
             totals[k] = totals.get(k, 0.0) + float(v)
         n += 1
     model.train(was_training)
+    if mesh is not None and mesh.distributed:
+        # each rank's losses are its shares of the global batch's: their
+        # mean over the ranks is the global loss
+        names = sorted(totals)
+        summed = sum_host([totals[k] for k in names] + [n])
+        totals = {k: float(v) / mesh.world_size for k, v in zip(names, summed)}
+        n = int(summed[-1]) // mesh.world_size
     return {k: v / max(n, 1) for k, v in totals.items()}
 
 
@@ -225,9 +255,11 @@ def run_pretraining(
     resume_dir: str = "",
     start_step: int = -1,
     grad_dtype: str = "",
+    prefetch_batches: int = 0,
+    mesh=None,
 ) -> TrainState:
-    """The pretraining driver (``vilbert_tpu.train.pretrain.run_pretraining``)
-    on one device. The model is ``model`` if given, else ``model_family``'s
+    """The pretraining driver (``vilbert_tpu.train.pretrain.run_pretraining``).
+    The model is ``model`` if given, else ``model_family``'s
     (``pretrain_model``) drawn from ``seed``; ``freeze_prefix`` and the
     learning-rate labels read the flax paths of the model's family.
     With ``val_loader``, a validation pass runs every ``val_every`` steps
@@ -239,12 +271,19 @@ def run_pretraining(
     from its step (``start_step`` >= 0 overrides it); the loader and the
     dropout stream start again from ``seed`` (module docstring).
     ``grad_dtype="bfloat16"`` takes the gradients in bf16
-    (``parallel.train_step``)."""
+    (``parallel.train_step``). ``prefetch_batches``: the depth of the
+    staging thread (0, the default: each batch built and copied between
+    steps; module docstring).
+    ``mesh``: data parallelism over its ranks (module docstring), on the
+    mesh's device."""
+    if mesh is not None:
+        mesh.check_config(model_cfg)
+        device = mesh.device
     generator = torch.Generator().manual_seed(seed)
     if model is None:
         model = pretrain_model(model_cfg, model_family, generator=generator)
     model = model.to(device)
-    set_dropout_generator(model, generator)
+    set_dropout_generator(model, generator, rank=mesh.rank if mesh is not None else 0)
 
     # step_offset=1: the reference steps the LR scheduler BEFORE the
     # optimizer (train_concap.py:583-586), so update k trains at lambda(k)
@@ -253,9 +292,9 @@ def run_pretraining(
                                     family=model.family)
     loss_fn = make_pretrain_loss_fn(model_cfg, img_weight=img_weight,
                                     lm_gather=lm_gather, img_gather=img_gather,
-                                    nce_generator=generator)
+                                    nce_generator=generator, mesh=mesh)
     step_fn = make_train_step(loss_fn, opt, grad_accum=grad_accum,
-                              grad_dtype=grad_dtype or None)
+                              grad_dtype=grad_dtype or None, mesh=mesh)
     state = TrainState(0, model, opt)
     first_step = 0
     if resume_dir:
@@ -265,20 +304,28 @@ def run_pretraining(
         state = load_train_state(state, saved)
         first_step = start_step if start_step >= 0 else ckpt_step
         logger.info("resumed from %s at step %d", resume_dir, first_step)
+    if mesh is not None:
+        mesh.replicate(model, opt)
 
     def run_validation(step: int) -> None:
         metrics = evaluate_pretraining(model_cfg, model, val_loader, img_weight=img_weight,
                                        lm_gather=lm_gather, img_gather=img_gather,
-                                       device=device, seed=seed)
+                                       device=device, seed=seed, mesh=mesh)
         nan = float("nan")
         logger.info("validation @ step %d: loss %.4f (t %.4f v %.4f nsp %.4f)", step,
                     metrics.get("loss", nan), metrics.get("masked_loss_t", nan),
                     metrics.get("masked_loss_v", nan), metrics.get("next_sentence_loss", nan))
 
     batches = repeat_iterator(lambda: iter(train_loader))
+    # the first batch is taken here, before the thread starts (an empty
+    # loader raises at once), as the JAX driver peeks it
+    first = next(batches)
+    stream = device_prefetch(
+        itertools.chain([first], batches), size=prefetch_batches, device=device,
+        transform=lambda b: host_batch(b, model_cfg, grad_accum))
     t0 = time.perf_counter()
     for step in range(first_step, num_steps):
-        batch = to_device(host_batch(next(batches), model_cfg, grad_accum), device)
+        batch = next(stream)
         metrics = step_fn(model, batch)
         state = TrainState(step + 1, model, opt)
         if log_every and (step + 1) % log_every == 0:
@@ -296,6 +343,7 @@ def run_pretraining(
         if val_loader is not None and val_every and (step + 1) % val_every == 0:
             run_validation(step + 1)
             t0 = time.perf_counter()
+    stream.close()
     if val_loader is not None and (not val_every or num_steps % val_every != 0):
         run_validation(num_steps)
     return state
