@@ -19,7 +19,9 @@ options: int8 inference (``--int8``, static calibration), the attention
 maps (``visualization``, K1 writing its probabilities) and ``--remat``;
 then the last modules: batches staged ahead of the step at depths 0 and 2,
 data parallelism (NCCL at world size 1; two ranks over gloo on the card),
-the native VFR reader and the TF checkpoint import.
+the native VFR reader and the TF checkpoint import; then the model axis
+(a 2 x 2 mesh of four processes, the update sharded) and in_batch_pairs
+across two data ranks.
 
 1. device: the card's name and power limit; TF32 off for fp32 comparisons;
 2. build: nvcc for sm_90a, one process per source, timed;
@@ -212,7 +214,7 @@ the native VFR reader and the TF checkpoint import.
    ``train_tasks.train`` with ``--coordinator`` over NCCL at world size 1,
    every loss bit-equal to the runs without a process group (phase 8's for
    the trainer); (b) two ranks in two processes (``--dp_worker``) over
-   gloo on CUDA tensors, 3 CC steps at B_local=128 a leg against one
+   gloo on CUDA tensors, 2 CC steps at B_local=128 a leg against one
    process on B=256 run meanwhile: fp32 metrics within 1e-5 and the first
    step's gradients within phase 6's bounds; fp32 compute with bf16
    gradients all-reduced in bf16, the first step's gradients within phase
@@ -222,7 +224,22 @@ the native VFR reader and the TF checkpoint import.
    ``VrfFeatureStore`` (64 images x 101 regions), time per image;
 25. the TF import of synthetic variables for every text-stream parameter
    of the full-width model against a plain name mapping;
-   ``load_tf_checkpoint`` reported skipped without tensorflow.
+   ``load_tf_checkpoint`` reported skipped without tensorflow;
+26. the model axis (``--rank_worker``s started by it, gloo on CUDA
+   tensors, one process on the global batch run meanwhile): (a) a 2 x 2
+   (data, model) mesh of four processes, 2 full-width CC steps at B=64
+   with dropout 0.1, the update sharded by ``param_sharding_rules``: fp32
+   losses within 1e-5, the first step's gradients within phase 6's bound,
+   the parameters within 1e-5 of each tensor's max plus 5% of lr x steps
+   (elements beyond 1e-5 counted), rank 0's sharded update bit-equal to a
+   replicated optimizer's on the same gradients;
+   bf16 losses within ``bf16_bound`` and K1, K2, K4 launched as the config
+   says; each rank's moments its share of the elements (bytes printed
+   beside the replicated state's), the ranks' parameters bit-equal
+   (sha256); (b) ``in_batch_pairs`` over two data ranks, the fp32 encoder
+   forward and backward at 8 texts and images a rank (256 pairs): each
+   rank's 128 rows within 1e-4 of one process's, the averaged gradients
+   within 1e-4 of each max.
 
 Times: a kernel's ``ms`` (and its plain version's, the library call's,
 another variant's) is device time, calls run back to back behind a
@@ -3862,7 +3879,7 @@ def phase_remat(checks: Checks, tmp: str, card: str) -> dict:
 
 PREFETCH_WINDOW = (2, 7)    # CC driver: untraced from step 2's hook to step 7's
 PREFETCH_PROFILED = 2       # CC driver steps profiled after the window
-DP_STEPS = 3                # full-width CC steps of the two-rank check
+DP_STEPS = 2                # full-width CC steps of the two-rank check
 DP_WORLD = 2
 #: the two-rank check's runs: label -> (compute dtype, gradient dtype)
 DP_LEGS = {"float32": ("float32", ""), "bf16_grads": ("float32", "bfloat16"),
@@ -4214,7 +4231,7 @@ def dp_worker(rank: int, port: int, out_dir: str) -> int:
     _build.load_library()
     device = initialize_distributed(f"localhost:{port}", DP_WORLD, rank, device=DEVICE,
                                     backend="gloo")
-    mesh = make_mesh(device)
+    mesh = make_mesh(device=device)
     local = TRAIN_BATCH // DP_WORLD
     result = dp_runs(mesh, slice(rank * local, (rank + 1) * local))
     grads = result.pop("grads")
@@ -4236,7 +4253,7 @@ def grad_ratio(got: dict, want: dict, bound) -> dict:
 
 def phase_two_ranks(checks: Checks, tmp: str, card: str) -> dict:
     """(23b) Two ranks in two processes on the one card over gloo (CUDA
-    tensors), 3 full-width CC steps at B_local=128 with dropout 0.1 a leg,
+    tensors), 2 full-width CC steps at B_local=128 with dropout 0.1 a leg,
     against one process on the concatenated B=256 batches, run meanwhile in
     this process: fp32 (every step's metrics within 1e-5, the first step's
     gradients within phase 6's bound), fp32 compute with bf16 gradients,
@@ -4325,6 +4342,388 @@ def phase_two_ranks(checks: Checks, tmp: str, card: str) -> dict:
                                               f"== {DP_STEPS} x {n}")
     checks.end_phase("two ranks")
     return {"launches": {"cc_train_two_ranks_rank0": ranks[0]["bfloat16"]["launches"]}}
+
+
+# -- phase 26: the model axis and in_batch_pairs across ranks ----------------
+
+GRID_SHAPE = (2, 2)         # (data, model) of phase 26a's four processes
+GRID_BATCH = 64             # global rows of a step: 32 a data row
+GRID_STEPS = 2
+GRID_LEGS = ("float32", "bfloat16")
+PAIRS_RANKS = 2
+PAIRS_LOCAL = 8             # texts and images a rank: 8 x 16 of the 256 pairs
+
+
+def optimizer_lr() -> float:
+    """The CC CLI's learning rate, which phases 23b and 26 train at."""
+    from vilbert_tpu_torch.cli.train_concap import build_parser
+
+    return build_parser().parse_args(["--synthetic", "--config", CONFIG]).learning_rate
+
+
+def digest(tensors) -> str:
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for v in tensors:
+        h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def grid_runs(mesh, rows, out_dir: str = "") -> dict:
+    """Phase 26a's runs on this process's ``rows`` of each global batch
+    (B=64): ``GRID_STEPS`` full-width CC steps with dropout 0.1 a leg (fp32,
+    bf16 compute), the update sharded over ``mesh``'s model axis by
+    ``param_sharding_rules`` at its default 2^20 (``mesh`` None: one
+    process, replicated). Per leg: the metrics, a digest of the parameters,
+    the launches, the moments' elements and bytes. The fp32 leg of rank 0
+    also feeds the optimizer's gradients to a replicated twin optimizer and
+    holds the sharded update to the twin's, bit for bit, every step; it
+    writes the first step's gradients and the final parameters into
+    ``out_dir`` (the one process returns them)."""
+    import torch
+
+    from vilbert_tpu_torch.cli.train_concap import build_parser, optimizer_config
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.data.prefetch import to_device
+    from vilbert_tpu_torch.models.layers import set_dropout_generator
+    from vilbert_tpu_torch.parallel.mesh import param_sharding_rules
+    from vilbert_tpu_torch.parallel.train_step import make_train_step
+    from vilbert_tpu_torch.train.optim import build_optimizer
+    from vilbert_tpu_torch.train.pretrain import host_batch, make_pretrain_loss_fn, pretrain_model
+
+    opt_cfg = optimizer_config(build_parser().parse_args(["--synthetic", "--config", CONFIG]),
+                               schedule="constant")
+    primary = mesh is None or mesh.is_primary
+    out = {}
+    for leg in GRID_LEGS:
+        cfg = ModelConfig.from_json_file(CONFIG).replace(compute_dtype=leg)
+        generator = torch.Generator().manual_seed(SEED)
+        model = pretrain_model(cfg, generator=generator).to(DEVICE)
+        set_dropout_generator(model, generator, rank=mesh.data_rank if mesh else 0)
+        params = dict(model.named_parameters())
+        opt, _ = build_optimizer(opt_cfg, params, GRID_STEPS, step_offset=1)
+        if mesh is not None:
+            mesh.replicate(model)  # the optimizer's state is zeros on every rank
+        twin, grads, twin_equal = None, [], []
+        if leg == "float32" and mesh is not None and primary:
+            twin, _ = build_optimizer(opt_cfg, {n: p.detach().clone() for n, p in params.items()},
+                                      GRID_STEPS, step_offset=1)
+        sharded_step = opt.step
+
+        def recording_step(g, **kw):
+            if leg == "float32" and not grads:
+                grads.append({k: v.detach().float().cpu() for k, v in g.items()})
+            if twin is not None:
+                twin.step(g, **kw)
+            return sharded_step(g, **kw)
+
+        opt.step = recording_step
+        step_fn = make_train_step(
+            make_pretrain_loss_fn(cfg, lm_gather=LM_GATHER, mesh=mesh), opt, mesh=mesh,
+            shard_rules=param_sharding_rules(model, mesh) if mesh is not None else None)
+        batches = [{k: v[rows] for k, v in bench_batch(cfg, GRID_BATCH, SEED + 80 + s).items()}
+                   for s in range(GRID_STEPS)]
+        metrics = []
+        reset_launches()
+        for b in batches:
+            metrics.append({k: float(v) for k, v in step_fn(model, to_device(
+                host_batch(b, cfg), DEVICE)).items()})
+            if twin is not None:
+                twin_equal.append(all(torch.equal(twin.params[n], p) for n, p in params.items()))
+        torch.cuda.synchronize()
+        moments = list(opt.state.mu.values()) + list(opt.state.nu.values())
+        out[leg] = {"metrics": metrics, "params_sha256": digest(params.values()),
+                    "launches": read_launches(), "twin_equal": twin_equal,
+                    "moment_elements": sum(m.numel() for m in moments),
+                    "moment_bytes": sum(m.numel() * m.element_size() for m in moments),
+                    "shards": len(getattr(opt, "shards", {})),
+                    "share_elements": 2 * sum(
+                        p.numel() // (mesh.model_size if n in getattr(opt, "shards", {}) else 1)
+                        for n, p in params.items())}
+        if leg == "float32" and primary:
+            final = {n: p.detach().cpu() for n, p in params.items()}
+            if mesh is None:
+                out["grads"], out["params"] = grads[0], final
+            else:
+                torch.save({"grads": grads[0], "params": final},
+                           os.path.join(out_dir, "grid_rank0.pt"))
+        del model, params, opt, twin, step_fn
+        torch.cuda.empty_cache()
+    return out
+
+
+def pairs_run(mesh, out_dir: str = "") -> dict:
+    """Phase 26b on this process: the full-width encoder (``BertModel``,
+    fp32, eval) under ``in_batch_pairs`` over 16 texts and 16 images (seed
+    0), of which a rank of ``mesh`` takes its 8 texts and 8 images, forward
+    and backward: the loss is the mean over its pair rows of the outputs'
+    products with seeded cotangents of the 256 global rows, the gradients
+    are averaged over the ranks. Returns the launches, and the outputs and
+    gradients (a rank writes them into ``out_dir``)."""
+    import torch
+
+    from vilbert_tpu_torch.core.config import ModelConfig
+    from vilbert_tpu_torch.models.vilbert import set_pair_mesh
+    from vilbert_tpu_torch.parallel.distributed import all_mean_
+    from vilbert_tpu_torch.train.pretrain import pretrain_model
+
+    cfg = ModelConfig.from_json_file(CONFIG).replace(compute_dtype="float32",
+                                                     in_batch_pairs=True)
+    model = set_pair_mesh(pretrain_model(cfg, generator=torch.Generator().manual_seed(SEED))
+                          .bert.to(DEVICE).eval(), mesh)
+    b = PAIRS_RANKS * PAIRS_LOCAL
+    rows = slice(mesh.data_rank * PAIRS_LOCAL, (mesh.data_rank + 1) * PAIRS_LOCAL) if mesh \
+        else slice(None)
+    batch = {k: torch.from_numpy(v[rows]).to(DEVICE) for k, v in bench_batch(cfg, b, SEED).items()}
+    reset_launches()
+    out = model(batch["input_ids"], batch["image_feat"], batch["image_loc"],
+                batch["segment_ids"], batch["input_mask"], batch["image_mask"])[:4]
+    n = out[0].shape[0]
+    first = mesh.data_rank * n if mesh else 0
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    loss = sum((o * torch.randn((b * b,) + o.shape[1:], generator=g, device=DEVICE)[
+        first:first + n]).sum() for o in out) / n
+    loss.backward()
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in model.named_parameters()}
+    if mesh is not None:
+        all_mean_(list(grads.values()), group=mesh.data_group)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    result = {"outputs": [o.detach().cpu() for o in out], "rows": n}
+    if mesh is None or mesh.data_rank == 0:
+        result["grads"] = {k: v.cpu() for k, v in grads.items()}
+    if mesh is not None:
+        torch.save(result, os.path.join(out_dir, f"pairs_rank{mesh.data_rank}.pt"))
+        return {"launches": launches, "rows": n}
+    return {"launches": launches, **result}
+
+
+def rank_worker(kind: str, rank: int, port: int, out_dir: str) -> int:
+    """A rank of phase 26, in its own process: gloo over CUDA tensors (the
+    ranks share the one card, which NCCL refuses). "grid": rank r of the
+    2 x 2 mesh at (r // 2, r % 2), rows d * 32 ... of each global batch;
+    "pairs": rank r of two data ranks."""
+    import torch
+
+    from vilbert_tpu_torch.ops import _build
+    from vilbert_tpu_torch.parallel.distributed import initialize_distributed, shutdown_distributed
+    from vilbert_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    world = math.prod(GRID_SHAPE) if kind == "grid" else PAIRS_RANKS
+    device = initialize_distributed(f"localhost:{port}", world, rank, device=DEVICE,
+                                    backend="gloo")
+    if kind == "grid":
+        mesh = make_mesh(GRID_SHAPE, ("data", "model"), device=device)
+        local = GRID_BATCH // mesh.data_size
+        result = grid_runs(mesh, slice(mesh.data_rank * local, (mesh.data_rank + 1) * local),
+                           out_dir)
+    else:
+        mesh = make_mesh(device=device)
+        result = pairs_run(mesh, out_dir)
+    result["mesh"] = [mesh.data_rank, mesh.model_rank]
+    with open(os.path.join(out_dir, f"{kind}{rank}.json"), "w") as f:
+        json.dump(result, f)
+    shutdown_distributed()
+    return 0
+
+
+def start_ranks(kind: str, n: int, out_dir: str) -> list:
+    port = free_port()
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank_worker", kind,
+                              str(rank), str(port), out_dir],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(n)]
+
+
+def join_ranks(checks: Checks, kind: str, procs: list, out_dir: str) -> list:
+    """Wait for the ranks; a rank that failed fails the phase. Their
+    results, by rank."""
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        checks.expect(proc.returncode == 0, f"{kind} rank {rank} exited {proc.returncode}")
+        if proc.returncode != 0:
+            log(text[-4000:])
+    checks.end_phase(f"{kind} ranks (processes)")
+    results = []
+    for rank in range(len(procs)):
+        with open(os.path.join(out_dir, f"{kind}{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_model_axis(checks: Checks, tmp: str, card: str) -> dict:
+    """(26) The model axis and in_batch_pairs across ranks, as processes on
+    the one card over gloo (CUDA tensors), each against one process run
+    meanwhile in this process.
+
+    (a) A 2 x 2 (data, model) mesh of four processes, ``GRID_STEPS``
+    full-width CC steps at B=64 (32 a data row), dropout 0.1, the update
+    sharded over "model" by ``param_sharding_rules``. fp32: every step's
+    losses within 1e-5 of one process on B=64, the first step's averaged
+    gradients within phase 6's bound, the parameters after the steps
+    within 1e-5 of each tensor's max plus 5% of lr x steps (Adam's step of
+    an element whose gradient is near eps follows its last bits: the
+    attention key biases, whose gradient is rounding noise, and elements
+    whose gradient cancels), those beyond 1e-5 alone counted; rank 0's
+    sharded update bit-equal to a replicated optimizer's update of the same
+    gradients, every step.
+    bf16: every loss within phase 3's bf16 bound of one process's, K1, K2
+    and K4 launched as ``kernel_calls_per_step`` says. On every rank the
+    moments hold exactly its share of the elements (printed as bytes beside
+    the replicated state's); the ranks of a model group, and here all four,
+    end with bit-equal parameters.
+
+    (b) ``in_batch_pairs`` over two data ranks: the fp32 encoder at 8 texts
+    and 8 images a rank (the global batch's 256 pairs), forward and
+    backward: each rank's 128 pair rows within 1e-4 of its rows of one
+    process's output on the 16, the averaged gradients within 1e-4 of each
+    max of the one process's gradients, plus phase 6's floor of 1e-6 of the
+    largest (the key biases' gradients are rounding noise)."""
+    import torch
+
+    from vilbert_tpu_torch.core.config import ModelConfig
+
+    out_dir = os.path.join(tmp, "model_axis")
+    os.makedirs(out_dir)
+    t0 = time.time()
+    procs = start_ranks("grid", math.prod(GRID_SHAPE), out_dir)
+    try:
+        ref = grid_runs(None, slice(None))
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+        raise
+    ranks = join_ranks(checks, "grid", procs, out_dir)
+    grid_s = time.time() - t0
+    torch.cuda.empty_cache()
+    for leg in GRID_LEGS:
+        log(f"  (a) {leg}: " + ", ".join(
+            f"rank {r} {[round(m['loss'], 6) for m in res[leg]['metrics']]}"
+            for r, res in enumerate(ranks))
+            + f", one process {[round(m['loss'], 6) for m in ref[leg]['metrics']]}")
+    replicated = ref["float32"]["moment_bytes"]
+    log(f"  (a) moment bytes a rank (fp32 mu + nu): "
+        f"{[res['float32']['moment_bytes'] for res in ranks]} against {replicated} replicated "
+        f"({replicated / 1e9:.3f} GB); {ranks[0]['float32']['shards']} sharded parameters "
+        f"[{card}]")
+    checks.expect([res["mesh"] for res in ranks] == [[0, 0], [0, 1], [1, 0], [1, 1]],
+                  f"rank r at (r // 2, r % 2): {[res['mesh'] for res in ranks]}")
+    for leg in GRID_LEGS:
+        shas = {res[leg]["params_sha256"] for res in ranks}
+        checks.expect(len(shas) == 1 and all(res[leg]["metrics"] == ranks[0][leg]["metrics"]
+                                             for res in ranks),
+                      f"{leg}: the four ranks' metrics and parameters (sha256) bit-equal "
+                      f"after {GRID_STEPS} steps")
+        checks.expect(all(res[leg]["moment_elements"] == res[leg]["share_elements"]
+                          < ref[leg]["moment_elements"] for res in ranks),
+                      f"{leg}: every rank's moments hold its share "
+                      f"({[res[leg]['moment_elements'] for res in ranks]} elements, "
+                      f"{ref[leg]['moment_elements']} replicated)")
+    checks.expect(ranks[0]["float32"]["twin_equal"] == [True] * GRID_STEPS,
+                  f"fp32: rank 0's sharded update bit-equal to a replicated optimizer's on the "
+                  f"same gradients, every step ({ranks[0]['float32']['twin_equal']})")
+    worst = max(abs(g[k] - w[k]) / abs(w[k])
+                for g, w in zip(ranks[0]["float32"]["metrics"], ref["float32"]["metrics"])
+                for k in ("loss", "masked_loss_t", "masked_loss_v", "next_sentence_loss"))
+    checks.expect(len(ranks[0]["float32"]["metrics"]) == GRID_STEPS and worst <= 1e-5,
+                  f"fp32: every step's losses within 1e-5 of one process on B={GRID_BATCH} "
+                  f"(worst rel {worst:.3e})")
+    saved = torch.load(os.path.join(out_dir, "grid_rank0.pt"))
+    ratio = grad_ratio(saved["grads"], ref["grads"], lambda w: 1e-3 * float(w.abs().max()))
+    log("  (a) fp32 first-step gradients, the five furthest from one process's (at phase 6's "
+        "bound): " + ", ".join(f"{n} {ratio[n]:.3e}" for n in sorted(ratio, key=ratio.get)[-5:]))
+    checks.expect(max(ratio.values()) <= 1.0, f"fp32: the first step's averaged gradients within "
+                                              f"phase 6's bound (worst {max(ratio.values()):.3e})")
+    # Adam moves an element by lr * m / (sqrt(v) + eps), eps 1e-8: where the
+    # gradient is near eps (the attention key biases, whose gradient is
+    # rounding noise; any element whose gradient cancels) the step follows
+    # the gradient's last bits. So every element is held to 1e-5 of its
+    # tensor's max plus 5% of lr x steps, and those beyond 1e-5 alone are
+    # counted
+    slack = 0.05 * optimizer_lr() * GRID_STEPS
+    beyond, worst, ratio = 0, 0.0, {}
+    for n, w in ref["params"].items():
+        err = (saved["params"][n] - w).abs()
+        strict = 1e-5 * float(w.abs().max())
+        beyond += int((err > strict).sum())
+        ratio[n] = float(err.max()) / (strict + slack)
+        worst = max(worst, float((err - strict).max()) / slack)
+    elements = sum(w.numel() for w in ref["params"].values())
+    log(f"  (a) fp32 parameters after the steps: {beyond} of {elements} elements beyond 1e-5 of "
+        f"their tensor's max of one process's; beyond it by at most {worst:.3e} of 5% of lr x "
+        "steps; the five tensors furthest: " + ", ".join(
+            f"{n} {ratio[n]:.3e}" for n in sorted(ratio, key=ratio.get)[-5:]))
+    checks.expect(max(ratio.values()) <= 1.0,
+                  f"fp32: every parameter after {GRID_STEPS} steps within 1e-5 of its tensor's max "
+                  f"plus 5% of lr x steps of one process's (worst {max(ratio.values()):.3e})")
+    ok = all(abs(g["loss"] - w["loss"]) <= bf16_bound(torch.tensor(w["loss"]))
+             for g, w in zip(ranks[0]["bfloat16"]["metrics"], ref["bfloat16"]["metrics"]))
+    checks.expect(len(ranks[0]["bfloat16"]["metrics"]) == GRID_STEPS and ok,
+                  "bf16: every step's loss within phase 3's bf16 bound of one process's")
+    per_step = kernel_calls_per_step(ModelConfig.from_json_file(CONFIG))
+    for name, n in per_step.items():
+        got_n = ranks[0]["bfloat16"]["launches"][name]
+        checks.expect(got_n == GRID_STEPS * n,
+                      f"rank 0's bf16 steps: {name} launches {got_n} == {GRID_STEPS} x {n}")
+    del saved, ref
+    torch.cuda.empty_cache()
+    checks.end_phase("model axis")
+
+    t1 = time.time()
+    procs = start_ranks("pairs", PAIRS_RANKS, out_dir)
+    try:
+        ref = pairs_run(None)
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+        raise
+    pranks = join_ranks(checks, "pairs", procs, out_dir)
+    pairs_s = time.time() - t1
+    worst_rows = 0.0
+    for r in range(PAIRS_RANKS):
+        got = torch.load(os.path.join(out_dir, f"pairs_rank{r}.pt"))
+        n = got["rows"]
+        checks.expect(n == PAIRS_LOCAL * PAIRS_RANKS * PAIRS_LOCAL,
+                      f"pairs rank {r}: {n} rows == {PAIRS_LOCAL} texts x "
+                      f"{PAIRS_RANKS * PAIRS_LOCAL} images")
+        for o, w in zip(got["outputs"], ref["outputs"]):
+            worst_rows = max(worst_rows, float((o - w[r * n:(r + 1) * n]).abs().max()))
+        if r == 0:
+            g_ratio = grad_ratio(got["grads"], ref["grads"], lambda w: 1e-4 * float(w.abs().max()))
+    log(f"  (b) pair rows: worst |rank - one process| {worst_rows:.3e}; gradients, the five "
+        "furthest (at 1e-4 of the tensor's max, plus phase 6's floor): " + ", ".join(
+            f"{k} {g_ratio[k]:.3e}" for k in sorted(g_ratio, key=g_ratio.get)[-5:]))
+    checks.expect(worst_rows <= 1e-4, f"pairs: each rank's rows within 1e-4 of its rows of one "
+                                      f"process's (worst {worst_rows:.3e})")
+    checks.expect(max(g_ratio.values()) <= 1.0,
+                  f"pairs: the averaged gradients within 1e-4 of each max of one process's, plus "
+                  f"1e-6 of the largest (worst {max(g_ratio.values()):.3e})")
+    for name in ("attention", "attention_bwd", "layer_norm"):
+        checks.expect(pranks[0]["launches"][name] > 0 and
+                      pranks[0]["launches"][name] == pranks[1]["launches"][name],
+                      f"pairs: {name} launched on both ranks ({pranks[0]['launches'][name]})")
+    log(f"  (a) four ranks in {grid_s:.1f} s, (b) two ranks in {pairs_s:.1f} s (start-up, "
+        f"models, gloo over the host and the one-process references included) [{card}]")
+    checks.end_phase("in_batch_pairs across ranks")
+    return {"launches": {"cc_train_model_axis_rank0": ranks[0]["bfloat16"]["launches"],
+                         "pairs_two_ranks_rank0": pranks[0]["launches"]},
+            "moment_bytes": [res["float32"]["moment_bytes"] for res in ranks],
+            "replicated_bytes": replicated, "grid_s": grid_s, "pairs_s": pairs_s}
 
 
 def tf_port_name(tf_name: str) -> str:
@@ -4788,6 +5187,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase("[24-25 native reader, TF import]")
         reader = phase_reader_and_tf_import(checks, tmp, card)
+        phase("[26 model axis and in_batch_pairs across ranks]")
+        axis = phase_model_axis(checks, tmp, card)
     log(f"  int8 VQA questions/s at B={TIME_BATCH}: "
         f"{ {k: round(v, 1) for k, v in int8['questions_per_s'].items()} }, quantization "
         f"passes' share { {k: round(v, 4) for k, v in int8['quantize_share'].items()} }; "
@@ -4799,7 +5200,7 @@ def main() -> int:
         f" samples/s, idle { {d: round(r['idle_share'], 3) for d, r in pre['multitask'].items()} }"
         f" (depth: value); native reader {reader['native_us']:.1f} us an image, "
         f"VrfFeatureStore {reader['python_us']:.1f} [{card}]")
-    phase(f"[done] phases 1-25 in {time.time() - t_start:.1f} s; multi-task peak memory "
+    phase(f"[done] phases 1-26 in {time.time() - t_start:.1f} s; multi-task peak memory "
           f"{peak_gb:.2f} GB; retrieval captions/s {ret['captions_per_s']}; flagship "
           f"checkpoint {opts['checkpoint_gb']:.3f} GB saved in {opts['save_s']:.2f} s, restored "
           f"in {opts['restore_s']:.2f} s; baseline: {base['vqa_questions_per_s']:.1f} VQA "
@@ -4814,7 +5215,7 @@ def main() -> int:
                                               "vqa_visualization": vis["launches"],
                                               "cc_train_remat": remat["launches"],
                                               **pre["launches"], **nccl["launches"],
-                                              **two["launches"]})
+                                              **two["launches"], **axis["launches"]})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4826,4 +5227,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp_worker"]:  # a rank of phase 23b, started by it
         sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--rank_worker"]:  # a rank of phase 26, started by it
+        sys.exit(rank_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -14,7 +14,9 @@ same seed, at fp32 with dropout 0.1 at every site:
   max of the single process's; the validation pass likewise;
 - 2 multi-task iterations over two tasks with ``grad_accum`` 2: each
   task's loss and gradients likewise, and the per-task evaluation's sums;
-- the ranks end with bit-equal parameters; ``in_batch_pairs`` raises;
+- the ranks end with bit-equal parameters; ``in_batch_pairs`` pairs each
+  rank's texts with every rank's images, and its pretraining run raises as
+  the single process's does;
 - both CLIs run with ``--coordinator --num_processes --process_id``, and a
   one-rank process group gives the no-group run's numbers bit for bit.
 
@@ -182,12 +184,36 @@ def run_all(mesh, shard):
     return out
 
 
+def in_batch_pairs(mesh, shard):
+    """The pretraining model under in_batch_pairs on this process's rows of
+    a batch: each text paired with the images of every rank (the global
+    batch's pair rows of its texts), and the pretraining run, which raises
+    on the pairs as one process does (and as the JAX loss does)."""
+    from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining, set_pair_mesh
+
+    c = cfg.replace(in_batch_pairs=True)
+    batch = {k: torch.from_numpy(v) for k, v in shard(cc_global(700), "halves").items()}
+    model = ViLBERTForPretraining(c, generator=torch.Generator().manual_seed(0)).eval()
+    set_pair_mesh(model, mesh)
+    with torch.no_grad():
+        out = model(batch["input_ids"], batch["image_feat"], batch["image_loc"],
+                    batch["segment_ids"], batch["input_mask"], batch["image_mask"])
+    try:
+        run_pretraining(c, OptimizerConfig(), [shard(cc_global(700), "halves")], num_steps=1,
+                        device="cpu", mesh=mesh, log_every=0)
+        error = None
+    except ValueError as e:
+        error = str(e)
+    return {"nsp": out.seq_relationship_score, "error": error}
+
+
 tiny_cli = os.path.join(out_dir, "tiny.json")
 if role == "single":
     results = run_all(None, lambda b, kind: b)
+    results["in_batch_pairs"] = in_batch_pairs(None, lambda b, kind: b)
     # a one-rank process group: the same numbers, bit for bit
     initialize_distributed(f"localhost:{ports[0]}", 1, 0, device="cpu")
-    one = run_all(make_mesh("cpu"), lambda b, kind: b)
+    one = run_all(make_mesh(device="cpu"), lambda b, kind: b)
     shutdown_distributed()
     results["one_rank"] = one
     # the CC CLI with and without --coordinator (one process)
@@ -202,7 +228,7 @@ else:
     rank = int(role[-1])
     initialize_distributed(f"localhost:{ports[0]}", WORLD, rank, device="cpu")
     assert process_shard() == (rank, WORLD)
-    mesh = make_mesh("cpu")
+    mesh = make_mesh(device="cpu")
 
     def shard(batch, kind):
         n = len(next(iter(batch.values()))) // WORLD
@@ -210,11 +236,7 @@ else:
         return {k: v[rows] for k, v in batch.items()}
 
     results = run_all(mesh, shard)
-    try:
-        run_pretraining(cfg.replace(in_batch_pairs=True), OptimizerConfig(), [], num_steps=1,
-                        device="cpu", mesh=mesh)
-    except NotImplementedError as e:
-        results["in_batch_pairs"] = str(e)
+    results["in_batch_pairs"] = in_batch_pairs(mesh, shard)
     # both CLIs, data-parallel over the same two processes
     from vilbert_tpu_torch.cli import train_concap, train_tasks
     dist = ["--coordinator", f"localhost:{ports[0]}", "--num_processes", str(WORLD),
@@ -396,9 +418,21 @@ def test_ranks_end_with_equal_parameters(runs, run):
 
 
 def test_in_batch_pairs_raises_across_processes(runs):
+    """in_batch_pairs runs across the processes: each rank's texts are
+    paired with every rank's images, its rows those of the single
+    process's pairs (rank-major texts, then images), within 1e-5; the
+    pretraining run then raises the single process's ValueError, which
+    names in_batch_pairs, where the JAX loss fails too."""
     res, _ = runs
-    for rank in ("rank0", "rank1"):
-        assert "A12b" in res[rank]["in_batch_pairs"]
+    want = res["single"]["in_batch_pairs"]
+    assert "in_batch_pairs" in want["error"]
+    n = want["nsp"].shape[0] // 2
+    assert n == 4 * 8  # 4 texts a rank x 8 images
+    for r, rank in enumerate(("rank0", "rank1")):
+        got = res[rank]["in_batch_pairs"]
+        assert got["error"] is not None and "in_batch_pairs" in got["error"]
+        torch.testing.assert_close(got["nsp"], want["nsp"][r * n:(r + 1) * n], rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_one_rank_group_is_the_single_process_bit_for_bit(runs):

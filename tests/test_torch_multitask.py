@@ -501,22 +501,115 @@ def test_cli_refuses_what_is_not_ported():
 
 
 def test_trainer_refuses_what_is_not_ported(tiny_config, tmp_path):
+    """in_batch_pairs is ported, and the two-stream trainer fails on it
+    where the JAX trainer fails, with a ValueError that names it: the heads
+    cannot score the B^2 pairs of a batch of B > 1
+    (``test_in_batch_pairs_fails_where_jax_fails`` holds every path to
+    JAX's). Full-state resume is ported: with nothing saved it raises."""
     from vilbert_tpu_torch.core import config as port_config
     from vilbert_tpu_torch.train.multitask import MultiTaskTrainer
 
     tasks = {"TASK1": _tasks(port_config)["TASK1"]}
     loaders = {"TASK1": _FakeLoader(_task_batches(tiny_config, n=1)["TASK1"], B)}
-    # in_batch_pairs pairs across the global batch: not split over ranks yet
-    from vilbert_tpu_torch.parallel.mesh import DataMesh
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiTaskTrainer(tiny_config.replace(in_batch_pairs=True), tasks, loaders, device="cpu",
-                         mesh=DataMesh(rank=0, world_size=2))
+    with pytest.raises(ValueError, match="in_batch_pairs"):
+        MultiTaskTrainer(tiny_config.replace(in_batch_pairs=True), tasks, loaders, device="cpu")
     trainer = MultiTaskTrainer(
         tiny_config, tasks, loaders, device="cpu", num_labels=NUM_LABELS,
         train_cfg=port_config.TrainConfig(checkpoint_dir=str(tmp_path / "ckpt")))
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         trainer.restore_checkpoint()  # full-state resume is ported: nothing saved yet
+
+
+def _outcome(fn):
+    """("ran", None), or ("raised", the exception)."""
+    try:
+        fn()
+    except Exception as e:  # the outcome under test, whatever its type
+        return "raised", e
+    return "ran", None
+
+
+def _pretrain_batch(cfg, b):
+    rng = np.random.RandomState(2)
+    return {
+        "input_ids": rng.randint(1, cfg.vocab_size, (b, T)).astype(np.int32),
+        "image_feat": rng.randn(b, R, cfg.v_feature_size).astype(np.float32),
+        "image_loc": rng.rand(b, R, 5).astype(np.float32),
+        "segment_ids": np.zeros((b, T), np.int32),
+        "input_mask": np.ones((b, T), np.int32),
+        "image_mask": np.ones((b, R), np.int32),
+        "lm_label_ids": np.where(rng.rand(b, T) < 0.4, 5, -1).astype(np.int32),
+        "image_label": np.where(rng.rand(b, R - 1) < 0.4, 1, -1).astype(np.int32),
+        "image_target": np.full((b, R - 1, cfg.v_target_size), 1.0 / cfg.v_target_size,
+                                np.float32),
+        "is_next": np.zeros((b,), np.int32),
+    }
+
+
+#: (path, family, task key or None for pretraining, batch rows): the
+#: retrieval task is the one whose step alone would run on the pairs
+PAIR_PATHS = [
+    ("pretrain", "vilbert", None, 3), ("pretrain_one_row", "vilbert", None, 1),
+    ("pretrain_baseline", "basebert", None, 3), ("TASK1", "vilbert", "TASK1", 3),
+    ("TASK7", "vilbert", "TASK7", 3), ("TASK1_baseline", "basebert", "TASK1", 3),
+]
+
+
+@pytest.mark.parametrize("path,family,key,rows", PAIR_PATHS, ids=[p[0] for p in PAIR_PATHS])
+def test_in_batch_pairs_fails_where_jax_fails(tiny_config, path, family, key, rows):
+    """Under in_batch_pairs, on one process: the pretraining loss (the JAX
+    ``make_pretrain_loss_fn``, jitted) and a trainer iteration (built as a
+    user builds it, weights from the seed) of each task process mode, for
+    the two-stream model and the single-stream baseline (which has no
+    pairs), raise in the port where they raise in JAX and run where they
+    run; the port's error is a ValueError naming in_batch_pairs."""
+    import vilbert_tpu.train.multitask as jax_multitask
+    from vilbert_tpu.core import config as jax_config
+    from vilbert_tpu.train.pretrain import _pretrain_model, make_pretrain_loss_fn as jax_loss_fn
+    from vilbert_tpu_torch.core import config as port_config
+    from vilbert_tpu_torch.train.multitask import MultiTaskTrainer
+    from vilbert_tpu_torch.train.pretrain import make_pretrain_loss_fn, pretrain_model
+
+    cfg = tiny_config.replace(in_batch_pairs=True, num_hidden_layers=2, v_biattention_id=(0, 1),
+                              t_biattention_id=(0, 1))
+    if key is None:
+        batch = _pretrain_batch(cfg, rows)
+
+        def jax_path():
+            model = _pretrain_model(cfg, family)
+            params = jax.jit(model.init)(jax.random.PRNGKey(0), batch["input_ids"],
+                                         batch["image_feat"], batch["image_loc"])
+            loss_fn = jax_loss_fn(model, cfg, deterministic=True)
+            float(jax.jit(loss_fn)(params["params"], batch, jax.random.PRNGKey(1))[0])
+
+        def port_path():
+            model = pretrain_model(cfg, family, generator=torch.Generator().manual_seed(0))
+            loss_fn = make_pretrain_loss_fn(cfg, deterministic=True)
+            float(loss_fn(model, {k: _t(v) for k, v in batch.items()})[0].detach())
+    else:
+        batches = _task_batches(cfg, n=1)[key]
+
+        def jax_path():
+            trainer = jax_multitask.MultiTaskTrainer(
+                cfg, {key: _tasks(jax_config)[key]}, {key: _FakeLoader(batches, B)},
+                num_labels=NUM_LABELS, model_family=family)
+            float(trainer.train_iteration(0)[key]["loss"])
+
+        def port_path():
+            trainer = MultiTaskTrainer(
+                cfg, {key: _tasks(port_config)[key]}, {key: _FakeLoader(batches, B)},
+                num_labels=NUM_LABELS, model_family=family, device="cpu")
+            try:
+                float(trainer.train_iteration(0)[key]["loss"])
+            finally:
+                trainer.close()
+
+    want, _ = _outcome(jax_path)
+    got, error = _outcome(port_path)
+    assert got == want, (path, want, error)
+    assert want == ("ran" if family == "basebert" or rows == 1 else "raised")
+    if error is not None:
+        assert isinstance(error, ValueError) and "in_batch_pairs" in str(error), error
 
 
 def test_baseline_three_iterations_match_jax_trainer(tiny_config, monkeypatch):

@@ -118,15 +118,15 @@ def build_parser() -> argparse.ArgumentParser:
 def setup_distributed(args: argparse.Namespace):
     """Join the process group the flags ask for (``--coordinator``,
     ``--num_processes``, ``--process_id``, or ``torchrun``'s environment);
-    returns (this rank's device, its ``DataMesh`` or None for a single
-    process)."""
+    returns (this rank's device, its data-axis ``Mesh`` or None for a
+    single process)."""
     from vilbert_tpu_torch.parallel.distributed import initialize_distributed, is_initialized
     from vilbert_tpu_torch.parallel.mesh import make_mesh
 
     device = initialize_distributed(
         args.coordinator or None, args.num_processes or None,
         args.process_id if args.process_id >= 0 else None, device=args.device)
-    return device, (make_mesh(device) if is_initialized() else None)
+    return device, (make_mesh(device=device) if is_initialized() else None)
 
 
 def finish_distributed(write) -> None:
@@ -199,7 +199,7 @@ def train(args: argparse.Namespace, hooks: Optional[list] = None):
     from vilbert_tpu_torch.parallel.distributed import process_shard
 
     device, mesh = setup_distributed(args)
-    rank, world = process_shard()
+    rank, world = process_shard(mesh)
     num_shards = args.num_shards if args.num_shards > 0 else world
     shard_id = args.shard_id if args.shard_id >= 0 else rank
     if not 0 <= shard_id < num_shards:

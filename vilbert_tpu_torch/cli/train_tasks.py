@@ -134,7 +134,7 @@ def build_trainer(args: argparse.Namespace, task_cfgs=None, loaders=None, *,
     from vilbert_tpu_torch.train.multitask import MultiTaskTrainer
 
     device, mesh = setup_distributed(args)
-    rank, world = process_shard()
+    rank, world = process_shard(mesh)
 
     model_cfg = ModelConfig.from_json_file(
         args.config,

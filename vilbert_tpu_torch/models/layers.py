@@ -217,9 +217,9 @@ def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
                           rank: int = 0) -> nn.Module:
     """Hand the CPU generator that train-mode dropout draws its seeds from to
     every dropout site of ``model`` (None removes it). ``rank``: this
-    process's rank in a data-parallel run, whose masks are then its rows'
-    of the global batch's (``ops.dropout``: the flat offset and the
-    attention seed shift)."""
+    process's data row of a mesh (``Mesh.data_rank``), whose masks are
+    then its rows' of the global batch's (``ops.dropout``: the flat offset
+    and the attention seed shift)."""
     for m in model.modules():
         if hasattr(m, "dropout_generator"):
             m.dropout_generator = generator

@@ -19,7 +19,12 @@ connection layer in the backward (``torch.utils.checkpoint``), drawing the
 dropout seeds the forward drew. ``in_batch_pairs`` expands a batch of B
 texts and B images to the B^2 (text i, image j) pairs once, just before
 the first connection layer, and composes with ``fast_mode`` as in the JAX
-package (the expansion first, then the broadcast). The pure-layout knobs
+package (the expansion first, then the broadcast). Over the data axis of a
+mesh (``set_pair_mesh``), where the JAX package pairs the global batch,
+each rank gathers the image stream of every data row first (with its
+gradient, ``parallel.distributed.gather_rows``) and holds its texts'
+pairs: rows ``data_rank * B_local * B ...`` of the pairs of the global
+batch of B, in the same order. The pure-layout knobs
 (``head_major_attention``, ``fused_qkv``, ``proj_impl``) and the kernel
 switches (``use_pallas_*``: the CUDA path always runs the kernels) change
 no parameter and no arithmetic and are ignored.
@@ -51,6 +56,7 @@ from vilbert_tpu_torch.models.layers import (
     resolve_act,
 )
 from vilbert_tpu_torch.ops.attention import make_additive_mask
+from vilbert_tpu_torch.parallel.distributed import gather_rows
 
 
 def replay_contexts(generator: Optional[torch.Generator]) -> tuple:
@@ -74,6 +80,16 @@ def replay_contexts(generator: Optional[torch.Generator]) -> tuple:
             generator.set_state(now)
 
     return contextlib.nullcontext(), recompute()
+
+
+def set_pair_mesh(model: nn.Module, mesh) -> nn.Module:
+    """The mesh over whose data rows ``in_batch_pairs`` pairs the texts of
+    every ``TwoStreamEncoder`` of ``model`` with the images (None: this
+    process's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, TwoStreamEncoder):
+            m.pair_mesh = mesh
+    return model
 
 
 class TextEmbeddings(nn.Module):
@@ -144,6 +160,8 @@ class TwoStreamEncoder(nn.Module):
         # the dropout sites' generator (set_dropout_generator), which remat
         # replays
         self.dropout_generator: Optional[torch.Generator] = None
+        #: the mesh whose data rows in_batch_pairs pairs across (set_pair_mesh)
+        self.pair_mesh = None
         self.layer = nn.ModuleList(TextLayer(cfg) for _ in range(cfg.num_hidden_layers))
         self.v_layer = nn.ModuleList(ImageLayer(cfg) for _ in range(cfg.v_num_hidden_layers))
         self.c_layer = nn.ModuleList(
@@ -184,12 +202,18 @@ class TwoStreamEncoder(nn.Module):
     def _expand(self, txt, img, bias_t, txt_mask2, bias_v):
         """The in_batch_pairs B^2 expansion, then the fast_mode broadcast,
         applied once before the first connection layer (reference
-        vilbert.py:1008-1053, the JAX ``maybe_expand``)."""
+        vilbert.py:1008-1053, the JAX ``maybe_expand``). Over several data
+        rows the images are every row's; under fast_mode the one text is
+        every rank's own, and each rank pairs it with its own images."""
         if self.cfg.in_batch_pairs:
+            mesh = self.pair_mesh
+            if mesh is not None and mesh.data_size > 1 and not self.cfg.fast_mode:
+                img = gather_rows(img, mesh.data_group)
+                bias_v = gather_rows(bias_v, mesh.data_group)
             # row index = text sample, column index = image sample
-            b = txt.shape[0]
-            img, bias_v = img.repeat(b, 1, 1), bias_v.repeat(b, 1, 1, 1)
-            txt, bias_t, txt_mask2 = (t.repeat_interleave(b, dim=0)
+            bt, bi = txt.shape[0], img.shape[0]
+            img, bias_v = img.repeat(bt, 1, 1), bias_v.repeat(bt, 1, 1, 1)
+            txt, bias_t, txt_mask2 = (t.repeat_interleave(bi, dim=0)
                                       for t in (txt, bias_t, txt_mask2))
         if self.cfg.fast_mode:
             # one text row per image (reference FAST_MODE); the text stream
@@ -542,6 +566,10 @@ class ViLBERTForVLTasks(nn.Module):
                 )
             logit = self.vision_logit(self.dropout(out.sequence_v)).float()
             pad = (1.0 - image_attention_mask.to(torch.float32)) * -10000.0
+            if logit.shape[0] != pad.shape[0]:
+                raise ValueError(
+                    f"in_batch_pairs: vision_logit of {logit.shape[0]} (text, image) pairs "
+                    f"takes no image mask of {pad.shape[0]} rows (the JAX head fails too)")
             results["vision_logit"] = logit + pad[:, :, None]
         if "linguisic_logit" in heads:
             results["linguisic_logit"] = self.linguisic_logit(

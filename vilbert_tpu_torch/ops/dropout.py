@@ -18,11 +18,13 @@ a dropout site draws one per call, and the seed reaches the mask (or the
 kernel) as a host scalar, so no device value is read back.
 
 Data parallelism: the JAX step computes on the global batch, so its masks
-are those of the global shape. Rank r of a data-parallel run holds rows
-r * B_local ... of it, so its hidden masks start at the flat index
-``r * x.numel()`` (``offset``), and its attention tiles at
-(b + r * B_local, h), a seed shift (``shard_seed``); with both, the ranks'
-masks concatenated are the single process's on the concatenated batch.
+are those of the global shape. The ranks of data row r of a mesh hold rows
+r * B_local ... of it, so their hidden masks start at the flat index
+``r * x.numel()`` (``offset``), and their attention tiles at
+(b + r * B_local, h), a seed shift (``shard_seed``); with both, the data
+rows' masks concatenated are the single process's on the concatenated
+batch. The pairs of ``in_batch_pairs`` over data rows are rows
+r * B_local * B ... of the global pairs, which the same offsets give.
 """
 
 from __future__ import annotations

@@ -1,22 +1,28 @@
-"""Data parallelism across processes over ``torch.distributed``.
+"""Data parallelism and the model axis across processes over ``torch.distributed``.
 
 Counterpart of ``vilbert_tpu/parallel/distributed.py``. The JAX package
 joins its processes with ``jax.distributed.initialize``, lets each load its
 shard of every batch and assembles the global batch, on which XLA inserts
-the gradient ``psum``. Here every process runs the same program on its own
-shard, and the collectives are explicit:
+the collectives its shardings need. Here every process runs the same
+program on its own shard, and the collectives are explicit:
 
 - ``initialize_distributed`` joins the process group (NCCL for CUDA
   devices, gloo on the CPU) and returns this rank's device;
-- ``process_shard`` gives the loaders their (shard_id, num_shards);
+- ``process_shard`` gives the loaders their (shard_id, num_shards): a
+  mesh's data coordinate, else (rank, world);
 - ``all_mean_`` averages gradients (and the step's metrics) in place, one
   flat ``all_reduce`` per dtype, each in its own dtype;
 - ``global_sum`` (a data-dependent count, summed over the ranks),
   ``all_gather`` (a data tensor, concatenated in rank order),
-  ``sum_host`` (a small host vector summed over the ranks, the JAX
-  trainer's ``process_allgather(...).sum(0)``) and ``broadcast_``.
+  ``gather_rows`` (the same with a gradient: the ``in_batch_pairs``
+  images), ``all_gather_into_`` (parameter slices into the full
+  parameters), ``sum_host`` (a small host vector summed over the ranks,
+  the JAX trainer's ``process_allgather(...).sum(0)``) and ``broadcast_``.
 
-A failed initialization raises: nothing carries on as a single process.
+Each takes a ``group`` (a mesh axis's subgroup; None: every rank) and uses
+only ``all_reduce``, ``broadcast`` and ``all_gather``, which gloo also
+carries on CUDA tensors (ranks that share one card). A failed
+initialization raises: nothing carries on as a single process.
 """
 
 from __future__ import annotations
@@ -110,8 +116,12 @@ def shutdown_distributed() -> None:
         dist.destroy_process_group()
 
 
-def process_shard() -> Tuple[int, int]:
-    """(shard_id, num_shards) for the host-side loaders: (rank, world)."""
+def process_shard(mesh=None) -> Tuple[int, int]:
+    """(shard_id, num_shards) for the host-side loaders: ``mesh``'s data
+    coordinate (the ranks of a data row read the same shard), else (rank,
+    world) of the process group."""
+    if mesh is not None:
+        return mesh.data_rank, mesh.data_size
     if is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
@@ -139,17 +149,18 @@ def _flat_collective(tensors: Sequence[torch.Tensor], op) -> None:
 
 
 @torch.no_grad()
-def all_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Average ``tensors`` over the ranks in place: one ``all_reduce`` (sum)
-    of a flat buffer per dtype, in that dtype (bf16 gradients are summed in
-    bf16, as the JAX ``psum`` under ``--bf16_grads``), then a division by
-    the world size. Every rank ends with the same bits."""
+def all_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Average ``tensors`` over the ranks of ``group`` in place: one
+    ``all_reduce`` (sum) of a flat buffer per dtype, in that dtype (bf16
+    gradients are summed in bf16, as the JAX ``psum`` under
+    ``--bf16_grads``), then a division by the group's size. Every rank ends
+    with the same bits."""
     if not is_initialized() or not tensors:
         return
-    world = dist.get_world_size()
+    world = dist.get_world_size(group)
 
     def op(flat):
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         if world != 1:
             flat.div_(world)
 
@@ -157,51 +168,111 @@ def all_mean_(tensors: Sequence[torch.Tensor]) -> None:
 
 
 @torch.no_grad()
-def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks (a new tensor; ``t`` itself without a
-    process group): the global count a loss divides by."""
+def global_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (a new tensor; ``t`` itself
+    without a process group): the global count a loss divides by."""
     if not is_initialized():
         return t
     out = t.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
     return out
 
 
-@torch.no_grad()
-def all_gather(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` (equal shapes), concatenated along dim 0 in rank
-    order: the global batch of a data tensor. No gradient flows through."""
-    if not is_initialized():
-        return t
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t.detach().contiguous())
+def _gather(t: torch.Tensor, group) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.detach().contiguous(), group=group)
     return torch.cat(parts)
 
 
-def _host_device() -> torch.device:
+@torch.no_grad()
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``t`` (equal shapes) of ``group``, concatenated along
+    dim 0 in rank order: the global batch of a data tensor. No gradient
+    flows through (``gather_rows`` for one that does)."""
+    if not is_initialized():
+        return t
+    return _gather(t, group)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``all_gather`` over ``group`` whose backward all-reduces (sums) the
+    gradient of the gathered tensor and keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group, ctx.rows = group, t.shape[0]
+        return _gather(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        i = dist.get_rank(ctx.group)
+        return grad[i * ctx.rows:(i + 1) * ctx.rows], None
+
+
+def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``all_gather`` with a gradient. Every rank's loss may read every
+    rank's rows, so the gradient of this rank's rows is the sum of every
+    rank's gradient for them: the backward all-reduces the gathered
+    gradient and keeps its own rows. Under the step's convention (the
+    global loss is the mean of the ranks' losses, and ``all_mean_``
+    averages the gradients), that sum is what makes the averaged gradient
+    the global loss's."""
+    if not is_initialized() or dist.get_world_size(group) == 1:
+        return t
+    return _GatherRows.apply(t, group)
+
+
+@torch.no_grad()
+def all_gather_into_(parts: Sequence[torch.Tensor], fulls: Sequence[torch.Tensor],
+                     dims: Sequence[int], group=None) -> None:
+    """Rank i of ``group`` holds slice i of every tensor of ``fulls``
+    along its dim of ``dims`` (equal slices, ``parts`` being this rank's
+    values of its own); write every rank's slices into ``fulls``: one
+    ``all_gather`` of a flat buffer per dtype."""
+    if not parts:
+        return
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, p in enumerate(parts):
+        by_dtype.setdefault(p.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([parts[i].reshape(-1) for i in idx])
+        out = [torch.empty_like(flat) for _ in range(world)]
+        dist.all_gather(out, flat, group=group)
+        for r, buf in enumerate(out):
+            if r == rank:
+                continue
+            for i, v in zip(idx, buf.split([parts[i].numel() for i in idx])):
+                n = parts[i].shape[dims[i]]
+                fulls[i].narrow(dims[i], r * n, n).copy_(v.view_as(parts[i]))
+
+
+def _host_device(group=None) -> torch.device:
     """Where a host value goes to ride a collective: the current CUDA
     device under NCCL, the CPU under gloo."""
-    if dist.get_backend() == "nccl":
+    if dist.get_backend(group) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
 
-def sum_host(values: Sequence[float]) -> np.ndarray:
-    """A small host vector summed over the ranks, in float64 (the JAX
-    trainer's ``process_allgather(...).sum(axis=0)``,
+def sum_host(values: Sequence[float], group=None) -> np.ndarray:
+    """A small host vector summed over the ranks of ``group``, in float64
+    (the JAX trainer's ``process_allgather(...).sum(axis=0)``,
     ``vilbert_tpu/train/multitask.py:636-645``)."""
     v = np.asarray(values, np.float64)
     if not is_initialized():
         return v
-    t = torch.tensor(v, dtype=torch.float64, device=_host_device())
-    dist.all_reduce(t)
+    t = torch.tensor(v, dtype=torch.float64, device=_host_device(group))
+    dist.all_reduce(t, group=group)
     return t.cpu().numpy()
 
 
 @torch.no_grad()
 def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
     """Overwrite ``tensors`` in place with rank ``src``'s, one flat
-    ``broadcast`` per dtype."""
+    ``broadcast`` per dtype over every rank."""
     if not is_initialized() or not tensors:
         return
     _flat_collective(tensors, lambda flat: dist.broadcast(flat, src))

@@ -14,13 +14,21 @@ without a gradient (outside the loss's graph, or behind a ``detach``)
 takes a zero gradient, as in JAX, where it participates; where it does
 not, it gets no update at all.
 
-With a ``mesh`` (``parallel.mesh.DataMesh``) in a process group, each
-rank differentiates its own shard of the batch and the summed gradients
-of its microbatches are averaged over the ranks in the step, with the
-loss and the metrics, in one ``all_reduce`` a dtype
+With a ``mesh`` (``parallel.mesh.Mesh``) in a process group, each data
+row differentiates its own shard of the batch and the summed gradients of
+its microbatches are averaged over the data axis (``mesh.data_group``) in
+the step, with the loss and the metrics, in one ``all_reduce`` a dtype
 (``parallel.distributed.all_mean_``), before the ``grad_accum`` divide,
 ``loss_scale``, the norm and the update: every rank applies the same
-update and logs the global values. Not DDP: the multi-task step leaves the
+update and logs the global values. The ranks of one data row (the model
+axis) see the same batch, so their gradients are equal already, and
+without ``shard_rules`` each applies the whole update: the state is
+replicated over the model axis, as the JAX trainers replicate it. With
+``shard_rules`` (``parallel.mesh.param_sharding_rules``) the optimizer
+holds this rank's slice of every sharded parameter, with moments for it
+alone (``ReferenceAdamW.shard_``), and updates it from the full averaged
+gradients (``grad_norm`` and clipping read them all); the slices are then
+all-gathered over ``mesh.model_group`` into the full parameters. Not DDP: the multi-task step leaves the
 other tasks' heads without a gradient and the bf16 branch takes
 ``autograd.grad``, neither of which DDP's hooks cover. A loss whose
 normalizer depends on the data (a count of masked positions) must divide
@@ -44,7 +52,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from vilbert_tpu_torch.parallel.distributed import all_mean_
+from vilbert_tpu_torch.parallel.distributed import all_gather_into_, all_mean_
 from vilbert_tpu_torch.train.optim import global_norm
 
 #: loss_fn(model, batch) -> (scalar loss, metrics dict)
@@ -112,17 +120,23 @@ def make_train_step(
     grad_dtype: Optional[str] = None,
     update_mask: Optional[Mapping[str, bool]] = None,
     mesh=None,
+    shard_rules: Optional[Mapping[str, Optional[int]]] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """step(model, batch[, lr]) -> metrics (``loss``, ``grad_norm`` and the
     loss function's own), updating the optimizer's parameters in place;
     ``lr`` is required with ``external_lr`` and refused without it.
-    ``mesh``: average gradients and metrics over its ranks (module
-    docstring)."""
+    ``mesh``: average gradients and metrics over its data axis; with
+    ``shard_rules`` ({name: dim or None}), shard the update over its model
+    axis, which shards ``optimizer`` in place (module docstring)."""
     if grad_dtype not in (None, "", "float32", "bfloat16"):
         raise ValueError(f"grad_dtype {grad_dtype!r}")
     bf16 = grad_dtype == "bfloat16"
-    params = optimizer.params
+    params = dict(optimizer.params)  # the full parameters, before any sharding
     mask = optimizer.update_mask if update_mask is None else update_mask
+    shards = {}
+    if shard_rules and mesh is not None and mesh.model_size > 1:
+        shards = {n: d for n, d in shard_rules.items() if d is not None}
+        optimizer.shard_(shards, mesh.model_rank, mesh.model_size)
 
     def step_fn(model: nn.Module, batch: Dict[str, Any],
                 lr: Optional[float] = None) -> Dict[str, torch.Tensor]:
@@ -159,7 +173,8 @@ def make_train_step(
                      for n, p in params.items()
                      if p.grad is not None or mask is None or mask[n]}
         if mesh is not None and mesh.distributed:
-            all_mean_(list(grads.values()) + [loss] + list(metrics.values()))
+            all_mean_(list(grads.values()) + [loss] + list(metrics.values()),
+                      group=mesh.data_group)
         if grad_accum > 1:
             loss = loss / grad_accum
             metrics = {k: v / grad_accum for k, v in metrics.items()}
@@ -170,6 +185,10 @@ def make_train_step(
         out["loss"] = loss.detach()
         out["grad_norm"] = global_norm(list(grads.values()))
         optimizer.step(grads, lr=lr, mask=mask)
+        if shards:
+            names = [n for n in shards if n in grads]
+            all_gather_into_([optimizer.params[n] for n in names], [params[n] for n in names],
+                             [shards[n] for n in names], group=mesh.model_group)
         return out
 
     return step_fn

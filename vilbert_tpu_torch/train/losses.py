@@ -12,13 +12,13 @@ evaluation, ``task_loss_and_score_per_sample`` /
 ``compute_score_with_logits_per_sample``, whose means are the reference's
 batch loss and score.
 
-Data parallelism (a ``mesh`` of more than one rank): the JAX loss is that
-of the global batch. The pretraining losses divide by counts of the data
-(masked positions, masked regions), which differ between ranks, so each
-rank divides its sum by the count summed over the ranks, times the world
-size: the ranks' average is then the global loss, and so are its
-gradients. NCE scores each rank's rows against the targets gathered from
-every rank, with the global batch's negatives. The task losses are means
+Data parallelism (a ``mesh`` of more than one data row): the JAX loss is
+that of the global batch. The pretraining losses divide by counts of the
+data (masked positions, masked regions), which differ between data rows,
+so each rank divides its sum by the count summed over the data axis, times
+the data size: the data rows' average is then the global loss, and so are
+its gradients. NCE scores each rank's rows against the targets gathered
+from every data row, with the global batch's negatives. The task losses are means
 over equal shards and need neither. With one rank the arithmetic is the
 single process's, bit for bit.
 """
@@ -45,16 +45,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def _sharded(mesh) -> bool:
-    return mesh is not None and mesh.world_size > 1
+    return mesh is not None and mesh.data_size > 1
 
 
 def masked_mean(total: torch.Tensor, count: torch.Tensor, mesh=None) -> torch.Tensor:
     """``total / max(count, 1)`` over the batch; over a mesh of several
-    ranks, this rank's share of the global batch's mean: ``total`` times
-    the world size over the count summed over the ranks."""
+    data rows, this rank's share of the global batch's mean: ``total``
+    times the data size over the count summed over the data axis."""
     if not _sharded(mesh):
         return total / count.clamp_min(1)
-    return total * mesh.world_size / global_sum(count).clamp_min(1)
+    return total * mesh.data_size / global_sum(count, mesh.data_group).clamp_min(1)
 
 
 def cross_entropy_ignore_index(
@@ -149,9 +149,9 @@ def _nce_nll(pred: torch.Tensor, image_target: torch.Tensor, num_negative: int,
     """[B, R] NCE loss of every region row: the predicted feature scored
     against its true feature and the negatives of ``nce_index``; the NLL of
     the true one under the log-softmax over the 1 + N scores. Over a
-    ``mesh`` of several ranks, the targets are gathered from every rank and
-    the index is the global batch's (the ranks' generators agree), of
-    which this rank keeps its own rows.
+    ``mesh`` of several data rows, the targets are gathered from every
+    data row and the index is the global batch's (the ranks' generators
+    agree), of which this rank keeps its own rows.
 
     The scores are one fp32 product of every prediction with every target,
     [B R, B R], from which each row's 1 + N columns are gathered: the same
@@ -161,9 +161,9 @@ def _nce_nll(pred: torch.Tensor, image_target: torch.Tensor, num_negative: int,
     target = image_target.to(pred.dtype)
     b, r, d = target.shape
     if _sharded(mesh):
-        target = all_gather(target)
+        target = all_gather(target, mesh.data_group)
         index = nce_index(target.shape[0], r, num_negative, generator, pred.device)
-        index = index[mesh.rank * b:(mesh.rank + 1) * b]
+        index = index[mesh.data_rank * b:(mesh.data_rank + 1) * b]
     else:
         index = nce_index(b, r, num_negative, generator, pred.device)
     scores = pred.reshape(b * r, d) @ target.reshape(-1, d).T

@@ -29,12 +29,19 @@ does; it has no head for the GQA, VL-tri-classifier and NLVR2
 (VL-binary-classifier over image pairs) tasks, which the JAX trainer fails
 on at their first iteration and this one refuses at construction.
 
-With a ``mesh`` (``parallel.mesh.DataMesh``) each process trains on its
-loaders' shard of every batch: rank 0's weights and state are broadcast at
-construction, the step averages the gradients over the ranks, the per-task
-evaluation sums (loss, score, rows) over them so that the stop controllers
-stay in lockstep (``vilbert_tpu/train/multitask.py:636-645``), rank 0
-writes the checkpoints and the logs.
+With a ``mesh`` (``parallel.mesh.Mesh``) each data row of ranks trains on
+its loaders' shard of every batch: rank 0's weights and state are
+broadcast at construction, the step averages the gradients over the data
+axis, the per-task evaluation sums (loss, score, rows) over it so that the
+stop controllers stay in lockstep (``vilbert_tpu/train/multitask.py:636-645``),
+rank 0 writes the checkpoints and the logs. The state is replicated over a
+model axis, as in the JAX trainer.
+
+``in_batch_pairs`` makes the two-stream model score the B^2 (text, image)
+pairs of a batch of B, which no task head's targets pair with: the task
+loss and evaluation raise a ValueError naming it, where the JAX trainer
+fails on the shapes (its model init or its loss; a batch of one row runs
+in both). The single-stream baseline has no pairs, and trains.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ from vilbert_tpu_torch.data.prefetch import (
     to_tensors,
 )
 from vilbert_tpu_torch.models.layers import set_dropout_generator
-from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks
+from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks, set_pair_mesh
 from vilbert_tpu_torch.parallel.distributed import sum_host
 from vilbert_tpu_torch.parallel.train_step import make_train_step
 from vilbert_tpu_torch.train.controllers import MultiTaskStopController
@@ -162,6 +169,11 @@ def _task_logits(
         mc = p["multiple_choice_ids"].long()
         rows = torch.arange(mc.shape[0], device=mc.device)[:, None]
         logits = logits[:, MC_REGION_OFFSET:, 0][rows, mc][..., None]
+    if model_cfg.in_batch_pairs and logits.shape[0] != target.shape[0]:
+        raise ValueError(
+            f"in_batch_pairs: {logits.shape[0]} rows of {task.type} logits over the (text, "
+            f"image) pairs, {target.shape[0]} rows of targets (the JAX loss fails on these "
+            "shapes too)")
     return logits, target
 
 
@@ -270,6 +282,22 @@ class TaskRuntime:
             self.iterator = None
 
 
+def _refuse_pairs_at_init(tasks: Dict[str, TaskConfig], loaders: Dict[str, Any]) -> None:
+    """Fail where the JAX trainer's model init fails under in_batch_pairs:
+    it runs every head on the first task's first batch, and vision_logit's
+    image mask does not broadcast over the pairs of more than one row."""
+    key = next(iter(tasks))
+    first = next(iter(loaders[key]))
+    batch = to_tensors({k: first[k] for k in ("question", "features", "spatials", "image_mask",
+                                              "input_mask", "segment_ids")})
+    question = process_batch(tasks[key].process, batch)["question"]
+    rows = question.reshape(-1, question.shape[-1]).shape[0]
+    if rows > 1:
+        raise ValueError(
+            f"in_batch_pairs: the two-stream model's heads cannot score the {rows}^2 (text, "
+            f"image) pairs of {key}'s first batch (the JAX trainer's model init fails on them)")
+
+
 class MultiTaskTrainer:
     """Round-robin multi-task driver (reference train_tasks.py:510-610).
     ``model`` is built from ``seed`` unless ``init_model`` is given;
@@ -298,7 +326,6 @@ class MultiTaskTrainer:
         device="cuda",
     ):
         if mesh is not None:
-            mesh.check_config(model_cfg)
             device = mesh.device
         self.mesh = mesh
         if model_family not in ("vilbert", "basebert", "baseline"):
@@ -344,6 +371,8 @@ class MultiTaskTrainer:
         else:
             model = ViLBERTForVLTasks(model_cfg, num_labels=num_labels,
                                       dropout_prob=dropout_prob, generator=self.generator)
+        if init_model is None and model.family == "vilbert" and model_cfg.in_batch_pairs:
+            _refuse_pairs_at_init(tasks, loaders)
         refused = {k: t.type for k, t in tasks.items() if t.type in BASELINE_REFUSED_TYPES}
         if model.family == "basebert" and refused:
             raise ValueError(
@@ -354,7 +383,8 @@ class MultiTaskTrainer:
             load_pretrained(model, from_pretrained)
         self.model = model.to(self.device)
         set_dropout_generator(self.model, self.generator,
-                              rank=mesh.rank if mesh is not None else 0)
+                              rank=mesh.data_rank if mesh is not None else 0)
+        set_pair_mesh(self.model, mesh)
         params = dict(self.model.named_parameters())
 
         # the schedule is a function of ITERATIONS: the LR advances once per
@@ -536,7 +566,8 @@ class MultiTaskTrainer:
         if self.mesh is not None and self.mesh.distributed:
             # every rank must see the same score, or the stop controllers
             # (and the round-robin schedule) diverge across the ranks
-            tot_loss, tot_score, n_rows = sum_host([tot_loss, tot_score, n_rows])
+            tot_loss, tot_score, n_rows = sum_host([tot_loss, tot_score, n_rows],
+                                                   self.mesh.data_group)
         result = {"loss": tot_loss / max(n_rows, 1), "score": tot_score / max(n_rows, 1)}
         self._last_val_scores[key] = result["score"]
         self.controller.step(key, result["score"])

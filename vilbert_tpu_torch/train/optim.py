@@ -34,6 +34,15 @@ parameters in a task's backward graph: the others get no moment update and
 no weight decay, as torch skips parameters whose ``.grad`` is None. One
 optimizer, and so one state, serves every task's mask.
 
+With ``shard_(shards, index, parts)`` (the model axis of
+``parallel.mesh``) an optimizer holds and updates slice ``index`` of
+``parts`` of each parameter named in ``shards``, along the dim given
+there: its ``params`` are views of those slices, its moments have their
+shapes, and ``step`` still takes the full gradients, clips them by their
+global norm and then slices them. The update of an element is the
+replicated one's, so the slices gathered are the replicated update bit for
+bit. A sharded state has no ``state_dict`` (no checkpoint of it).
+
 Names: the JAX rules match flax paths (``NO_DECAY_SUBSTRINGS``,
 ``TEXT_BERT_PREFIXES``), so every port parameter name goes through
 ``core.importer._to_flax_key`` first. The co-attention
@@ -350,7 +359,46 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: Optional[float
     return dict(zip(grads, out))
 
 
-class ReferenceAdamW:
+def _slice(t: torch.Tensor, dim: int, index: int, parts: int) -> torch.Tensor:
+    """Slice ``index`` of ``parts`` equal slices of ``t`` along ``dim`` (a view)."""
+    n = t.shape[dim] // parts
+    return t.narrow(dim, index * n, n)
+
+
+class _Sharding:
+    """The model-axis slices an optimizer holds (module docstring)."""
+
+    shards: Dict[str, Tuple[int, int, int]] = {}
+
+    def _shard_params(self, shards: Mapping[str, int], index: int, parts: int) -> None:
+        if self.shards:
+            raise ValueError("the optimizer is sharded already")
+        for n, dim in shards.items():
+            if self.params[n].shape[dim] % parts:
+                raise ValueError(f"{n}: dim {dim} of {tuple(self.params[n].shape)} does not "
+                                 f"split into {parts}")
+        self.shards = {n: (dim, index, parts) for n, dim in shards.items()}
+        for n, spec in self.shards.items():
+            self.params[n] = _slice(self.params[n], *spec)
+
+    def _shard_moments(self, moments: Dict[str, torch.Tensor]) -> None:
+        for n, spec in self.shards.items():
+            if n in moments:
+                moments[n] = _slice(moments[n], *spec).clone()
+
+    def _sliced(self, grads: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The gradients of the slices this optimizer holds."""
+        return {n: _slice(g, *self.shards[n]) if n in self.shards else g
+                for n, g in grads.items()}
+
+    def _refuse_sharded_state(self) -> None:
+        if self.shards:
+            raise ValueError(
+                "a model-sharded optimizer state has no state_dict: checkpoints and "
+                "replicate() take a replicated state (the JAX dry run checkpoints none either)")
+
+
+class ReferenceAdamW(_Sharding):
     """``reference_adamw`` + optional ``clip_by_global_norm``, over a
     {name: parameter} mapping. ``step(grads)`` applies one update in place;
     the state (count, moments in their storage dtypes) is in ``state``.
@@ -382,9 +430,17 @@ class ReferenceAdamW:
     def lr(self, count: int) -> np.float32:
         return self.schedule(count + self.step_offset)
 
+    def shard_(self, shards: Mapping[str, int], index: int, parts: int) -> None:
+        """Hold slice ``index`` of ``parts`` of each parameter of ``shards``
+        ({name: dim}) and its moments alone (module docstring)."""
+        self._shard_params(shards, index, parts)
+        for moments in (self.state.mu, self.state.nu):
+            self._shard_moments(moments)
+
     def state_dict(self) -> Dict[str, Any]:
         """{"count", "mu", "nu"}: the shared count and the moments (live
         tensors, in their storage dtypes)."""
+        self._refuse_sharded_state()
         count, mu, nu = self.state
         return {"count": count, "mu": mu, "nu": nu}
 
@@ -407,7 +463,7 @@ class ReferenceAdamW:
         mask = self.update_mask if mask is None else mask
         cfg = self.cfg
         b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
-        grads = clip_by_global_norm(grads, cfg.grad_clip_norm)
+        grads = self._sliced(clip_by_global_norm(grads, cfg.grad_clip_norm))
         count, mu, nu = self.state
         lr_t = self.lr(count) if lr is None else np.float32(lr)
         count += 1
@@ -462,7 +518,7 @@ class RAdamGroupState(NamedTuple):
     nu: Dict[str, torch.Tensor]    # fp32 second moments
 
 
-class ReferenceRAdam:
+class ReferenceRAdam(_Sharding):
     """``build_optimizer(name="radam")`` over a {name: parameter} mapping:
     optional ``clip_by_global_norm``, then per label
     ``chain(add_decayed_weights(wd, decay mask), scale_by_radam,
@@ -495,8 +551,17 @@ class ReferenceRAdam:
                                 {n: torch.zeros_like(self.params[n]) for n in names})
             for lb, names in self.labels.items()}
 
+    def shard_(self, shards: Mapping[str, int], index: int, parts: int) -> None:
+        """Hold slice ``index`` of ``parts`` of each parameter of ``shards``
+        ({name: dim}) and its moments alone (module docstring)."""
+        self._shard_params(shards, index, parts)
+        for st in self.state.values():
+            self._shard_moments(st.mu)
+            self._shard_moments(st.nu)
+
     def state_dict(self) -> Dict[str, Any]:
         """{"groups": {label: {"count", "mu", "nu"}}} (live tensors)."""
+        self._refuse_sharded_state()
         return {"groups": {lb: st._asdict() for lb, st in self.state.items()}}
 
     @torch.no_grad()
@@ -523,7 +588,7 @@ class ReferenceRAdam:
         cfg = self.cfg
         b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
         ro_inf = 2.0 / (1.0 - b2) - 1.0
-        grads = clip_by_global_norm(grads, cfg.grad_clip_norm)
+        grads = self._sliced(clip_by_global_norm(grads, cfg.grad_clip_norm))
         for lb, names in self.labels.items():
             count, mu, nu = self.state[lb]
             p = [self.params[n] for n in names]

@@ -25,14 +25,21 @@ step on a thread (``data.prefetch.device_prefetch``; the JAX driver stages
 drawn on the main thread, are the same at every depth. The default is 0,
 each batch built between steps: on an H100 the CC loader's thread holds
 the GIL that the step's launches need, and depth 2 measured no faster
-than depth 0 (PERF.md, PR 12). With a ``mesh``
-(``parallel.mesh.DataMesh``), each process trains on its shard of every
-batch, the ranks' batches concatenated in rank order being the global
-batch: rank 0's weights are broadcast first, the masks are the rows' of
-the global batch's (``set_dropout_generator(rank=)``), the losses divide by
-the global counts (``train.losses``), the step averages the gradients,
-and the validation pass averages over the ranks; ``in_batch_pairs``
-raises there (ROADMAP A12b).
+than depth 0 (PERF.md). With a ``mesh`` (``parallel.mesh.Mesh``),
+each data row of ranks trains on its shard of every batch, the data rows'
+batches concatenated in order being the global batch: rank 0's weights
+are broadcast first, the masks are the rows' of the global batch's
+(``set_dropout_generator(rank=data_rank)``), ``in_batch_pairs`` pairs the
+texts with the images of every data row (``models.vilbert.set_pair_mesh``),
+the losses divide by the global counts (``train.losses``), the step
+averages the gradients over the data axis, and the validation pass
+averages over it. The state is replicated over a model axis, as the JAX
+``run_pretraining`` replicates it.
+
+``in_batch_pairs`` makes the two-stream model's outputs the B^2 (text,
+image) pairs of a batch of B, which the pretraining losses cannot pair
+with the batch's B rows of labels: the loss raises a ValueError naming it,
+where the JAX loss fails on the shapes (B = 1 runs in both).
 
 ``run_pretraining(resume_dir=...)`` restores a full-state checkpoint
 (``core.checkpoint``: parameters, optimizer state, step) and runs from its
@@ -62,7 +69,7 @@ from vilbert_tpu_torch.data.prefetch import (
 )
 from vilbert_tpu_torch.parallel.distributed import sum_host
 from vilbert_tpu_torch.models.layers import set_dropout_generator
-from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining
+from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining, set_pair_mesh
 from vilbert_tpu_torch.ops.dropout import draw_seed
 from vilbert_tpu_torch.parallel.train_step import (
     TrainState,
@@ -135,6 +142,11 @@ def make_pretrain_loss_fn(
             batch["segment_ids"], batch["input_mask"], batch["image_mask"],
             lm_positions=lm_positions, img_positions=img_positions,
         )
+        if out.seq_relationship_score.shape[0] != lm_labels.shape[0]:
+            raise ValueError(
+                f"in_batch_pairs: the model scores {out.seq_relationship_score.shape[0]} "
+                f"(text, image) pairs, the pretraining losses take the batch's "
+                f"{lm_labels.shape[0]} rows of labels (the JAX loss fails on these shapes too)")
         if apply_objective and cfg.objective == 1:
             aligned = (batch["is_next"] == 0)[:, None]
             lm_labels = torch.where(aligned, lm_labels, -1)
@@ -225,11 +237,11 @@ def evaluate_pretraining(
     model.train(was_training)
     if mesh is not None and mesh.distributed:
         # each rank's losses are its shares of the global batch's: their
-        # mean over the ranks is the global loss
+        # mean over the data axis is the global loss
         names = sorted(totals)
-        summed = sum_host([totals[k] for k in names] + [n])
-        totals = {k: float(v) / mesh.world_size for k, v in zip(names, summed)}
-        n = int(summed[-1]) // mesh.world_size
+        summed = sum_host([totals[k] for k in names] + [n], mesh.data_group)
+        totals = {k: float(v) / mesh.data_size for k, v in zip(names, summed)}
+        n = int(summed[-1]) // mesh.data_size
     return {k: v / max(n, 1) for k, v in totals.items()}
 
 
@@ -277,13 +289,13 @@ def run_pretraining(
     ``mesh``: data parallelism over its ranks (module docstring), on the
     mesh's device."""
     if mesh is not None:
-        mesh.check_config(model_cfg)
         device = mesh.device
     generator = torch.Generator().manual_seed(seed)
     if model is None:
         model = pretrain_model(model_cfg, model_family, generator=generator)
     model = model.to(device)
-    set_dropout_generator(model, generator, rank=mesh.rank if mesh is not None else 0)
+    set_dropout_generator(model, generator, rank=mesh.data_rank if mesh is not None else 0)
+    set_pair_mesh(model, mesh)
 
     # step_offset=1: the reference steps the LR scheduler BEFORE the
     # optimizer (train_concap.py:583-586), so update k trains at lambda(k)
