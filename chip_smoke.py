@@ -214,9 +214,11 @@ across two data ranks.
    ``train_tasks.train`` with ``--coordinator`` over NCCL at world size 1,
    every loss bit-equal to the runs without a process group (phase 8's for
    the trainer); (b) two ranks in two processes (``--dp_worker``) over
-   gloo on CUDA tensors, 2 CC steps at B_local=128 a leg against one
+   gloo on CUDA tensors, 3 CC steps at B_local=128 a leg against one
    process on B=256 run meanwhile: fp32 metrics within 1e-5 and the first
-   step's gradients within phase 6's bounds; fp32 compute with bf16
+   step's gradients within phase 6's bounds, the fp32 parameters' distance
+   read as phase 26's (elements beyond 1e-5 of their tensor's max counted,
+   no model axis); fp32 compute with bf16
    gradients all-reduced in bf16, the first step's gradients within phase
    11's bf16-gradient bound; bf16 compute; bf16 losses within
    ``bf16_bound``; the ranks' parameters bit-equal (sha256);
@@ -231,8 +233,10 @@ across two data ranks.
    with dropout 0.1, the update sharded by ``param_sharding_rules``: fp32
    losses within 1e-5, the first step's gradients within phase 6's bound,
    the parameters within 1e-5 of each tensor's max plus 5% of lr x steps
-   (elements beyond 1e-5 counted), rank 0's sharded update bit-equal to a
-   replicated optimizer's on the same gradients;
+   (elements beyond 1e-5 counted), and a control past that bound (rank
+   0's slice of any one sharded parameter left as it was before the last
+   step), rank 0's sharded update bit-equal to a replicated optimizer's on
+   the same gradients;
    bf16 losses within ``bf16_bound`` and K1, K2, K4 launched as the config
    says; each rank's moments its share of the elements (bytes printed
    beside the replicated state's), the ranks' parameters bit-equal
@@ -3879,7 +3883,7 @@ def phase_remat(checks: Checks, tmp: str, card: str) -> dict:
 
 PREFETCH_WINDOW = (2, 7)    # CC driver: untraced from step 2's hook to step 7's
 PREFETCH_PROFILED = 2       # CC driver steps profiled after the window
-DP_STEPS = 2                # full-width CC steps of the two-rank check
+DP_STEPS = 3                # full-width CC steps of the two-rank check
 DP_WORLD = 2
 #: the two-rank check's runs: label -> (compute dtype, gradient dtype)
 DP_LEGS = {"float32": ("float32", ""), "bf16_grads": ("float32", "bfloat16"),
@@ -4163,8 +4167,9 @@ def dp_runs(mesh, rows) -> dict:
     """The two-rank check's runs (``DP_LEGS``), on this process's ``rows``
     of each global batch (B=256): ``DP_STEPS`` full-width CC steps with
     dropout 0.1 a leg, the metrics, a digest of the parameters after the
-    steps, the launches, and the first step's gradients as the optimizer
-    takes them (averaged over the ranks)."""
+    steps, the launches, the first step's gradients as the optimizer
+    takes them (averaged over the ranks) and the fp32 leg's parameters
+    after the steps."""
     import hashlib
 
     import torch
@@ -4209,6 +4214,8 @@ def dp_runs(mesh, rows) -> dict:
                         "launches": read_launches(), "grad_dtypes": grads[0][1]}
             if leg != "bfloat16":
                 out["grads"][leg] = grads[0][0]
+            if leg == "float32":
+                out["params"] = {k: v.detach().cpu() for k, v in state.model.named_parameters()}
             del state, model
             torch.cuda.empty_cache()
     finally:
@@ -4234,9 +4241,9 @@ def dp_worker(rank: int, port: int, out_dir: str) -> int:
     mesh = make_mesh(device=device)
     local = TRAIN_BATCH // DP_WORLD
     result = dp_runs(mesh, slice(rank * local, (rank + 1) * local))
-    grads = result.pop("grads")
+    saved = {"grads": result.pop("grads"), "params": result.pop("params")}
     if rank == 0:
-        torch.save(grads, os.path.join(out_dir, "grads_rank0.pt"))
+        torch.save(saved, os.path.join(out_dir, "grads_rank0.pt"))
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
     shutdown_distributed()
@@ -4251,14 +4258,38 @@ def grad_ratio(got: dict, want: dict, bound) -> dict:
             for n in want}
 
 
+def param_drift(got: dict, want: dict, steps: int) -> dict:
+    """The fp32 parameters ``got`` after ``steps`` steps against one
+    process's ``want``: the elements beyond 1e-5 of their tensor's max
+    (``beyond`` of ``elements``), how far past it at most in units of 5% of
+    lr x steps (``worst``), and per tensor its largest distance over 1e-5
+    of its max plus 5% of lr x steps (``ratio``, the bound of phase 26).
+    Adam moves an element by lr * m / (sqrt(v) + eps), eps 1e-8: where the
+    gradient is near eps (the attention key biases, whose gradient is
+    rounding noise; any element whose gradient cancels) the step follows
+    the gradient's last bits, so the 5% of lr x steps."""
+    slack = 0.05 * optimizer_lr() * steps
+    beyond, worst, ratio = 0, 0.0, {}
+    for n, w in want.items():
+        err = (got[n] - w).abs()
+        strict = 1e-5 * float(w.abs().max())
+        beyond += int((err > strict).sum())
+        ratio[n] = float(err.max()) / (strict + slack)
+        worst = max(worst, float((err - strict).max()) / slack)
+    return {"beyond": beyond, "elements": sum(w.numel() for w in want.values()),
+            "worst": worst, "ratio": ratio}
+
+
 def phase_two_ranks(checks: Checks, tmp: str, card: str) -> dict:
     """(23b) Two ranks in two processes on the one card over gloo (CUDA
-    tensors), 2 full-width CC steps at B_local=128 with dropout 0.1 a leg,
+    tensors), 3 full-width CC steps at B_local=128 with dropout 0.1 a leg,
     against one process on the concatenated B=256 batches, run meanwhile in
     this process: fp32 (every step's metrics within 1e-5, the first step's
-    gradients within phase 6's bound), fp32 compute with bf16 gradients,
-    all-reduced in bf16 (the first step's bf16 gradients within phase 11's
-    bf16-gradient bound, every step's loss within phase 3's bf16 bound) and
+    gradients within phase 6's bound; the parameters' distance from one
+    process's read as phase 26 reads it, ``param_drift``, with no model
+    axis), fp32 compute with bf16 gradients, all-reduced in bf16 (the
+    first step's bf16 gradients within phase 11's bf16-gradient bound,
+    every step's loss within phase 3's bf16 bound) and
     bf16 compute (every step's loss within that bound; every K1, K2 and K4
     launched as the config says); the ranks' metrics and parameters
     bit-equal after every leg. A rank that fails fails the phase."""
@@ -4311,7 +4342,8 @@ def phase_two_ranks(checks: Checks, tmp: str, card: str) -> dict:
     checks.expect(len(ranks[0]["float32"]["metrics"]) == DP_STEPS and worst <= 1e-5,
                   f"fp32: every step's losses within 1e-5 of one process on B={TRAIN_BATCH} "
                   f"(worst rel {worst:.3e})")
-    got = torch.load(os.path.join(out_dir, "grads_rank0.pt"))
+    saved = torch.load(os.path.join(out_dir, "grads_rank0.pt"))
+    got = saved["grads"]
     bounds = {"float32": lambda w: 1e-3 * float(w.abs().max()),
               "bf16_grads": lambda w: bf16_bound(w)}
     for leg, bound in bounds.items():
@@ -4325,6 +4357,13 @@ def phase_two_ranks(checks: Checks, tmp: str, card: str) -> dict:
                       f"{leg}: the first step's averaged gradients ({ranks[0][leg]['grad_dtypes']}) "
                       f"against one process's, worst at {max(ratio.values()):.3e} of "
                       f"{'phase 6' if leg == 'float32' else 'phase 11'}'s bound (<= 1)")
+    drift = param_drift(saved["params"], ref.pop("params"), DP_STEPS)
+    log(f"  float32 parameters after the steps, read as phase 26 reads them (no model axis): "
+        f"{drift['beyond']} of {drift['elements']} elements beyond 1e-5 of their tensor's max "
+        f"of one process's; beyond it by at most {drift['worst']:.3e} of 5% of lr x steps; "
+        f"worst tensor at {max(drift['ratio'].values()):.3e} of 1e-5 of its max plus 5% of "
+        f"lr x steps [{card}]")
+    del saved
     checks.expect(ranks[0]["bf16_grads"]["grad_dtypes"] == ["torch.bfloat16"],
                   f"bf16_grads: the optimizer takes bf16 gradients "
                   f"({ranks[0]['bf16_grads']['grad_dtypes']}), all-reduced in bf16")
@@ -4381,8 +4420,9 @@ def grid_runs(mesh, rows, out_dir: str = "") -> dict:
     the launches, the moments' elements and bytes. The fp32 leg of rank 0
     also feeds the optimizer's gradients to a replicated twin optimizer and
     holds the sharded update to the twin's, bit for bit, every step; it
-    writes the first step's gradients and the final parameters into
-    ``out_dir`` (the one process returns them)."""
+    writes the first step's gradients, the final parameters, its slices
+    and their values before the last step into ``out_dir`` (the one
+    process returns the gradients and parameters)."""
     import torch
 
     from vilbert_tpu_torch.cli.train_concap import build_parser, optimizer_config
@@ -4426,9 +4466,11 @@ def grid_runs(mesh, rows, out_dir: str = "") -> dict:
             shard_rules=param_sharding_rules(model, mesh) if mesh is not None else None)
         batches = [{k: v[rows] for k, v in bench_batch(cfg, GRID_BATCH, SEED + 80 + s).items()}
                    for s in range(GRID_STEPS)]
-        metrics = []
+        metrics, before_last = [], {}
         reset_launches()
-        for b in batches:
+        for i, b in enumerate(batches):
+            if twin is not None and i == len(batches) - 1:
+                before_last = {n: opt.params[n].detach().cpu().clone() for n in opt.shards}
             metrics.append({k: float(v) for k, v in step_fn(model, to_device(
                 host_batch(b, cfg), DEVICE)).items()})
             if twin is not None:
@@ -4448,7 +4490,8 @@ def grid_runs(mesh, rows, out_dir: str = "") -> dict:
             if mesh is None:
                 out["grads"], out["params"] = grads[0], final
             else:
-                torch.save({"grads": grads[0], "params": final},
+                torch.save({"grads": grads[0], "params": final, "shards": dict(opt.shards),
+                            "before_last": before_last},
                            os.path.join(out_dir, "grid_rank0.pt"))
         del model, params, opt, twin, step_fn
         torch.cuda.empty_cache()
@@ -4579,9 +4622,11 @@ def phase_model_axis(checks: Checks, tmp: str, card: str) -> dict:
     within 1e-5 of each tensor's max plus 5% of lr x steps (Adam's step of
     an element whose gradient is near eps follows its last bits: the
     attention key biases, whose gradient is rounding noise, and elements
-    whose gradient cancels), those beyond 1e-5 alone counted; rank 0's
-    sharded update bit-equal to a replicated optimizer's update of the same
-    gradients, every step.
+    whose gradient cancels), those beyond 1e-5 alone counted, and a
+    control beyond that bound: rank 0's slice of each sharded parameter in
+    turn left as it was before the last step; rank 0's sharded update
+    bit-equal to a replicated optimizer's update of the same gradients,
+    every step.
     bf16: every loss within phase 3's bf16 bound of one process's, K1, K2
     and K4 launched as ``kernel_calls_per_step`` says. On every rank the
     moments hold exactly its share of the elements (printed as bytes beside
@@ -4649,28 +4694,32 @@ def phase_model_axis(checks: Checks, tmp: str, card: str) -> dict:
         "bound): " + ", ".join(f"{n} {ratio[n]:.3e}" for n in sorted(ratio, key=ratio.get)[-5:]))
     checks.expect(max(ratio.values()) <= 1.0, f"fp32: the first step's averaged gradients within "
                                               f"phase 6's bound (worst {max(ratio.values()):.3e})")
-    # Adam moves an element by lr * m / (sqrt(v) + eps), eps 1e-8: where the
-    # gradient is near eps (the attention key biases, whose gradient is
-    # rounding noise; any element whose gradient cancels) the step follows
-    # the gradient's last bits. So every element is held to 1e-5 of its
-    # tensor's max plus 5% of lr x steps, and those beyond 1e-5 alone are
-    # counted
-    slack = 0.05 * optimizer_lr() * GRID_STEPS
-    beyond, worst, ratio = 0, 0.0, {}
-    for n, w in ref["params"].items():
-        err = (saved["params"][n] - w).abs()
-        strict = 1e-5 * float(w.abs().max())
-        beyond += int((err > strict).sum())
-        ratio[n] = float(err.max()) / (strict + slack)
-        worst = max(worst, float((err - strict).max()) / slack)
-    elements = sum(w.numel() for w in ref["params"].values())
-    log(f"  (a) fp32 parameters after the steps: {beyond} of {elements} elements beyond 1e-5 of "
-        f"their tensor's max of one process's; beyond it by at most {worst:.3e} of 5% of lr x "
-        "steps; the five tensors furthest: " + ", ".join(
+    drift = param_drift(saved["params"], ref["params"], GRID_STEPS)
+    ratio = drift["ratio"]
+    log(f"  (a) fp32 parameters after the steps: {drift['beyond']} of {drift['elements']} "
+        f"elements beyond 1e-5 of their tensor's max of one process's; beyond it by at most "
+        f"{drift['worst']:.3e} of 5% of lr x steps; the five tensors furthest: " + ", ".join(
             f"{n} {ratio[n]:.3e}" for n in sorted(ratio, key=ratio.get)[-5:]))
     checks.expect(max(ratio.values()) <= 1.0,
                   f"fp32: every parameter after {GRID_STEPS} steps within 1e-5 of its tensor's max "
                   f"plus 5% of lr x steps of one process's (worst {max(ratio.values()):.3e})")
+    # the control: a fault of the sharded update, rank 0's slice of one
+    # parameter left as it was before the last step (its update skipped
+    # once), read by the same bound, for each sharded parameter alone
+    control = {}
+    for n, (dim, index, parts) in saved["shards"].items():
+        faulty = saved["params"][n].clone()
+        size = faulty.shape[dim] // parts
+        faulty.narrow(dim, index * size, size).copy_(saved["before_last"][n])
+        control[n] = param_drift({n: faulty}, {n: ref["params"][n]}, GRID_STEPS)["ratio"][n]
+    least = min(control, key=control.get)
+    log(f"  (a) control, rank 0's slice of one sharded parameter not updated in the last step: "
+        f"read at {control[least]:.3e} of the bound at least ({least}), median "
+        f"{sorted(control.values())[len(control) // 2]:.3e}, over the {len(control)} sharded "
+        f"parameters each alone; the sound run at most {max(ratio.values()):.3e}")
+    checks.expect(len(control) == ranks[0]["float32"]["shards"] and control[least] > 1.0,
+                  f"fp32: the bound catches rank 0's slice of any one sharded parameter left "
+                  f"un-updated for one step (least {control[least]:.3e} > 1)")
     ok = all(abs(g["loss"] - w["loss"]) <= bf16_bound(torch.tensor(w["loss"]))
              for g, w in zip(ranks[0]["bfloat16"]["metrics"], ref["bfloat16"]["metrics"]))
     checks.expect(len(ranks[0]["bfloat16"]["metrics"]) == GRID_STEPS and ok,

@@ -188,23 +188,32 @@ def in_batch_pairs(mesh, shard):
     """The pretraining model under in_batch_pairs on this process's rows of
     a batch: each text paired with the images of every rank (the global
     batch's pair rows of its texts), and the pretraining run, which raises
-    on the pairs as one process does (and as the JAX loss does)."""
+    on the pairs as one process does (and as the JAX loss does); across
+    ranks, the model with no mesh set, which raises rather than pair
+    within the rank."""
     from vilbert_tpu_torch.models.vilbert import ViLBERTForPretraining, set_pair_mesh
 
     c = cfg.replace(in_batch_pairs=True)
     batch = {k: torch.from_numpy(v) for k, v in shard(cc_global(700), "halves").items()}
     model = ViLBERTForPretraining(c, generator=torch.Generator().manual_seed(0)).eval()
     set_pair_mesh(model, mesh)
+    args = (batch["input_ids"], batch["image_feat"], batch["image_loc"],
+            batch["segment_ids"], batch["input_mask"], batch["image_mask"])
     with torch.no_grad():
-        out = model(batch["input_ids"], batch["image_feat"], batch["image_loc"],
-                    batch["segment_ids"], batch["input_mask"], batch["image_mask"])
+        out = model(*args)
+        unset = None
+        if mesh is not None:
+            try:
+                set_pair_mesh(model, None)(*args)
+            except ValueError as e:
+                unset = str(e)
     try:
         run_pretraining(c, OptimizerConfig(), [shard(cc_global(700), "halves")], num_steps=1,
                         device="cpu", mesh=mesh, log_every=0)
         error = None
     except ValueError as e:
         error = str(e)
-    return {"nsp": out.seq_relationship_score, "error": error}
+    return {"nsp": out.seq_relationship_score, "error": error, "unset": unset}
 
 
 tiny_cli = os.path.join(out_dir, "tiny.json")
@@ -422,7 +431,8 @@ def test_in_batch_pairs_raises_across_processes(runs):
     paired with every rank's images, its rows those of the single
     process's pairs (rank-major texts, then images), within 1e-5; the
     pretraining run then raises the single process's ValueError, which
-    names in_batch_pairs, where the JAX loss fails too."""
+    names in_batch_pairs, where the JAX loss fails too. A model with no
+    mesh set raises across ranks rather than pair within its rank."""
     res, _ = runs
     want = res["single"]["in_batch_pairs"]
     assert "in_batch_pairs" in want["error"]
@@ -431,6 +441,7 @@ def test_in_batch_pairs_raises_across_processes(runs):
     for r, rank in enumerate(("rank0", "rank1")):
         got = res[rank]["in_batch_pairs"]
         assert got["error"] is not None and "in_batch_pairs" in got["error"]
+        assert got["unset"] is not None and "set_pair_mesh" in got["unset"]
         torch.testing.assert_close(got["nsp"], want["nsp"][r * n:(r + 1) * n], rtol=1e-5,
                                    atol=1e-5)
 

@@ -56,7 +56,7 @@ from vilbert_tpu_torch.models.layers import (
     resolve_act,
 )
 from vilbert_tpu_torch.ops.attention import make_additive_mask
-from vilbert_tpu_torch.parallel.distributed import gather_rows
+from vilbert_tpu_torch.parallel.distributed import gather_rows, process_shard
 
 
 def replay_contexts(generator: Optional[torch.Generator]) -> tuple:
@@ -204,9 +204,16 @@ class TwoStreamEncoder(nn.Module):
         applied once before the first connection layer (reference
         vilbert.py:1008-1053, the JAX ``maybe_expand``). Over several data
         rows the images are every row's; under fast_mode the one text is
-        every rank's own, and each rank pairs it with its own images."""
+        every rank's own, and each rank pairs it with its own images. In a
+        process group of several ranks the mesh must be set: a rank never
+        pairs within its own batch by default."""
         if self.cfg.in_batch_pairs:
             mesh = self.pair_mesh
+            if mesh is None and not self.cfg.fast_mode and process_shard()[1] > 1:
+                raise ValueError(
+                    "in_batch_pairs in a process group of several ranks pairs across the data "
+                    "axis: set_pair_mesh(model, mesh) first (run_pretraining and "
+                    "MultiTaskTrainer set it from their mesh)")
             if mesh is not None and mesh.data_size > 1 and not self.cfg.fast_mode:
                 img = gather_rows(img, mesh.data_group)
                 bias_v = gather_rows(bias_v, mesh.data_group)

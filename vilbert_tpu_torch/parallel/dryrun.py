@@ -11,8 +11,8 @@ Counterpart of ``__graft_entry__.dryrun_multichip`` / ``_dryrun_impl`` /
 It starts N processes (gloo; NCCL where each rank has a card of its own)
 forming an (N / M, M) mesh; M is 2 for an even N of at least 4, else 1,
 as in the JAX dry run. Phase 1 (``pretrain_step``): the tiny config of
-``_dryrun_impl`` (``dryrun_config``; on a CUDA device at the smallest
-widths the kernels take, ``CUDA_WIDTHS``), a global batch of two rows a data row
+``_dryrun_impl`` at the smallest widths the kernels take
+(``dryrun_config``), a global batch of two rows a data row
 (``example_batch``), the parameters sharded over "model" by
 ``param_sharding_rules(min_size_to_shard=1024)``, one pretraining step of
 ``make_train_step(shard_rules=)`` at a constant 1e-3. Phase 2
@@ -40,30 +40,25 @@ import torch
 from vilbert_tpu_torch.core.config import ModelConfig, OptimizerConfig, TaskConfig
 from vilbert_tpu_torch.parallel.mesh import Mesh, make_mesh, param_sharding_rules
 
-#: ``_dryrun_impl``'s model (``__graft_entry__.py:202-210``)
+#: ``_dryrun_impl``'s model (``__graft_entry__.py:202-210``) at the
+#: smallest widths the kernels take (K1: heads of 64; K4: rows of a multiple
+#: of 128), where its heads of 16 and rows of 64 have no kernel; the same
+#: model on every device, and the JAX comparison builds it too
 DRYRUN_CONFIG = dict(
-    vocab_size=128, hidden_size=64, num_hidden_layers=4, num_attention_heads=4,
-    intermediate_size=128, max_position_embeddings=64, v_feature_size=32, v_hidden_size=64,
-    v_num_hidden_layers=2, v_num_attention_heads=4, v_intermediate_size=64, v_target_size=16,
-    bi_hidden_size=64, bi_num_attention_heads=4, v_biattention_id=(0, 1),
+    vocab_size=128, hidden_size=128, num_hidden_layers=4, num_attention_heads=2,
+    intermediate_size=256, max_position_embeddings=64, v_feature_size=32, v_hidden_size=128,
+    v_num_hidden_layers=2, v_num_attention_heads=2, v_intermediate_size=128, v_target_size=16,
+    bi_hidden_size=128, bi_num_attention_heads=2, v_biattention_id=(0, 1),
     t_biattention_id=(2, 3), compute_dtype="float32")
-#: on a CUDA device the same model at the smallest widths the kernels take
-#: (K1: heads of 64; K4: rows of a multiple of 128), where _dryrun_impl's
-#: heads of 16 and rows of 64 have no kernel
-CUDA_WIDTHS = dict(hidden_size=128, num_attention_heads=2, intermediate_size=256,
-                   v_hidden_size=128, v_num_attention_heads=2, v_intermediate_size=128,
-                   bi_hidden_size=128, bi_num_attention_heads=2)
 SEQ, REGIONS = 12, 6
 MIN_SIZE_TO_SHARD = 1024
 ROWS_PER_DATA_ROW = 2
 NUM_LABELS = 13
 
 
-def dryrun_config(device="cpu") -> ModelConfig:
-    """``_dryrun_impl``'s model on the CPU; on a CUDA device at
-    ``CUDA_WIDTHS``."""
-    cfg = ModelConfig(**DRYRUN_CONFIG)
-    return cfg.replace(**CUDA_WIDTHS) if torch.device(device).type == "cuda" else cfg
+def dryrun_config() -> ModelConfig:
+    """``DRYRUN_CONFIG``'s model."""
+    return ModelConfig(**DRYRUN_CONFIG)
 
 
 def default_model_dim(processes: int) -> int:
@@ -107,8 +102,8 @@ def data_rows(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
 
 def pretrain_step(mesh: Mesh, model: Optional[torch.nn.Module] = None, *, seed: int = 0,
                   min_size_to_shard: int = MIN_SIZE_TO_SHARD) -> Tuple[dict, Any, Any]:
-    """Phase 1: one pretraining step of ``dryrun_config``'s model for the
-    mesh's device (drawn from ``seed`` unless given) on this rank's rows of ``pretrain_batch``,
+    """Phase 1: one pretraining step of ``dryrun_config``'s model (drawn
+    from ``seed`` unless given) on this rank's rows of ``pretrain_batch``,
     the update sharded over the model axis. Returns (metrics, model,
     optimizer); the optimizer holds this rank's slices."""
     from vilbert_tpu_torch.data.prefetch import to_device, to_tensors
@@ -117,7 +112,7 @@ def pretrain_step(mesh: Mesh, model: Optional[torch.nn.Module] = None, *, seed: 
     from vilbert_tpu_torch.train.optim import build_optimizer
     from vilbert_tpu_torch.train.pretrain import make_pretrain_loss_fn
 
-    cfg = dryrun_config(mesh.device)
+    cfg = dryrun_config()
     if model is None:
         model = ViLBERTForPretraining(cfg, generator=torch.Generator().manual_seed(seed))
     model = model.to(mesh.device)
@@ -151,7 +146,7 @@ def multitask_iteration(mesh: Mesh, *, seed: int = 0) -> Tuple[Dict[str, float],
     Returns ({task: loss}, the evaluation, the trained model)."""
     from vilbert_tpu_torch.train.multitask import MultiTaskTrainer
 
-    cfg = dryrun_config(mesh.device)
+    cfg = dryrun_config()
     rng = np.random.RandomState(3)
     b, t, r = ROWS_PER_DATA_ROW * mesh.data_size, SEQ, REGIONS
 
