@@ -300,6 +300,34 @@ def test_metrics_logger_trace(tmp_path):
     assert os.path.exists(path) and path.startswith(str(tmp_path / "profile"))
 
 
+def test_metrics_logger_trace_holds_the_step_spans(tmp_path):
+    """A trace written by start_trace / stop_trace around a train step
+    holds the step's spans (``core.tracing``) as user annotations."""
+    import json
+
+    from vilbert_tpu_torch.core import tracing
+    from vilbert_tpu_torch.core.config import OptimizerConfig as PortOptimizerConfig
+    from vilbert_tpu_torch.parallel.train_step import make_train_step
+    from vilbert_tpu_torch.train.logger import MetricsLogger
+    from vilbert_tpu_torch.train.optim import build_optimizer
+
+    model = torch.nn.Linear(3, 1)
+    opt, _ = build_optimizer(PortOptimizerConfig(learning_rate=1e-2, schedule="constant"),
+                             dict(model.named_parameters()), 10)
+    step = make_train_step(lambda m, b: (((m(b["x"]) - b["y"]) ** 2).mean(), {}), opt)
+    batch = {"x": torch.randn(4, 3), "y": torch.randn(4, 1)}
+    log = MetricsLogger(str(tmp_path), ["T"], use_tensorboard=False)
+    log.start_trace()
+    step(model, batch)
+    path = log.stop_trace()
+    log.close()
+    tracing.clear()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"train.step", "step.forward", "step.backward", "step.optimizer"} <= names
+
+
 # -- the trajectory --------------------------------------------------------------
 
 class _FakeLoader:

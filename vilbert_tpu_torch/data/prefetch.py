@@ -18,6 +18,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from vilbert_tpu_torch.core.tracing import span
+
 
 def to_tensors(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """numpy batch -> CPU tensors (sharing memory where numpy allows)."""
@@ -113,7 +115,9 @@ def device_prefetch(
     stream ends where ``iterator`` ends. ``size=0`` builds and copies each
     batch on the caller's thread when it is asked for, with the same
     transform and placement. Closing the generator (or dropping it) stops
-    the thread.
+    the thread. Under a profiler the consumer's wait for each staged batch
+    (the queue and the hand-over to the current stream) is a span
+    ``data.stage_wait``; the staging thread records none.
     """
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
@@ -164,12 +168,15 @@ def device_prefetch(
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("data.stage_wait"):
+                item = q.get()
+                if item is not sentinel:
+                    item = _receive(item, device)
             if item is sentinel:
                 if err:
                     raise err[0]
                 return
-            yield _receive(item, device)
+            yield item
     finally:
         stop.set()
         while thread.is_alive():  # unblock a producer waiting on a full queue

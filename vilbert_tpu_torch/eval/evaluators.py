@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from vilbert_tpu_torch.core.config import ModelConfig, TaskConfig
+from vilbert_tpu_torch.core.tracing import span
 from vilbert_tpu_torch.data.tasks import pad_batch
 from vilbert_tpu_torch.train.losses import task_loss_and_score_per_sample
 from vilbert_tpu_torch.train.multitask import HEAD_FOR_TYPE, MC_REGION_OFFSET, process_batch
@@ -41,9 +42,9 @@ def make_eval_forward(
     @torch.inference_mode()
     def forward(batch: Dict[str, np.ndarray]) -> torch.Tensor:
         orig_batch = batch["features"].shape[0]
-        p = process_batch(
-            task.process, {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        )
+        with span("eval.h2d"):
+            on_device = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        p = process_batch(task.process, on_device)
         task_ids = None
         if model_cfg.task_specific_tokens:
             task_ids = torch.full(
@@ -82,6 +83,9 @@ def evaluate_task(
     Ragged final batches are padded to the loader's batch size (every call
     sees one shape); metrics are sample-weighted over the valid rows.
     ``qid_map`` (dataset.qid_map) restores original string question ids.
+    Under a profiler each batch is a span ``eval.batch`` (``rows``: its
+    valid questions) over ``eval.h2d`` (``make_eval_forward``'s copies to
+    the device) and ``eval.score`` (loss, score and submission records).
     """
     model.eval()
     forward = make_eval_forward(model, model_cfg, task)
@@ -100,54 +104,56 @@ def evaluate_task(
             break
         question_id = np.asarray(batch["question_id"])
         bsz = question_id.shape[0]
-        model_batch = {k: v for k, v in batch.items() if k != "question_id"}
-        if full_bs:
-            model_batch, _ = pad_batch(model_batch, full_bs)
-        logits = forward(model_batch).float().cpu()
-        rows_per_sample = max(logits.shape[0] // max(full_bs or bsz, 1), 1)
-        valid = bsz * rows_per_sample
-        logits = logits[:valid]
-        target = np.asarray(batch["target"]) if "target" in batch else None
-        n_samples += bsz
+        with span("eval.batch", rows=bsz):
+            model_batch = {k: v for k, v in batch.items() if k != "question_id"}
+            if full_bs:
+                model_batch, _ = pad_batch(model_batch, full_bs)
+            logits = forward(model_batch).float().cpu()
+            with span("eval.score"):
+                rows_per_sample = max(logits.shape[0] // max(full_bs or bsz, 1), 1)
+                valid = bsz * rows_per_sample
+                logits = logits[:valid]
+                target = np.asarray(batch["target"]) if "target" in batch else None
+                n_samples += bsz
 
-        if target is not None and target.size:
-            if task.type == "VL-logit" and target.ndim > 1:
-                target = target.reshape((valid,) + target.shape[2:])
-            loss_v, score_v = task_loss_and_score_per_sample(
-                task.type, logits, torch.from_numpy(target)
-            )
-            tot_loss += float(loss_v.sum())
-            tot_score += float(score_v.sum())
-            n_rows += valid
+                if target is not None and target.size:
+                    if task.type == "VL-logit" and target.ndim > 1:
+                        target = target.reshape((valid,) + target.shape[2:])
+                    loss_v, score_v = task_loss_and_score_per_sample(
+                        task.type, logits, torch.from_numpy(target)
+                    )
+                    tot_loss += float(loss_v.sum())
+                    tot_score += float(score_v.sum())
+                    n_rows += valid
 
-        logits_np = logits.numpy()
-        if task.type in ("VL-classifier", "VL-classifier-GQA"):
-            pred = logits_np.argmax(-1)
-            for i in range(bsz):
-                ans = label2ans[pred[i]] if label2ans else int(pred[i])
-                if task.type == "VL-classifier":
-                    results.append({"question_id": qid_of(question_id[i]), "answer": ans})
-                else:
-                    results.append({"questionId": str(qid_of(question_id[i])),
-                                    "prediction": ans})
-        elif task.type == "VL-logit":
-            probs = torch.softmax(logits, dim=1).numpy()
-            for i in range(bsz):
-                results.append({"question_id": qid_of(question_id[i]),
-                                "answer": [float(p) for p in probs[i]]})
-        elif task.type == "V-logit":
-            sel = logits_np[:, :, 0].argmax(1)
-            tgt = np.asarray(batch["target"])[:, :, 0]
-            sel_t = np.take_along_axis(tgt, sel[:, None], axis=1)[:, 0]
-            for i in range(bsz):
-                results.append({"id": qid_of(question_id[i]), "target": int(sel[i]),
-                                "IOU": float(sel_t[i])})
-        elif task.type == "V-logit-mc":
-            pred = logits_np[:, :, 0].argmax(1)
-            for i in range(bsz):
-                results.append({"id": qid_of(question_id[i]), "target": int(pred[i])})
-        # binary/tri classifiers produce no submission records (reference
-        # task_utils.py:849-857)
+                logits_np = logits.numpy()
+                if task.type in ("VL-classifier", "VL-classifier-GQA"):
+                    pred = logits_np.argmax(-1)
+                    for i in range(bsz):
+                        ans = label2ans[pred[i]] if label2ans else int(pred[i])
+                        if task.type == "VL-classifier":
+                            results.append({"question_id": qid_of(question_id[i]), "answer": ans})
+                        else:
+                            results.append({"questionId": str(qid_of(question_id[i])),
+                                            "prediction": ans})
+                elif task.type == "VL-logit":
+                    probs = torch.softmax(logits, dim=1).numpy()
+                    for i in range(bsz):
+                        results.append({"question_id": qid_of(question_id[i]),
+                                        "answer": [float(p) for p in probs[i]]})
+                elif task.type == "V-logit":
+                    sel = logits_np[:, :, 0].argmax(1)
+                    tgt = np.asarray(batch["target"])[:, :, 0]
+                    sel_t = np.take_along_axis(tgt, sel[:, None], axis=1)[:, 0]
+                    for i in range(bsz):
+                        results.append({"id": qid_of(question_id[i]), "target": int(sel[i]),
+                                        "IOU": float(sel_t[i])})
+                elif task.type == "V-logit-mc":
+                    pred = logits_np[:, :, 0].argmax(1)
+                    for i in range(bsz):
+                        results.append({"id": qid_of(question_id[i]), "target": int(pred[i])})
+                # binary/tri classifiers produce no submission records (reference
+                # task_utils.py:849-857)
 
     metrics = {
         "loss": tot_loss / max(n_rows, 1),

@@ -43,6 +43,12 @@ K4 then takes as bf16) and the gradients come out in bf16. One microbatch
 keeps them bf16; with ``grad_accum > 1`` they are summed into fp32 zeros,
 as the JAX ``scan`` does, and stay fp32. The optimizer's fp32 parameters
 are the ones updated.
+
+Under a profiler the step records its spans (``core.tracing``):
+``train.step`` (``rows``: ``batch_rows``) over ``step.forward`` and
+``step.backward`` for each microbatch and ``step.optimizer`` (the norm,
+the update and the model axis's gather); the three phases with their
+stream time.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from vilbert_tpu_torch.core.tracing import span
 from vilbert_tpu_torch.parallel.distributed import all_gather_into_, all_mean_
 from vilbert_tpu_torch.train.optim import global_norm
 
@@ -99,15 +106,25 @@ def bf16_grads(model: nn.Module, loss_fn: LossFn, batch, names) -> Tuple[Any, An
     """(loss, metrics, {name: gradient}) of ``loss_fn`` with respect to bf16
     copies of the model's fp32 parameters; a parameter outside the graph
     gets bf16 zeros."""
-    leaves = {n: (p.detach().to(torch.bfloat16) if p.dtype == torch.float32 else p.detach())
-              .requires_grad_() for n, p in model.named_parameters()}
-    loss, metrics = torch.func.functional_call(
-        _Loss(model, loss_fn), {f"model.{n}": t for n, t in leaves.items()}, (batch,),
-        tie_weights=False)
+    with span("step.forward", device=True):
+        leaves = {n: (p.detach().to(torch.bfloat16) if p.dtype == torch.float32 else p.detach())
+                  .requires_grad_() for n, p in model.named_parameters()}
+        loss, metrics = torch.func.functional_call(
+            _Loss(model, loss_fn), {f"model.{n}": t for n, t in leaves.items()}, (batch,),
+            tie_weights=False)
     wanted = [leaves[n] for n in names]
-    grads = torch.autograd.grad(loss, wanted, allow_unused=True)
+    with span("step.backward", device=True):
+        grads = torch.autograd.grad(loss, wanted, allow_unused=True)
     return loss, metrics, {n: g if g is not None else torch.zeros_like(t)
                            for n, t, g in zip(names, wanted, grads)}
+
+
+def batch_rows(batch: Mapping[str, Any], grad_accum: int = 1) -> int:
+    """Rows of a step's batch, a loader's rows (a retrieval row with its
+    options counts once): its first entry's leading axis, or with
+    ``grad_accum > 1`` the micro-batch axis after it times ``grad_accum``."""
+    shape = next(iter(batch.values())).shape
+    return shape[0] if grad_accum == 1 else grad_accum * shape[1]
 
 
 def make_train_step(
@@ -144,6 +161,12 @@ def make_train_step(
             raise ValueError("an external_lr step takes the learning rate: step(model, batch, lr)")
         if lr is not None and not external_lr:
             raise ValueError("this step has its own schedule and takes no lr")
+        with span("train.step") as traced:
+            if traced:
+                traced.set(rows=batch_rows(batch, grad_accum))
+            return _step(model, batch, lr)
+
+    def _step(model, batch, lr):
         micro = [batch] if grad_accum == 1 else [
             {k: v[i] for k, v in batch.items()} for i in range(grad_accum)]
         if bf16:
@@ -165,8 +188,10 @@ def make_train_step(
                 p.grad = None
             loss, metrics = 0.0, {}
             for mb in micro:
-                loss_i, metrics_i = loss_fn(model, mb)
-                loss_i.backward()  # sums into .grad
+                with span("step.forward", device=True):
+                    loss_i, metrics_i = loss_fn(model, mb)
+                with span("step.backward", device=True):
+                    loss_i.backward()  # sums into .grad
                 loss = loss + loss_i.detach()
                 metrics = {k: metrics.get(k, 0.0) + v.detach() for k, v in metrics_i.items()}
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -183,12 +208,14 @@ def make_train_step(
             torch._foreach_mul_(list(grads.values()), loss_scale)
         out = {k: v.detach() for k, v in metrics.items()}
         out["loss"] = loss.detach()
-        out["grad_norm"] = global_norm(list(grads.values()))
-        optimizer.step(grads, lr=lr, mask=mask)
-        if shards:
-            names = [n for n in shards if n in grads]
-            all_gather_into_([optimizer.params[n] for n in names], [params[n] for n in names],
-                             [shards[n] for n in names], group=mesh.model_group)
+        with span("step.optimizer", device=True):
+            out["grad_norm"] = global_norm(list(grads.values()))
+            optimizer.step(grads, lr=lr, mask=mask)
+            if shards:
+                names = [n for n in shards if n in grads]
+                all_gather_into_([optimizer.params[n] for n in names],
+                                 [params[n] for n in names], [shards[n] for n in names],
+                                 group=mesh.model_group)
         return out
 
     return step_fn

@@ -6,9 +6,10 @@ installed, a plain-text ``out.txt`` of JSON records, per-task train/val
 loss/score/LR, the CC pretraining 3-loss variant, running averages, and a
 state that survives a checkpoint. The trace hooks run ``torch.profiler``
 (CPU and, where there is one, CUDA activity) in place of ``jax.profiler``
-and write a Chrome trace under ``<log_dir>/profile``. In a data-parallel
-run only rank 0 writes (``write=False`` on the others): every rank keeps the
-same running state, so a checkpoint of any rank restores it.
+and write a Chrome trace under ``<log_dir>/profile``, which holds the
+port's spans (``core.tracing``). In a data-parallel run only rank 0 writes
+(``write=False`` on the others): every rank keeps the same running state,
+so a checkpoint of any rank restores it.
 """
 
 from __future__ import annotations
@@ -117,7 +118,9 @@ class MetricsLogger:
     # -- profiler hooks (absent in the reference) ----------------------------
 
     def start_trace(self) -> None:
-        """Start a ``torch.profiler`` session (CPU, and CUDA when available)."""
+        """Start a ``torch.profiler`` session (CPU, and CUDA when available).
+        While it records, the port's spans (``core.tracing``) record too, and
+        its trace holds them beside the operators and kernels."""
         import torch
 
         activities = [torch.profiler.ProfilerActivity.CPU]

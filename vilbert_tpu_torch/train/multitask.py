@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from vilbert_tpu_torch.core.config import ModelConfig, OptimizerConfig, TaskConfig, TrainConfig
+from vilbert_tpu_torch.core.tracing import span
 from vilbert_tpu_torch.data.prefetch import (
     compress_for_transfer,
     device_prefetch,
@@ -67,7 +68,7 @@ from vilbert_tpu_torch.data.prefetch import (
 from vilbert_tpu_torch.models.layers import set_dropout_generator
 from vilbert_tpu_torch.models.vilbert import ViLBERTForVLTasks, set_pair_mesh
 from vilbert_tpu_torch.parallel.distributed import sum_host
-from vilbert_tpu_torch.parallel.train_step import make_train_step
+from vilbert_tpu_torch.parallel.train_step import batch_rows, make_train_step
 from vilbert_tpu_torch.train.controllers import MultiTaskStopController
 from vilbert_tpu_torch.train.losses import task_loss_and_score, task_loss_and_score_per_sample
 from vilbert_tpu_torch.train.optim import build_optimizer, task_update_mask
@@ -499,7 +500,9 @@ class MultiTaskTrainer:
         """One round-robin pass over the tasks (train_tasks.py:513-570).
 
         ``task_hooks`` are called as hook(key, model, None) before a task's
-        step and hook(key, model, metrics) after it."""
+        step and hook(key, model, metrics) after it. Each trained task is a
+        span ``train.task_step`` (``task``, ``rows``: ``batch_rows``) over
+        its batch's arrival and its step."""
         out = {}
         # the reference's warmup scheduler steps right after the FIRST
         # trained task's optimizer.step (train_tasks.py:548-556): within
@@ -517,10 +520,13 @@ class MultiTaskTrainer:
                 continue
             lr = lr_first if first_task else lr_rest
             first_task = False
-            batch = task.next_batch()
-            for hook in task_hooks or ():
-                hook(key, self.model, None)
-            metrics = task.step_fn(self.model, batch, lr)
+            with span("train.task_step", task=key) as traced:
+                batch = task.next_batch()
+                if traced:
+                    traced.set(rows=batch_rows(batch, task.grad_accum))
+                for hook in task_hooks or ():
+                    hook(key, self.model, None)
+                metrics = task.step_fn(self.model, batch, lr)
             for hook in task_hooks or ():
                 hook(key, self.model, metrics)
             out[key] = metrics
