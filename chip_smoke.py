@@ -49,7 +49,12 @@ across two data ranks.
    against torch.logsumexp within 1e-4 + 1e-6 |ref|), every launch on its
    counter and bit-identical twice, with a stride-0 batch cotangent and
    bias and a misaligned operand refused; the mma.sync K2 it took over
-   (``long_tc``, named) at the long edges.
+   (``long_tc``, named) at the long edges; the rational gelu's forward and
+   backward kernels bit-equal to the plain chain on the card over every
+   bf16 pattern, 2^20 fp32 values and each cell's FFN activation, each
+   call on its counter, a misaligned, strided or fp16 operand refused, and
+   each shape timed against the plain chain and its byte bound
+   (``phase_gelu_kernels``).
    Forward (K1 at rate 0 and 0.1, K4): fp32 1e-4 absolute (1e-3 on a row
    whose keys are all padded), bf16 2^-7 * max|ref| plus one bf16 ulp.
    Backward (K2 at rate 0 and 0.1): fp32 1e-4 * max|ref| (and on a batch
@@ -1070,6 +1075,123 @@ def phase_layer_norm_kernels(checks: Checks, g, err: dict) -> None:
     checks.expect(refused, "layer_norm refuses a bf16 operand that is not 16-byte aligned")
 
 
+#: (label, rows, width) of the FFN activations gelu_rational runs over, one
+#: of each cell's (B x positions, intermediate size): CC text and image,
+#: the baseline's CC step, VQA text and image at B=1024, a 12-in-1 task
+#: (RetrievalCOCO's text, 512 x 31), the demo (B=1), and an odd length for
+#: the kernels' scalar tail
+GELU_SHAPES = (("CC text", 256 * 36, 3072), ("CC image", 256 * 37, 1024),
+               ("baseline CC", 256 * 73, 3072), ("VQA text", 1024 * 23, 3072),
+               ("VQA image", 1024 * 101, 1024), ("T7,T8 text", 512 * 31, 3072),
+               ("demo text", 30, 3072), ("odd length", 1, 1_000_003))
+GELU_FP32_SAMPLE = (1 << 20) + 5
+
+
+def same_bits(got, want) -> int:
+    """Elements whose bits differ, NaN against NaN counted equal."""
+    import torch
+
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    differ = (got.view(ints) != want.view(ints)) & ~(got.isnan() & want.isnan())
+    return int(differ.sum())
+
+
+def phase_gelu_kernels(checks: Checks) -> None:
+    """The rational gelu's kernels against the plain chain run on the card
+    (``gelu_rational_ref``, ``gelu_rational_bwd_ref``), bit for bit: every
+    bf16 pattern as x with a random bf16 cotangent, GELU_FP32_SAMPLE fp32
+    values across +-8 with the edges (signed zeros, infinities, NaN,
+    subnormals, the clamps), and each of GELU_SHAPES in bf16; the forward
+    through ``gelu_rational``, the backward through ``gelu_rational_bwd``
+    and through autograd, each call on its counter; a misaligned,
+    non-contiguous or fp16 operand refused, uncounted. Then each shape
+    timed: kernel, plain chain and the exact gelu's library kernels
+    (``F.gelu``, ``aten.gelu_backward``: another function, a yardstick of
+    one eager pass) against the byte bound (x read, y written; x and dy
+    read, dx written). Its inputs come from a generator of its own, so that
+    the phases after it draw what they drew before it."""
+    import torch
+    import torch.nn.functional as F
+
+    from vilbert_tpu_torch.ops.gelu import (
+        gelu_rational,
+        gelu_rational_bwd,
+        gelu_rational_bwd_ref,
+        gelu_rational_ref,
+    )
+
+    def counts():
+        return gelu_rational.launches, gelu_rational.launches_bwd
+
+    def check_bits(what, x, dy):
+        before = counts()
+        y = gelu_rational(x)
+        dx = gelu_rational_bwd(x, dy)
+        xr = x.detach().clone().requires_grad_()
+        y_ad = gelu_rational(xr)
+        (dx_ad,) = torch.autograd.grad(y_ad, xr, dy)
+        torch.cuda.synchronize()
+        want_y, want_dx = gelu_rational_ref(x), gelu_rational_bwd_ref(x, dy)
+        bad = {"fwd": same_bits(y, want_y), "bwd": same_bits(dx, want_dx),
+               "autograd fwd": same_bits(y_ad.detach(), want_y),
+               "autograd bwd": same_bits(dx_ad, want_dx)}
+        on_counters = counts() == (before[0] + 2, before[1] + 2)
+        checks.expect(not any(bad.values()) and on_counters and y.dtype == dx.dtype == x.dtype,
+                      f"gelu_rational {what}: elements differing from the plain chain "
+                      f"{bad}, launches fwd / bwd +{counts()[0] - before[0]} / "
+                      f"+{counts()[1] - before[1]} (want +2 / +2)")
+
+    dev = DEVICE
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    # every bf16 bit pattern
+    x = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16)
+    x = x.view(torch.bfloat16)
+    check_bits("every bf16 pattern", x,
+               torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16))
+    # fp32 across +-8, with the edges
+    edges = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1e-40, -1e-40,
+                          1e-45, -3.4e38, 3.2 * 2 ** 0.5, -3.2 * 2 ** 0.5, 4.5255, 5.0, -5.0,
+                          5.000001], device=dev)
+    x = torch.cat([16 * torch.rand(GELU_FP32_SAMPLE, generator=g, device=dev) - 8, edges])
+    check_bits(f"{x.numel()} fp32 values", x, torch.randn(x.shape, generator=g, device=dev))
+    for label, rows, width in GELU_SHAPES:
+        x = (2 * torch.randn(rows, width, generator=g, device=dev)).to(torch.bfloat16)
+        dy = torch.randn(rows, width, generator=g, device=dev).to(torch.bfloat16)
+        check_bits(f"{label} {rows}x{width} bf16", x, dy)
+    # refused before any launch
+    wide = torch.zeros(64 * 3072 + 1, dtype=torch.bfloat16, device=dev)
+    dense = wide[:-1].view(64, 3072)
+    refusals = {"misaligned x": lambda: gelu_rational(wide[1:].view(64, 3072)),
+                "non-contiguous x": lambda: gelu_rational(dense[:, ::2]),
+                "fp16 x": lambda: gelu_rational(dense.half()),
+                "misaligned dy": lambda: gelu_rational_bwd(dense, wide[1:].view(64, 3072))}
+    for what, fn in refusals.items():
+        before = counts()
+        try:
+            fn()
+            refused = False
+        except ValueError:
+            refused = True
+        checks.expect(refused and counts() == before, f"gelu_rational refuses a {what}")
+
+    with torch.inference_mode():
+        for label, rows, width in GELU_SHAPES:
+            x = (2 * torch.randn(rows, width, generator=g, device=dev)).to(torch.bfloat16)
+            dy = torch.randn(rows, width, generator=g, device=dev).to(torch.bfloat16)
+            n, elt = x.numel(), x.element_size()
+            for kind, fns, nbytes in (
+                    ("fwd", {"kernel": lambda: gelu_rational(x),
+                             "plain": lambda: gelu_rational_ref(x),
+                             "library": lambda: F.gelu(x)}, 2 * n * elt),
+                    ("bwd", {"kernel": lambda: gelu_rational_bwd(x, dy),
+                             "plain": lambda: gelu_rational_bwd_ref(x, dy),
+                             "library": lambda: torch.ops.aten.gelu_backward(dy, x)},
+                     3 * n * elt)):
+                row = timed_row(fns, "kernel", "plain", nbytes, 0, FP32_FLOPS, library="library")
+                log(f"  gelu_rational {kind} {label} {rows}x{width} bf16, "
+                    f"{nbytes / 1e6:.1f} MB: " + row_text(row))
+
+
 def phase_kernels(checks: Checks) -> dict:
     import torch
 
@@ -1149,6 +1271,7 @@ def phase_kernels(checks: Checks) -> dict:
         checks.expect(refused, f"attention refuses a bf16 operand that is not 16-byte aligned "
                                f"[{fwd_variant(torch.bfloat16, 23, sk, 64)}]")
     phase_layer_norm_kernels(checks, g, err)
+    phase_gelu_kernels(checks)
     phase_training_kernels(checks, g, err)
     phase_wg_kernels(checks, g, err)
     phase_wg_fwd_kernels(checks, g, err)
@@ -1258,8 +1381,9 @@ def random_batch(cfg, batch: int, seed: int) -> dict:
 
 def _counters() -> dict:
     """counter name -> (wrapper, attribute): each kernel's total, each
-    variant's count and K4's bf16-weight launches."""
-    from vilbert_tpu_torch.ops import layernorm, quant
+    variant's count, K4's bf16-weight launches and the rational gelu's
+    forward and backward launches."""
+    from vilbert_tpu_torch.ops import gelu, layernorm, quant
     from vilbert_tpu_torch.ops.attention import (
         BWD_VARIANTS,
         VARIANTS,
@@ -1280,6 +1404,9 @@ def _counters() -> dict:
     # int8 sites' torch._int_mm calls (a library GEMM, as the JAX package's
     # int8 dot is XLA's): all, and those on zero-padded operands
     out["attention_probs"] = (attention, "launches_probs")
+    # the rational gelu's kernels, forward and backward
+    out["gelu_rational"] = (gelu.gelu_rational, "launches")
+    out["gelu_rational_bwd"] = (gelu.gelu_rational, "launches_bwd")
     out["int_mm"] = (quant.int_mm, "launches")
     out["int_mm_padded"] = (quant.int_mm, "launches_padded")
     return out

@@ -640,6 +640,163 @@ class TestActivations:
                                    atol=1e-6, rtol=1e-6)
 
 
+@pytest.fixture
+def fake_gelu_kernels(monkeypatch):
+    """The rational gelu's launches with a recording library."""
+    from vilbert_tpu_torch.ops.gelu import gelu_rational
+
+    return _fake_library(monkeypatch, gelu_rational, ("bwd",))
+
+
+def _extern_c(src) -> dict:
+    """{entry point: number of parameters} of a source's ``extern "C"``
+    functions."""
+    import re
+
+    decls = re.findall(r'extern "C" [\w\s*]+?\b(vt_\w+)\(([^)]*)\)', src.read_text())
+    return {name: len([p for p in params.split(",") if p.strip()]) for name, params in decls}
+
+
+class TestGeluRational:
+    """The wrapper of the rational gelu's kernels (``ops/gelu.py``,
+    ``csrc/gelu.cu``): the CPU path, the binding, the constants and the
+    dispatch. The kernels themselves run on a card (chip_smoke.py holds them
+    bit-equal to the plain chain there)."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_cpu_takes_the_plain_chain_uncounted(self, dtype, monkeypatch):
+        from vilbert_tpu_torch.ops.gelu import (
+            gelu_rational,
+            gelu_rational_bwd,
+            gelu_rational_bwd_ref,
+            gelu_rational_ref,
+        )
+
+        monkeypatch.setattr(gelu_rational, "launches", 0)
+        monkeypatch.setattr(gelu_rational, "launches_bwd", 0)
+        x = torch.linspace(-7, 7, 1001).to(dtype).requires_grad_()
+        dy = torch.from_numpy(np.random.RandomState(1).randn(1001).astype(np.float32)).to(dtype)
+        y = gelu_rational(x)
+        y.backward(dy)
+        assert torch.equal(y.detach(), gelu_rational_ref(x.detach()))
+        assert torch.equal(x.grad, gelu_rational_bwd_ref(x.detach(), dy))
+        assert torch.equal(gelu_rational_bwd(x.detach(), dy), x.grad)
+        assert y.dtype == x.grad.dtype == dtype
+        assert (gelu_rational.launches, gelu_rational.launches_bwd) == (0, 0)
+
+    def test_models_use_the_ops_entry_point(self):
+        import vilbert_tpu_torch.models.layers as layers
+        from vilbert_tpu_torch.ops import gelu
+
+        assert layers.gelu_rational is gelu.gelu_rational
+        assert layers.ACT2FN["gelu_rational"] is gelu.gelu_rational
+
+    def test_gelu_entry_points_are_bound(self):
+        """Both entry points in ``_SIGNATURES`` with the arity of their
+        ``extern "C"`` declarations in ``csrc/gelu.cu``."""
+        from vilbert_tpu_torch.ops import _build
+
+        assert _extern_c(_build.CSRC_DIR / "gelu.cu") == {
+            "vt_gelu_rational_fwd": len(_build._SIGNATURES["vt_gelu_rational_fwd"]),
+            "vt_gelu_rational_bwd": len(_build._SIGNATURES["vt_gelu_rational_bwd"])}
+        assert _build._SIGNATURES["vt_gelu_rational_fwd"][3] is ctypes.c_longlong  # n
+
+    @pytest.mark.parametrize("source", ["attention.cu", "attention_bwd.cu", "attention_bwd_wg.cu",
+                                        "attention_fwd_wg.cu", "gelu.cu", "layernorm.cu"])
+    def test_each_source_matches_its_signatures(self, source):
+        """Every entry point of a source (but the error message's) is bound
+        with as many arguments as it declares."""
+        from vilbert_tpu_torch.ops import _build
+
+        declared = _extern_c(_build.CSRC_DIR / source)
+        declared.pop("vt_error_string", None)
+        assert declared
+        for name, n in declared.items():
+            assert len(_build._SIGNATURES[name]) == n, name
+
+    def test_kernel_literals_are_the_constants(self):
+        """Each named constant of ``csrc/gelu.cu`` is np.float32 of the
+        Python constant the JAX-parity tests pin, and every one is there."""
+        import re
+
+        from vilbert_tpu_torch.ops import _build, gelu
+
+        src = (_build.CSRC_DIR / "gelu.cu").read_text()
+        found = dict(re.findall(r"constexpr float (k\w+) = (-?[0-9.eE+-]+)f;", src))
+        want = {"kSqrtHalf": gelu.SQRT_HALF, "kErfClamp": gelu.ERF_CLAMP,
+                "kDgeluClamp": gelu.DGELU_CLAMP}
+        for prefix, coeffs in (("kErfP", gelu._ERF_P), ("kErfQ", gelu._ERF_Q),
+                               ("kDgeluP", gelu._DGELU_P), ("kDgeluQ", gelu._DGELU_Q)):
+            want.update({f"{prefix}{i}": c for i, c in enumerate(coeffs)})
+        assert set(found) == set(want)
+        for name, value in want.items():
+            assert np.float32(float(found[name])) == np.float32(value), name
+
+    @pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.bfloat16, 1)])
+    def test_forward_launch(self, fake_gelu_kernels, dtype, code):
+        from vilbert_tpu_torch.ops.gelu import _fwd_cuda, gelu_rational
+
+        x = torch.zeros(3, 7, 1027, dtype=dtype)  # n not a multiple of a vector
+        y = _fwd_cuda(x)
+        assert y.shape == x.shape and y.dtype == dtype
+        ((name, args),) = fake_gelu_kernels.calls
+        assert name == "vt_gelu_rational_fwd"
+        assert args == (x.data_ptr(), y.data_ptr(), code, 3 * 7 * 1027, 0)
+        assert (gelu_rational.launches, gelu_rational.launches_bwd) == (1, 0)
+
+    @pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.bfloat16, 1)])
+    def test_backward_launch(self, fake_gelu_kernels, dtype, code):
+        from vilbert_tpu_torch.ops.gelu import _bwd_cuda, gelu_rational
+
+        x, dy = torch.zeros(5, 3072, dtype=dtype), torch.ones(5, 3072, dtype=dtype)
+        dx = _bwd_cuda(x, dy)
+        assert dx.shape == x.shape and dx.dtype == dtype
+        ((name, args),) = fake_gelu_kernels.calls
+        assert name == "vt_gelu_rational_bwd"
+        assert args == (x.data_ptr(), dy.data_ptr(), dx.data_ptr(), code, 5 * 3072, 0)
+        assert (gelu_rational.launches, gelu_rational.launches_bwd) == (0, 1)
+
+    @pytest.mark.parametrize("case", ["fp16", "offset", "strided", "dy_dtype", "dy_shape",
+                                      "dy_offset", "dy_strided"])
+    def test_refuses_before_launch(self, fake_gelu_kernels, case):
+        from vilbert_tpu_torch.ops.gelu import _bwd_cuda, _fwd_cuda, gelu_rational
+
+        x = torch.zeros(4, 768, dtype=torch.bfloat16)
+        dy = torch.zeros(4, 768, dtype=torch.bfloat16)
+        offset = torch.zeros(4 * 768 + 1, dtype=torch.bfloat16)[1:].view(4, 768)  # 2 bytes off
+        strided = torch.zeros(4, 1536, dtype=torch.bfloat16)[:, ::2]
+        if case == "fp16":
+            x = x.half()
+        elif case == "offset":
+            x = offset
+        elif case == "strided":
+            x = strided
+        elif case == "dy_dtype":
+            dy = dy.float()
+        elif case == "dy_shape":
+            dy = dy[:2]
+        elif case == "dy_offset":
+            dy = offset
+        else:
+            dy = strided
+        with pytest.raises(ValueError):
+            if case.startswith("dy"):
+                _bwd_cuda(x, dy)
+            else:
+                _fwd_cuda(x)
+        assert fake_gelu_kernels.calls == []
+        assert (gelu_rational.launches, gelu_rational.launches_bwd) == (0, 0)
+
+    def test_other_devices_are_refused(self):
+        from vilbert_tpu_torch.ops.gelu import gelu_rational, gelu_rational_bwd
+
+        x = torch.empty(4, 768, device="meta")
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            gelu_rational(x)
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            gelu_rational_bwd(x, x)
+
+
 class TestBuild:
     def test_library_is_named_by_source_hash(self):
         from vilbert_tpu_torch.ops import _build
@@ -650,9 +807,9 @@ class TestBuild:
         assert path.name.startswith("libvilbert_kernels_") and path.suffix == ".so"
         assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} == {
             "attention.cu", "attention_bwd.cu", "attention_bwd_wg.cu", "attention_fwd_wg.cu",
-            "layernorm.cu"}
+            "gelu.cu", "layernorm.cu"}
         assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {
-            "keep_mask.cuh", "mma_bf16.cuh", "wgmma_bf16.cuh"}
+            "keep_mask.cuh", "mma_bf16.cuh", "vectors.cuh", "wgmma_bf16.cuh"}
 
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         from vilbert_tpu_torch.ops import _build

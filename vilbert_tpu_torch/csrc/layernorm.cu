@@ -40,7 +40,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vectors.cuh"
+
 namespace {
+
+using namespace vt::vectors;
 
 constexpr int kMaxH = 2048;
 
@@ -50,51 +54,6 @@ struct Row {
   static constexpr int kWarps = H / kVec / 32;                            // one vector a thread
   static_assert(H % 128 == 0 && kWarps * 32 * kVec == H, "H must be a multiple of 128");
 };
-
-template <int kBytes> struct RawOf;
-template <> struct RawOf<8> { using type = uint2; };
-template <> struct RawOf<16> { using type = uint4; };
-// N elements of T as one vector register operand
-template <typename T, int N>
-using Raw = typename RawOf<sizeof(T) * N>::type;
-
-template <typename T, int N>
-__device__ __forceinline__ Raw<T, N> load_raw(const T* p) {
-  return *reinterpret_cast<const Raw<T, N>*>(p);
-}
-
-// the N elements of a raw vector, as fp32
-template <typename T, int N>
-__device__ __forceinline__ void widen(const Raw<T, N>& r, float* v) {
-  if constexpr (sizeof(T) == 4) {
-    const float* f = reinterpret_cast<const float*>(&r);
-#pragma unroll
-    for (int e = 0; e < N; ++e) v[e] = f[e];
-  } else {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int e = 0; e < N / 2; ++e) {
-      const float2 t = __bfloat1622float2(h[e]);
-      v[2 * e] = t.x;
-      v[2 * e + 1] = t.y;
-    }
-  }
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void store_vec(T* p, const float* v) {
-  Raw<T, N> r;
-  if constexpr (sizeof(T) == 4) {
-    float* f = reinterpret_cast<float*>(&r);
-#pragma unroll
-    for (int e = 0; e < N; ++e) f[e] = v[e];
-  } else {
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-    for (int e = 0; e < N / 2; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-  }
-  *reinterpret_cast<Raw<T, N>*>(p) = r;
-}
 
 // N weight or bias values of type W (N a multiple of 4) as fp32: fp32 in
 // 16-byte loads, bf16 in one 8- or 16-byte load widened in registers

@@ -49,6 +49,15 @@ from torch import nn
 from vilbert_tpu_torch.core.config import ModelConfig
 from vilbert_tpu_torch.ops.attention import attention, attention_ref
 from vilbert_tpu_torch.ops.dropout import draw_seed, hash_dropout, shard_seed
+# gelu_rational and its coefficients (named as in vilbert_tpu.models.layers)
+# live beside its kernels
+from vilbert_tpu_torch.ops.gelu import (  # noqa: F401
+    _DGELU_P,
+    _DGELU_Q,
+    _ERF_P,
+    _ERF_Q,
+    gelu_rational,
+)
 from vilbert_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
 from vilbert_tpu_torch.ops.quant import int8_dense, static_act_amax
 
@@ -66,56 +75,6 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) gelu — the reference's non-approximate form."""
     return F.gelu(x)
-
-
-# Minimax rational erf(z) ~ z P(z^2) / Q(z^2) on |z| <= 3.2: the coefficients
-# of vilbert_tpu.models.layers (max abs error 9.7e-6; erf(3.2) rounds to 1.0
-# in bf16, so the clamp is exact at bf16 precision).
-_ERF_P = (1.1283621227654328, 0.15780611964408517,
-          0.043127602475218844, 0.0007360894735171213)
-_ERF_Q = (1.0, 0.47307127867236537,
-          0.09602493287758253, 0.009191308867243501)
-
-
-# gelu'(x) ~ 0.5 + x DP(x^2) / DQ(x^2) on |x| <= 5: the custom derivative of
-# vilbert_tpu.models.layers.gelu_rational (max abs err 5.0e-4)
-_DGELU_P = (0.7986929677932244, -0.03807846651247695,
-            0.015090213881573151, 0.00019122776191594145)
-_DGELU_Q = (1.0, 0.2926936920714664,
-            0.03245537653061185, 0.006019591148099333)
-
-
-def _horner(coeffs, u: torch.Tensor) -> torch.Tensor:
-    acc = coeffs[-1]
-    for c in coeffs[-2::-1]:
-        acc = acc * u + c
-    return acc
-
-
-class _GeluRational(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        x32 = x.float()
-        z = torch.clamp(x32 * 0.7071067811865476, -3.2, 3.2)
-        u = z * z
-        erf = z * _horner(_ERF_P, u) / _horner(_ERF_Q, u)
-        return (0.5 * x32 * (1.0 + erf)).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, dy):
-        (x,) = ctx.saved_tensors
-        s = torch.clamp(x.float(), -5.0, 5.0)
-        u = s * s
-        dgelu = 0.5 + s * _horner(_DGELU_P, u) / _horner(_DGELU_Q, u)
-        return (dgelu.to(x.dtype) * dy).to(x.dtype)  # rounds in x's dtype, as JAX does
-
-
-def gelu_rational(x: torch.Tensor) -> torch.Tensor:
-    """gelu with erf from the short P3/Q3 rational above, in fp32, returned in
-    x's dtype, with the rational custom derivative: the forward and the
-    custom JVP of ``vilbert_tpu.models.layers.gelu_rational``."""
-    return _GeluRational.apply(x)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:

@@ -71,6 +71,10 @@ _SIGNATURES = {
     # stream: one entry point a LayerNorm variant ("block", "persistent")
     "vt_layer_norm_fwd_block": [_P] * 5 + [_I] * 4 + [_F, _P],
     "vt_layer_norm_fwd_persistent": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # the rational gelu (gelu.cu): x, out, dtype, n, stream; and x, dy, dx,
+    # dtype, n, stream
+    "vt_gelu_rational_fwd": [_P] * 2 + [_I, _LL, _P],
+    "vt_gelu_rational_bwd": [_P] * 3 + [_I, _LL, _P],
 }
 
 #: dtype codes of the C entry points
