@@ -54,7 +54,13 @@ across two data ranks.
    bf16 pattern, 2^20 fp32 values and each cell's FFN activation, each
    call on its counter, a misaligned, strided or fp16 operand refused, and
    each shape timed against the plain chain and its byte bound
-   (``phase_gelu_kernels``).
+   (``phase_gelu_kernels``); the hidden-state dropout's forward and
+   backward kernels bit-equal to the plain int64 chain on the card over
+   every bf16 pattern (rates 0.1 and 0.5, across the flat index's wrap at
+   2^32), fp32 edges and each training cell's site shape, no int64 or
+   boolean tensor made, each call on its counter, a misaligned, strided or
+   fp16 operand refused, and each shape timed against the chain and its
+   byte bound (``phase_dropout_kernels``).
    Forward (K1 at rate 0 and 0.1, K4): fp32 1e-4 absolute (1e-3 on a row
    whose keys are all padded), bf16 2^-7 * max|ref| plus one bf16 ulp.
    Backward (K2 at rate 0 and 0.1): fp32 1e-4 * max|ref| (and on a batch
@@ -271,6 +277,7 @@ import collections
 import contextlib
 import functools
 import io
+import itertools
 import json
 import math
 import os
@@ -1192,6 +1199,175 @@ def phase_gelu_kernels(checks: Checks) -> None:
                     f"{nbytes / 1e6:.1f} MB: " + row_text(row))
 
 
+#: (label, shape) of the hidden-state dropout sites hash_dropout runs
+#: over, one of each training cell's: CC text and image streams, the
+#: baseline's joint sequence, the 12-in-1 iteration's largest (T7,T8's
+#: image stream at 512 x 101), and an odd length for the kernels' scalar
+#: tail
+DROPOUT_SHAPES = (("CC text", (256, 36, 768)), ("CC image", (256, 37, 1024)),
+                  ("baseline CC", (256, 73, 768)), ("T7,T8 image", (512 * 101, 1024)),
+                  ("odd length", (1_000_003,)))
+#: bytes of inputs a timed dropout row cycles through: three L2s, so that
+#: each call reads its operand from device memory, as a site does
+DROPOUT_ROTATION_BYTES = 150e6
+
+
+def phase_dropout_kernels(checks: Checks) -> None:
+    """The hidden-state dropout's kernels (``csrc/dropout.cu``) against the
+    plain int64 chain run on the card (``hash_dropout_ref`` and autograd's
+    where / div backward of it), bit for bit: every bf16 pattern as x with
+    a random bf16 cotangent at rates 0.1 and 0.5, at offset 0 and across
+    the flat index's wrap at 2^32; fp32 values with the edges (signed
+    zeros, infinities, NaN, subnormals); each of DROPOUT_SHAPES in bf16 and
+    the CC text shape in fp32 (the embeddings' dropout runs on the fp32
+    LayerNorm output); a strided x through ``hash_dropout``. The forward
+    through ``hash_dropout``, the backward through ``_bwd_cuda`` and
+    through autograd, each call on its counter; no int64 or boolean tensor
+    made on the way; a misaligned, strided or fp16 operand refused by the
+    launchers, uncounted. Then each shape timed: kernel, plain chain and
+    PyTorch's own dropout (``native_dropout`` and its backward: another
+    mask, a yardstick of one eager pass) against the byte bound (the
+    operand read, the result written). Its inputs come from a generator of
+    its own, so that the phases after it draw what they drew before it."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from vilbert_tpu_torch.ops.dropout import (
+        _bwd_cuda,
+        _fwd_cuda,
+        hash_dropout,
+        hash_dropout_ref,
+        hash_keep_mask,
+    )
+
+    class DtypesMade(TorchDispatchMode):
+        """The dtypes of every tensor the operators under it return."""
+
+        def __init__(self):
+            super().__init__()
+            self.dtypes = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.dtypes |= {t.dtype for t in tree_leaves(out) if isinstance(t, torch.Tensor)}
+            return out
+
+    def counts():
+        return hash_dropout.launches, hash_dropout.launches_bwd
+
+    def check_bits(what, x, g, rate, seed, offset=0):
+        before = counts()
+        y = hash_dropout(x, rate, seed, offset)
+        dx = _bwd_cuda(g, rate, seed, offset)
+        xr = x.detach().clone().requires_grad_()
+        with DtypesMade() as made:
+            y_ad = hash_dropout(xr, rate, seed, offset)
+            (dx_ad,) = torch.autograd.grad(y_ad, xr, g)
+        xp = x.detach().clone().requires_grad_()
+        want_y = hash_dropout_ref(xp, rate, seed, offset)
+        (want_dx,) = torch.autograd.grad(want_y, xp, g)
+        torch.cuda.synchronize()
+        want_y = want_y.detach()
+        bad = {"fwd": same_bits(y, want_y), "bwd": same_bits(dx, want_dx),
+               "autograd fwd": same_bits(y_ad.detach(), want_y),
+               "autograd bwd": same_bits(dx_ad, want_dx)}
+        on_counters = counts() == (before[0] + 2, before[1] + 2)
+        kept = float((want_y != 0).float().mean())
+        checks.expect(not any(bad.values()) and on_counters and made.dtypes == {x.dtype}
+                      and y.dtype == dx.dtype == x.dtype,
+                      f"hash_dropout {what}, rate {rate}, offset {offset}: elements differing "
+                      f"from the plain chain {bad}, launches fwd / bwd "
+                      f"+{counts()[0] - before[0]} / +{counts()[1] - before[1]} (want +2 / +2), "
+                      f"dtypes made {sorted(map(str, made.dtypes))}, nonzero share {kept:.4f}")
+
+    dev = DEVICE
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    cpu = torch.Generator().manual_seed(SEED + 19)
+
+    def seed():
+        return int(torch.randint(2 ** 31, 2 ** 32, (), generator=cpu))
+
+    # every bf16 bit pattern, at two rates, from index 0 and across the wrap
+    x = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16)
+    x = x.view(torch.bfloat16)
+    gy = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+    for rate in (0.1, 0.5):
+        for offset in (0, 2 ** 32 - x.numel() // 2):
+            check_bits("every bf16 pattern", x, gy, rate, seed(), offset)
+    # fp32 with the edges
+    edges = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1e-40, -1e-40,
+                          1e-45, -3.4e38, 3.4e38, 1.0, -1.0], device=dev)
+    x = torch.cat([16 * torch.rand(1 << 20, generator=g, device=dev) - 8, edges])
+    gy = torch.randn(x.shape, generator=g, device=dev)
+    for rate in (0.1, 0.5):
+        check_bits(f"{x.numel()} fp32 values", x, gy, rate, seed(), 2 ** 32 - 7)
+    # each site shape; the largest across the wrap, as a data rank's block
+    for label, shape in DROPOUT_SHAPES:
+        x = (2 * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+        gy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        offset = 2 ** 32 - x.numel() // 2 if label == "T7,T8 image" else x.numel()
+        check_bits(f"{label} {shape} bf16", x, gy, 0.1, seed(), offset)
+    label, shape = DROPOUT_SHAPES[0]
+    x = torch.randn(shape, generator=g, device=dev)
+    check_bits(f"{label} {shape} fp32", x, torch.randn(shape, generator=g, device=dev), 0.1,
+               seed())
+    # a strided x: hash_dropout hashes its logical flat index over a dense copy
+    wide = torch.randn(64, 2 * 768, generator=g, device=dev).to(torch.bfloat16)
+    s = seed()
+    before = counts()
+    y = hash_dropout(wide[:, ::2], 0.1, s)
+    keep = hash_keep_mask((64, 768), 0.1, s, device=dev)
+    checks.expect(same_bits(y, hash_dropout_ref(wide[:, ::2], 0.1, s)) == 0
+                  and counts() == (before[0] + 1, before[1]) and bool((y[~keep] == 0).all()),
+                  "hash_dropout over a strided x: its logical flat index, bit-equal")
+    # refused before any launch
+    flat = torch.zeros(64 * 768 + 1, dtype=torch.bfloat16, device=dev)
+    dense = flat[:-1].view(64, 768)
+    refusals = {"misaligned x": lambda: _fwd_cuda(flat[1:].view(64, 768), 0.1, 1),
+                "strided x": lambda: _fwd_cuda(wide[:, ::2], 0.1, 1),
+                "fp16 x": lambda: hash_dropout(dense.half(), 0.1, 1),
+                "misaligned cotangent": lambda: _bwd_cuda(flat[1:].view(64, 768), 0.1, 1),
+                "strided cotangent": lambda: _bwd_cuda(wide[:, ::2], 0.1, 1)}
+    for what, fn in refusals.items():
+        before = counts()
+        try:
+            fn()
+            refused = False
+        except ValueError:
+            refused = True
+        checks.expect(refused and counts() == before, f"hash_dropout refuses a {what}")
+
+    def cycled(tensors):
+        it = itertools.cycle(tensors)
+        return lambda: next(it)
+
+    with torch.inference_mode():
+        for label, shape, dtype in (*((lb, sh, torch.bfloat16) for lb, sh in DROPOUT_SHAPES),
+                                    (*DROPOUT_SHAPES[0], torch.float32)):
+            n = math.prod(shape)
+            elt = torch.finfo(dtype).bits // 8
+            copies = max(1, math.ceil(DROPOUT_ROTATION_BYTES / (n * elt)))
+            xs = cycled([(2 * torch.randn(shape, generator=g, device=dev)).to(dtype)
+                         for _ in range(copies)])
+            s = seed()
+            keep = hash_keep_mask(shape, 0.1, s, device=dev)
+            divisor = torch.full((), 0.9, dtype=dtype, device=dev)
+            for kind, fns in (
+                    ("fwd", {"kernel": lambda: _fwd_cuda(xs(), 0.1, s),
+                             "plain": lambda: hash_dropout_ref(xs(), 0.1, s),
+                             "library": lambda: torch.ops.aten.native_dropout(xs(), 0.1, True)}),
+                    ("bwd", {"kernel": lambda: _bwd_cuda(xs(), 0.1, s),
+                             "plain": lambda: torch.where(keep, xs(), 0.0) / divisor,
+                             "library": lambda: torch.ops.aten.native_dropout_backward(
+                                 xs(), keep, 1 / 0.9)})):
+                nbytes = 2 * n * elt
+                row = timed_row(fns, "kernel", "plain", nbytes, 0, FP32_FLOPS, library="library")
+                log(f"  hash_dropout {kind} {label} {shape} {str(dtype)[6:]}, "
+                    f"{nbytes / 1e6:.1f} MB, {copies} operand(s) in turn: " + row_text(row))
+            del xs, keep
+
+
 def phase_kernels(checks: Checks) -> dict:
     import torch
 
@@ -1272,6 +1448,7 @@ def phase_kernels(checks: Checks) -> dict:
                                f"[{fwd_variant(torch.bfloat16, 23, sk, 64)}]")
     phase_layer_norm_kernels(checks, g, err)
     phase_gelu_kernels(checks)
+    phase_dropout_kernels(checks)
     phase_training_kernels(checks, g, err)
     phase_wg_kernels(checks, g, err)
     phase_wg_fwd_kernels(checks, g, err)
@@ -1381,9 +1558,9 @@ def random_batch(cfg, batch: int, seed: int) -> dict:
 
 def _counters() -> dict:
     """counter name -> (wrapper, attribute): each kernel's total, each
-    variant's count, K4's bf16-weight launches and the rational gelu's
-    forward and backward launches."""
-    from vilbert_tpu_torch.ops import gelu, layernorm, quant
+    variant's count, K4's bf16-weight launches and the rational gelu's and
+    the hidden-state dropout's forward and backward launches."""
+    from vilbert_tpu_torch.ops import dropout, gelu, layernorm, quant
     from vilbert_tpu_torch.ops.attention import (
         BWD_VARIANTS,
         VARIANTS,
@@ -1407,6 +1584,9 @@ def _counters() -> dict:
     # the rational gelu's kernels, forward and backward
     out["gelu_rational"] = (gelu.gelu_rational, "launches")
     out["gelu_rational_bwd"] = (gelu.gelu_rational, "launches_bwd")
+    # the hidden-state dropout's kernels, forward and backward
+    out["hash_dropout"] = (dropout.hash_dropout, "launches")
+    out["hash_dropout_bwd"] = (dropout.hash_dropout, "launches_bwd")
     out["int_mm"] = (quant.int_mm, "launches")
     out["int_mm_padded"] = (quant.int_mm, "launches_padded")
     return out
@@ -2074,6 +2254,20 @@ def task_geometry(task, cfg) -> tuple:
     return task.max_seq_length + int(cfg.task_specific_tokens), task.max_region_num
 
 
+#: the counters of the elementwise kernels, whose launches follow each
+#: task's heads and which sites its loss reaches
+ELEMENTWISE_COUNTERS = ("gelu_rational", "hash_dropout")
+
+
+def check_elementwise_launches(checks: Checks, what: str, launches: dict) -> None:
+    """The gelu's and the dropout's kernels launched forward, and backward
+    no more often than forward (a backward runs where the loss reaches)."""
+    for name in ELEMENTWISE_COUNTERS:
+        fwd, bwd = launches[name], launches[f"{name}_bwd"]
+        checks.expect(fwd > 0 and 0 < bwd <= fwd,
+                      f"{what}: {name} launches forward {fwd} > 0, backward {bwd} in (0, {fwd}]")
+
+
 def multitask_launches(tasks: dict, cfg, steps: int, evals: int) -> dict:
     """Launch counts of ``steps`` training steps and ``evals`` eval forwards
     of every task: K1 30 a forward (text self x12, image self x6, both
@@ -2084,7 +2278,8 @@ def multitask_launches(tasks: dict, cfg, steps: int, evals: int) -> dict:
     types, whose loss reads the image stream only (the text layers after
     the last co-attention and its text-query direction feed no image
     output); K4 as ``ln_task_forward`` says (its variants:
-    ``check_ln_recording``)."""
+    ``check_ln_recording``). The elementwise kernels' counters (the gelu's,
+    the dropout's) are left out: ``check_elementwise_launches`` reads them."""
     import torch
 
     from vilbert_tpu_torch.ops.attention import bwd_variant
@@ -2097,7 +2292,8 @@ def multitask_launches(tasks: dict, cfg, steps: int, evals: int) -> dict:
     schedule = cfg.encoder_schedule()
     last_c = max(i for i, (kind, _) in enumerate(schedule) if kind == "c")
     trailing_t = sum(kind == "t" for kind, _ in schedule[last_c + 1:])
-    out = {name: 0 for name in _counters() if not name.startswith("layer_norm_")}
+    out = {name: 0 for name in _counters()
+           if not name.startswith(("layer_norm_",) + ELEMENTWISE_COUNTERS)}
     for task in tasks.values():
         t, r = task_geometry(task, cfg)
         # (Sq, Sk, head width) of each attention
@@ -2195,6 +2391,7 @@ def phase_multitask(checks: Checks, tmp: str) -> tuple:
     want = multitask_launches(tasks, cfg, MT_ITERATIONS, 1)
     for name, n in want.items():
         checks.expect(launches[name] == n, f"{name} launches {launches[name]} == {n}")
+    check_elementwise_launches(checks, f"{MT_ITERATIONS} iterations", launches)
     log("  K4 shapes recorded (rows, H, dtype, residual): launches: " + ", ".join(
         f"{k}: {n}" for k, n in sorted(ln_seen.items())))
     check_ln_recording(checks, f"{MT_ITERATIONS} iterations and an evaluation of each task",

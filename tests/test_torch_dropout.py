@@ -86,6 +86,103 @@ class TestMasks:
         assert abs(m.float().mean().item() - 0.9) < 0.005
 
 
+def _kernel_keep(n, rate, seed, offset):
+    """``csrc/dropout.cu``'s mask in numpy uint32, as the kernel computes it:
+    the flat index cut to uint32 plus the offset, wrapping; the seed term and
+    the threshold from the host's arithmetic."""
+    from vilbert_tpu_torch.ops.dropout import keep_threshold
+
+    index = np.arange(n, dtype=np.int64).astype(np.uint32) + np.uint32(offset & 0xFFFFFFFF)
+    x = (index * np.uint32(0x9E3779B1)) ^ np.uint32((seed * 0x27D4EB2F) & 0xFFFFFFFF)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x85EBCA6B)
+    x ^= x >> np.uint32(13)
+    x *= np.uint32(0xC2B2AE35)
+    x ^= x >> np.uint32(16)
+    return x >= np.uint32(keep_threshold(rate))
+
+
+def _kernel_dropout(x, rate, seed, offset):
+    """The kernels' pass over x (or a cotangent): kept elements divided by
+    the divisor in fp32 and rounded once to x's dtype, dropped ones +0."""
+    from vilbert_tpu_torch.ops.dropout import _divisor
+
+    keep = _kernel_keep(x.numel(), rate, seed, offset).reshape(tuple(x.shape))
+    with np.errstate(invalid="ignore"):  # NaN in, NaN out
+        q = x.float().numpy() / np.float32(_divisor(rate, x.dtype))
+    return torch.from_numpy(np.where(keep, q, np.float32(0))).to(x.dtype)
+
+
+class TestKernelTwin:
+    """The arithmetic of ``csrc/dropout.cu`` in numpy uint32 against the
+    int64 chain (``hash_keep_mask``, ``hash_dropout_ref``), and the
+    ``hash_dropout`` entry point on CPU tensors against that chain."""
+
+    @pytest.mark.parametrize("rate", [0.1, 0.5, 2.0 ** -32, 1 - 2.0 ** -32, 0.0])
+    @pytest.mark.parametrize("seed,offset", [(0, 0), (2 ** 32 - 1, 2 ** 32 - 700),
+                                             (2 ** 31 + 7, 3 * 2 ** 32 + 17),
+                                             (123456789, 5 * 4 * 36 * 48)])
+    def test_uint32_twin_is_hash_keep_mask(self, rate, seed, offset):
+        from vilbert_tpu_torch.ops.dropout import hash_keep_mask, keep_threshold
+
+        shape = (4, 36, 48)
+        want = hash_keep_mask(shape, rate, seed, offset=offset).numpy()
+        np.testing.assert_array_equal(_kernel_keep(4 * 36 * 48, rate, seed, offset).reshape(shape),
+                                      want)
+        # the thresholds' edges: keep every hash, all but 0, only 2^32 - 1
+        assert keep_threshold(rate) in (0, 1, 2 ** 32 - 1) or 0.4 < want.mean() < 0.95
+        if keep_threshold(rate) == 0:
+            assert want.all()
+        elif keep_threshold(rate) == 1:
+            assert want.mean() > 0.999
+        elif keep_threshold(rate) == 2 ** 32 - 1:
+            assert want.mean() < 1e-3
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("rate", [0.1, 0.5])
+    def test_uint32_twin_divides_as_the_chain(self, dtype, rate):
+        """Every bf16 pattern (NaN, infinities, signed zeros, subnormals)
+        through the kernels' arithmetic equals the chain bit for bit."""
+        from vilbert_tpu_torch.ops.dropout import hash_dropout_ref
+
+        x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+        x = x.to(dtype)
+        seed, offset = 2 ** 32 - 3, 2 ** 32 - 30000
+        got, want = _kernel_dropout(x, rate, seed, offset), hash_dropout_ref(x, rate, seed, offset)
+        ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[dtype]
+        same = (got.view(ints) == want.view(ints)) | (got.isnan() & want.isnan())
+        assert bool(same.all())
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("offset", [0, 2 ** 32 - 100])
+    def test_entry_point_is_the_chain_forward_and_backward(self, dtype, offset, monkeypatch):
+        from vilbert_tpu_torch.ops.dropout import hash_dropout, hash_dropout_ref
+
+        monkeypatch.setattr(hash_dropout, "launches", 0)
+        monkeypatch.setattr(hash_dropout, "launches_bwd", 0)
+        rng = np.random.RandomState(3)
+        x = _t(rng.randn(4, 9, 48).astype(np.float32) * 3).to(dtype).requires_grad_()
+        g = _t(rng.randn(4, 9, 48).astype(np.float32)).to(dtype)
+        seed = 2 ** 31 + 11
+        y = hash_dropout(x, 0.1, seed, offset)
+        assert y.grad_fn.saved_tensors == ()  # the mask is recomputed, not saved
+        (dx,) = torch.autograd.grad(y, x, g)
+        x2 = x.detach().clone().requires_grad_()
+        y2 = hash_dropout_ref(x2, 0.1, seed, offset)
+        (dx2,) = torch.autograd.grad(y2, x2, g)
+        assert torch.equal(y.detach(), y2.detach()) and torch.equal(dx, dx2)
+        assert torch.equal(dx, hash_dropout_ref(g, 0.1, seed, offset))
+        assert y.dtype == dx.dtype == dtype
+        assert torch.equal(y.detach(), _kernel_dropout(x.detach(), 0.1, seed, offset))
+        assert (hash_dropout.launches, hash_dropout.launches_bwd) == (0, 0)
+
+    def test_rate_zero_is_the_identity(self):
+        from vilbert_tpu_torch.ops.dropout import hash_dropout
+
+        x = torch.randn(3, 5)
+        assert hash_dropout(x, 0.0, 7) is x
+
+
 def _attention_inputs(B, sq, sk, H, seed=0):
     rng = np.random.RandomState(seed)
     q, g = (rng.randn(B, sq, H).astype(np.float32) for _ in range(2))

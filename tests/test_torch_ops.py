@@ -702,7 +702,8 @@ class TestGeluRational:
         assert _build._SIGNATURES["vt_gelu_rational_fwd"][3] is ctypes.c_longlong  # n
 
     @pytest.mark.parametrize("source", ["attention.cu", "attention_bwd.cu", "attention_bwd_wg.cu",
-                                        "attention_fwd_wg.cu", "gelu.cu", "layernorm.cu"])
+                                        "attention_fwd_wg.cu", "gelu.cu", "layernorm.cu",
+                                        "dropout.cu"])
     def test_each_source_matches_its_signatures(self, source):
         """Every entry point of a source (but the error message's) is bound
         with as many arguments as it declares."""
@@ -797,6 +798,97 @@ class TestGeluRational:
             gelu_rational_bwd(x, x)
 
 
+@pytest.fixture
+def fake_dropout_kernels(monkeypatch):
+    """The hidden-state dropout's launches with a recording library."""
+    from vilbert_tpu_torch.ops.dropout import hash_dropout
+
+    return _fake_library(monkeypatch, hash_dropout, ("bwd",))
+
+
+class TestHashDropoutKernels:
+    """The wrapper of the hidden-state dropout's kernels (``ops/dropout.py``,
+    ``csrc/dropout.cu``): the binding, the constants and the dispatch. The
+    CPU path and the kernels' arithmetic are held to the int64 chain in
+    tests/test_torch_dropout.py; the kernels themselves run on a card
+    (chip_smoke.py holds them bit-equal to the chain there)."""
+
+    def test_models_use_the_ops_entry_point(self):
+        import vilbert_tpu_torch.models.layers as layers
+        from vilbert_tpu_torch.ops import dropout
+
+        assert layers.hash_dropout is dropout.hash_dropout
+
+    def test_entry_points_are_bound(self):
+        from vilbert_tpu_torch.ops import _build
+
+        assert _extern_c(_build.CSRC_DIR / "dropout.cu") == {
+            name: len(_build._SIGNATURES[name])
+            for name in ("vt_hidden_dropout_fwd", "vt_hidden_dropout_bwd")}
+        # n, then the offset, seed term and threshold as uint32, the divisor
+        assert _build._SIGNATURES["vt_hidden_dropout_fwd"][3:8] == [
+            ctypes.c_longlong, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
+
+    def test_hash_constants_are_the_masks(self):
+        """``csrc/keep_mask.cuh``'s constants, shared by K1, K2 and the
+        hidden-state kernels, are ``ops/dropout.py``'s."""
+        import re
+
+        from vilbert_tpu_torch.ops import _build, dropout
+
+        src = (_build.CSRC_DIR / "keep_mask.cuh").read_text()
+        found = {k: int(v, 16) for k, v in
+                 re.findall(r"constexpr uint32_t (k\w+) = (0x[0-9A-Fa-f]+)u;", src)}
+        assert found == {"kGolden": dropout._GOLDEN, "kSeedMul": dropout._SEED_MUL,
+                         "kColAdd": dropout._COL_ADD, "kColMul": dropout._COL_MUL}
+
+    @pytest.mark.parametrize("dtype,code,divisor", [(torch.float32, 0, float(np.float32(0.9))),
+                                                    (torch.bfloat16, 1, 0.8984375)])
+    @pytest.mark.parametrize("backward", [False, True])
+    def test_launch(self, fake_dropout_kernels, dtype, code, divisor, backward):
+        from vilbert_tpu_torch.ops.dropout import _bwd_cuda, _fwd_cuda, hash_dropout
+
+        x = torch.zeros(3, 7, 1027, dtype=dtype)  # n not a multiple of a vector
+        seed, offset = 2 ** 32 - 5, 5 * 2 ** 32 + 3 * 7 * 1027
+        y = (_bwd_cuda if backward else _fwd_cuda)(x, 0.1, seed, offset)
+        assert y.shape == x.shape and y.dtype == dtype and y.data_ptr() != x.data_ptr()
+        ((name, args),) = fake_dropout_kernels.calls
+        assert name == ("vt_hidden_dropout_bwd" if backward else "vt_hidden_dropout_fwd")
+        assert args == (x.data_ptr(), y.data_ptr(), code, 3 * 7 * 1027, 3 * 7 * 1027,
+                        (seed * 0x27D4EB2F) % 2 ** 32, int(0.1 * 2 ** 32), divisor, 0)
+        assert (hash_dropout.launches, hash_dropout.launches_bwd) == (
+            (0, 1) if backward else (1, 0))
+
+    @pytest.mark.parametrize("case", ["fp16", "fp64", "offset", "strided"])
+    @pytest.mark.parametrize("backward", [False, True])
+    def test_refuses_before_launch(self, fake_dropout_kernels, case, backward):
+        from vilbert_tpu_torch.ops.dropout import (
+            _bwd_cuda,
+            _fwd_cuda,
+            hash_dropout,
+            kernel_numel,
+        )
+
+        x = {"fp16": torch.zeros(4, 768, dtype=torch.float16),
+             "fp64": torch.zeros(4, 768, dtype=torch.float64),
+             # 2 bytes off
+             "offset": torch.zeros(4 * 768 + 1, dtype=torch.bfloat16)[1:].view(4, 768),
+             "strided": torch.zeros(4, 1536, dtype=torch.bfloat16)[:, ::2]}[case]
+        with pytest.raises(ValueError):
+            kernel_numel(x)
+        with pytest.raises(ValueError):
+            (_bwd_cuda if backward else _fwd_cuda)(x, 0.1, 1)
+        assert fake_dropout_kernels.calls == []
+        assert (hash_dropout.launches, hash_dropout.launches_bwd) == (0, 0)
+        assert kernel_numel(torch.zeros(4, 768, dtype=torch.bfloat16)) == 4 * 768
+
+    def test_other_devices_are_refused(self):
+        from vilbert_tpu_torch.ops.dropout import hash_dropout
+
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            hash_dropout(torch.empty(4, 768, device="meta"), 0.1, 1)
+
+
 class TestBuild:
     def test_library_is_named_by_source_hash(self):
         from vilbert_tpu_torch.ops import _build
@@ -807,7 +899,7 @@ class TestBuild:
         assert path.name.startswith("libvilbert_kernels_") and path.suffix == ".so"
         assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} == {
             "attention.cu", "attention_bwd.cu", "attention_bwd_wg.cu", "attention_fwd_wg.cu",
-            "gelu.cu", "layernorm.cu"}
+            "dropout.cu", "gelu.cu", "layernorm.cu"}
         assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {
             "keep_mask.cuh", "mma_bf16.cuh", "vectors.cuh", "wgmma_bf16.cuh"}
 

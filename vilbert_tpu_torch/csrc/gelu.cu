@@ -102,22 +102,6 @@ __device__ __forceinline__ float dgelu(float x) {
                    0.5f);
 }
 
-template <typename T> struct Elt;
-template <> struct Elt<float> {
-  static __device__ float load(const float* p) { return *p; }
-  static __device__ float round(float v) { return v; }
-  static __device__ void store(float* p, float v) { *p = v; }
-};
-template <> struct Elt<__nv_bfloat16> {
-  static __device__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-  static __device__ float round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-  static __device__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-};
-
-// the elements of a 16-byte vector of T
-template <typename T>
-constexpr int kPerVec = 16 / sizeof(T);
-
 // y = gelu_rational(x) over n elements
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -182,17 +166,9 @@ gelu_rational_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// blocks of kThreads covering n elements of T, at least one (for the tail)
-template <typename T>
-unsigned int blocks_for(int64_t n) {
-  const int64_t per_block = static_cast<int64_t>(kThreads) * kVecs * kPerVec<T>;
-  const int64_t blocks = (n + per_block - 1) / per_block;
-  return static_cast<unsigned int>(blocks > 0 ? blocks : 1);
-}
-
 template <typename T>
 cudaError_t launch_fwd(const void* x, void* y, int64_t n, cudaStream_t stream) {
-  gelu_rational_fwd_kernel<T><<<blocks_for<T>(n), kThreads, 0, stream>>>(
+  gelu_rational_fwd_kernel<T><<<blocks_for<T, kThreads, kVecs>(n), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), n);
   return cudaGetLastError();
 }
@@ -200,7 +176,7 @@ cudaError_t launch_fwd(const void* x, void* y, int64_t n, cudaStream_t stream) {
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* dy, void* dx, int64_t n,
                        cudaStream_t stream) {
-  gelu_rational_bwd_kernel<T><<<blocks_for<T>(n), kThreads, 0, stream>>>(
+  gelu_rational_bwd_kernel<T><<<blocks_for<T, kThreads, kVecs>(n), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), n);
   return cudaGetLastError();
 }

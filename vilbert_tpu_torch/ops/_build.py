@@ -75,10 +75,27 @@ _SIGNATURES = {
     # dtype, n, stream
     "vt_gelu_rational_fwd": [_P] * 2 + [_I, _LL, _P],
     "vt_gelu_rational_bwd": [_P] * 3 + [_I, _LL, _P],
+    # the hidden-state dropout (dropout.cu): x (or g), out, dtype, n, flat
+    # offset, seed term, keep threshold, divisor, stream
+    "vt_hidden_dropout_fwd": [_P] * 2 + [_I, _LL, _U32, _U32, _U32, _F, _P],
+    "vt_hidden_dropout_bwd": [_P] * 2 + [_I, _LL, _U32, _U32, _U32, _F, _P],
 }
 
 #: dtype codes of the C entry points
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_elementwise(kernel: str, **operands: torch.Tensor) -> None:
+    """Raise ValueError unless every operand is what the elementwise
+    kernels (gelu.cu, dropout.cu) take: float32 or bfloat16, contiguous
+    and 16-byte aligned."""
+    for name, t in operands.items():
+        if t.dtype not in DTYPE_CODES:
+            raise ValueError(f"{kernel} kernels take float32 or bfloat16, got {name} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} kernels need a contiguous {name}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel} kernels need {name} 16-byte aligned")
 
 
 def _nvcc() -> str:

@@ -12,6 +12,10 @@ torch on the CPU has no uint32 shift, so the uint32 arithmetic is emulated
 in int64: every value stays in [0, 2^32), and every product by a 32-bit
 constant is taken modulo 2^32 from the constant's two 16-bit halves, so no
 intermediate leaves int64's range. Seeds are Python ints in [0, 2^32).
+That chain (``hash_keep_mask``, ``hash_dropout_ref``) is the CPU path and
+the plain twin of ``csrc/dropout.cu``, whose two kernels hash in uint32
+registers: ``hash_dropout`` launches them on CUDA tensors, one pass
+forward and one backward, and saves no mask.
 
 ``draw_seed`` takes one uint32 seed from an explicit CPU ``torch.Generator``:
 a dropout site draws one per call, and the seed reaches the mask (or the
@@ -29,10 +33,13 @@ r * B_local * B ... of the global pairs, which the same offsets give.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
 import torch
+
+from vilbert_tpu_torch.ops import _build
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B1     # row / flat-index multiplier
@@ -82,18 +89,100 @@ def hash_keep_mask(shape: Sequence[int], rate: float, seed: int,
     return (_murmur_mix(x) >= keep_threshold(rate)).reshape(tuple(shape))
 
 
+@functools.lru_cache(maxsize=None)
+def _divisor(rate: float, dtype: torch.dtype) -> float:
+    """1 - rate rounded to ``dtype`` as ``torch.full`` rounds it: the
+    kernels' divisor."""
+    return torch.full((), 1.0 - rate, dtype=dtype).item()
+
+
+def hash_dropout_ref(x: torch.Tensor, rate: float, seed: int, offset: int = 0) -> torch.Tensor:
+    """The plain version of ``hash_dropout``: the int64 mask, then kept
+    elements DIVIDED by (1 - rate) in x's dtype, dropped ones 0.
+
+    The divisor is a tensor on x's device: a CPU scalar would make a CUDA
+    division multiply by its reciprocal, which rounds differently."""
+    keep = hash_keep_mask(x.shape, rate, seed, device=x.device, offset=offset)
+    divisor = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / divisor, 0.0)
+
+
+def kernel_numel(x: torch.Tensor) -> int:
+    """Validate an operand of the kernels (x forward, the cotangent
+    backward); return its number of elements. Raises ValueError for
+    anything they do not take: float32 or bfloat16, contiguous and 16-byte
+    aligned."""
+    _build.check_elementwise("hidden_dropout", x=x)
+    return x.numel()
+
+
+def _launch(entry: str, x: torch.Tensor, rate: float, seed: int, offset: int) -> torch.Tensor:
+    """One launch of ``entry`` over x into a new tensor like x."""
+    n = kernel_numel(x)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = getattr(_build.load_library(), entry)(
+            x.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[x.dtype], n, offset & _M32,
+            (seed * _SEED_MUL) & _M32, keep_threshold(rate), _divisor(rate, x.dtype),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"hash_dropout kernel ({entry})")
+    return out
+
+
+def _fwd_cuda(x: torch.Tensor, rate: float, seed: int, offset: int = 0) -> torch.Tensor:
+    y = _launch("vt_hidden_dropout_fwd", x, rate, seed, offset)
+    hash_dropout.launches += 1
+    return y
+
+
+def _bwd_cuda(g: torch.Tensor, rate: float, seed: int, offset: int = 0) -> torch.Tensor:
+    dx = _launch("vt_hidden_dropout_bwd", g, rate, seed, offset)
+    hash_dropout.launches_bwd += 1
+    return dx
+
+
+class _HashDropout(torch.autograd.Function):
+    """Saves no tensor: the backward recomputes the mask from (rate, seed,
+    offset). Autograd's derivative of the plain version, where then div,
+    gives kept g / divisor and +0 elsewhere: the plain version applied to g."""
+
+    @staticmethod
+    def forward(ctx, x, rate, seed, offset):
+        ctx.mask = (rate, seed, offset)
+        if x.device.type == "cpu":
+            return hash_dropout_ref(x, rate, seed, offset)
+        if x.device.type != "cuda":
+            raise ValueError(f"hash_dropout runs on cpu or cuda, got {x.device}")
+        # the mask is over the logical flat index, which a dense copy keeps
+        return _fwd_cuda(x.contiguous(), rate, seed, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.device.type == "cpu":
+            return hash_dropout_ref(g, *ctx.mask), None, None, None
+        # a cotangent's layout is its producer's: the kernel takes it dense
+        return _bwd_cuda(g.contiguous(), *ctx.mask), None, None, None
+
+
 def hash_dropout(x: torch.Tensor, rate: float, seed: int, offset: int = 0) -> torch.Tensor:
     """``vilbert_tpu.ops.dropout.hash_dropout`` for one drawn seed: kept
     elements are DIVIDED by (1 - rate) in x's dtype, dropped ones are 0.
     ``offset``: the mask's first flat index (``hash_keep_mask``).
 
-    The divisor is a tensor on x's device: a CPU scalar would make a CUDA
-    division multiply by its reciprocal, which rounds differently."""
+    CPU tensors take the plain version, forward and backward. CUDA tensors
+    launch the forward kernel and add one to ``hash_dropout.launches``;
+    their backward launches the backward kernel (``.launches_bwd``), which
+    recomputes the mask: no mask is saved. Anything the kernels do not take
+    raises."""
     if rate == 0.0:
         return x
-    keep = hash_keep_mask(x.shape, rate, seed, device=x.device, offset=offset)
-    divisor = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
-    return torch.where(keep, x / divisor, 0.0)
+    return _HashDropout.apply(x, rate, seed, offset)
+
+
+#: kernel launches since the last reset, forward and backward (CPU calls do
+#: not count)
+hash_dropout.launches = 0
+hash_dropout.launches_bwd = 0
 
 
 def tile_keep_mask(sq: int, sk: int, rate: float, tile_seeds: torch.Tensor) -> torch.Tensor:

@@ -75,19 +75,13 @@ def kernel_numel(x: torch.Tensor, dy: Optional[torch.Tensor] = None) -> int:
     Raises ValueError for anything the kernels do not take: x float32 or
     bfloat16, dy (the backward's) of x's shape and dtype, both contiguous
     and 16-byte aligned."""
-    if x.dtype not in _build.DTYPE_CODES:
-        raise ValueError(f"gelu_rational kernels take float32 or bfloat16, got {x.dtype}")
-    operands = [("x", x)]
+    operands = {"x": x}
     if dy is not None:
         if dy.shape != x.shape or dy.dtype != x.dtype:
             raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match "
                              f"x {tuple(x.shape)} {x.dtype}")
-        operands.append(("dy", dy))
-    for name, t in operands:
-        if not t.is_contiguous():
-            raise ValueError(f"gelu_rational kernels need a contiguous {name}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"gelu_rational kernels need {name} 16-byte aligned")
+        operands["dy"] = dy
+    _build.check_elementwise("gelu_rational", **operands)
     return x.numel()
 
 
